@@ -1,0 +1,500 @@
+"""KV-cache data structures with first-class compression (counterpart of
+`repro.core.cache`, the dense store of the main serving path).
+
+Per attention layer: a main store of ``budget`` slots (dense, or KIVI
+bit-packed codes when ``spec.bits < 16``), a full-precision residual ring
+of ``window`` recent tokens, and per-slot metadata (absolute position,
+accumulated attention mass). In the model every leaf carries leading
+``[n_sb, nA]`` layer dims, the JAX package's layout; a per-layer piece is
+a view into those stacked tensors.
+
+**In place.** Where the JAX functions return an updated pytree (and the
+engine donates the old one so XLA aliases it), the decode-time functions
+here (`append_token*`, `accumulate_scores`, `insert_request`,
+`reset_slot`) write the live cache tensors in place and return the same
+`LayerKV`. A per-layer view handed to them updates the stacked cache.
+
+Not ported yet: the paged store, `append_segment` / `truncate_rows`
+(speculative), `SSMState`, and the NACL / Keyformer noise (those policies
+raise at the engine).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.core import quantization as qz
+
+NEG_INF = -1e30
+_I32_MAX = torch.iinfo(torch.int32).max
+
+
+# ---------------------------------------------------------------------------
+# Static spec
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class CacheSpec:
+    """Static description of one model's KV cache + compression policy
+    (fields as `repro.core.cache.CacheSpec`)."""
+
+    budget: int = 0
+    window: int = 0
+    sinks: int = 4
+    bits: int = 16
+    group: int = 64
+    policy: str = "none"
+    recent_protect: int = 64
+    nacl_temperature: float = 0.0
+    keyformer_tau: float = 0.0
+
+    def __post_init__(self):
+        if self.bits < 16 and not (self.window > 0
+                                   and self.group == self.window):
+            raise ValueError("quantized decode path flushes the residual "
+                             "ring as one per-channel group: require "
+                             "group == window")
+        if self.budget and self.bits < 16 and self.budget % self.group:
+            raise ValueError("quantized budget must be a multiple of group")
+
+    @property
+    def quantized(self) -> bool:
+        return self.bits < 16
+
+    @property
+    def compressed(self) -> bool:
+        return self.budget > 0
+
+    def main_store_len(self, max_len: int) -> int:
+        return self.budget if self.budget else max_len
+
+    def track_scores(self) -> bool:
+        return self.policy in ("h2o", "nacl", "keyformer")
+
+
+# ---------------------------------------------------------------------------
+# Store
+# ---------------------------------------------------------------------------
+
+
+class LayerKV(NamedTuple):
+    """One attention layer's cache; every field a tensor. Same field
+    names and order as `repro.core.cache.LayerKV` (the packed-code
+    layout too: k/v trailing dim D*bits/8 int8 when quantized)."""
+
+    k: torch.Tensor           # [B, S, H, D] dtype | [B, S, H, D*bits/8] int8
+    v: torch.Tensor
+    k_scale: torch.Tensor     # [B, S//G, H, D] f32 (bits<16) else [B,0,H,D]
+    k_zero: torch.Tensor
+    v_scale: torch.Tensor     # [B, S, H] f32 (bits<16) else [B,0,H]
+    v_zero: torch.Tensor
+    rk: torch.Tensor          # [B, W, H, D] residual ring (W may be 0)
+    rv: torch.Tensor
+    r_scores: torch.Tensor    # [B, W] f32
+    scores: torch.Tensor      # [B, S] f32 accumulated attention mass
+    slot_pos: torch.Tensor    # [B, S] int32, -1 = empty
+    length: torch.Tensor      # [B] int32 valid slots in main store
+    rlen: torch.Tensor        # [B] int32 valid slots in residual
+    pos: torch.Tensor         # [B] int32 absolute next position
+    budget: torch.Tensor      # [] int32 logical per-layer budget
+
+
+def init_layer_kv(spec: CacheSpec, batch: int, max_len: int, kv_heads: int,
+                  head_dim: int, dtype=torch.bfloat16, *, device=None,
+                  logical_budget: Optional[int] = None,
+                  lead: tuple = ()) -> LayerKV:
+    """Empty cache for one layer; `lead` prepends layer-stacking dims."""
+    S = spec.main_store_len(max_len)
+    W = spec.window
+    SG = S // spec.group if spec.quantized else 0
+    store_dt = torch.int8 if spec.quantized else dtype
+    B, H, D = batch, kv_heads, head_dim
+    Dp = D * spec.bits // 8 if spec.quantized else D
+    f32, i32 = torch.float32, torch.int32
+
+    def z(*shape, dt):
+        return torch.zeros(*lead, *shape, dtype=dt, device=device)
+
+    lb = logical_budget if logical_budget is not None else S
+    return LayerKV(
+        k=z(B, S, H, Dp, dt=store_dt), v=z(B, S, H, Dp, dt=store_dt),
+        k_scale=z(B, SG, H, D, dt=f32), k_zero=z(B, SG, H, D, dt=f32),
+        v_scale=z(B, S if spec.quantized else 0, H, dt=f32),
+        v_zero=z(B, S if spec.quantized else 0, H, dt=f32),
+        rk=z(B, W, H, D, dt=dtype), rv=z(B, W, H, D, dt=dtype),
+        r_scores=z(B, W, dt=f32), scores=z(B, S, dt=f32),
+        slot_pos=torch.full((*lead, B, S), -1, dtype=i32, device=device),
+        length=z(B, dt=i32), rlen=z(B, dt=i32), pos=z(B, dt=i32),
+        budget=torch.full(lead, lb, dtype=i32, device=device),
+    )
+
+
+def stacked_kv(spec: CacheSpec, n_layers: int, batch: int, max_len: int,
+               kv_heads: int, head_dim: int, dtype=torch.bfloat16, *,
+               device=None) -> LayerKV:
+    """Layer-stacked cache: every leaf gets a leading [n_layers] dim."""
+    return init_layer_kv(spec, batch, max_len, kv_heads, head_dim, dtype,
+                         device=device, lead=(n_layers,))
+
+
+def layer_view(stacked: LayerKV, *idx) -> LayerKV:
+    """The per-layer piece at leading index `idx` — views, so in-place
+    updates of the piece land in the stacked cache."""
+    return LayerKV(*(t[idx] for t in stacked))
+
+
+# ---------------------------------------------------------------------------
+# Views for attention
+# ---------------------------------------------------------------------------
+
+
+def validity_bias(lc: LayerKV) -> torch.Tensor:
+    """[B, S+W] additive bias over [main | residual]: 0 where the slot
+    holds a live token, -1e30 elsewhere (finite, so an all-empty row
+    softmaxes uniformly instead of to NaN)."""
+    B, S = lc.slot_pos.shape
+    dev = lc.slot_pos.device
+    idx = torch.arange(S, device=dev)[None]
+    main_valid = idx < torch.minimum(lc.length, lc.budget)[:, None]
+    bias = torch.where(main_valid, 0.0, NEG_INF).float()
+    W = lc.rk.shape[1]
+    if W > 0:
+        r_valid = torch.arange(W, device=dev)[None] < lc.rlen[:, None]
+        bias = torch.cat([bias, torch.where(r_valid, 0.0, NEG_INF).float()],
+                         dim=1)
+    return bias
+
+
+def materialize_kv(lc: LayerKV, spec: CacheSpec, dtype=torch.bfloat16):
+    """Dense (k, v) [B, S+W, H, D] over [main | residual]: the decode
+    reference path (dequantizes the whole main store every call)."""
+    B, S, H, _ = lc.k.shape
+    if spec.quantized:
+        G = spec.group
+        D = lc.k_scale.shape[-1]
+        k_codes = qz.unpack_codes(lc.k, spec.bits, D)
+        v_codes = qz.unpack_codes(lc.v, spec.bits, D)
+        kq = qz.Quantized(k_codes.reshape(B, S // G, G, H, D),
+                          lc.k_scale[:, :, None], lc.k_zero[:, :, None])
+        k = kq.dequantize(dtype).reshape(B, S, H, D)
+        v = qz.Quantized(v_codes, lc.v_scale[..., None],
+                         lc.v_zero[..., None]).dequantize(dtype)
+    else:
+        k, v = lc.k.to(dtype), lc.v.to(dtype)
+    if lc.rk.shape[1] > 0:
+        k = torch.cat([k, lc.rk.to(dtype)], dim=1)
+        v = torch.cat([v, lc.rv.to(dtype)], dim=1)
+    return k, v
+
+
+# ---------------------------------------------------------------------------
+# Victim selection
+# ---------------------------------------------------------------------------
+
+
+def _evictable_mask(lc: LayerKV, spec: CacheSpec) -> torch.Tensor:
+    occupied = lc.slot_pos >= 0
+    sink = lc.slot_pos < spec.sinks
+    recent = lc.slot_pos >= (lc.pos[:, None] - spec.recent_protect)
+    return occupied & ~sink & ~recent
+
+
+def select_victim(lc: LayerKV, spec: CacheSpec) -> torch.Tensor:
+    """[B] slot index to overwrite, per policy (argmin: first index on
+    ties, as jnp.argmin)."""
+    evictable = _evictable_mask(lc, spec)
+    if spec.policy in ("none", "streaming"):
+        crit = torch.where(evictable, lc.slot_pos, _I32_MAX)
+    else:
+        crit = torch.where(evictable, lc.scores, float("inf"))
+    victim = torch.argmin(crit, dim=-1)
+    # nothing evictable (budget <= sinks + recent_protect): evict the
+    # oldest non-sink slot; if every occupied slot is a sink, the last one
+    occupied = lc.slot_pos >= 0
+    non_sink = occupied & (lc.slot_pos >= spec.sinks)
+    fb_crit = torch.where(non_sink, lc.slot_pos, _I32_MAX)
+    fallback = torch.where(non_sink.any(dim=-1), torch.argmin(fb_crit, dim=-1),
+                           lc.slot_pos.shape[-1] - 1)
+    return torch.where(evictable.any(dim=-1), victim, fallback)
+
+
+# ---------------------------------------------------------------------------
+# Per-slot cache surgery (continuous batching)
+# ---------------------------------------------------------------------------
+
+
+def insert_request(stacked: LayerKV, slot_idx: int, prefilled: LayerKV, *,
+                   batch_axis: int = 1) -> LayerKV:
+    """Copy one request's prefilled cache (batch 1 at `batch_axis`) into
+    batch position `slot_idx` of the live cache, in place. `budget` is
+    per-layer state of the live cache and is left untouched."""
+    for f in LayerKV._fields:
+        if f != "budget":
+            getattr(stacked, f).narrow(batch_axis, slot_idx, 1).copy_(
+                getattr(prefilled, f))
+    return stacked
+
+
+def reset_slot(stacked: LayerKV, slot_idx: int, *,
+               batch_axis: int = 1) -> LayerKV:
+    """Clear batch position `slot_idx` back to the empty state, in place:
+    zeros, slot_pos = -1 (what a fresh `init_layer_kv` holds)."""
+    for f in LayerKV._fields:
+        if f != "budget":
+            getattr(stacked, f).narrow(batch_axis, slot_idx, 1).fill_(
+                -1 if f == "slot_pos" else 0)
+    return stacked
+
+
+# ---------------------------------------------------------------------------
+# Decode append (one token), in place
+# ---------------------------------------------------------------------------
+
+
+def append_token_dense(lc: LayerKV, spec: CacheSpec, k_new: torch.Tensor,
+                       v_new: torch.Tensor) -> LayerKV:
+    """k_new/v_new: [B, H, D] (post-RoPE). Fixed-budget eviction append."""
+    B, S = lc.scores.shape
+    rows = torch.arange(B, device=lc.k.device)
+    cap = torch.clamp(lc.budget, max=S)
+    full = lc.length >= cap
+    slot = torch.where(full, select_victim(lc, spec), lc.length)
+    lc.k[rows, slot] = k_new.to(lc.k.dtype)
+    lc.v[rows, slot] = v_new.to(lc.v.dtype)
+    lc.scores[rows, slot] = 0.0
+    lc.slot_pos[rows, slot] = lc.pos
+    lc.length.copy_(torch.minimum(lc.length + 1, cap))
+    lc.pos.add_(1)
+    return lc
+
+
+def plan_group_flush(lc: LayerKV, spec: CacheSpec, S: int):
+    """Quantized-flush planning: returns ``(gslot, cap_groups, kq, vq,
+    new_pos)`` — the destination group per row (the victim group when at
+    budget, else the next free one), the group capacity, the packed
+    quantized ring, and the absolute positions of the flushed tokens."""
+    B = lc.scores.shape[0]
+    G, W = spec.group, spec.window
+    n_groups = S // G
+    dev = lc.scores.device
+    cap_groups = torch.clamp(lc.budget // G, max=n_groups)
+    at_cap = (lc.length // G) >= cap_groups
+    gscores = lc.scores.reshape(B, n_groups, G).sum(dim=-1)
+    gpos = lc.slot_pos.reshape(B, n_groups, G).amax(dim=-1)
+    sinkg = torch.arange(n_groups, device=dev)[None] == 0   # protect group 0
+    evictable = (gpos >= 0) & ~sinkg
+    if spec.policy in ("none", "streaming"):
+        crit = torch.where(evictable, gpos, _I32_MAX)
+    else:
+        crit = torch.where(evictable, gscores, float("inf"))
+    gslot = torch.where(at_cap, torch.argmin(crit, dim=-1), lc.length // G)
+    kq = qz.quantize_k_per_channel(lc.rk, spec.bits, G)
+    vq = qz.quantize_v_per_token(lc.rv, spec.bits)
+    kq = kq._replace(q=qz.pack_codes(kq.q, spec.bits))
+    vq = vq._replace(q=qz.pack_codes(vq.q, spec.bits))
+    new_pos = (lc.pos[:, None] - W
+               + torch.arange(W, device=dev)[None]).to(torch.int32)
+    return gslot, cap_groups, kq, vq, new_pos
+
+
+def append_token_quantized(lc: LayerKV, spec: CacheSpec,
+                           k_new: torch.Tensor, v_new: torch.Tensor, *,
+                           ring_full: Optional[bool] = None) -> LayerKV:
+    """Append to the fp residual ring; a row whose ring is full first
+    quantizes it as one per-channel group (KIVI) and flushes it into the
+    main store, evicting a whole group when at budget.
+
+    The flush is per row (rows sit at different ring phases under
+    continuous batching). It is computed for the whole batch and written
+    only where the row's ring is full, so no row's decision needs the
+    host. `ring_full` is the caller's host-side knowledge of whether any
+    row is full this step: False skips the flush work, True runs it;
+    None asks the device (one sync) — the engine keeps a host mirror of
+    the ring lengths and passes it, so its decode loop never syncs here."""
+    W = G = spec.window
+    B, S = lc.scores.shape
+    rows = torch.arange(B, device=lc.k.device)
+    need = lc.rlen >= W                                       # [B]
+    if ring_full is None:
+        ring_full = bool(need.any())
+    if ring_full:
+        n_groups = S // G
+        gslot, cap_groups, kq, vq, new_pos = plan_group_flush(lc, spec, S)
+
+        def put(arr, val):
+            """arr[b, gslot[b]] = val[b] (arr viewed as [B, n_groups,
+            -1]) on the rows that flush; other rows keep their contents."""
+            a = arr.view(B, n_groups, -1)
+            keep = a[rows, gslot]
+            a[rows, gslot] = torch.where(need[:, None],
+                                         val.reshape(B, -1).to(a.dtype), keep)
+
+        put(lc.k, kq.q)
+        put(lc.v, vq.q)
+        put(lc.k_scale, kq.scale)
+        put(lc.k_zero, kq.zero)
+        put(lc.v_scale, vq.scale)
+        put(lc.v_zero, vq.zero)
+        put(lc.scores, lc.r_scores)
+        put(lc.slot_pos, new_pos)
+        lc.length.copy_(torch.where(
+            need, torch.minimum(lc.length + W, cap_groups * G), lc.length))
+        lc.r_scores.masked_fill_(need[:, None], 0.0)
+        lc.rlen.masked_fill_(need, 0)
+    at = lc.rlen.long()
+    lc.rk[rows, at] = k_new.to(lc.rk.dtype)
+    lc.rv[rows, at] = v_new.to(lc.rv.dtype)
+    lc.r_scores[rows, at] = 0.0
+    lc.rlen.add_(1)
+    lc.pos.add_(1)
+    return lc
+
+
+def append_token(lc: LayerKV, spec: CacheSpec, k_new: torch.Tensor,
+                 v_new: torch.Tensor, *,
+                 ring_full: Optional[bool] = None) -> LayerKV:
+    if spec.quantized:
+        return append_token_quantized(lc, spec, k_new, v_new,
+                                      ring_full=ring_full)
+    return append_token_dense(lc, spec, k_new, v_new)
+
+
+# ---------------------------------------------------------------------------
+# Score accumulation (H2O statistics), in place
+# ---------------------------------------------------------------------------
+
+
+def accumulate_scores(lc: LayerKV, spec: CacheSpec,
+                      attn_mass: torch.Tensor) -> LayerKV:
+    """attn_mass: [B, S+W] this step's attention mass per slot, aligned
+    with `materialize_kv` ordering."""
+    if not spec.track_scores():
+        return lc
+    S = lc.scores.shape[1]
+    lc.scores.add_(attn_mass[:, :S])
+    if lc.r_scores.shape[1] > 0:
+        lc.r_scores.add_(attn_mass[:, S:])
+    return lc
+
+
+# ---------------------------------------------------------------------------
+# Prefill compression: select `budget` prompt tokens into the cache
+# ---------------------------------------------------------------------------
+
+
+def compress_prompt(spec: CacheSpec, k: torch.Tensor, v: torch.Tensor,
+                    attn_mass: torch.Tensor, *, dtype=torch.bfloat16,
+                    logical_budget: Optional[int] = None) -> LayerKV:
+    """k, v: [B, S_p, H, D] post-RoPE prompt KV; attn_mass: [B, S_p]
+    accumulated attention mass of the prefill pass. Returns a LayerKV at
+    the physical budget (last `window` tokens -> residual ring, fp).
+
+    Selection is a top-S by policy score in which ties go to the lower
+    index, as `jax.lax.top_k` breaks them (a stable descending sort):
+    sinks score +inf, ring and headroom padding -inf, so ties are common,
+    and a picked padding row feeds a quantized group's K min/max."""
+    B, S_p, H, D = k.shape
+    S = spec.main_store_len(S_p)
+    W = spec.window
+    dev = k.device
+    positions = torch.arange(S_p, dtype=torch.int32, device=dev).expand(B, S_p)
+    lb = logical_budget if logical_budget is not None else S
+
+    if S >= S_p and not spec.quantized and W == 0:
+        # no selection needed: place the prompt verbatim (headroom allowed)
+        lc = init_layer_kv(spec, B, S_p, H, D, dtype, device=dev,
+                           logical_budget=lb)
+        lc.k[:, :S_p] = k.to(lc.k.dtype)
+        lc.v[:, :S_p] = v.to(lc.v.dtype)
+        lc.scores[:, :S_p] = attn_mass.float()
+        lc.slot_pos[:, :S_p] = positions
+        lc.length.fill_(S_p)
+        lc.pos.fill_(S_p)
+        return lc
+
+    if spec.policy in ("none", "streaming"):
+        score = positions.float()                       # keep most recent
+    elif spec.policy == "h2o":
+        score = attn_mass.float()
+    else:
+        raise NotImplementedError(f"policy {spec.policy!r} not yet ported")
+
+    in_resid = positions >= (S_p - W)
+    sink = (positions >= 0) & (positions < spec.sinks)
+    sel_score = torch.where(sink, float("inf"), score)
+    sel_score = torch.where(in_resid, float("-inf"), sel_score)
+    n_main = max(min(S, S_p - W) if S_p - W > 0 else 0, 0)
+
+    pad_amt = max(0, S + W - S_p)
+    if pad_amt:
+        def padc(x, fill):
+            shape = (B, pad_amt, *x.shape[2:])
+            return torch.cat([x, torch.full(shape, fill, dtype=x.dtype,
+                                            device=dev)], dim=1)
+        k, v = padc(k, 0), padc(v, 0)
+        attn_mass = padc(attn_mass, 0.0)
+        positions = padc(positions, -(10 ** 6))
+        sel_score = padc(sel_score, float("-inf"))
+    idx = torch.sort(sel_score, dim=-1, descending=True,
+                     stable=True).indices[:, :S]
+    idx = torch.sort(idx, dim=-1).values                # keep causal order
+
+    def take(x):
+        return torch.gather(x, 1, idx.view(B, S, *([1] * (x.dim() - 2)))
+                            .expand(B, S, *x.shape[2:]))
+
+    k_sel, v_sel = take(k), take(v)
+    score_sel = torch.gather(attn_mass, 1, idx)
+    pos_sel = torch.gather(positions, 1, idx)
+    n_valid = min(n_main, int(lb))
+    valid = torch.arange(S, device=dev)[None] < n_valid
+
+    lc = init_layer_kv(spec, B, S_p, H, D, dtype, device=dev,
+                       logical_budget=lb)
+    if spec.quantized:
+        kq = qz.quantize_k_per_channel(k_sel, spec.bits, spec.group)
+        vq = qz.quantize_v_per_token(v_sel, spec.bits)
+        lc = lc._replace(
+            k=qz.pack_codes(kq.q, spec.bits), v=qz.pack_codes(vq.q, spec.bits),
+            k_scale=kq.scale.squeeze(2), k_zero=kq.zero.squeeze(2),
+            v_scale=vq.scale.squeeze(-1), v_zero=vq.zero.squeeze(-1))
+    else:
+        lc = lc._replace(k=k_sel.to(lc.k.dtype), v=v_sel.to(lc.v.dtype))
+    lc = lc._replace(
+        scores=torch.where(valid, score_sel.float(), 0.0),
+        slot_pos=torch.where(valid, pos_sel, -1).to(torch.int32))
+    lc.length.fill_(n_valid)
+    lc.pos.fill_(S_p)
+    if W > 0:
+        lc = lc._replace(
+            rk=k[:, S_p - W:S_p].to(dtype, copy=True),
+            rv=v[:, S_p - W:S_p].to(dtype, copy=True),
+            r_scores=attn_mass[:, S_p - W:S_p].to(torch.float32, copy=True))
+        lc.rlen.fill_(W)
+    return lc
+
+
+# ---------------------------------------------------------------------------
+# Bytes accounting
+# ---------------------------------------------------------------------------
+
+
+def cache_physical_bytes(lc: LayerKV) -> int:
+    """Resident bytes of a dense cache: every leaf is reserved memory."""
+    return sum(t.numel() * t.element_size() for t in lc)
+
+
+def cache_logical_bytes_per_layer(spec: CacheSpec, max_len: int,
+                                  kv_heads: int, head_dim: int,
+                                  base_bytes: float = 2.0) -> float:
+    """What the compression actually stores per layer (ratio ground truth)."""
+    S = spec.main_store_len(max_len)
+    if spec.quantized:
+        return qz.kv_logical_bytes(
+            S + spec.window, kv_heads, head_dim, bits=spec.bits,
+            group=spec.group, residual_window=spec.window,
+            base_bytes=base_bytes)
+    return 2 * (S + spec.window) * kv_heads * head_dim * base_bytes

@@ -1,0 +1,112 @@
+"""Build and bind the port's hand-written CUDA kernels.
+
+Each kernel source under ``kernels/*/csrc/*.cu`` exports plain-C launch
+functions. `CudaKernel` compiles its source with ``nvcc`` for ``sm_90a``
+into a shared library under ``build/kernels/`` at the repository root
+(first use only; the file name carries a hash of the source, so an
+edited source rebuilds), loads it with `ctypes`, and calls one entry
+point. Nothing is built when a module is imported: CPU-only hosts import
+every module of the port and never reach `CudaKernel.__call__`.
+
+Conventions every entry point follows: pointers and the stream are
+``void*`` (bound as `ctypes.c_void_p`, so 64-bit addresses survive),
+integers ``int``, the launch goes on the caller's stream, the kernel
+allocates nothing, and the function returns ``cudaGetLastError()`` —
+a refused launch (too many threads, too much shared memory) is raised
+here, right after the call, instead of surfacing at a later sync.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Optional, Sequence
+
+REPO_ROOT = Path(__file__).resolve().parents[3]
+BUILD_DIR = REPO_ROOT / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def find_nvcc() -> str:
+    """Path of nvcc (PATH, then $CUDA_HOME, then /usr/local/cuda);
+    raises when the toolkit is absent — the port has no fallback."""
+    cands = [shutil.which("nvcc")]
+    if os.environ.get("CUDA_HOME"):
+        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, "
+                       "/usr/local/cuda/bin): the CUDA kernels cannot be "
+                       "built")
+
+
+class CudaKernel:
+    """One C entry point of one ``.cu`` source, built and loaded lazily.
+
+    `launches` counts successful launches through `__call__` — the only
+    place the kernel is launched — so a caller can zero it, run a path
+    and read whether the path went through the kernel."""
+
+    def __init__(self, source: Path, symbol: str,
+                 argtypes: Sequence[type]) -> None:
+        self.source = Path(source)
+        self.symbol = symbol
+        self.argtypes = list(argtypes)
+        self.launches = 0
+        self.build_log = ""
+        self._fn = None
+        self._lock = threading.Lock()
+
+    def library_path(self) -> Path:
+        digest = hashlib.sha256(self.source.read_bytes()).hexdigest()[:12]
+        return BUILD_DIR / f"{self.source.stem}-{digest}.so"
+
+    def build(self) -> Path:
+        """Compile the source if its library is not built yet (safe to
+        call from several threads; one nvcc per source). Returns the
+        library path; raises with nvcc's output when the build fails."""
+        with self._lock:
+            out = self.library_path()
+            if out.exists():
+                return out
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(".tmp%d.so" % os.getpid())
+            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
+            r = subprocess.run(cmd, capture_output=True, text=True)
+            self.build_log = r.stdout + r.stderr
+            if r.returncode != 0:
+                raise RuntimeError("nvcc failed for %s:\n%s"
+                                   % (self.source, self.build_log))
+            os.replace(tmp, out)
+            return out
+
+    def _load(self):
+        if self._fn is None:
+            lib = ctypes.CDLL(str(self.build()))
+            fn = getattr(lib, self.symbol)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._lib = lib            # keep the library mapped
+            self._fn = fn
+        return self._fn
+
+    def __call__(self, *args) -> None:
+        err = self._load()(*args)
+        if err != 0:
+            raise RuntimeError("%s launch failed: cudaError %d"
+                               % (self.symbol, err))
+        self.launches += 1
+
+
+def stream_handle(device) -> Optional[int]:
+    """Raw handle of the current CUDA stream on `device` (a Python int
+    for the ``void*`` stream argument)."""
+    import torch
+    return torch.cuda.current_stream(device).cuda_stream

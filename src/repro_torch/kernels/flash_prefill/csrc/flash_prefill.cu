@@ -1,0 +1,227 @@
+// Blocked causal (optionally sliding-window) flash attention for prefill.
+//
+// Replaces: src/repro/kernels/flash_prefill/kernel.py:flash_prefill_pallas
+// (body `_kernel`), the TPU prompt-prefill attention of the policies that
+// read no attention mass (full / streaming / quantized-only).
+//
+// What bounds it on an H100: operations. Each 64x64 score tile costs
+// 2*64*64*D flops for QK^T and as many for PV against 2*64*D loaded
+// elements, so at D = 128 the kernel does hundreds of flops per byte;
+// causal T = 2048 is ~2*T^2*D flops per head (half the square).
+//
+// Design: one CTA of 256 threads per (64-row query tile, query head,
+// sequence); the CTA loops over 64-row key tiles from the window's start
+// up to the causal diagonal — the loop replaces the TPU's sequential kv
+// grid axis, and fully masked tiles are never visited at all. GQA maps
+// query head h to kv head h / Gq. Q/K/V tiles and the probability tile
+// live in shared memory as f32 (dynamic shared memory, ~113 KB at
+// D = 128); each thread owns a 4-row x (D/16)-column block of the output
+// accumulator and a 4x4 block of every score tile, so its inner loops
+// are register-blocked scalar FMAs. The online softmax runs in f32 with
+// the reference's finite -1e30 mask. Query tiles are issued longest
+// first (the diagonal tiles near the end of the prompt do the most
+// work), which evens out the causal imbalance across SMs.
+//
+// Simple first: scalar f32 FMAs, not tensor cores. bf16 mma/wgmma with
+// f32 accumulation is later work; the plain version's f32 products of
+// bf16 inputs are exact in f32, so only the summation order would move.
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <math.h>
+
+namespace {
+
+constexpr int BQ = 64, BK = 64, NT = 256;
+constexpr float NEG_INF = -1e30f;
+
+struct Params {
+  const void* q;   // [B, T, Hq, D]
+  const void* k;   // [B, T, Hkv, D]
+  const void* v;
+  void* out;       // [B, T, Hq, D]
+  int B, T, Hq, Hkv, window;
+  float scale;
+};
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <> __device__ __forceinline__ __nv_bfloat16
+from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+template <int D>
+constexpr size_t smem_bytes() {
+  return sizeof(float) * (BQ * (D + 1) + BK * (D + 1) + BK * D
+                          + BQ * (BK + 1));
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(NT) flash_prefill_kernel(Params p) {
+  extern __shared__ float smem[];
+  constexpr int QS = D + 1, KS = D + 1, PS = BK + 1, DJ = D / 16;
+  float* Qs = smem;
+  float* Ks = Qs + BQ * QS;
+  float* Vs = Ks + BK * KS;
+  float* Ps = Vs + BK * D;
+
+  const int qt = gridDim.x - 1 - blockIdx.x;   // longest tiles first
+  const int hq = blockIdx.y, b = blockIdx.z;
+  const int Gq = p.Hq / p.Hkv, hk = hq / Gq;
+  const int L = p.T, q0 = qt * BQ;
+  const int t = threadIdx.x, ty = t / 16, tx = t % 16;
+  const T* qg = (const T*)p.q;
+  const T* kg = (const T*)p.k;
+  const T* vg = (const T*)p.v;
+
+  for (int i = t; i < BQ * D; i += NT) {
+    const int r = i / D, d = i % D, qpos = q0 + r;
+    Qs[r * QS + d] = qpos < L
+        ? to_f32(qg[(((size_t)b * L + qpos) * p.Hq + hq) * D + d]) : 0.f;
+  }
+
+  float m[4], l[4], acc[4][DJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = NEG_INF;
+    l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
+  }
+
+  const int q_last = min(q0 + BQ, L) - 1;
+  for (int k0 = 0; k0 <= q_last; k0 += BK) {
+    if (p.window > 0 && k0 + BK - 1 <= q0 - p.window) continue;
+    __syncthreads();   // the previous tile's K/V/P are consumed
+    for (int i = t; i < BK * D; i += NT) {
+      const int r = i / D, d = i % D, kpos = k0 + r;
+      float kv = 0.f, vv = 0.f;
+      if (kpos < L) {
+        const size_t o = (((size_t)b * L + kpos) * p.Hkv + hk) * D + d;
+        kv = to_f32(kg[o]);
+        vv = to_f32(vg[o]);
+      }
+      Ks[r * KS + d] = kv;
+      Vs[r * D + d] = vv;
+    }
+    __syncthreads();
+
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    for (int d = 0; d < D; ++d) {
+      float qv[4], kv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty * 4 + i) * QS + d];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * KS + d];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+    }
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty * 4 + i, qpos = q0 + r;
+      float mx = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kpos = k0 + tx + 16 * j;
+        bool ok = kpos <= qpos && kpos < L;
+        if (p.window > 0) ok = ok && kpos > qpos - p.window;
+        s[i][j] = ok ? s[i][j] * p.scale : NEG_INF;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      // the 16 threads of one row are 16 consecutive lanes of a warp
+      for (int o = 8; o > 0; o >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float m_new = fmaxf(m[i], mx);
+      const float alpha = expf(m[i] - m_new);
+      float ps = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float pv = expf(s[i][j] - m_new);
+        Ps[r * PS + tx + 16 * j] = pv;
+        ps += pv;
+      }
+      for (int o = 8; o > 0; o >>= 1)
+        ps += __shfl_xor_sync(0xffffffffu, ps, o);
+      l[i] = l[i] * alpha + ps;
+      m[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < DJ; ++j) acc[i][j] *= alpha;
+    }
+    __syncthreads();
+
+    for (int c = 0; c < BK; ++c) {
+      float pv[4], vv[DJ];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty * 4 + i) * PS + c];
+#pragma unroll
+      for (int j = 0; j < DJ; ++j) vv[j] = Vs[c * D + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
+    }
+  }
+
+  T* og = (T*)p.out;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qpos = q0 + ty * 4 + i;
+    if (qpos >= L) continue;
+    const float l_i = fmaxf(l[i], 1e-30f);
+#pragma unroll
+    for (int j = 0; j < DJ; ++j)
+      og[(((size_t)b * L + qpos) * p.Hq + hq) * D + tx + 16 * j] =
+          from_f32<T>(acc[i][j] / l_i);
+  }
+}
+
+template <typename T, int D>
+cudaError_t launch(const Params& p, cudaStream_t st) {
+  static bool configured = false;   // opt in to >48 KB once per instance
+  constexpr size_t smem = smem_bytes<D>();
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_prefill_kernel<T, D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  dim3 grid((p.T + BQ - 1) / BQ, p.Hq, p.B);
+  flash_prefill_kernel<T, D><<<grid, NT, smem, st>>>(p);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16. head_dim must be 64 or 128.
+extern "C" int flash_prefill_launch(const void* q, const void* k,
+                                    const void* v, void* out, int B, int T,
+                                    int Hq, int Hkv, int D, int window,
+                                    int dtype, float scale, void* stream) {
+  if (T < 1 || Hkv < 1 || Hq % Hkv) return (int)cudaErrorInvalidValue;
+  Params p{q, k, v, out, B, T, Hq, Hkv, window, scale};
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t e;
+  if (D == 128)
+    e = dtype == 1 ? launch<__nv_bfloat16, 128>(p, st)
+                   : launch<float, 128>(p, st);
+  else if (D == 64)
+    e = dtype == 1 ? launch<__nv_bfloat16, 64>(p, st)
+                   : launch<float, 64>(p, st);
+  else
+    e = cudaErrorInvalidValue;
+  return (int)e;
+}

@@ -1,0 +1,182 @@
+"""GQA attention (counterpart of `repro.nn.attention`): chunked
+full-sequence attention with the per-key attention mass for prefill, and
+cache-aware single-token decode.
+
+Decode has two implementations of one contract:
+
+  * the **reference path** (`use_kernels=False`): `materialize_kv`
+    dequantizes the whole main store, concatenates the ring, and runs
+    plain attention — tests and the on-card comparison only;
+  * the **kernel path** (`use_kernels=True`, the default): the fused
+    decode kernel reads the packed codes directly (`decode_qattn.ops`;
+    its plain version when the tensors lie on the CPU).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.core import cache as kvcache
+from repro_torch.core.cache import CacheSpec, LayerKV
+from repro_torch.kernels.decode_qattn import ops as dq_ops
+from repro_torch.nn import layers as L
+from repro_torch.nn.rope import apply_rope
+
+NEG_INF = -1e30
+
+# Masses are folded over fixed MASS_GROUP-row groups *sequentially* (left
+# to right), the JAX package's association order (float addition is not
+# associative; H2O's victims depend on these sums).
+MASS_GROUP = 8
+
+
+def qkv(p: dict, x: torch.Tensor, cfg, positions: Optional[torch.Tensor],
+        *, rope: bool = True):
+    """x: [B, T, d_model] -> q [B,T,Hq,D], k,v [B,T,Hkv,D] (rotated)."""
+    B, T, _ = x.shape
+    q = L.linear(p["wq"], x).reshape(B, T, cfg.num_heads, cfg.head_dim)
+    k = L.linear(p["wk"], x).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+    v = L.linear(p["wv"], x).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+    if rope:
+        if positions is None:
+            positions = torch.arange(T, device=x.device)[None]
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _attend_block(q, k, v, mask_bias, scale):
+    """q: [B,Tq,Hkv,G,D]; k/v: [B,Tk,Hkv,D]; mask_bias: [B,1,1,Tq,Tk].
+    Returns (out, row_mass [B, Tq, Tk]) — per-query-row mass summed over
+    heads."""
+    s = torch.einsum("btkgd,bskd->bkgts", q, k).float() * scale
+    s = s + mask_bias
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgts,bskd->btkgd", p.to(v.dtype), v)
+    return o, p.sum(dim=(1, 2))
+
+
+def _fold_mass(carry: torch.Tensor, row_mass: torch.Tensor,
+               group: Optional[int]) -> torch.Tensor:
+    """Accumulate per-row masses into `carry` [B, Tk]: one reduce over
+    rows (group None), or `group`-row partial sums folded into the carry
+    strictly left to right."""
+    B, Tq, Tk = row_mass.shape
+    if group is None:
+        return carry + row_mass.sum(dim=1)
+    pad = (-Tq) % group
+    if pad:
+        row_mass = torch.cat([row_mass, row_mass.new_zeros(B, pad, Tk)], 1)
+    g_mass = row_mass.reshape(B, -1, group, Tk).sum(dim=2)   # [B, nG, Tk]
+    for i in range(g_mass.shape[1]):
+        carry = carry + g_mass[:, i]
+    return carry
+
+
+def gqa_attention(q, k, v, *, causal: bool, window: int = 0,
+                  q_positions: Optional[torch.Tensor] = None,
+                  kv_positions: Optional[torch.Tensor] = None,
+                  kv_bias: Optional[torch.Tensor] = None, q_chunk: int = 512,
+                  return_mass: bool = False, mass_group: Optional[int] = None):
+    """q: [B, Tq, Hq, D]; k, v: [B, Tk, Hkv, D]; kv_bias: [B, Tk].
+    Chunked over Tq (scores never exceed [.., q_chunk, Tk]). Returns out
+    [B, Tq, Hq, D] (+ attention mass [B, Tk] if requested)."""
+    B, Tq, Hq, D = q.shape
+    Tk, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale = 1.0 / math.sqrt(D)
+    dev = q.device
+    qg = q.reshape(B, Tq, Hkv, G, D)
+    if q_positions is None:
+        q_positions = torch.arange(Tq, device=dev)[None].expand(B, Tq)
+    if kv_positions is None:
+        kv_positions = torch.arange(Tk, device=dev)[None].expand(B, Tk)
+
+    def bias_for(qpos):                                   # [B, 1, 1, tq, Tk]
+        kp = kv_positions[:, None, None, None, :]
+        qp = qpos[:, None, None, :, None]
+        ok = torch.ones((B, 1, 1, qpos.shape[1], Tk), dtype=torch.bool,
+                        device=dev)
+        if causal:
+            ok = ok & (kp <= qp)
+        if window > 0:
+            ok = ok & (kp > qp - window)
+        b = torch.where(ok, 0.0, NEG_INF).float()
+        if kv_bias is not None:
+            b = b + kv_bias[:, None, None, None, :]
+        return b
+
+    mass = torch.zeros((B, Tk), dtype=torch.float32, device=dev)
+    outs = []
+    if Tq > q_chunk and Tq % q_chunk and return_mass:
+        raise ValueError("return_mass requires Tq % q_chunk == 0")
+    for c0 in range(0, Tq, q_chunk):
+        c1 = min(c0 + q_chunk, Tq)
+        o, row_mass = _attend_block(qg[:, c0:c1], k, v,
+                                    bias_for(q_positions[:, c0:c1]), scale)
+        outs.append(o)
+        if return_mass:
+            mass = _fold_mass(mass, row_mass, mass_group)
+    out = torch.cat(outs, dim=1).reshape(B, Tq, Hq, D)
+    return (out, mass) if return_mass else out
+
+
+def _kernel_supported(lc: LayerKV, spec: CacheSpec) -> bool:
+    S = lc.scores.shape[1]
+    if spec.quantized:
+        return S % spec.group == 0 and spec.bits in (2, 4, 8)
+    return True
+
+
+def decode_attention(q: torch.Tensor, lc: LayerKV, spec: CacheSpec, *,
+                     window: int = 0, dtype=torch.bfloat16,
+                     q_pos: Optional[torch.Tensor] = None,
+                     use_kernels: bool = True):
+    """q: [B, 1, Hq, D] rotated at absolute position `q_pos` [B]
+    (default lc.pos - 1: append-first, the token attends to itself).
+
+    Returns (out [B, 1, Hq, D], attn_mass [B, S+W]) with the mass aligned
+    to `materialize_kv` ordering; the kernel computes the mass only when
+    the policy reads it (zeros otherwise)."""
+    if q_pos is None:
+        q_pos = lc.pos - 1
+    B = q.shape[0]
+    S, W = lc.scores.shape[1], lc.rk.shape[1]
+    bias = kvcache.validity_bias(lc)
+    if window > 0 or not use_kernels:
+        ring_pos = (lc.pos[:, None] - lc.rlen[:, None]
+                    + torch.arange(W, device=q.device)[None])
+        kv_positions = (torch.cat([lc.slot_pos, ring_pos.to(torch.int32)], 1)
+                        if W else lc.slot_pos)
+    if window > 0:  # sliding-window models: mask stale slots
+        bias = bias + torch.where(kv_positions > (q_pos[:, None] - window),
+                                  0.0, NEG_INF)
+
+    if use_kernels:
+        if not _kernel_supported(lc, spec):
+            raise ValueError(f"decode kernel cannot tile S={S} with "
+                             f"group={spec.group} bits={spec.bits}")
+        quant = spec.quantized
+        want_mass = spec.track_scores()
+        out, mass = dq_ops.decode_attention_fused(
+            q[:, 0].contiguous(),
+            lc.k, lc.k_scale if quant else None,
+            lc.k_zero if quant else None,
+            lc.v, lc.v_scale if quant else None,
+            lc.v_zero if quant else None,
+            bias[:, :S].contiguous(),
+            lc.rk if W else None, lc.rv if W else None,
+            bias[:, S:].contiguous() if W else None,
+            bits=spec.bits if quant else 16, group=spec.group,
+            return_mass=want_mass, compute_dtype=dtype)
+        if mass is None:
+            mass = torch.zeros((B, S + W), dtype=torch.float32,
+                               device=q.device)
+        return out[:, None].to(dtype), mass
+
+    k, v = kvcache.materialize_kv(lc, spec, dtype)
+    return gqa_attention(q, k, v, causal=False, kv_positions=kv_positions,
+                         kv_bias=bias, q_positions=q_pos[:, None],
+                         return_mass=True)

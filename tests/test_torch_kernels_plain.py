@@ -1,0 +1,142 @@
+"""The plain versions of the port's CUDA kernels against the JAX package's
+Pallas kernels (interpret mode) and reference paths, on the CPU.
+
+B1: `repro_torch.nn.attention.decode_attention(use_kernels=True)` runs
+`decode_qattn.ref.decode_attn_ref` for CPU tensors; it is held against
+`repro.nn.attention.decode_attention` with the Pallas kernel
+(`use_kernels=True, interpret=True`) and with the materialize oracle, over
+the lived-in caches of tests/test_decode_kernel_path.py. B2: the plain
+flash prefill against `repro.kernels.flash_prefill.ops.flash_attention`.
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)   # tiny shapes; JAX's threads share the cores
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+
+from repro.core.cache import CacheSpec as JaxCacheSpec
+from repro.kernels.flash_prefill import ops as jax_fp
+from repro.nn import attention as JA
+from repro_torch.bridge import layer_kv_from_numpy
+from repro_torch.core.cache import CacheSpec
+from repro_torch.kernels.decode_qattn import ops as dq_ops
+from repro_torch.kernels.flash_prefill import ops as fp_ops
+from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
+from repro_torch.nn import attention as TA
+from test_decode_kernel_path import _layer_kv
+
+TOL = 2e-5
+# the fast grid of tests/test_decode_kernel_path.py: (bits, ring, gq)
+GRID = [(2, True, 1), (2, True, 4), (16, False, 1), (16, True, 4)]
+
+
+@pytest.fixture(scope="module", params=GRID, ids=lambda c: str(c))
+def case(request):
+    """A lived-in cache (compressed prompt + decode appends) with ragged
+    rows, a query, and the JAX package's outputs for it."""
+    bits, ring, gq = request.param
+    B, H, D, W = 2, 2, 32, 8
+    kw = dict(budget=32, window=W if ring else 0, bits=bits,
+              group=W if ring else 1, policy="h2o")
+    jspec, spec = JaxCacheSpec(**kw), CacheSpec(**kw)
+    lc = _layer_kv(jspec, B, 48, H, D, jnp.float32)
+    lc = lc._replace(length=lc.length.at[0].set(jnp.int32(16)))
+    if ring:
+        lc = lc._replace(rlen=jnp.minimum(lc.rlen,
+                                          jnp.asarray([2, W], jnp.int32)))
+    q = jax.random.normal(jax.random.key(7), (B, 1, H * gq, D), jnp.float32)
+    ref = JA.decode_attention(q, lc, jspec, dtype=jnp.float32,
+                              use_kernels=False)
+    pallas = JA.decode_attention(q, lc, jspec, dtype=jnp.float32,
+                                 use_kernels=True, interpret=True)
+    return (spec, layer_kv_from_numpy(jax.tree.map(np.asarray, lc)),
+            torch.tensor(np.asarray(q)), ref, pallas, (jspec, lc, q))
+
+
+def _check(got, want):
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=TOL,
+                                   rtol=TOL)
+
+
+def test_decode_plain_matches_pallas_interpret(case):
+    spec, lc, q, _, pallas, _ = case
+    got = TA.decode_attention(q, lc, spec, dtype=torch.float32)
+    # the Pallas kernel returns the mass only for mass-reading policies;
+    # h2o reads it, so both outputs compare
+    _check(got, pallas)
+
+
+def test_decode_plain_matches_materialize_oracle(case):
+    spec, lc, q, ref, _, _ = case
+    _check(TA.decode_attention(q, lc, spec, dtype=torch.float32), ref)
+    _check(TA.decode_attention(q, lc, spec, dtype=torch.float32,
+                               use_kernels=False), ref)
+
+
+def test_decode_plain_empty_slot_is_uniform(case):
+    """An all-empty row (free slot under continuous batching) decodes with
+    every key masked by the finite -1e30: a uniform softmax, no NaN."""
+    spec, lc, q, _, _, _ = case
+    lc = lc._replace(length=torch.zeros_like(lc.length),
+                     rlen=torch.zeros_like(lc.rlen))
+    out, mass = TA.decode_attention(q, lc, spec, dtype=torch.float32)
+    assert torch.isfinite(out).all() and torch.isfinite(mass).all()
+    n_keys = lc.scores.shape[1] + lc.rk.shape[1]
+    np.testing.assert_allclose(mass.numpy(), q.shape[2] / n_keys, rtol=1e-5)
+
+
+def test_decode_sliding_window_matches_jax(case):
+    """A sliding window masks slots by absolute position on both paths."""
+    spec, lc, q, _, _, (jspec, jlc, jq) = case
+    want = JA.decode_attention(jq, jlc, jspec, window=24, dtype=jnp.float32,
+                               use_kernels=False)
+    for uk in (True, False):
+        _check(TA.decode_attention(q, lc, spec, window=24,
+                                   dtype=torch.float32, use_kernels=uk), want)
+
+
+def test_decode_fused_skips_mass_when_untracked():
+    """Policies that never read the mass get no mass from the wrapper."""
+    rng = np.random.default_rng(0)
+    q = torch.tensor(rng.standard_normal((2, 4, 32)), dtype=torch.float32)
+    k, v = (torch.tensor(rng.standard_normal((2, 16, 2, 32)),
+                         dtype=torch.float32) for _ in range(2))
+    bias = torch.zeros(2, 16)
+    out, mass = dq_ops.decode_attention_fused(
+        q, k, None, None, v, None, None, bias, None, None, None, bits=16,
+        group=1, return_mass=False)
+    assert mass is None and out.shape == q.shape
+
+
+@pytest.mark.parametrize("T,window", [(64, 0), (96, 0), (64, 24)])
+def test_flash_prefill_plain_matches_pallas_interpret(T, window):
+    rng = np.random.default_rng(T + window)
+    q = rng.standard_normal((2, T, 8, 32)).astype(np.float32)     # GQA 4
+    k = rng.standard_normal((2, T, 2, 32)).astype(np.float32)
+    v = rng.standard_normal((2, T, 2, 32)).astype(np.float32)
+    want = jax_fp.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), window=window, bq=32, bk=32,
+                                  interpret=True)
+    got = fp_ops.flash_attention(torch.tensor(q), torch.tensor(k),
+                                 torch.tensor(v), window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL,
+                               rtol=TOL)
+    np.testing.assert_allclose(
+        flash_prefill_ref(torch.tensor(q), torch.tensor(k), torch.tensor(v),
+                          window=window).numpy(),
+        got.numpy(), atol=0, rtol=0)
+
+
+def test_cuda_wrappers_refuse_cpu_tensors():
+    """The kernel entry points take CUDA tensors only (no fallback)."""
+    x = torch.zeros(1, 4, 2, 64)
+    with pytest.raises(ValueError):
+        fp_ops.flash_prefill_cuda(x, x[:, :, :1], x[:, :, :1])
+    with pytest.raises(ValueError):
+        dq_ops.decode_attn_cuda(x[:, 0], x, None, None, x, None, None,
+                                torch.zeros(1, 4), None, None, None, bits=16,
+                                group=1)
