@@ -39,7 +39,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 PHASES = ("device", "build", "parity", "serve", "e2e", "profile")
-# published H100 SXM peaks (on-chip-measurement guide)
+# published H100 SXM peaks (NVIDIA H100 datasheet: HBM3 rate, dense tensor/FP32 rates)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
