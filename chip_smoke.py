@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch / CUDA port (`src/repro_torch`).
 
-    python3 chip_smoke.py            # every phase, one H100
+    python3 chip_smoke.py            # one H100; takes no arguments
 
 Phases, each printing its own lines; any failure exits non-zero:
 
@@ -22,11 +22,9 @@ Phases, each printing its own lines; any failure exits non-zero:
 Then one JSON line describing every ported kernel, and as the last line
 ``{"ok": true, "device": {...}}``. There is no CPU path: without a CUDA
 device the script exits non-zero before printing any result.
-`--phases` runs a subset (development aid; the default is all).
 """
 from __future__ import annotations
 
-import argparse
 import concurrent.futures
 import json
 import math
@@ -39,6 +37,14 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 PHASES = ("device", "build", "parity", "serve", "e2e", "profile")
+# kernel vs plain version, |kernel - plain| <= atol + rtol * |plain|.
+# Both sides compute in f32 on the same (bf16-rounded) inputs, so they
+# differ by f32 summation order (readings <= 1e-6) and, for bf16 outputs,
+# by the final rounding: at most one bf16 ulp, <= 2^-7 |out| (readings:
+# out 4.9e-4 at |out| in [2^-4, 2^-3), flash prefill 2.0e-3 in
+# [2^-2, 2^-1)). Masses are f32 on both sides (readings <= 4.8e-7).
+OUT_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (1e-4, 1e-2)}
+MASS_TOL = (1e-5, 1e-5)
 # published H100 SXM peaks (NVIDIA H100 datasheet: HBM3 rate, dense tensor/FP32 rates)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -69,6 +75,17 @@ def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def check_close(what: str, got, want, atol: float, rtol: float) -> float:
+    """Fail unless |got - want| <= atol + rtol * |want| everywhere;
+    returns max |got - want|."""
+    d = (got.float() - want.float()).abs()
+    err = d.max().item()
+    ok = bool((d <= atol + rtol * want.float().abs()).all())
+    if not (ok and math.isfinite(err)):
+        fail(f"{what}: max|err| {err:.3g} beyond atol {atol} + rtol {rtol}")
+    return err
 
 
 def bound(bytes_moved: float, flops: float, dtype: str):
@@ -172,7 +189,6 @@ def phase_parity(info: dict) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rows = info.setdefault("kernel_rows", {})
-    tol = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (3e-2, 5e-3)}
 
     # ---- B1: fused decode attention ----
     grid = []
@@ -188,13 +204,11 @@ def phase_parity(info: dict) -> None:
         out_r, m_r = decode_attn_ref(*args, bits=bits, group=128,
                                      compute_dtype=dt)
         torch.cuda.synchronize()
-        err = (out_k.float() - out_r.float()).abs().max().item()
-        merr = (m_k - m_r).abs().max().item() if mass else 0.0
-        if not (math.isfinite(err) and err <= tol[dt][0]
-                and merr <= tol[dt][1]):
-            fail(f"decode_attn {dt} bits={bits} mass={mass} ring={ring}: "
-                 f"max|out err|={err:.3g} max|mass err|={merr:.3g} "
-                 f"(tol {tol[dt]})")
+        what = f"decode_attn {dt} bits={bits} mass={mass} ring={ring}"
+        err = check_close(what + " out", out_k, out_r,
+                          *OUT_TOL[str(dt)[6:]])
+        merr = (check_close(what + " mass", m_k, m_r, *MASS_TOL)
+                if mass else 0.0)
         ms = median_ms(lambda: dq.decode_attn_cuda(*args, **kw))
         plain_ms = median_ms(lambda: decode_attn_ref(
             *args, bits=bits, group=128, compute_dtype=dt))
@@ -237,10 +251,8 @@ def phase_parity(info: dict) -> None:
             out_k = fp.flash_prefill_cuda(q, k, v)
             out_r = flash_prefill_ref(q, k, v)
             torch.cuda.synchronize()
-            err = (out_k.float() - out_r.float()).abs().max().item()
-            if not (math.isfinite(err) and err <= tol[dt][0]):
-                fail(f"flash_prefill {dt} T={T}: max|err|={err:.3g} "
-                     f"(tol {tol[dt][0]})")
+            err = check_close(f"flash_prefill {dt} T={T}", out_k, out_r,
+                              *OUT_TOL[str(dt)[6:]])
             ms = median_ms(lambda: fp.flash_prefill_cuda(q, k, v), reps=10)
             plain_ms = median_ms(lambda: flash_prefill_ref(q, k, v), reps=5)
             qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
@@ -282,10 +294,7 @@ def phase_serve(info: dict) -> None:
     from repro_torch.nn import model as M
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.scheduler import Request
-    cfg = CONFIG.replace(num_layers=info["serve_layers"])
-    if cfg.num_layers != CONFIG.num_layers:
-        print(f"[serve] depth cut: {cfg.num_layers} of {CONFIG.num_layers} "
-              "layers")
+    cfg = CONFIG
     t0 = time.perf_counter()
     params = M.init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
@@ -359,10 +368,12 @@ E2E_LAYERS, E2E_STEPS = 4, 4
 # of magnitude ~5 at this random init): the reference rounds scores and
 # probabilities through bf16 where the kernels keep f32, and the flash
 # kernel's prefill feeds the cache slightly different K/V roundings, so
-# the two bf16 paths drift apart by a few hundredths to tenths per logit.
-# An f32 run of the reference path on the same weights is printed beside
-# them: it shows which bf16 path is closer to exact arithmetic.
-E2E_LOGIT_TOL = 0.5
+# the two bf16 paths drift apart. Readings at this seed: 0.0643 / 0.0728
+# / 0.1773 / 0.0763 (full / h2o / kivi2 / h2o+kivi2); 0.1926 worst in an
+# earlier build of the kernels. An f32 run of the reference path on the
+# same weights is printed beside them: it shows which bf16 path is closer
+# to exact arithmetic.
+E2E_LOGIT_TOL = 0.25
 
 
 def phase_e2e(info: dict) -> None:
@@ -439,7 +450,7 @@ def phase_profile(info: dict) -> None:
     from repro_torch.core.policy import presets
     from repro_torch.nn import model as M
     from repro_torch.serving.engine import Engine, RingMirror
-    cfg = CONFIG.replace(num_layers=info["serve_layers"])
+    cfg = CONFIG
     params = M.init_params(cfg, seed=0, device="cuda")
     rng = np.random.default_rng(2)
     for pname in PROFILE_POLICIES:
@@ -502,17 +513,7 @@ def phase_profile(info: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default=",".join(PHASES),
-                    help="comma-separated subset of " + ",".join(PHASES))
-    ap.add_argument("--serve-layers", type=int, default=36,
-                    help="depth of the served granite-8b (default: all 36)")
-    args = ap.parse_args(argv)
-    phases = [p for p in args.phases.split(",") if p]
-    bad = [p for p in phases if p not in PHASES]
-    if bad:
-        ap.error(f"unknown phases {bad}")
+def main() -> int:
     try:
         import torch
     except ImportError:
@@ -523,29 +524,21 @@ def main(argv=None) -> int:
         import repro_torch  # noqa: F401
     except ImportError:
         fail("src/repro_torch not found beside chip_smoke.py")
-    info: dict = {"serve_layers": args.serve_layers}
+    info: dict = {}
     t0 = time.perf_counter()
     for name in PHASES:
-        if name in phases:
-            globals()["phase_" + name](info)
-            print(f"[{name}] done at {time.perf_counter() - t0:.1f} s",
-                  flush=True)
-    from repro_torch.kernels.decode_qattn import ops as dq
-    from repro_torch.kernels.flash_prefill import ops as fp
-    rows = info.get("kernel_rows", {})
-    launches = info.get("launches", {})
-    kernels = []
-    for key, kern in (("decode_attn", dq.decode_attn_kernel),
-                      ("flash_prefill", fp.flash_prefill_kernel)):
-        if key in rows:
-            row = dict(rows[key])
-            row["launches"] = launches.get(key, 0)
-            kernels.append(row)
-    print(info.get("smi", "?"))
+        globals()["phase_" + name](info)
+        print(f"[{name}] done at {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    # launches: the serve phase's counts (set to 0 before each policy's
+    # run, read right after it)
+    kernels = [dict(info["kernel_rows"][key],
+                    launches=info["launches"][key])
+               for key in ("decode_attn", "flash_prefill")]
+    print(info["smi"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": info.get("kind"),
-        "count": info.get("count")}}))
+        "platform": "gpu", "kind": info["kind"], "count": info["count"]}}))
     return 0
 
 

@@ -16,6 +16,7 @@ from typing import NamedTuple, Optional, Sequence
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.core import cache as kvcache
 from repro_torch.core.cache import CacheSpec, LayerKV
 from repro_torch.nn import blocks as B
@@ -49,12 +50,13 @@ def _block_shapes(cfg) -> dict:
 
 
 def init_params(cfg, *, seed: int = 0, device=None) -> dict:
-    """Random parameters drawn on `device` from a `torch.Generator`:
+    """Random parameters drawn on `device` (None: the card, raising
+    without one) from a `torch.Generator`:
     normal(0, 1/fan_in) weights (drawn in f32, cast to cfg.dtype), unit
     norms, zero biases — the JAX package's init scheme, not its numbers.
     Layers are drawn one at a time, so the f32 draw never holds more than
     one layer's largest leaf."""
-    device = torch.device(device or "cpu")
+    device = resolve_device(device)
     g = torch.Generator(device=device).manual_seed(seed)
     n_sb = cfg.num_layers
 

@@ -30,6 +30,7 @@ from typing import List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.core import budgets as budgets_lib
 from repro_torch.core import cache as kvcache
 from repro_torch.core.cache import CacheSpec, cache_logical_bytes_per_layer
@@ -67,17 +68,6 @@ class ContinuousGenerationResult:
     full_cache_bytes: float
     compression_ratio: float
     policy_name: str
-
-
-def resolve_device(device=None) -> torch.device:
-    """The port runs on the card: None means CUDA and raises without a
-    CUDA device. The CPU (plain versions of the kernels) only on request."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device; pass device='cpu' to run "
-                               "the plain versions on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
 
 
 class RingMirror:
@@ -402,7 +392,7 @@ class Engine:
                     - (prefill_s - prefill_at_loop))
 
         results = sorted(sched.results, key=lambda r: r.uid)
-        ttfts = [r.ttft_s for r in results if r.finish_reason != "failed"]
+        ttfts = [r.ttft_s for r in results]
         logical = self._logical_bytes_per_seq() * self.slots
         full = (self.cfg.kv_bytes_per_token()
                 * (self.prompt_len + self.max_new) * self.slots)
