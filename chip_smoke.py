@@ -6,18 +6,27 @@
 Phases, each printing its own lines; any failure exits non-zero:
 
   1. device   card name, count, torch / CUDA / nvcc versions, power limit
-  2. build    both CUDA kernels from the checkout's sources (one nvcc per
-              source, started together), with nvcc's -Xptxas -v lines
+  2. build    the two CUDA sources from the checkout (one nvcc per source,
+              started together; each holds two kernels), with nvcc's
+              -Xptxas -v lines
   3. parity   each kernel against its plain PyTorch version at the main
               path's shapes (granite-8b: Hq 32, Hkv 8, D 128), timed
-              beside the plain version and a PyTorch library yardstick
+              beside the plain version and a PyTorch library yardstick;
+              the paged decode kernel against the dense one on the same
+              rows, and the chunked flash kernel's segments against the
+              monolithic one, both bit for bit
   4. serve    granite-8b at full width and depth, random bf16 weights from
               a seed, `Engine.generate_continuous` under full / h2o /
-              kivi2 / h2o+kivi2; the kernels' launch counters must grow
+              kivi2 / h2o+kivi2 (dense cache, monolithic prefill), then
+              full / kivi2 / h2o+kivi2 over a paged pool with chunked
+              prefill; each run must go through its kernels, and only
+              its kernels
   5. e2e      4-layer granite-8b: prefill + decode logits with the kernels
-              against an engine built with use_kernels=False
-  6. profile  one decode step at full depth, 8 slots: wall vs dispatch time,
-              device-busy time and the top kernels (torch.profiler)
+              against an engine built with use_kernels=False, dense and
+              paged + chunked
+  6. profile  one decode step at full depth, 8 slots, dense and paged:
+              wall vs dispatch time, device-busy time and the top kernels
+              (torch.profiler)
 
 Then one JSON line describing every ported kernel, and as the last line
 ``{"ok": true, "device": {...}}``. There is no CPU path: without a CUDA
@@ -125,15 +134,15 @@ def phase_device(info: dict) -> None:
 def phase_build(info: dict) -> None:
     from repro_torch.kernels.decode_qattn import ops as dq
     from repro_torch.kernels.flash_prefill import ops as fp
-    kernels = [dq.decode_attn_kernel, fp.flash_prefill_kernel]
+    sources = [dq.SOURCE, fp.SOURCE]
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(kernels)) as ex:
-        for k, fut in [(k, ex.submit(k.build)) for k in kernels]:
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as ex:
+        for src, fut in [(s, ex.submit(s.build)) for s in sources]:
             fut.result()
-            for line in k.build_log.splitlines():
+            for line in src.build_log.splitlines():
                 if "registers" in line or "spill" in line or "smem" in line:
-                    print(f"[build] {k.source.name}: {line.strip()}")
-    print(f"[build] {len(kernels)} kernels built in "
+                    print(f"[build] {src.path.name}: {line.strip()}")
+    print(f"[build] {len(sources)} sources (4 kernels) built in "
           f"{time.perf_counter() - t0:.1f} s")
 
 
@@ -273,6 +282,207 @@ def phase_parity(info: dict) -> None:
                     max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                     bound_by=by, library_ms=lib_ms)
             del q, k, v, out_k, out_r
+    _parity_paged_decode(info)
+    _parity_chunk_prefill(info)
+
+
+def _paged_case(torch, dt, bits, ring, B=8, S=512, W=128, Hq=32, Hkv=8,
+                D=128, seed=0):
+    """The main path's paged shapes: 128-row blocks (the quantization
+    group) for a 2-bit pool, 16-row blocks (granite-8b `full` snaps its
+    2112-row store to 16) for a dense one. A shuffled table over a pool
+    with spare blocks, -1 past each row's length, one all -1 (free)
+    slot. Returns (paged args, the dense-store args holding the same
+    rows: each slot's blocks gathered, -1 read as block 0)."""
+    from repro_torch.kernels.decode_qattn.ref import gather_pool
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev, f32 = "cuda", torch.float32
+    bl = 128 if bits < 16 else 16
+    n_max = S // bl
+    nb = B * n_max + 5
+
+    def rnd(*shape, dtype=f32):
+        return torch.randn(*shape, generator=g, device=dev, dtype=f32).to(dtype)
+
+    length = torch.tensor([512, 300, 17, 0, 511, 128, 64, 1], device=dev)
+    ids = torch.randperm(nb, generator=g, device=dev)[:B * n_max]
+    used = (torch.arange(n_max, device=dev)[None] * bl) < length[:, None]
+    tbl = torch.where(used, ids.view(B, n_max), -1).to(torch.int32)
+    bias_main = torch.where(torch.arange(S, device=dev)[None] < length[:, None],
+                            0.0, -1e30).to(f32)
+    if bits < 16:
+        Dp = D * bits // 8
+        pk = torch.randint(-128, 128, (nb, bl, Hkv, Dp), generator=g,
+                           device=dev, dtype=torch.int8)
+        pv = torch.randint(-128, 128, (nb, bl, Hkv, Dp), generator=g,
+                           device=dev, dtype=torch.int8)
+        ks = rnd(nb, bl // W, Hkv, D).abs() * 0.1 + 0.01
+        kz = rnd(nb, bl // W, Hkv, D)
+        vs = rnd(nb, bl, Hkv).abs() * 0.1 + 0.01
+        vz = rnd(nb, bl, Hkv)
+    else:
+        pk, pv = rnd(nb, bl, Hkv, D, dtype=dt), rnd(nb, bl, Hkv, D, dtype=dt)
+        ks = kz = vs = vz = None
+    if ring:
+        rlen = torch.tensor([128, 5, 1, 0, 64, 128, 1, 127], device=dev)
+        rk, rv = rnd(B, W, Hkv, D, dtype=dt), rnd(B, W, Hkv, D, dtype=dt)
+        bias_ring = torch.where(torch.arange(W, device=dev)[None]
+                                < rlen[:, None], 0.0, -1e30).to(f32)
+    else:
+        rk = rv = bias_ring = None
+    q = rnd(B, Hq, D, dtype=dt)
+
+    def gd(pool):
+        return None if pool is None else gather_pool(pool, tbl).contiguous()
+
+    return ((q, tbl, pk, ks, kz, pv, vs, vz, bias_main, rk, rv, bias_ring),
+            (q, gd(pk), gd(ks), gd(kz), gd(pv), gd(vs), gd(vz), bias_main,
+             rk, rv, bias_ring))
+
+
+def _parity_paged_decode(info: dict) -> None:
+    """B3 against its plain version, and against B1 on the same rows."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_qattn import ops as dq
+    from repro_torch.kernels.decode_qattn.ref import decode_attn_paged_ref
+    rows = info["kernel_rows"]
+    for dt in (torch.float32, torch.bfloat16):
+        for bits in (2, 16):
+            for mass in (True, False):
+                for ring in ((True,) if bits < 16 else (True, False)):
+                    paged, dense = _paged_case(torch, dt, bits, ring)
+                    kw = dict(bits=bits, group=128, return_mass=mass,
+                              compute_dtype=dt)
+                    out_k, m_k = dq.decode_attn_paged_cuda(*paged, **kw)
+                    out_d, m_d = dq.decode_attn_cuda(*dense, **kw)
+                    out_r, m_r = decode_attn_paged_ref(
+                        *paged, bits=bits, group=128, compute_dtype=dt)
+                    torch.cuda.synchronize()
+                    what = (f"decode_attn_paged {str(dt)[6:]} bits={bits} "
+                            f"mass={mass} ring={ring}")
+                    err = check_close(what + " out", out_k, out_r,
+                                      *OUT_TOL[str(dt)[6:]])
+                    merr = (check_close(what + " mass", m_k, m_r, *MASS_TOL)
+                            if mass else 0.0)
+                    # one kernel body, two row addressings: bit-equal
+                    d_b1 = (out_k.float() - out_d.float()).abs().max().item()
+                    if mass:
+                        d_b1 = max(d_b1, (m_k - m_d).abs().max().item())
+                    if d_b1 != 0.0:
+                        fail(f"{what}: differs from decode_attn on the same "
+                             f"rows by {d_b1:.3g} (want bit-equal)")
+                    ms = median_ms(lambda: dq.decode_attn_paged_cuda(
+                        *paged, **kw))
+                    plain_ms = median_ms(lambda: decode_attn_paged_ref(
+                        *paged, bits=bits, group=128, compute_dtype=dt))
+                    q, tbl, pk = paged[:3]
+                    _, kd, _, _, vd, _, _, bm, rk, rv, br = dense
+                    lib_ms = None
+                    if bits == 16 and not mass:
+                        # SDPA over the gathered dense view (gather excluded)
+                        kk = torch.cat([kd, rk], 1) if ring else kd
+                        vv = torch.cat([vd, rv], 1) if ring else vd
+                        bb = torch.cat([bm, br], 1) if ring else bm
+                        qh = q[:, :, None]
+                        kh, vh = kk.transpose(1, 2), vv.transpose(1, 2)
+                        mask = bb[:, None, None].to(dt)
+                        lib_ms = median_ms(
+                            lambda: F.scaled_dot_product_attention(
+                                qh, kh, vh, attn_mask=mask, enable_gqa=True))
+                    B, Hq, D = q.shape
+                    Stot = bm.shape[1] + (rk.shape[1] if ring else 0)
+                    # each input read once: the rows the table walks (the
+                    # gathered view, as B1 reads its dense store), the
+                    # table, bias, ring, query; out and mass written once
+                    moved = (nbytes(*dense, tbl, out_k)
+                             + (nbytes(m_k) if mass else 0))
+                    flops = 4.0 * B * Hq * Stot * D
+                    bms, by = bound(moved, flops, str(dt).split(".")[1])
+                    print(f"[parity] decode_attn_paged {str(dt)[6:]} "
+                          f"bits={bits} block={pk.shape[1]} mass={mass} "
+                          f"ring={ring}: max|err| out {err:.3g} mass "
+                          f"{merr:.3g}, vs decode_attn {d_b1:.3g}; "
+                          f"{ms:.4f} ms (plain {plain_ms:.4f} ms, sdpa "
+                          f"{'null' if lib_ms is None else '%.4f ms' % lib_ms}"
+                          f", bound {bms:.4f} ms by {by})")
+                    if dt == torch.bfloat16 and bits == 2 and mass:
+                        rows["decode_attn_paged"] = dict(
+                            name="decode_attn_paged_cuda", route="cuda",
+                            source="src/repro_torch/kernels/decode_qattn/"
+                                   "csrc/decode_attn.cu",
+                            replaces="src/repro/kernels/decode_qattn/"
+                                     "kernel.py:258",
+                            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=bms, bound_by=by, library_ms=lib_ms)
+
+
+CHUNK_LEN = 512
+
+
+def _parity_chunk_prefill(info: dict) -> None:
+    """B4's segments against their plain version (scratch rows past the
+    segment zero, as in a chunked admission) and, concatenated, against
+    B2 on the whole prompt; the last segment of the 2048-token bf16
+    prompt is timed."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_prefill import ops as fp
+    from repro_torch.kernels.flash_prefill.ref import flash_prefill_chunk_ref
+    rows = info["kernel_rows"]
+    for dt in (torch.float32, torch.bfloat16):
+        for T in (2048, 2000):                 # 2000: a ragged 464-row tail
+            g = torch.Generator(device="cuda").manual_seed(T + 7)
+            q, k, v = (torch.randn(1, T, h, 128, generator=g, device="cuda")
+                       .to(dt) for h in (32, 8, 8))
+            outs, errs = [], []
+            for c0 in range(0, T, CHUNK_LEN):
+                c1 = min(c0 + CHUNK_LEN, T)
+                ks, vs = torch.zeros_like(k), torch.zeros_like(v)
+                ks[:, :c1], vs[:, :c1] = k[:, :c1], v[:, :c1]
+                qs = q[:, c0:c1].contiguous()
+                out_k = fp.flash_prefill_chunk_cuda(qs, ks, vs, q_offset=c0)
+                out_r = flash_prefill_chunk_ref(qs, ks, vs, q_offset=c0)
+                torch.cuda.synchronize()
+                errs.append(check_close(
+                    f"flash_prefill_chunk {dt} T={T} offset {c0}", out_k,
+                    out_r, *OUT_TOL[str(dt)[6:]]))
+                outs.append(out_k)
+            whole = fp.flash_prefill_cuda(q, k, v)
+            torch.cuda.synchronize()
+            d_b2 = (torch.cat(outs, 1).float() - whole.float()).abs().max()
+            d_b2 = d_b2.item()
+            if d_b2 != 0.0:
+                fail(f"flash_prefill_chunk {dt} T={T}: segments differ from "
+                     f"flash_prefill by {d_b2:.3g} (want bit-equal)")
+            # time the heaviest segment: the last, over the whole scratch
+            ms = median_ms(lambda: fp.flash_prefill_chunk_cuda(
+                qs, ks, vs, q_offset=c0), reps=10)
+            plain_ms = median_ms(lambda: flash_prefill_chunk_ref(
+                qs, ks, vs, q_offset=c0), reps=5)
+            qpos = c0 + torch.arange(c1 - c0, device="cuda")
+            mask = (torch.arange(T, device="cuda")[None] <= qpos[:, None])
+            qh, kh, vh = (x.transpose(1, 2) for x in (qs, ks, vs))
+            lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask, enable_gqa=True), reps=10)
+            moved = nbytes(qs, k[:, :c1], v[:, :c1], outs[-1])
+            flops = 4.0 * 32 * 128 * float((qpos + 1).sum().item())
+            bms, by = bound(moved, flops, str(dt).split(".")[1])
+            print(f"[parity] flash_prefill_chunk {str(dt)[6:]} T={T} "
+                  f"chunk {CHUNK_LEN}: max|err| {max(errs):.3g} over "
+                  f"{len(outs)} segments, vs flash_prefill {d_b2:.3g}; "
+                  f"last segment ({c1 - c0} rows at {c0}) {ms:.4f} ms "
+                  f"(plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+                  f"{bms:.4f} ms by {by})")
+            if dt == torch.bfloat16 and T == 2048:
+                rows["flash_prefill_chunk"] = dict(
+                    name="flash_prefill_chunk_cuda", route="cuda",
+                    source="src/repro_torch/kernels/flash_prefill/csrc/"
+                           "flash_prefill.cu",
+                    replaces="src/repro/kernels/flash_prefill/kernel.py:212",
+                    max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                    bound_ms=bms, bound_by=by, library_ms=lib_ms)
+            del q, k, v, ks, vs, outs, whole
 
 
 # ---------------------------------------------------------------------------
@@ -282,6 +492,21 @@ def phase_parity(info: dict) -> None:
 SERVE_POLICIES = ("full", "h2o", "kivi2", "h2o+kivi2")
 BUCKETS = (1024, 2048)
 N_REQUESTS, MAX_NEW, SLOTS, BUDGET, WINDOW = 16, 64, 8, 512, 128
+# paged + chunked runs: (policy, pool blocks; None = parity with the dense
+# layout). `full` keeps 2112 rows a slot in 16-row blocks: parity is
+# 8 x 132 = 1056 blocks, so at 640 admissions wait on retirements.
+PAGED_RUNS = (("full", 640), ("kivi2", None), ("h2o+kivi2", None))
+KERNELS = ("decode_attn", "flash_prefill", "decode_attn_paged",
+           "flash_prefill_chunk")
+
+
+def _kernel_objs():
+    from repro_torch.kernels.decode_qattn import ops as dq
+    from repro_torch.kernels.flash_prefill import ops as fp
+    return dict(decode_attn=dq.decode_attn_kernel,
+                flash_prefill=fp.flash_prefill_kernel,
+                decode_attn_paged=dq.decode_attn_paged_kernel,
+                flash_prefill_chunk=fp.flash_prefill_chunk_kernel)
 
 
 def phase_serve(info: dict) -> None:
@@ -289,8 +514,6 @@ def phase_serve(info: dict) -> None:
     import torch
     from repro_torch.configs.granite_8b import CONFIG
     from repro_torch.core.policy import presets
-    from repro_torch.kernels.decode_qattn import ops as dq
-    from repro_torch.kernels.flash_prefill import ops as fp
     from repro_torch.nn import model as M
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.scheduler import Request
@@ -307,47 +530,66 @@ def phase_serve(info: dict) -> None:
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, size=BUCKETS[i % 2])
                for i in range(N_REQUESTS)]
-    launches = info.setdefault("launches", {"decode_attn": 0,
-                                            "flash_prefill": 0})
-    for pname in SERVE_POLICIES:
+    kernels = _kernel_objs()
+    launches = info.setdefault("launches", dict.fromkeys(KERNELS, 0))
+    L = cfg.num_layers
+    segments = sum(-(-len(p) // CHUNK_LEN) for p in prompts)
+    runs = [(p, {}) for p in SERVE_POLICIES] + [
+        (p, dict(paged=True, chunked_prefill=True, chunk_len=CHUNK_LEN,
+                 pool_blocks=nb)) for p, nb in PAGED_RUNS]
+    for pname, opts in runs:
         pol = presets(budget=BUDGET, window=WINDOW)[pname]
         eng = Engine(cfg, params, pol, prompt_len=max(BUCKETS),
-                     max_new=MAX_NEW, slots=SLOTS, buckets=BUCKETS)
+                     max_new=MAX_NEW, slots=SLOTS, buckets=BUCKETS, **opts)
         reqs = [Request(tokens=p, max_new=MAX_NEW) for p in prompts]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        dq.decode_attn_kernel.launches = 0
-        fp.flash_prefill_kernel.launches = 0
+        for k in kernels.values():
+            k.launches = 0
         t1 = time.perf_counter()
         res = eng.generate_continuous(reqs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t1
-        n_dec = dq.decode_attn_kernel.launches
-        n_fp = fp.flash_prefill_kernel.launches
-        launches["decode_attn"] += n_dec
-        launches["flash_prefill"] += n_fp
+        n = {name: k.launches for name, k in kernels.items()}
+        for name in KERNELS:
+            launches[name] += n[name]
         done = [r for r in res.results if r.finish_reason == "length"
                 and r.n_tokens == MAX_NEW]
         toks = np.concatenate([r.tokens for r in res.results])
-        print(f"[serve] {pname}: {len(done)}/{N_REQUESTS} requests "
+        label = pname + (" paged+chunked" if opts else "")
+        pool = ""
+        if opts:
+            pool = (f", pool peak {res.pool_peak_blocks}/{res.pool_blocks} "
+                    f"blocks of {eng.block_len} rows"
+                    f"{' (prefill-direct)' if eng._verbatim_ok(BUCKETS[1]) else ''}"
+                    f", audit clean={eng.last_audit['clean']}")
+        print(f"[serve] {label}: {len(done)}/{N_REQUESTS} requests "
               f"completed, prefill {res.prefill_seconds:.3f} s, decode "
               f"{res.decode_tokens_per_s:.1f} tok/s over "
               f"{res.decode_steps} steps, ttft mean {res.ttft_mean_s:.3f} "
               f"s, wall {wall:.2f} s, peak allocated "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, cache "
-              f"{res.cache_physical_bytes / 2**20:.1f} MiB physical; "
-              f"launches decode_attn {n_dec} flash_prefill {n_fp}")
+              f"{res.cache_physical_bytes / 2**20:.1f} MiB physical{pool}; "
+              f"launches " + " ".join(f"{k} {v}" for k, v in n.items()))
         if len(done) != N_REQUESTS:
-            fail(f"{pname}: only {len(done)} of {N_REQUESTS} requests "
+            fail(f"{label}: only {len(done)} of {N_REQUESTS} requests "
                  "completed")
         if toks.min() < 0 or toks.max() >= cfg.vocab_size:
-            fail(f"{pname}: token ids out of range")
-        if n_dec != res.decode_steps * cfg.num_layers:
-            fail(f"{pname}: decode_attn launched {n_dec} times, want "
-                 f"{res.decode_steps} steps x {cfg.num_layers} layers")
-        if pname in ("full", "kivi2") and n_fp != N_REQUESTS * cfg.num_layers:
-            fail(f"{pname}: flash_prefill launched {n_fp} times, want "
-                 f"{N_REQUESTS} admissions x {cfg.num_layers} layers")
+            fail(f"{label}: token ids out of range")
+        dec, pre = (("decode_attn_paged", "flash_prefill_chunk") if opts
+                    else ("decode_attn", "flash_prefill"))
+        want = {k: 0 for k in KERNELS}
+        want[dec] = res.decode_steps * L
+        # the flash kernels serve the policies that read no mass
+        if not pol.spec.track_scores():
+            want[pre] = (segments if opts else N_REQUESTS) * L
+        if n != want:
+            fail(f"{label}: kernel launches {n}, want {want} "
+                 f"({res.decode_steps} decode steps, {L} layers)")
+        if opts and not (eng.last_audit["clean"]
+                         and res.pool_peak_blocks <= res.pool_blocks):
+            fail(f"{label}: pool audit {eng.last_audit}, peak "
+                 f"{res.pool_peak_blocks} of {res.pool_blocks} blocks")
         del eng, res
         torch.cuda.empty_cache()
     del params
@@ -424,8 +666,57 @@ def phase_e2e(info: dict) -> None:
             fail(f"e2e {pname}: kernels vs reference logits differ by "
                  f"{max(d_kr):.4f} > {E2E_LOGIT_TOL}")
         del runs, caches, logits
+        # paged pool + chunked admission: B3 / B4 (and the gqa prefill of
+        # the mass policies) against the gather + materialize reference
+        engs = [Engine(cfg, params, pol, prompt_len=max(BUCKETS),
+                       max_new=MAX_NEW, slots=SLOTS, buckets=BUCKETS,
+                       use_kernels=uk, paged=True, chunked_prefill=True,
+                       chunk_len=CHUNK_LEN) for uk in (True, False)]
+        admitted = [_admit_paged_chunked(e, toks.cpu().numpy())
+                    for e in engs]
+        logits = [[lg] for _, lg in admitted]
+        for _ in range(E2E_STEPS):
+            tok = torch.argmax(logits[1][-1], -1)[:, None]   # reference leads
+            for e, (c, _), lgs in zip(engs, admitted, logits):
+                lgs.append(M.decode_step(params, e.cfg, c, tok, e.spec)[0])
+        torch.cuda.synchronize()
+        d_pg = delta(logits[0], logits[1])
+        print(f"[e2e] {pname} paged+chunked: max|dlogit| kernels vs "
+              f"reference (bf16) prefill {d_pg[0]:.4f} decode "
+              f"{max(d_pg[1:]):.4f} (tol {E2E_LOGIT_TOL}; dense path above: "
+              f"{max(d_kr):.4f})")
+        if not all(math.isfinite(d) and d <= E2E_LOGIT_TOL for d in d_pg):
+            fail(f"e2e {pname} paged+chunked: kernels vs reference logits "
+                 f"differ by {max(d_pg):.4f} > {E2E_LOGIT_TOL}")
+        del engs, admitted, logits
     del params, params32
     torch.cuda.empty_cache()
+
+
+def _admit_paged_chunked(eng, prompts):
+    """Admit `prompts` (one per slot, in slot order) through the engine's
+    own chunked admission into a fresh paged cache, as
+    `generate_continuous` does. Returns (cache, first-token logits)."""
+    import torch
+    from repro_torch.core import paging
+    from repro_torch.nn import model as M
+    from repro_torch.serving.scheduler import Request, Scheduler
+    sched = Scheduler(eng.buckets, eng.slots,
+                      allocator=paging.BlockAllocator(eng.pool_blocks),
+                      block_need=eng._request_blocks)
+    for p in prompts:
+        sched.submit(Request(tokens=p, max_new=eng.max_new))
+    cache = M.init_cache(eng.cfg, eng.spec, eng.slots,
+                         eng.prompt_len + eng.max_new,
+                         layer_budgets=eng.layer_budgets, device="cuda",
+                         paged=True, block_len=eng.block_len,
+                         pool_blocks=eng.pool_blocks)
+    logits = []
+    while sched.pending:
+        adm = eng._start_chunked_admission(sched)
+        eng._advance_chunked_admission(adm, sched, cache, run_all=True)
+        logits.append(adm.last_logits)
+    return cache, torch.cat(logits)
 
 
 def _cast(tree, dtype):
@@ -434,7 +725,8 @@ def _cast(tree, dtype):
 
 
 # ---------------------------------------------------------------------------
-# 6. profile: where one decode step's time goes (full depth, 8 slots)
+# 6. profile: where one decode step's time goes (full depth, 8 slots,
+#    dense cache and paged pool)
 # ---------------------------------------------------------------------------
 
 PROFILE_POLICIES = ("full", "h2o+kivi2")
@@ -453,18 +745,26 @@ def phase_profile(info: dict) -> None:
     cfg = CONFIG
     params = M.init_params(cfg, seed=0, device="cuda")
     rng = np.random.default_rng(2)
-    for pname in PROFILE_POLICIES:
+    for pname, paged in [(p, pg) for p in PROFILE_POLICIES
+                         for pg in (False, True)]:
         pol = presets(budget=BUDGET, window=WINDOW)[pname]
         eng = Engine(cfg, params, pol, prompt_len=max(BUCKETS),
-                     max_new=MAX_NEW, slots=SLOTS, buckets=BUCKETS)
-        cache = M.init_cache(cfg, eng.spec, SLOTS, max(BUCKETS) + MAX_NEW,
-                             layer_budgets=eng.layer_budgets, device="cuda")
-        for s in range(SLOTS):
-            toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
-                                                (1, BUCKETS[0])), device="cuda")
-            _, pc = M.prefill(params, cfg, {"tokens": toks}, eng.spec,
-                              layer_budgets=eng.layer_budgets)
-            kvcache.insert_request(cache.attn, s, pc.attn, batch_axis=2)
+                     max_new=MAX_NEW, slots=SLOTS, buckets=BUCKETS,
+                     paged=paged, chunked_prefill=paged, chunk_len=CHUNK_LEN)
+        prompts = rng.integers(0, cfg.vocab_size, (SLOTS, BUCKETS[0]))
+        if paged:
+            cache, _ = _admit_paged_chunked(eng, prompts)
+        else:
+            cache = M.init_cache(cfg, eng.spec, SLOTS,
+                                 max(BUCKETS) + MAX_NEW,
+                                 layer_budgets=eng.layer_budgets,
+                                 device="cuda")
+            for s in range(SLOTS):
+                toks = torch.as_tensor(prompts[s:s + 1], device="cuda")
+                _, pc = M.prefill(params, cfg, {"tokens": toks}, eng.spec,
+                                  layer_budgets=eng.layer_budgets)
+                kvcache.insert_request(cache.attn, s, pc.attn, batch_axis=2)
+        label = pname + (" paged" if paged else "")
         ring = RingMirror(eng.spec, SLOTS)
         ring.fill()
         tok = torch.zeros(SLOTS, 1, dtype=torch.long, device="cuda")
@@ -500,7 +800,7 @@ def phase_profile(info: dict) -> None:
         n_launch = sum(e.count for e in ka
                        if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC",
                                     "cuLaunchKernel", "cuLaunchKernelEx")) // 4
-        print(f"[profile] {pname}: decode step {wall_ms:.2f} ms wall "
+        print(f"[profile] {label}: decode step {wall_ms:.2f} ms wall "
               f"({host_ms:.2f} ms to dispatch), device busy "
               f"{busy:.2f} ms/step, idle share {1 - busy / wall_ms:.3f}; "
               f"host: {n_aten} aten ops, {n_launch} kernel launches per "
@@ -530,11 +830,10 @@ def main() -> int:
         globals()["phase_" + name](info)
         print(f"[{name}] done at {time.perf_counter() - t0:.1f} s",
               flush=True)
-    # launches: the serve phase's counts (set to 0 before each policy's
-    # run, read right after it)
+    # launches: the serve phase's counts (set to 0 before each run, read
+    # right after it, summed over the runs)
     kernels = [dict(info["kernel_rows"][key],
-                    launches=info["launches"][key])
-               for key in ("decode_attn", "flash_prefill")]
+                    launches=info["launches"][key]) for key in KERNELS]
     print(info["smi"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -7,13 +7,15 @@ array is an ``ml_dtypes`` array that `torch.from_numpy` rejects, so such
 leaves go through float32 (exact) and then to ``torch.bfloat16``.
 Layouts need no change — the port keeps the JAX layouts: linear weights
 ``[d_in, d_out]``, block leaves with a leading ``[n_sb]`` dim, cache
-leaves ``[n_sb, nA, B, ...]``.
+leaves ``[n_sb, nA, B, ...]`` — except that the port's paged pools carry
+one drop block past the JAX pools' blocks (`core.paging`).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.core import paging
 from repro_torch.core.cache import LayerKV
 
 
@@ -40,3 +42,19 @@ def layer_kv_from_numpy(lc, device=None) -> LayerKV:
     -> a torch `LayerKV` with the same dtypes and shapes."""
     return LayerKV(*(tensor_from_numpy(getattr(lc, f), device)
                      for f in LayerKV._fields))
+
+
+def paged_kv_from_numpy(p, device=None) -> paging.PagedLayerKV:
+    """A JAX `PagedLayerKV` (leaves as numpy) -> the port's, with a zero
+    drop block appended to every pool (the block axis is 4th from the
+    end for the code / K-scale pools, 3rd for the V-scale pools)."""
+    out = {}
+    for f in paging.PagedLayerKV._fields:
+        t = tensor_from_numpy(getattr(p, f), device)
+        if f in paging.POOL_FIELDS:
+            axis = t.dim() - (3 if f.startswith("pv_") else 4)
+            shape = list(t.shape)
+            shape[axis] = 1
+            t = torch.cat([t, t.new_zeros(shape)], dim=axis)
+        out[f] = t
+    return paging.PagedLayerKV(**out)

@@ -14,9 +14,15 @@ here (`append_token*`, `accumulate_scores`, `insert_request`,
 `reset_slot`) write the live cache tensors in place and return the same
 `LayerKV`. A per-layer view handed to them updates the stacked cache.
 
-Not ported yet: the paged store, `append_segment` / `truncate_rows`
-(speculative), `SSMState`, and the NACL / Keyformer noise (those policies
-raise at the engine).
+The paged store (`core.paging.PagedLayerKV`) shares the metadata field
+names, so victim selection, flush planning, the validity bias and score
+accumulation here run on either store; `append_token`,
+`materialize_kv` and `cache_physical_bytes` dispatch to `core.paging`
+for it.
+
+Not ported yet: `append_segment` / `truncate_rows` (speculative),
+`SSMState`, and the NACL / Keyformer noise (those policies raise at the
+engine).
 """
 from __future__ import annotations
 
@@ -140,10 +146,11 @@ def stacked_kv(spec: CacheSpec, n_layers: int, batch: int, max_len: int,
                          device=device, lead=(n_layers,))
 
 
-def layer_view(stacked: LayerKV, *idx) -> LayerKV:
-    """The per-layer piece at leading index `idx` — views, so in-place
-    updates of the piece land in the stacked cache."""
-    return LayerKV(*(t[idx] for t in stacked))
+def layer_view(stacked, *idx):
+    """The per-layer piece at leading index `idx` of a stacked `LayerKV`
+    or `PagedLayerKV` — views, so in-place updates of the piece land in
+    the stacked cache."""
+    return type(stacked)(*(t[idx] for t in stacked))
 
 
 # ---------------------------------------------------------------------------
@@ -168,9 +175,13 @@ def validity_bias(lc: LayerKV) -> torch.Tensor:
     return bias
 
 
-def materialize_kv(lc: LayerKV, spec: CacheSpec, dtype=torch.bfloat16):
+def materialize_kv(lc, spec: CacheSpec, dtype=torch.bfloat16):
     """Dense (k, v) [B, S+W, H, D] over [main | residual]: the decode
-    reference path (dequantizes the whole main store every call)."""
+    reference path (dequantizes the whole main store every call; a paged
+    store is gathered into its dense view first)."""
+    if not isinstance(lc, LayerKV):
+        from repro_torch.core import paging
+        lc = paging.gather_dense(lc, spec)
     B, S, H, _ = lc.k.shape
     if spec.quantized:
         G = spec.group
@@ -353,9 +364,14 @@ def append_token_quantized(lc: LayerKV, spec: CacheSpec,
     return lc
 
 
-def append_token(lc: LayerKV, spec: CacheSpec, k_new: torch.Tensor,
-                 v_new: torch.Tensor, *,
-                 ring_full: Optional[bool] = None) -> LayerKV:
+def append_token(lc, spec: CacheSpec, k_new: torch.Tensor,
+                 v_new: torch.Tensor, *, ring_full: Optional[bool] = None):
+    if not isinstance(lc, LayerKV):
+        # paged store: same eviction / flush semantics, K/V writes routed
+        # through the block table
+        from repro_torch.core import paging
+        return paging.append_token_paged(lc, spec, k_new, v_new,
+                                         ring_full=ring_full)
     if spec.quantized:
         return append_token_quantized(lc, spec, k_new, v_new,
                                       ring_full=ring_full)
@@ -482,8 +498,12 @@ def compress_prompt(spec: CacheSpec, k: torch.Tensor, v: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def cache_physical_bytes(lc: LayerKV) -> int:
-    """Resident bytes of a dense cache: every leaf is reserved memory."""
+def cache_physical_bytes(lc) -> int:
+    """Resident bytes of one cache. Dense: every leaf is reserved memory.
+    Paged: the blocks some slot maps plus the metadata (a host sync)."""
+    if not isinstance(lc, LayerKV):
+        from repro_torch.core import paging
+        return paging.paged_physical_bytes(lc)
     return sum(t.numel() * t.element_size() for t in lc)
 
 

@@ -1,12 +1,13 @@
 """Build and bind the port's hand-written CUDA kernels.
 
 Each kernel source under ``kernels/*/csrc/*.cu`` exports plain-C launch
-functions. `CudaKernel` compiles its source with ``nvcc`` for ``sm_90a``
+functions. A `CudaSource` compiles its file with ``nvcc`` for ``sm_90a``
 into a shared library under ``build/kernels/`` at the repository root
 (first use only; the file name carries a hash of the source, so an
-edited source rebuilds), loads it with `ctypes`, and calls one entry
-point. Nothing is built when a module is imported: CPU-only hosts import
-every module of the port and never reach `CudaKernel.__call__`.
+edited source rebuilds) and loads it with `ctypes`; a `CudaKernel` calls
+one entry point of it. Nothing is built when a module is imported:
+CPU-only hosts import every module of the port and never reach
+`CudaKernel.__call__`.
 
 Conventions every entry point follows: pointers and the stream are
 ``void*`` (bound as `ctypes.c_void_p`, so 64-bit addresses survive),
@@ -47,26 +48,20 @@ def find_nvcc() -> str:
                        "built")
 
 
-class CudaKernel:
-    """One C entry point of one ``.cu`` source, built and loaded lazily.
+class CudaSource:
+    """One ``.cu`` source, built with nvcc into one shared library at
+    first use and loaded once; every `CudaKernel` of the source shares
+    it, so each source builds once per process."""
 
-    `launches` counts successful launches through `__call__` — the only
-    place the kernel is launched — so a caller can zero it, run a path
-    and read whether the path went through the kernel."""
-
-    def __init__(self, source: Path, symbol: str,
-                 argtypes: Sequence[type]) -> None:
-        self.source = Path(source)
-        self.symbol = symbol
-        self.argtypes = list(argtypes)
-        self.launches = 0
+    def __init__(self, path: Path) -> None:
+        self.path = Path(path)
         self.build_log = ""
-        self._fn = None
-        self._lock = threading.Lock()
+        self._lib = None
+        self._lock = threading.RLock()
 
     def library_path(self) -> Path:
-        digest = hashlib.sha256(self.source.read_bytes()).hexdigest()[:12]
-        return BUILD_DIR / f"{self.source.stem}-{digest}.so"
+        digest = hashlib.sha256(self.path.read_bytes()).hexdigest()[:12]
+        return BUILD_DIR / f"{self.path.stem}-{digest}.so"
 
     def build(self) -> Path:
         """Compile the source if its library is not built yet (safe to
@@ -78,22 +73,42 @@ class CudaKernel:
                 return out
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = out.with_suffix(".tmp%d.so" % os.getpid())
-            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
+            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.path)]
             r = subprocess.run(cmd, capture_output=True, text=True)
             self.build_log = r.stdout + r.stderr
             if r.returncode != 0:
                 raise RuntimeError("nvcc failed for %s:\n%s"
-                                   % (self.source, self.build_log))
+                                   % (self.path, self.build_log))
             os.replace(tmp, out)
             return out
 
+    def library(self) -> ctypes.CDLL:
+        with self._lock:
+            if self._lib is None:       # kept: the library stays mapped
+                self._lib = ctypes.CDLL(str(self.build()))
+            return self._lib
+
+
+class CudaKernel:
+    """One C entry point of a `CudaSource`, bound lazily.
+
+    `launches` counts successful launches through `__call__` — the only
+    place the kernel is launched — so a caller can zero it, run a path
+    and read whether the path went through the kernel."""
+
+    def __init__(self, source: CudaSource, symbol: str,
+                 argtypes: Sequence[type]) -> None:
+        self.source = source
+        self.symbol = symbol
+        self.argtypes = list(argtypes)
+        self.launches = 0
+        self._fn = None
+
     def _load(self):
         if self._fn is None:
-            lib = ctypes.CDLL(str(self.build()))
-            fn = getattr(lib, self.symbol)
+            fn = getattr(self.source.library(), self.symbol)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
-            self._lib = lib            # keep the library mapped
             self._fn = fn
         return self._fn
 

@@ -1,7 +1,23 @@
 // Fused dequantize-and-attend decode over [main store | residual ring].
 //
 // Replaces: src/repro/kernels/decode_qattn/kernel.py:decode_attn_pallas
-// (body `_kernel`, `_unpack`), the TPU kernel of the serving decode step.
+// (body `_kernel`, `_unpack`), the TPU kernel of the serving decode step
+// (entry point `decode_attn_launch`), and
+// src/repro/kernels/decode_qattn/kernel.py:decode_attn_paged_pallas, its
+// block-table variant over a shared paged pool (`decode_attn_paged_launch`).
+//
+// The two share one kernel body, templated on how main-store row s of
+// sequence b is addressed (`main_row`): the dense store reads row
+// b*S + s, the paged store row tbl[b, s/bl]*bl + s%bl of the pool, with
+// its K scale from group (s%bl)/G of that block. An unmapped entry (-1)
+// is clamped to block 0, as the TPU kernel clamps it, and masked by the
+// bias; blocks are never skipped, so a free slot (every key masked)
+// still gives the reference's uniform softmax. Everything after the row
+// address — the dequant rounding, the online softmax, the ring tile, the
+// mass scratch — is the same code, so on the same rows the paged
+// kernel's output and mass are bit-equal to the dense kernel's. A 32-key
+// tile may span several pool blocks (dense stores use 16-row blocks):
+// each row is addressed on its own.
 //
 // What bounds it on an H100: bytes. One decode query row per sequence
 // meets the whole cache once, so the work is ~2*Gq flops per cache
@@ -61,9 +77,28 @@ struct Params {
   void* out;              // [B, Hq, D] T
   float* scores;          // [B, Hkv, Gq, S+W] or null (no mass)
   float* mass_h;          // [B, Hkv, S+W] or null
+  const int* tbl;         // paged: [B, n_max] pool block ids, -1 unmapped
   int B, S, W, Hkv, Gq, D, G, round_bf16;
+  int n_max, bl, n_blocks;  // paged: S = n_max * bl; pool blocks
   float scale;
 };
+
+// Main-store row s of sequence b: its row in the store's [rows, Hkv, *]
+// layout, and its row in the K-scale [groups, Hkv, D] layout.
+template <bool PAGED>
+__device__ __forceinline__ void main_row(const Params& p, int b, int s,
+                                         size_t& row, size_t& grp) {
+  if constexpr (PAGED) {
+    const int e = p.tbl[(size_t)b * p.n_max + s / p.bl];
+    const int blk = min(max(e, 0), p.n_blocks - 1);
+    const int r = s % p.bl;
+    row = (size_t)blk * p.bl + r;
+    grp = (size_t)blk * (p.bl / p.G) + r / p.G;
+  } else {
+    row = (size_t)b * p.S + s;
+    grp = (size_t)b * (p.S / p.G) + s / p.G;
+  }
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -88,7 +123,7 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <typename T, int BITS>
+template <typename T, int BITS, bool PAGED>
 __global__ void __launch_bounds__(NT) decode_attn_kernel(Params p) {
   __shared__ float q_s[GQ_MAX * D_MAX];
   __shared__ float k_s[TS * (D_MAX + 1)];   // padded rows: no bank conflicts
@@ -167,7 +202,9 @@ __global__ void __launch_bounds__(NT) decode_attn_kernel(Params p) {
     const int n = min(TS, S - s0);
     for (int i = t; i < n * D; i += NT) {
       const int r = i / D, d = i % D;
-      const size_t row = ((size_t)b * S + s0 + r) * Hkv + h;
+      size_t mrow, grp;
+      main_row<PAGED>(p, b, s0 + r, mrow, grp);
+      const size_t row = mrow * Hkv + h;
       float kv, vv;
       if constexpr (BITS < 16) {
         const int sh = (d % F) * BITS;
@@ -175,8 +212,7 @@ __global__ void __launch_bounds__(NT) decode_attn_kernel(Params p) {
                         >> sh) & MASK;
         const int vc = (((int)((const int8_t*)p.v)[row * Dp + d / F] + 128)
                         >> sh) & MASK;
-        const size_t ko = (((size_t)b * (S / p.G) + (s0 + r) / p.G) * Hkv
-                           + h) * D + d;
+        const size_t ko = (grp * Hkv + h) * D + d;
         kv = __fadd_rn(__fmul_rn((float)kc, p.k_scale[ko]), p.k_zero[ko]);
         vv = __fadd_rn(__fmul_rn((float)vc, p.v_scale[row]), p.v_zero[row]);
         if (p.round_bf16) {
@@ -228,17 +264,52 @@ __global__ void __launch_bounds__(NT) decode_attn_kernel(Params p) {
   }
 }
 
-template <typename T>
+template <typename T, bool PAGED>
 cudaError_t launch_bits(const Params& p, int bits, cudaStream_t st) {
   dim3 grid(p.Hkv, p.B);
   switch (bits) {
-    case 2: decode_attn_kernel<T, 2><<<grid, NT, 0, st>>>(p); break;
-    case 4: decode_attn_kernel<T, 4><<<grid, NT, 0, st>>>(p); break;
-    case 8: decode_attn_kernel<T, 8><<<grid, NT, 0, st>>>(p); break;
-    case 16: decode_attn_kernel<T, 16><<<grid, NT, 0, st>>>(p); break;
+    case 2: decode_attn_kernel<T, 2, PAGED><<<grid, NT, 0, st>>>(p); break;
+    case 4: decode_attn_kernel<T, 4, PAGED><<<grid, NT, 0, st>>>(p); break;
+    case 8: decode_attn_kernel<T, 8, PAGED><<<grid, NT, 0, st>>>(p); break;
+    case 16: decode_attn_kernel<T, 16, PAGED><<<grid, NT, 0, st>>>(p); break;
     default: return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
+}
+
+int launch(Params& p, int bits, int dtype, bool paged, void* stream) {
+  if (p.D > D_MAX || p.Gq > GQ_MAX || p.Gq < 1 || p.D < 1 || p.S < 1
+      || p.G < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t e;
+  if (paged)
+    e = dtype == 1 ? launch_bits<__nv_bfloat16, true>(p, bits, st)
+                   : launch_bits<float, true>(p, bits, st);
+  else
+    e = dtype == 1 ? launch_bits<__nv_bfloat16, false>(p, bits, st)
+                   : launch_bits<float, false>(p, bits, st);
+  return (int)e;
+}
+
+Params make_params(const void* q, const void* k, const void* k_scale,
+                   const void* k_zero, const void* v, const void* v_scale,
+                   const void* v_zero, const void* bias_main, const void* rk,
+                   const void* rv, const void* bias_ring, void* out,
+                   void* scores, void* mass_h, int B, int S, int W, int Hkv,
+                   int Gq, int D, int G, int round_bf16, float scale) {
+  Params p;
+  p.q = q; p.k = k; p.k_scale = (const float*)k_scale;
+  p.k_zero = (const float*)k_zero; p.v = v;
+  p.v_scale = (const float*)v_scale; p.v_zero = (const float*)v_zero;
+  p.bias_main = (const float*)bias_main; p.rk = rk; p.rv = rv;
+  p.bias_ring = (const float*)bias_ring; p.out = out;
+  p.scores = (float*)scores; p.mass_h = (float*)mass_h;
+  p.tbl = nullptr;
+  p.B = B; p.S = S; p.W = W; p.Hkv = Hkv; p.Gq = Gq; p.D = D; p.G = G;
+  p.round_bf16 = round_bf16; p.scale = scale;
+  p.n_max = 0; p.bl = 0; p.n_blocks = 0;
+  return p;
 }
 
 }  // namespace
@@ -252,19 +323,29 @@ extern "C" int decode_attn_launch(
     const void* bias_ring, void* out, void* scores, void* mass_h,
     int B, int S, int W, int Hkv, int Gq, int D, int G, int bits, int dtype,
     int round_bf16, float scale, void* stream) {
-  if (D > D_MAX || Gq > GQ_MAX || Gq < 1 || D < 1 || S < 1)
+  Params p = make_params(q, k, k_scale, k_zero, v, v_scale, v_zero,
+                         bias_main, rk, rv, bias_ring, out, scores, mass_h,
+                         B, S, W, Hkv, Gq, D, G, round_bf16, scale);
+  return launch(p, bits, dtype, false, stream);
+}
+
+// The paged store: k/v/scale pointers are the pools [n_blocks, bl, Hkv, *]
+// (K scales [n_blocks, bl/G, Hkv, D], V scales [n_blocks, bl, Hkv]),
+// tbl [B, n_max] int32; the main store is S = n_max * bl rows long.
+extern "C" int decode_attn_paged_launch(
+    const void* q, const void* tbl, const void* pk, const void* pk_scale,
+    const void* pk_zero, const void* pv, const void* pv_scale,
+    const void* pv_zero, const void* bias_main, const void* rk,
+    const void* rv, const void* bias_ring, void* out, void* scores,
+    void* mass_h, int B, int n_max, int bl, int n_blocks, int W, int Hkv,
+    int Gq, int D, int G, int bits, int dtype, int round_bf16, float scale,
+    void* stream) {
+  if (n_max < 1 || bl < 1 || n_blocks < 1 || bl % G)
     return (int)cudaErrorInvalidValue;
-  Params p;
-  p.q = q; p.k = k; p.k_scale = (const float*)k_scale;
-  p.k_zero = (const float*)k_zero; p.v = v;
-  p.v_scale = (const float*)v_scale; p.v_zero = (const float*)v_zero;
-  p.bias_main = (const float*)bias_main; p.rk = rk; p.rv = rv;
-  p.bias_ring = (const float*)bias_ring; p.out = out;
-  p.scores = (float*)scores; p.mass_h = (float*)mass_h;
-  p.B = B; p.S = S; p.W = W; p.Hkv = Hkv; p.Gq = Gq; p.D = D; p.G = G;
-  p.round_bf16 = round_bf16; p.scale = scale;
-  cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t e = dtype == 1 ? launch_bits<__nv_bfloat16>(p, bits, st)
-                             : launch_bits<float>(p, bits, st);
-  return (int)e;
+  Params p = make_params(q, pk, pk_scale, pk_zero, pv, pv_scale, pv_zero,
+                         bias_main, rk, rv, bias_ring, out, scores, mass_h,
+                         B, n_max * bl, W, Hkv, Gq, D, G, round_bf16, scale);
+  p.tbl = (const int*)tbl;
+  p.n_max = n_max; p.bl = bl; p.n_blocks = n_blocks;
+  return launch(p, bits, dtype, true, stream);
 }

@@ -1,10 +1,12 @@
 """Fused decode attention over [main store | residual ring]: the CUDA
-kernel's wrapper, and the device dispatch.
+kernels' wrappers, and the device dispatch.
 
-`decode_attention_fused` runs the plain version (`ref.decode_attn_ref`)
-for tensors on the CPU and the CUDA kernel (`decode_attn_cuda`) for
-tensors on the card; on the card there is no other path — a shape or
-type the kernel does not take raises."""
+`decode_attention_fused` (dense store) and `decode_attention_paged`
+(paged pool through a block table) run the plain versions
+(`ref.decode_attn_ref`, `ref.decode_attn_paged_ref`) for tensors on the
+CPU and the CUDA kernels (`decode_attn_cuda`, `decode_attn_paged_cuda`,
+one source) for tensors on the card; on the card there is no other path
+— a shape or type a kernel does not take raises."""
 from __future__ import annotations
 
 import ctypes
@@ -13,14 +15,16 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels.build import CudaKernel, stream_handle
+from repro_torch.kernels.build import CudaKernel, CudaSource, stream_handle
 from repro_torch.kernels.decode_qattn import ref
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
-decode_attn_kernel = CudaKernel(
-    Path(__file__).parent / "csrc" / "decode_attn.cu", "decode_attn_launch",
-    [_P] * 14 + [_I] * 10 + [_F, _P])
+SOURCE = CudaSource(Path(__file__).parent / "csrc" / "decode_attn.cu")
+decode_attn_kernel = CudaKernel(SOURCE, "decode_attn_launch",
+                                [_P] * 14 + [_I] * 10 + [_F, _P])
+decode_attn_paged_kernel = CudaKernel(SOURCE, "decode_attn_paged_launch",
+                                      [_P] * 15 + [_I] * 12 + [_F, _P])
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 D_MAX, GQ_MAX = 128, 16
@@ -28,6 +32,47 @@ D_MAX, GQ_MAX = 128, 16
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
+
+
+def _check(tensors, device) -> None:
+    for t, dt, shape in tensors:
+        if (t.device != device or t.dtype != dt or tuple(t.shape) != shape
+                or not t.is_contiguous()):
+            raise ValueError(f"operand {tuple(t.shape)} {t.dtype} "
+                             f"{t.device}: want contiguous {shape} {dt} "
+                             f"on {device}")
+
+
+def _check_q(q, compute_dtype):
+    if q.device.type != "cuda":
+        raise ValueError("the decode kernels take CUDA tensors")
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"unsupported q dtype {q.dtype}")
+    if compute_dtype not in (None, torch.float32, torch.bfloat16):
+        raise ValueError(f"unsupported compute_dtype {compute_dtype}")
+
+
+def _check_heads(Hq, Hkv, D, S):
+    if Hkv < 1 or Hq % Hkv or Hq // Hkv > GQ_MAX or D > D_MAX or S < 1:
+        raise ValueError(f"shape out of range: Hq={Hq} Hkv={Hkv} D={D} "
+                         f"S={S} (Gq <= {GQ_MAX}, D <= {D_MAX})")
+
+
+def _ring_and_mass(q, rk, rv, bias_ring, B, Hkv, Stot, return_mass):
+    """Ring operand checks, the output and the mass scratch."""
+    W = rk.shape[1] if rk is not None else 0
+    tensors = []
+    if W:
+        D = q.shape[2]
+        tensors = [(rk, q.dtype, (B, W, Hkv, D)), (rv, q.dtype, (B, W, Hkv, D)),
+                   (bias_ring, torch.float32, (B, W))]
+    scores = mass_h = None
+    if return_mass:
+        scores = torch.empty((B, Hkv, q.shape[1] // Hkv, Stot + W),
+                             dtype=torch.float32, device=q.device)
+        mass_h = torch.empty((B, Hkv, Stot + W), dtype=torch.float32,
+                             device=q.device)
+    return W, tensors, torch.empty_like(q), scores, mass_h
 
 
 def decode_attn_cuda(q, k, k_scale, k_zero, v, v_scale, v_zero, bias_main,
@@ -44,20 +89,12 @@ def decode_attn_cuda(q, k, k_scale, k_zero, v, v_scale, v_zero, bias_main,
     dtype); None/f32 keeps them in f32.
 
     Returns (out [B, Hq, D] in q.dtype, mass [B, S+W] f32 | None)."""
-    if q.device.type != "cuda":
-        raise ValueError("decode_attn_cuda takes CUDA tensors")
-    if q.dtype not in _DTYPES:
-        raise ValueError(f"unsupported q dtype {q.dtype}")
-    if compute_dtype not in (None, torch.float32, torch.bfloat16):
-        raise ValueError(f"unsupported compute_dtype {compute_dtype}")
+    _check_q(q, compute_dtype)
+    q = q.contiguous()
     B, Hq, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
-    W = rk.shape[1] if rk is not None else 0
-    Gq = Hq // Hkv if Hkv else 0
+    _check_heads(Hq, Hkv, D, S)
     quant = bits < 16
-    if Hkv < 1 or Hq % Hkv or Gq > GQ_MAX or D > D_MAX or S < 1:
-        raise ValueError(f"shape out of range: Hq={Hq} Hkv={Hkv} D={D} "
-                         f"S={S} (Gq <= {GQ_MAX}, D <= {D_MAX})")
     if quant:
         if bits not in (2, 4, 8) or D % (8 // bits) or S % group:
             raise ValueError(f"bits={bits} group={group} D={D} S={S} "
@@ -74,32 +111,74 @@ def decode_attn_cuda(q, k, k_scale, k_zero, v, v_scale, v_zero, bias_main,
             raise ValueError(f"bits={bits}")
         tensors = [(k, q.dtype, (B, S, Hkv, D)), (v, q.dtype, (B, S, Hkv, D))]
     tensors.append((bias_main, torch.float32, (B, S)))
-    if W:
-        tensors += [(rk, q.dtype, (B, W, Hkv, D)), (rv, q.dtype, (B, W, Hkv, D)),
-                    (bias_ring, torch.float32, (B, W))]
-    for t, dt, shape in tensors:
-        if (t.device != q.device or t.dtype != dt or tuple(t.shape) != shape
-                or not t.is_contiguous()):
-            raise ValueError(f"operand {tuple(t.shape)} {t.dtype} "
-                             f"{t.device}: want contiguous {shape} {dt} "
-                             f"on {q.device}")
-    q = q.contiguous()
-    out = torch.empty_like(q)
-    scores = mass_h = None
-    if return_mass:
-        scores = torch.empty((B, Hkv, Gq, S + W), dtype=torch.float32,
-                             device=q.device)
-        mass_h = torch.empty((B, Hkv, S + W), dtype=torch.float32,
-                             device=q.device)
+    W, ring, out, scores, mass_h = _ring_and_mass(q, rk, rv, bias_ring, B,
+                                                  Hkv, S, return_mass)
+    _check(tensors + ring, q.device)
     decode_attn_kernel(
         _ptr(q), _ptr(k), _ptr(k_scale if quant else None),
         _ptr(k_zero if quant else None), _ptr(v),
         _ptr(v_scale if quant else None), _ptr(v_zero if quant else None),
         _ptr(bias_main), _ptr(rk if W else None), _ptr(rv if W else None),
         _ptr(bias_ring if W else None), _ptr(out), _ptr(scores),
-        _ptr(mass_h), B, S, W, Hkv, Gq, D, group if quant else 1, bits,
-        _DTYPES[q.dtype], int(compute_dtype == torch.bfloat16),
+        _ptr(mass_h), B, S, W, Hkv, Hq // Hkv, D, group if quant else 1,
+        bits, _DTYPES[q.dtype], int(compute_dtype == torch.bfloat16),
         1.0 / math.sqrt(D), stream_handle(q.device))
+    return out, (mass_h.sum(dim=1) if return_mass else None)
+
+
+def decode_attn_paged_cuda(q, block_tbl, pk, pk_scale, pk_zero, pv,
+                           pv_scale, pv_zero, bias_main, rk, rv, bias_ring,
+                           *, bits: int, group: int,
+                           return_mass: bool = False, compute_dtype=None):
+    """Launch the paged CUDA kernel (tensors on the card, contiguous).
+
+    As `decode_attn_cuda`, but the main store is a shared pool walked
+    through `block_tbl` [B, n_max] int32 (-1 = unmapped, read as block
+    0 and masked by the bias): pk/pv [nb, bl, Hkv, D*bits/8] int8 codes
+    or [nb, bl, Hkv, D] in q's dtype, pk_scale/pk_zero [nb, bl/group,
+    Hkv, D] f32, pv_scale/pv_zero [nb, bl, Hkv] f32 (bits < 16);
+    bias_main [B, n_max*bl] f32. Returns (out [B, Hq, D] in q.dtype,
+    mass [B, n_max*bl + W] f32 | None)."""
+    _check_q(q, compute_dtype)
+    q = q.contiguous()
+    B, Hq, D = q.shape
+    nb, bl, Hkv = pk.shape[0], pk.shape[1], pk.shape[2]
+    n_max = block_tbl.shape[-1]
+    S = n_max * bl
+    _check_heads(Hq, Hkv, D, S)
+    quant = bits < 16
+    if quant:
+        if bits not in (2, 4, 8) or D % (8 // bits) or bl % group:
+            raise ValueError(f"bits={bits} group={group} D={D} block={bl} "
+                             "not tileable")
+        packed = (nb, bl, Hkv, D * bits // 8)
+        kmeta, vmeta = (nb, bl // group, Hkv, D), (nb, bl, Hkv)
+        tensors = [(pk, torch.int8, packed), (pv, torch.int8, packed),
+                   (pk_scale, torch.float32, kmeta),
+                   (pk_zero, torch.float32, kmeta),
+                   (pv_scale, torch.float32, vmeta),
+                   (pv_zero, torch.float32, vmeta)]
+    else:
+        if bits != 16:
+            raise ValueError(f"bits={bits}")
+        tensors = [(pk, q.dtype, (nb, bl, Hkv, D)),
+                   (pv, q.dtype, (nb, bl, Hkv, D))]
+    tensors += [(block_tbl, torch.int32, (B, n_max)),
+                (bias_main, torch.float32, (B, S))]
+    W, ring, out, scores, mass_h = _ring_and_mass(q, rk, rv, bias_ring, B,
+                                                  Hkv, S, return_mass)
+    _check(tensors + ring, q.device)
+    decode_attn_paged_kernel(
+        _ptr(q), _ptr(block_tbl), _ptr(pk),
+        _ptr(pk_scale if quant else None), _ptr(pk_zero if quant else None),
+        _ptr(pv), _ptr(pv_scale if quant else None),
+        _ptr(pv_zero if quant else None), _ptr(bias_main),
+        _ptr(rk if W else None), _ptr(rv if W else None),
+        _ptr(bias_ring if W else None), _ptr(out), _ptr(scores),
+        _ptr(mass_h), B, n_max, bl, nb, W, Hkv, Hq // Hkv, D,
+        group if quant else 1, bits, _DTYPES[q.dtype],
+        int(compute_dtype == torch.bfloat16), 1.0 / math.sqrt(D),
+        stream_handle(q.device))
     return out, (mass_h.sum(dim=1) if return_mass else None)
 
 
@@ -120,3 +199,22 @@ def decode_attention_fused(q, k, k_scale, k_zero, v, v_scale, v_zero,
                             bias_main, rk, rv, bias_ring, bits=bits,
                             group=group, return_mass=return_mass,
                             compute_dtype=compute_dtype)
+
+
+def decode_attention_paged(q, block_tbl, pk, pk_scale, pk_zero, pv,
+                           pv_scale, pv_zero, bias_main, rk, rv, bias_ring,
+                           *, bits: int, group: int,
+                           return_mass: bool = False, compute_dtype=None):
+    """Decode attention over [paged main store | ring] (shapes as
+    `decode_attn_paged_cuda`): the kernel on the card, the plain version
+    on the CPU. Returns (out, mass | None)."""
+    if q.device.type == "cpu":
+        out, mass = ref.decode_attn_paged_ref(
+            q, block_tbl, pk, pk_scale, pk_zero, pv, pv_scale, pv_zero,
+            bias_main, rk, rv, bias_ring, bits=bits, group=group,
+            compute_dtype=compute_dtype or torch.float32)
+        return out, (mass if return_mass else None)
+    return decode_attn_paged_cuda(
+        q, block_tbl, pk, pk_scale, pk_zero, pv, pv_scale, pv_zero,
+        bias_main, rk, rv, bias_ring, bits=bits, group=group,
+        return_mass=return_mass, compute_dtype=compute_dtype)

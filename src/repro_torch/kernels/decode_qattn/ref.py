@@ -38,3 +38,27 @@ def decode_attn_ref(q, k, k_scale, k_zero, v, v_scale, v_zero, bias_main,
     o = torch.einsum("bhgs,bshd->bhgd", p, vd)
     mass = p.sum(dim=(1, 2))                     # [B, S+W]
     return o.reshape(B, Hq, D).to(q.dtype), mass
+
+
+def gather_pool(pool, block_tbl):
+    """[nb, r, ...] pool rows in `block_tbl` [B, n_max] order ->
+    [B, n_max*r, ...]; -1 entries read block 0 (out-of-range ids clamp,
+    as a JAX gather does)."""
+    B, n_max = block_tbl.shape
+    tbl = block_tbl.clamp(0, pool.shape[0] - 1).long()
+    return pool[tbl].reshape(B, n_max * pool.shape[1], *pool.shape[2:])
+
+
+def decode_attn_paged_ref(q, block_tbl, pk, pk_scale, pk_zero, pv, pv_scale,
+                          pv_zero, bias_main, rk, rv, bias_ring, *,
+                          bits: int, group: int, compute_dtype=torch.float32):
+    """Same contract as `ops.decode_attn_paged_cuda`: gather each slot's
+    blocks (-1 clamped to block 0, masked by the bias), then
+    `decode_attn_ref` — the JAX tests' own oracle for the paged kernel."""
+    def g(pool):
+        return None if pool is None else gather_pool(pool, block_tbl)
+
+    return decode_attn_ref(q, g(pk), g(pk_scale), g(pk_zero), g(pv),
+                           g(pv_scale), g(pv_zero), bias_main, rk, rv,
+                           bias_ring, bits=bits, group=group,
+                           compute_dtype=compute_dtype)

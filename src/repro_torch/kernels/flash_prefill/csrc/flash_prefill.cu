@@ -2,7 +2,21 @@
 //
 // Replaces: src/repro/kernels/flash_prefill/kernel.py:flash_prefill_pallas
 // (body `_kernel`), the TPU prompt-prefill attention of the policies that
-// read no attention mass (full / streaming / quantized-only).
+// read no attention mass (full / streaming / quantized-only), entry point
+// `flash_prefill_launch`; and src/repro/kernels/flash_prefill/kernel.py:
+// flash_prefill_chunk_pallas (body `_chunk_kernel`), its rectangular
+// chunked-prefill variant, entry point `flash_prefill_chunk_launch`.
+//
+// One kernel serves both. A Tq-row prompt segment sits at absolute rows
+// q_offset .. q_offset+Tq-1 and attends the Tk-row prompt scratch under
+// a causal test on absolute positions; the monolithic prefill is the
+// case q_offset = 0, Tq = Tk. Scratch rows past the segment's end are
+// still zero: they are masked by position, never trusted to be zero.
+// q_offset is a kernel argument (one build, any offset). With segment
+// offsets on the 64-row tile grid, a segment's query tiles are the whole
+// prompt's tiles and visit the same key tiles in the same order, and a
+// masked key adds an exact zero, so concatenated segment outputs are
+// bit-equal to the monolithic kernel's.
 //
 // What bounds it on an H100: operations. Each 64x64 score tile costs
 // 2*64*64*D flops for QK^T and as many for PV against 2*64*D loaded
@@ -11,7 +25,7 @@
 //
 // Design: one CTA of 256 threads per (64-row query tile, query head,
 // sequence); the CTA loops over 64-row key tiles from the window's start
-// up to the causal diagonal — the loop replaces the TPU's sequential kv
+// up to the causal diagonal of its last absolute row — the loop replaces the TPU's sequential kv
 // grid axis, and fully masked tiles are never visited at all. GQA maps
 // query head h to kv head h / Gq. Q/K/V tiles and the probability tile
 // live in shared memory as f32 (dynamic shared memory, ~113 KB at
@@ -35,11 +49,11 @@ constexpr int BQ = 64, BK = 64, NT = 256;
 constexpr float NEG_INF = -1e30f;
 
 struct Params {
-  const void* q;   // [B, T, Hq, D]
-  const void* k;   // [B, T, Hkv, D]
+  const void* q;   // [B, Tq, Hq, D] rows at absolute q_offset + t
+  const void* k;   // [B, Tk, Hkv, D]
   const void* v;
-  void* out;       // [B, T, Hq, D]
-  int B, T, Hq, Hkv, window;
+  void* out;       // [B, Tq, Hq, D]
+  int B, Tq, Tk, q_offset, Hq, Hkv, window;
   float scale;
 };
 
@@ -74,16 +88,18 @@ __global__ void __launch_bounds__(NT) flash_prefill_kernel(Params p) {
   const int qt = gridDim.x - 1 - blockIdx.x;   // longest tiles first
   const int hq = blockIdx.y, b = blockIdx.z;
   const int Gq = p.Hq / p.Hkv, hk = hq / Gq;
-  const int L = p.T, q0 = qt * BQ;
+  const int Tq = p.Tq, Tk = p.Tk;
+  const int q0 = qt * BQ;                // first segment row of the tile
+  const int qa0 = p.q_offset + q0;       // its absolute position
   const int t = threadIdx.x, ty = t / 16, tx = t % 16;
   const T* qg = (const T*)p.q;
   const T* kg = (const T*)p.k;
   const T* vg = (const T*)p.v;
 
   for (int i = t; i < BQ * D; i += NT) {
-    const int r = i / D, d = i % D, qpos = q0 + r;
-    Qs[r * QS + d] = qpos < L
-        ? to_f32(qg[(((size_t)b * L + qpos) * p.Hq + hq) * D + d]) : 0.f;
+    const int r = i / D, d = i % D, qrow = q0 + r;
+    Qs[r * QS + d] = qrow < Tq
+        ? to_f32(qg[(((size_t)b * Tq + qrow) * p.Hq + hq) * D + d]) : 0.f;
   }
 
   float m[4], l[4], acc[4][DJ];
@@ -95,15 +111,17 @@ __global__ void __launch_bounds__(NT) flash_prefill_kernel(Params p) {
     for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
   }
 
-  const int q_last = min(q0 + BQ, L) - 1;
-  for (int k0 = 0; k0 <= q_last; k0 += BK) {
-    if (p.window > 0 && k0 + BK - 1 <= q0 - p.window) continue;
+  // last absolute row of the tile, and the last key it can see
+  const int q_last = p.q_offset + min(q0 + BQ, Tq) - 1;
+  const int k_last = min(q_last, Tk - 1);
+  for (int k0 = 0; k0 <= k_last; k0 += BK) {
+    if (p.window > 0 && k0 + BK - 1 <= qa0 - p.window) continue;
     __syncthreads();   // the previous tile's K/V/P are consumed
     for (int i = t; i < BK * D; i += NT) {
       const int r = i / D, d = i % D, kpos = k0 + r;
       float kv = 0.f, vv = 0.f;
-      if (kpos < L) {
-        const size_t o = (((size_t)b * L + kpos) * p.Hkv + hk) * D + d;
+      if (kpos < Tk) {
+        const size_t o = (((size_t)b * Tk + kpos) * p.Hkv + hk) * D + d;
         kv = to_f32(kg[o]);
         vv = to_f32(vg[o]);
       }
@@ -131,12 +149,12 @@ __global__ void __launch_bounds__(NT) flash_prefill_kernel(Params p) {
 
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i, qpos = q0 + r;
+      const int r = ty * 4 + i, qpos = qa0 + r;
       float mx = NEG_INF;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kpos = k0 + tx + 16 * j;
-        bool ok = kpos <= qpos && kpos < L;
+        bool ok = kpos <= qpos && kpos < Tk;
         if (p.window > 0) ok = ok && kpos > qpos - p.window;
         s[i][j] = ok ? s[i][j] * p.scale : NEG_INF;
         mx = fmaxf(mx, s[i][j]);
@@ -178,12 +196,12 @@ __global__ void __launch_bounds__(NT) flash_prefill_kernel(Params p) {
   T* og = (T*)p.out;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int qpos = q0 + ty * 4 + i;
-    if (qpos >= L) continue;
+    const int qrow = q0 + ty * 4 + i;
+    if (qrow >= Tq) continue;
     const float l_i = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int j = 0; j < DJ; ++j)
-      og[(((size_t)b * L + qpos) * p.Hq + hq) * D + tx + 16 * j] =
+      og[(((size_t)b * Tq + qrow) * p.Hq + hq) * D + tx + 16 * j] =
           from_f32<T>(acc[i][j] / l_i);
   }
 }
@@ -199,20 +217,15 @@ cudaError_t launch(const Params& p, cudaStream_t st) {
     if (e != cudaSuccess) return e;
     configured = true;
   }
-  dim3 grid((p.T + BQ - 1) / BQ, p.Hq, p.B);
+  dim3 grid((p.Tq + BQ - 1) / BQ, p.Hq, p.B);
   flash_prefill_kernel<T, D><<<grid, NT, smem, st>>>(p);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// dtype: 0 = float32, 1 = bfloat16. head_dim must be 64 or 128.
-extern "C" int flash_prefill_launch(const void* q, const void* k,
-                                    const void* v, void* out, int B, int T,
-                                    int Hq, int Hkv, int D, int window,
-                                    int dtype, float scale, void* stream) {
-  if (T < 1 || Hkv < 1 || Hq % Hkv) return (int)cudaErrorInvalidValue;
-  Params p{q, k, v, out, B, T, Hq, Hkv, window, scale};
+int launch_any(const Params& p, int D, int dtype, void* stream) {
+  if (p.Tq < 1 || p.Tk < 1 || p.q_offset < 0 || p.q_offset + p.Tq > p.Tk
+      || p.Hkv < 1 || p.Hq % p.Hkv)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t e;
   if (D == 128)
@@ -224,4 +237,27 @@ extern "C" int flash_prefill_launch(const void* q, const void* k,
   else
     e = cudaErrorInvalidValue;
   return (int)e;
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16. head_dim must be 64 or 128.
+extern "C" int flash_prefill_launch(const void* q, const void* k,
+                                    const void* v, void* out, int B, int T,
+                                    int Hq, int Hkv, int D, int window,
+                                    int dtype, float scale, void* stream) {
+  Params p{q, k, v, out, B, T, T, 0, Hq, Hkv, window, scale};
+  return launch_any(p, D, dtype, stream);
+}
+
+// One Tq-row segment at absolute rows q_offset.. against the Tk-row
+// prompt scratch (q_offset + Tq <= Tk).
+extern "C" int flash_prefill_chunk_launch(const void* q, const void* k,
+                                          const void* v, void* out, int B,
+                                          int Tq, int Tk, int q_offset,
+                                          int Hq, int Hkv, int D, int window,
+                                          int dtype, float scale,
+                                          void* stream) {
+  Params p{q, k, v, out, B, Tq, Tk, q_offset, Hq, Hkv, window, scale};
+  return launch_any(p, D, dtype, stream);
 }

@@ -1,6 +1,6 @@
-"""Causal flash prefill: the CUDA kernel's wrapper, and the device
-dispatch (plain version for CPU tensors, the kernel on the card — no
-other path there)."""
+"""Causal flash prefill, monolithic and chunked: the CUDA kernels'
+wrappers, and the device dispatch (plain versions for CPU tensors, the
+kernels on the card — no other path there)."""
 from __future__ import annotations
 
 import ctypes
@@ -9,40 +9,70 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels.build import CudaKernel, stream_handle
+from repro_torch.kernels.build import CudaKernel, CudaSource, stream_handle
 from repro_torch.kernels.flash_prefill import ref
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
-flash_prefill_kernel = CudaKernel(
-    Path(__file__).parent / "csrc" / "flash_prefill.cu",
-    "flash_prefill_launch", [_P] * 4 + [_I] * 7 + [_F, _P])
+SOURCE = CudaSource(Path(__file__).parent / "csrc" / "flash_prefill.cu")
+flash_prefill_kernel = CudaKernel(SOURCE, "flash_prefill_launch",
+                                  [_P] * 4 + [_I] * 7 + [_F, _P])
+flash_prefill_chunk_kernel = CudaKernel(SOURCE, "flash_prefill_chunk_launch",
+                                        [_P] * 4 + [_I] * 9 + [_F, _P])
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128)
+
+
+def _check(q, k, v, what):
+    B, Tq, Hq, D = q.shape
+    Tk, Hkv = k.shape[1], k.shape[2]
+    if (q.device.type != "cuda" or q.dtype not in _DTYPES
+            or k.dtype != q.dtype or v.dtype != q.dtype
+            or D not in HEAD_DIMS or Hkv < 1 or Hq % Hkv
+            or tuple(k.shape) != (B, Tk, Hkv, D) or k.shape != v.shape
+            or k.device != q.device or v.device != q.device):
+        raise ValueError(f"{what}: q {tuple(q.shape)} {q.dtype} {q.device}, "
+                         f"k {tuple(k.shape)} {k.dtype}, v {tuple(v.shape)} "
+                         f"{v.dtype} (CUDA, D in {HEAD_DIMS})")
 
 
 def flash_prefill_cuda(q, k, v, *, window: int = 0):
     """q: [B, T, Hq, D]; k, v: [B, T, Hkv, D] (CUDA, one dtype of f32 /
     bf16, D in HEAD_DIMS). Causal, optionally sliding-window attention;
     returns [B, T, Hq, D] in q.dtype."""
-    if q.device.type != "cuda":
-        raise ValueError("flash_prefill_cuda takes CUDA tensors")
+    _check(q, k, v, "flash_prefill_cuda")
     B, T, Hq, D = q.shape
-    Hkv = k.shape[2]
-    if (q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype
-            or D not in HEAD_DIMS or Hkv < 1 or Hq % Hkv
-            or tuple(k.shape) != (B, T, Hkv, D) or k.shape != v.shape
-            or k.device != q.device or v.device != q.device):
-        raise ValueError(f"flash_prefill_cuda: q {tuple(q.shape)} "
-                         f"{q.dtype}, k {tuple(k.shape)} {k.dtype}, v "
-                         f"{tuple(v.shape)} {v.dtype} (D in {HEAD_DIMS})")
+    if k.shape[1] != T:
+        raise ValueError(f"flash_prefill_cuda: {T} queries, {k.shape[1]} keys")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
     flash_prefill_kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                         out.data_ptr(), B, T, Hq, Hkv, D, int(window),
-                         _DTYPES[q.dtype], 1.0 / math.sqrt(D),
+                         out.data_ptr(), B, T, Hq, k.shape[2], D,
+                         int(window), _DTYPES[q.dtype], 1.0 / math.sqrt(D),
                          stream_handle(q.device))
+    return out
+
+
+def flash_prefill_chunk_cuda(q, k, v, *, q_offset: int, window: int = 0):
+    """q: [B, Tq, Hq, D], one prompt segment at absolute rows q_offset ..
+    q_offset+Tq-1; k, v: [B, Tk, Hkv, D], the prompt scratch (rows past
+    the segment may hold anything: they are masked by position).
+    q_offset is a host int with q_offset + Tq <= Tk. Returns
+    [B, Tq, Hq, D] in q.dtype."""
+    _check(q, k, v, "flash_prefill_chunk_cuda")
+    B, Tq, Hq, D = q.shape
+    Tk = k.shape[1]
+    q_offset = int(q_offset)
+    if q_offset < 0 or q_offset + Tq > Tk:
+        raise ValueError(f"flash_prefill_chunk_cuda: segment {q_offset}+"
+                         f"{Tq} outside the {Tk}-row scratch")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty_like(q)
+    flash_prefill_chunk_kernel(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Tq, Tk,
+        q_offset, Hq, k.shape[2], D, int(window), _DTYPES[q.dtype],
+        1.0 / math.sqrt(D), stream_handle(q.device))
     return out
 
 
@@ -52,3 +82,13 @@ def flash_attention(q, k, v, *, window: int = 0):
     if q.device.type == "cpu":
         return ref.flash_prefill_ref(q, k, v, window=window)
     return flash_prefill_cuda(q, k, v, window=window)
+
+
+def flash_attention_chunk(q, k, v, *, q_offset: int, window: int = 0):
+    """Chunked-prefill flash attention (shapes as
+    `flash_prefill_chunk_cuda`): the kernel on the card, the plain
+    version on the CPU."""
+    if q.device.type == "cpu":
+        return ref.flash_prefill_chunk_ref(q, k, v, q_offset=q_offset,
+                                           window=window)
+    return flash_prefill_chunk_cuda(q, k, v, q_offset=q_offset, window=window)

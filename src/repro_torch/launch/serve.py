@@ -10,6 +10,11 @@ seed, on the card unless ``--device cpu``.
     # EOS/early-exit slot reuse over one persistent cache
     python -m repro_torch.launch.serve --arch granite-8b --reduced \\
         --policy h2o+kivi2 --budget 64 --continuous --buckets 128,256
+
+    # ... over a paged block pool, prompts admitted in 64-token segments
+    python -m repro_torch.launch.serve --arch granite-8b --reduced \\
+        --policy h2o+kivi2 --budget 64 --continuous --buckets 128,256 \\
+        --paged --chunked-prefill --chunk-len 64
 """
 from __future__ import annotations
 
@@ -44,12 +49,36 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--eos-id", type=int, default=-1,
                     help="EOS token id for --continuous early exit "
                          "(-1: length-based exit only)")
+    ap.add_argument("--use-kernels", choices=("on", "off"), default="on",
+                    help="on: the CUDA kernels (their plain versions on "
+                         "the CPU); off: the materialize / matmul "
+                         "reference path")
+    ap.add_argument("--paged", action="store_true",
+                    help="paged block-table KV cache for --continuous: one "
+                         "physical pool shared across slots, block-aware "
+                         "admission, blocks recycled on retire")
+    ap.add_argument("--block-len", type=int, default=16,
+                    help="tokens per pool block (snapped to the store "
+                         "shape; quantized stores use the flush group)")
+    ap.add_argument("--pool-blocks", type=int, default=0,
+                    help="physical pool size in blocks (0 = capacity "
+                         "parity with the dense layout); smaller pools "
+                         "refuse admission until blocks free up")
+    ap.add_argument("--chunked-prefill", action="store_true",
+                    help="stream admissions in --chunk-len segments "
+                         "between decode steps (--continuous only): "
+                         "resident slots keep emitting tokens while a "
+                         "prompt loads, token streams unchanged")
+    ap.add_argument("--chunk-len", type=int, default=64,
+                    help="prompt tokens per prefill segment (snapped "
+                         "down to the mass-accumulation group)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; cpu runs the "
                          "kernels' plain versions)")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
+    use_kernels = args.use_kernels == "on"
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
@@ -62,7 +91,11 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                          or {args.prompt_len})
         eng = Engine(cfg, params, pol, prompt_len=max(buckets),
                      max_new=args.max_new, slots=args.slots, buckets=buckets,
-                     device=device)
+                     use_kernels=use_kernels, device=device,
+                     paged=args.paged, block_len=args.block_len,
+                     pool_blocks=args.pool_blocks or None,
+                     chunked_prefill=args.chunked_prefill,
+                     chunk_len=args.chunk_len)
         eos = args.eos_id if args.eos_id >= 0 else None
         reqs = [
             Request(tokens=rng.integers(0, cfg.vocab_size,
@@ -83,12 +116,17 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
               f"(logical {res.cache_logical_bytes / 2**20:.1f} MiB vs "
               f"full {res.full_cache_bytes / 2**20:.1f} MiB; resident "
               f"{res.cache_physical_bytes / 2**20:.1f} MiB)")
+        if args.paged:
+            print(f"paged: pool {res.pool_blocks} blocks, peak "
+                  f"{res.pool_peak_blocks}, failed {len(res.failed())}, "
+                  f"audit clean={eng.last_audit['clean']}")
         return
 
     prompts = rng.integers(0, cfg.vocab_size,
                            size=(args.requests, args.prompt_len))
     eng = Engine(cfg, params, pol, prompt_len=args.prompt_len,
-                 max_new=args.max_new, slots=args.slots, device=device)
+                 max_new=args.max_new, slots=args.slots,
+                 use_kernels=use_kernels, device=device)
     res = eng.generate(prompts)
     print(f"policy={res.policy_name}")
     print(f"prefill_s={res.prefill_seconds:.2f} "

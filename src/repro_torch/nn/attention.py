@@ -9,7 +9,8 @@ Decode has two implementations of one contract:
     plain attention — tests and the on-card comparison only;
   * the **kernel path** (`use_kernels=True`, the default): the fused
     decode kernel reads the packed codes directly (`decode_qattn.ops`;
-    its plain version when the tensors lie on the CPU).
+    its plain version when the tensors lie on the CPU) — from the dense
+    store, or from a paged pool through the block table.
 """
 from __future__ import annotations
 
@@ -79,10 +80,15 @@ def gqa_attention(q, k, v, *, causal: bool, window: int = 0,
                   q_positions: Optional[torch.Tensor] = None,
                   kv_positions: Optional[torch.Tensor] = None,
                   kv_bias: Optional[torch.Tensor] = None, q_chunk: int = 512,
-                  return_mass: bool = False, mass_group: Optional[int] = None):
+                  return_mass: bool = False, mass_group: Optional[int] = None,
+                  mass_init: Optional[torch.Tensor] = None):
     """q: [B, Tq, Hq, D]; k, v: [B, Tk, Hkv, D]; kv_bias: [B, Tk].
     Chunked over Tq (scores never exceed [.., q_chunk, Tk]). Returns out
-    [B, Tq, Hq, D] (+ attention mass [B, Tk] if requested)."""
+    [B, Tq, Hq, D] (+ attention mass [B, Tk] if requested).
+
+    `mass_init` seeds the mass fold: chunked prefill passes the running
+    mass, so a prompt split across calls accumulates the association
+    chain of one monolithic call."""
     B, Tq, Hq, D = q.shape
     Tk, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -108,7 +114,8 @@ def gqa_attention(q, k, v, *, causal: bool, window: int = 0,
             b = b + kv_bias[:, None, None, None, :]
         return b
 
-    mass = torch.zeros((B, Tk), dtype=torch.float32, device=dev)
+    mass = (mass_init if mass_init is not None
+            else torch.zeros((B, Tk), dtype=torch.float32, device=dev))
     outs = []
     if Tq > q_chunk and Tq % q_chunk and return_mass:
         raise ValueError("return_mass requires Tq % q_chunk == 0")
@@ -123,19 +130,20 @@ def gqa_attention(q, k, v, *, causal: bool, window: int = 0,
     return (out, mass) if return_mass else out
 
 
-def _kernel_supported(lc: LayerKV, spec: CacheSpec) -> bool:
+def _kernel_supported(lc, spec: CacheSpec) -> bool:
     S = lc.scores.shape[1]
     if spec.quantized:
         return S % spec.group == 0 and spec.bits in (2, 4, 8)
     return True
 
 
-def decode_attention(q: torch.Tensor, lc: LayerKV, spec: CacheSpec, *,
+def decode_attention(q: torch.Tensor, lc, spec: CacheSpec, *,
                      window: int = 0, dtype=torch.bfloat16,
                      q_pos: Optional[torch.Tensor] = None,
                      use_kernels: bool = True):
     """q: [B, 1, Hq, D] rotated at absolute position `q_pos` [B]
     (default lc.pos - 1: append-first, the token attends to itself).
+    `lc` is a dense `LayerKV` or a `paging.PagedLayerKV`.
 
     Returns (out [B, 1, Hq, D], attn_mass [B, S+W]) with the mass aligned
     to `materialize_kv` ordering; the kernel computes the mass only when
@@ -159,18 +167,27 @@ def decode_attention(q: torch.Tensor, lc: LayerKV, spec: CacheSpec, *,
             raise ValueError(f"decode kernel cannot tile S={S} with "
                              f"group={spec.group} bits={spec.bits}")
         quant = spec.quantized
-        want_mass = spec.track_scores()
-        out, mass = dq_ops.decode_attention_fused(
-            q[:, 0].contiguous(),
-            lc.k, lc.k_scale if quant else None,
-            lc.k_zero if quant else None,
-            lc.v, lc.v_scale if quant else None,
-            lc.v_zero if quant else None,
-            bias[:, :S].contiguous(),
-            lc.rk if W else None, lc.rv if W else None,
-            bias[:, S:].contiguous() if W else None,
-            bits=spec.bits if quant else 16, group=spec.group,
-            return_mass=want_mass, compute_dtype=dtype)
+        ring = ((lc.rk, lc.rv, bias[:, S:].contiguous()) if W
+                else (None, None, None))
+        kw = dict(bits=spec.bits if quant else 16, group=spec.group,
+                  return_mass=spec.track_scores(), compute_dtype=dtype)
+        if isinstance(lc, LayerKV):
+            out, mass = dq_ops.decode_attention_fused(
+                q[:, 0].contiguous(),
+                lc.k, lc.k_scale if quant else None,
+                lc.k_zero if quant else None,
+                lc.v, lc.v_scale if quant else None,
+                lc.v_zero if quant else None,
+                bias[:, :S].contiguous(), *ring, **kw)
+        else:
+            # block-table walk over the shared pool: never gathered
+            out, mass = dq_ops.decode_attention_paged(
+                q[:, 0].contiguous(), lc.block_tbl,
+                lc.pk, lc.pk_scale if quant else None,
+                lc.pk_zero if quant else None,
+                lc.pv, lc.pv_scale if quant else None,
+                lc.pv_zero if quant else None,
+                bias[:, :S].contiguous(), *ring, **kw)
         if mass is None:
             mass = torch.zeros((B, S + W), dtype=torch.float32,
                                device=q.device)

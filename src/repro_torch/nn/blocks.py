@@ -1,5 +1,6 @@
 """Decoder blocks: attention mixer + dense SwiGLU FFN, pre-norm residual
-(counterpart of `repro.nn.blocks` for `attn` mixers with a dense FFN)."""
+(counterpart of `repro.nn.blocks` for `attn` mixers with a dense FFN):
+monolithic prefill, one chunked-prefill segment, and decode."""
 from __future__ import annotations
 
 from typing import Optional
@@ -7,7 +8,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import cache as kvcache
-from repro_torch.core.cache import CacheSpec, LayerKV
+from repro_torch.core.cache import CacheSpec
 from repro_torch.kernels.flash_prefill import ops as fp_ops
 from repro_torch.nn import attention as attn
 from repro_torch.nn import layers as L
@@ -39,10 +40,53 @@ def block_prefill(p: dict, x: torch.Tensor, cfg, spec: CacheSpec, *,
     return _ffn(p, x, cfg), lc
 
 
-def block_decode(p: dict, x: torch.Tensor, cfg, spec: CacheSpec,
-                 lc: LayerKV, *, ring_full: Optional[bool] = None):
-    """x: [B, 1, d_model]. Appends this token's K/V to `lc` (in place),
-    attends over the cache, accumulates the mass. Returns x."""
+def block_prefill_chunk(p: dict, x: torch.Tensor, cfg, spec: CacheSpec,
+                        k_scr: torch.Tensor, v_scr: torch.Tensor,
+                        mass_scr: torch.Tensor, c0: int) -> torch.Tensor:
+    """One attention layer's step of a chunked prefill.
+
+    x: [1, C, d_model], the segment at absolute prompt rows c0..c0+C-1
+    (c0 a host int, MASS_GROUP-aligned). k_scr/v_scr: [1, T, Hkv, D]
+    full-precision prompt K/V scratch (rows past this segment still
+    zero); mass_scr: [1, T] running attention mass. The segment's K/V go
+    into the scratch first (in place), then its queries attend the whole
+    scratch under the causal test on absolute positions — the prefix in
+    full, causal within the segment — so activations, and the scratch
+    `compress_prompt` sees at finalize, are those of a monolithic
+    `block_prefill`. Policies that read the mass fold it into `mass_scr`
+    in place. Returns x."""
+    h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
+    C = x.shape[1]
+    positions = torch.arange(c0, c0 + C, device=x.device)[None]
+    q, k, v = attn.qkv(p["attn"], h, cfg, positions)
+    k_scr[:, c0:c0 + C] = k.to(k_scr.dtype)
+    v_scr[:, c0:c0 + C] = v.to(v_scr.dtype)
+    if _use_flash_prefill_chunk(cfg, spec):
+        # same rule as the monolithic path: policies that never read the
+        # mass take the flash kernel and keep zero mass
+        o = fp_ops.flash_attention_chunk(q, k_scr, v_scr, q_offset=c0,
+                                         window=cfg.sliding_window)
+    else:
+        o, mass = attn.gqa_attention(
+            q, k_scr, v_scr, causal=True, window=cfg.sliding_window,
+            q_positions=positions, return_mass=True,
+            mass_group=attn.MASS_GROUP, mass_init=mass_scr)
+        mass_scr.copy_(mass)
+    x = x + L.linear(p["attn"]["wo"], o.reshape(1, C, -1))
+    return _ffn(p, x, cfg)
+
+
+def _use_flash_prefill_chunk(cfg, spec: CacheSpec) -> bool:
+    """Chunk twin of the monolithic dispatch: the kernel path, for
+    policies that read no attention mass."""
+    return cfg.use_kernels and not spec.track_scores()
+
+
+def block_decode(p: dict, x: torch.Tensor, cfg, spec: CacheSpec, lc, *,
+                 ring_full: Optional[bool] = None):
+    """x: [B, 1, d_model]. Appends this token's K/V to `lc` (a dense or
+    paged layer cache, in place), attends over the cache, accumulates
+    the mass. Returns x."""
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
     pos = lc.pos[:, None].clone()   # [B, 1]; the append advances lc.pos
     q, k_new, v_new = attn.qkv(p["attn"], h, cfg, pos)

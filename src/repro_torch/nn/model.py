@@ -1,30 +1,33 @@
-"""The LM: init_params / prefill / decode_step / init_cache (counterpart of
-`repro.nn.model` for attention-only dense decoders).
+"""The LM: init_params / prefill / chunked prefill / decode_step /
+init_cache (counterpart of `repro.nn.model` for attention-only dense
+decoders).
 
 Parameters keep the JAX package's tree: ``blocks/sub0/...`` leaves carry
 a leading ``[n_sb]`` layer dim (one layer per superblock: n_sb is the
 number of layers for these attention-only decoders), linear weights
-are ``[d_in, d_out]``. The cache is a `ModelCache` whose `LayerKV` leaves
-carry leading ``[n_sb, nA]`` dims (nA = 1), also the JAX layout. A Python
-loop over layers takes the place of `lax.scan`; decode updates the cache
-in place.
+are ``[d_in, d_out]``. The cache is a `ModelCache` whose `LayerKV` (or
+paged `PagedLayerKV`) leaves carry leading ``[n_sb, nA]`` dims (nA = 1),
+also the JAX layout. A Python loop over layers takes the place of
+`lax.scan`; decode and the chunked-prefill segments update the cache and
+the prompt scratch in place.
 """
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional, Sequence
+from typing import NamedTuple, Optional, Sequence, Union
 
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import cache as kvcache
+from repro_torch.core import paging
 from repro_torch.core.cache import CacheSpec, LayerKV
 from repro_torch.nn import blocks as B
 from repro_torch.nn import layers as L
 
 
 class ModelCache(NamedTuple):
-    attn: LayerKV    # leaves [n_sb, nA, B, ...]
+    attn: Union[LayerKV, paging.PagedLayerKV]    # leaves [n_sb, nA, ...]
 
 
 def _block_shapes(cfg) -> dict:
@@ -115,10 +118,129 @@ def prefill(params, cfg, batch: dict, spec: CacheSpec, *,
         x, lc = B.block_prefill(_layer(params["blocks"]["sub0"], i), x, cfg,
                                 spec, logical_budget=int(layer_budgets[i]))
         pieces.append(lc)
-    attn_c = LayerKV(*(torch.stack(leaves)[:, None]
-                       for leaves in zip(*pieces)))
     logits = _logits(params, cfg, x[:, -1:])[:, 0]
-    return logits, ModelCache(attn_c)
+    return logits, _stack_layers(pieces)
+
+
+def _stack_layers(pieces) -> ModelCache:
+    """Per-layer batch caches -> one `ModelCache` with [n_sb, nA] dims."""
+    return ModelCache(LayerKV(*(torch.stack(leaves)[:, None]
+                                for leaves in zip(*pieces))))
+
+
+# ---------------------------------------------------------------------------
+# Chunked prefill: a prompt admitted in segments
+# ---------------------------------------------------------------------------
+#
+# An admission streams its prompt in MASS_GROUP-aligned segments. Each
+# segment runs every layer against a per-admission scratch of the exact
+# prompt K/V and the running attention mass (`PrefillState`): its K/V are
+# written into the scratch, its queries attend the whole scratch under the
+# causal test on absolute positions, and the mass folds in the canonical
+# grouped order (`nn.attention.MASS_GROUP`). `prefill_finalize` then runs
+# the same per-layer `compress_prompt` as the monolithic `prefill`, on the
+# same scratch, so the admitted cache and the first token are those of a
+# monolithic admission (the JAX package's contract, held against it by
+# the tests).
+
+
+class PrefillState(NamedTuple):
+    """Per-admission scratch, layer-stacked like `ModelCache.attn`."""
+
+    k: torch.Tensor      # [n_sb, nA, 1, T, Hkv, D] model dtype
+    v: torch.Tensor      # [n_sb, nA, 1, T, Hkv, D]
+    mass: torch.Tensor   # [n_sb, nA, 1, T] f32
+
+
+def _check_chunkable(cfg) -> None:
+    """Chunked prefill needs an attention-only decoder: SSM state and MoE
+    capacity couple tokens across segments (the JAX package gates those
+    archs; the port serves dense decoders only)."""
+    if cfg.arch_type != "dense":
+        raise ValueError(f"chunked prefill is attention-only; arch_type "
+                         f"{cfg.arch_type!r}")
+
+
+def init_prefill_state(cfg, prompt_len: int, *, device=None) -> PrefillState:
+    _check_chunkable(cfg)
+    n_sb, H, D = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    kv = (n_sb, 1, 1, prompt_len, H, D)
+    return PrefillState(
+        k=torch.zeros(kv, dtype=cfg.dtype, device=device),
+        v=torch.zeros(kv, dtype=cfg.dtype, device=device),
+        mass=torch.zeros((n_sb, 1, 1, prompt_len), dtype=torch.float32,
+                         device=device))
+
+
+def prefill_chunk(params, cfg, st: PrefillState, tokens: torch.Tensor,
+                  c0: int, spec: CacheSpec):
+    """Run one prompt segment. tokens: [1, C] (C MASS_GROUP-aligned except
+    a final ragged segment); c0: host int absolute start. Updates `st` in
+    place; returns (logits [1, V] of the segment's last token, st)."""
+    x = L.embed(params["embed"], tokens)
+    for i in range(cfg.num_layers):
+        x = B.block_prefill_chunk(_layer(params["blocks"]["sub0"], i), x,
+                                  cfg, spec, st.k[i, 0], st.v[i, 0],
+                                  st.mass[i, 0], c0)
+    return _logits(params, cfg, x[:, -1:])[:, 0], st
+
+
+def prefill_finalize(cfg, st: PrefillState, spec: CacheSpec, *,
+                     layer_budgets: Optional[Sequence[int]] = None
+                     ) -> ModelCache:
+    """Compress the completed scratch into a batch-1 `ModelCache`: the
+    monolithic `prefill`'s per-layer `compress_prompt` calls."""
+    T = st.mass.shape[-1]
+    if layer_budgets is None:
+        layer_budgets = [spec.main_store_len(T)] * cfg.num_layers
+    return _stack_layers([
+        kvcache.compress_prompt(spec, st.k[i, 0], st.v[i, 0], st.mass[i, 0],
+                                dtype=cfg.dtype,
+                                logical_budget=int(layer_budgets[i]))
+        for i in range(cfg.num_layers)])
+
+
+def prefill_finalize_meta(cfg, st: PrefillState, spec: CacheSpec, *,
+                          layer_budgets: Optional[Sequence[int]] = None
+                          ) -> ModelCache:
+    """Metadata-only finalize for the paged prefill-direct path: a policy
+    that keeps every prompt row verbatim (no quantization, no window,
+    budget covering the prompt — `compress_prompt`'s no-selection branch)
+    has had each segment's K/V streamed straight into the pool
+    (`paging.write_prefill_rows`), so only the dense metadata that branch
+    builds is left. K/V leaves are zero-width: the insert runs with
+    ``pool_write=False`` and never reads them."""
+    n_sb = cfg.num_layers
+    T = st.mass.shape[-1]
+    S = spec.main_store_len(T)
+    if not (S >= T and not spec.quantized and spec.window == 0):
+        raise ValueError("prefill-direct needs the verbatim prompt branch "
+                         "(budget >= prompt, fp, no window)")
+    if layer_budgets is None:
+        layer_budgets = [S] * n_sb
+    H, D = cfg.num_kv_heads, cfg.head_dim
+    dev = st.mass.device
+    lead = (n_sb, 1, 1)
+
+    def z(*shape, dt):
+        return torch.zeros(*lead, *shape, dtype=dt, device=dev)
+
+    i32 = torch.int32
+    scores = z(S, dt=torch.float32)
+    scores[..., :T] = st.mass
+    slot_pos = torch.full((*lead, S), -1, dtype=i32, device=dev)
+    slot_pos[..., :T] = torch.arange(T, dtype=i32, device=dev)
+    return ModelCache(LayerKV(
+        k=z(0, H, D, dt=cfg.dtype), v=z(0, H, D, dt=cfg.dtype),
+        k_scale=z(0, H, D, dt=torch.float32),
+        k_zero=z(0, H, D, dt=torch.float32),
+        v_scale=z(0, H, dt=torch.float32), v_zero=z(0, H, dt=torch.float32),
+        rk=z(0, H, D, dt=cfg.dtype), rv=z(0, H, D, dt=cfg.dtype),
+        r_scores=z(0, dt=torch.float32), scores=scores, slot_pos=slot_pos,
+        length=torch.full(lead, T, dtype=i32, device=dev),
+        rlen=z(dt=i32), pos=torch.full(lead, T, dtype=i32, device=dev),
+        budget=torch.as_tensor([int(b) for b in layer_budgets], dtype=i32,
+                               device=dev).view(n_sb, 1)))
 
 
 def decode_step(params, cfg, cache: ModelCache, token: torch.Tensor,
@@ -139,11 +261,24 @@ def decode_step(params, cfg, cache: ModelCache, token: torch.Tensor,
 
 def init_cache(cfg, spec: CacheSpec, batch: int, max_len: int, *,
                layer_budgets: Optional[Sequence[int]] = None,
-               device=None) -> ModelCache:
+               device=None, paged: bool = False, block_len: int = 16,
+               pool_blocks: Optional[int] = None) -> ModelCache:
+    """The serving cache: dense `LayerKV` leaves, or with `paged` one
+    block pool per layer plus a shared table (`core.paging`; the default
+    pool is capacity parity with the dense layout)."""
     n_sb = cfg.num_layers
-    attn_c = kvcache.init_layer_kv(spec, batch, max_len, cfg.num_kv_heads,
-                                   cfg.head_dim, cfg.dtype, device=device,
-                                   lead=(n_sb, 1))
+    if paged:
+        S = spec.main_store_len(max_len)
+        bl = paging.resolve_block_len(spec, S, block_len)
+        attn_c = paging.init_paged_kv(
+            spec, batch, max_len, cfg.num_kv_heads, cfg.head_dim,
+            n_blocks=pool_blocks or batch * (S // bl), block_len=bl,
+            dtype=cfg.dtype, device=device, lead=(n_sb, 1))
+    else:
+        attn_c = kvcache.init_layer_kv(spec, batch, max_len,
+                                       cfg.num_kv_heads, cfg.head_dim,
+                                       cfg.dtype, device=device,
+                                       lead=(n_sb, 1))
     if layer_budgets is not None:
         attn_c.budget.copy_(torch.as_tensor(
             [int(b) for b in layer_budgets], dtype=torch.int32).view(n_sb, 1))

@@ -8,18 +8,27 @@ continuous-batching path).
     cache; each request is prefilled at its bucket length (batch 1),
     copied into a free batch slot (`cache.insert_request`), and retired
     the moment it hits EOS or its `max_new`, its slot refilled from the
-    queue mid-decode.
+    queue mid-decode. With ``chunked_prefill=True`` an admission streams
+    its prompt in ``chunk_len``-token segments, one bounded step (a
+    segment, the compress, or the insert) per decode step, so a long
+    prompt never stalls resident slots; the streams are those of a
+    monolithic admission. With ``paged=True`` the persistent cache is a
+    block pool shared by all slots (`core.paging`): a request is admitted
+    only when the free list covers its budgeted length, and its blocks
+    return to the pool when it retires.
 
 Both decode loops are double-buffered: step N+1 is dispatched from step
 N's device-side tokens before the host reads step N's tokens, and the
 read waits on an event recorded right behind step N's token copy — not
 on step N+1. The quantized ring's flush decision rides a host mirror of
-the ring lengths, so a decode step needs no device sync at all.
+the ring lengths, so a decode step needs no device sync at all. A
+chunked admission's first token takes the same pipelined read one
+iteration later.
 
-Not ported yet (the constructor raises NotImplementedError): the paged
-pool, chunked prefill, speculative decoding, prefix sharing, the
-overload ladder (preemption, degradation) and tiering; samplers other
-than greedy; tracing and metrics.
+Not ported yet (the constructor raises NotImplementedError): lazy block
+growth, speculative decoding, prefix sharing, the overload ladder
+(preemption, degradation) and tiering; samplers other than greedy;
+tracing and metrics.
 """
 from __future__ import annotations
 
@@ -33,9 +42,11 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core import budgets as budgets_lib
 from repro_torch.core import cache as kvcache
+from repro_torch.core import paging
 from repro_torch.core.cache import CacheSpec, cache_logical_bytes_per_layer
 from repro_torch.core.policy import CompressionPolicy
 from repro_torch.nn import model as M
+from repro_torch.nn.attention import MASS_GROUP
 from repro_torch.serving import sampler as sampler_lib
 from repro_torch.serving.scheduler import Request, RequestResult, Scheduler
 
@@ -63,11 +74,44 @@ class ContinuousGenerationResult:
     decode_tokens_per_s: float
     occupancy: float              # mean active-slot fraction per decode step
     ttft_mean_s: float
-    cache_physical_bytes: int     # resident slots-wide footprint
+    cache_physical_bytes: int     # dense: resident slots-wide footprint;
+                                  # paged: peak allocated-block + metadata
+                                  # bytes (real pool usage, not reserve)
     cache_logical_bytes: float
     full_cache_bytes: float
     compression_ratio: float
     policy_name: str
+    pool_blocks: int = 0          # paged runs only: reserved pool size,
+    pool_block_bytes: int = 0     # bytes one block pins across layers,
+    pool_peak_blocks: int = 0     # high-water allocated blocks
+
+    def failed(self) -> List[RequestResult]:
+        """Requests retired without being served (a paged pool too small
+        for their budgeted length)."""
+        return [r for r in self.results if r.finish_reason == "failed"]
+
+    def paged_bytes_per_seq(self, slots: int) -> float:
+        """Physical bytes one live request pins under paging: its peak
+        allocated blocks plus its share of the per-slot metadata."""
+        blocks = self.pool_peak_blocks * self.pool_block_bytes
+        return blocks + (self.cache_physical_bytes - blocks) / slots
+
+
+@dataclass
+class _ChunkedAdmission:
+    """The in-flight chunked admission (at most one per engine loop): the
+    PREFILLING slot, its prompt scratch, and the MASS_GROUP-aligned
+    segments still to stream."""
+    slot: int
+    st: M.PrefillState
+    segs: List[np.ndarray]
+    starts: List[int]
+    total_blocks: int = 0          # paged: full grant target
+    granted: int = 0
+    next_i: int = 0
+    last_logits: Optional[torch.Tensor] = None   # the last segment's logits
+    pc: Optional[M.ModelCache] = None            # finalized, awaiting insert
+    direct: bool = False           # prefill-direct: segments write the pool
 
 
 class RingMirror:
@@ -110,6 +154,7 @@ class _TokenFetch:
         self._i = 0
 
     def start(self, tok_dev: torch.Tensor):
+        """Queue the copy of `tok_dev`; returns the handle `get` reads."""
         buf = self._bufs[self._i]
         self._i ^= 1
         buf.copy_(tok_dev, non_blocking=self.cuda)
@@ -131,24 +176,30 @@ class Engine:
     """Serving engine over one compression policy (module docstring).
     `device` None means the card and raises without one; `params` must
     live on the engine's device. `use_kernels` overrides the config's
-    kernels-or-reference switch."""
+    kernels-or-reference switch. `paged` (with `block_len`,
+    `pool_blocks`: None is capacity parity with the dense layout) and
+    `chunked_prefill` (with `chunk_len`) apply to `generate_continuous`,
+    as in the JAX engine."""
 
     def __init__(self, cfg, params, policy: CompressionPolicy, *,
                  prompt_len: Optional[int] = None, max_new: int,
                  slots: int = 4, buckets: Optional[Sequence[int]] = None,
                  use_kernels: Optional[bool] = None, device=None,
-                 paged: bool = False,
-                 chunked_prefill: bool = False, speculative: bool = False,
+                 paged: bool = False, block_len: int = 16,
+                 pool_blocks: Optional[int] = None,
+                 chunked_prefill: bool = False, chunk_len: int = 64,
+                 block_growth: str = "eager", speculative: bool = False,
                  prefix_sharing: bool = False, preemption: bool = False,
                  degrade: bool = False, tiering: bool = False):
-        for flag, on in (("paged", paged),
-                         ("chunked_prefill", chunked_prefill),
+        for flag, on in (("block_growth='lazy'", block_growth == "lazy"),
                          ("speculative", speculative),
                          ("prefix_sharing", prefix_sharing),
                          ("preemption", preemption), ("degrade", degrade),
                          ("tiering", tiering)):
             if on:
                 raise NotImplementedError(f"{flag}: not yet ported")
+        if block_growth not in ("eager", "lazy"):
+            raise ValueError(f"unknown block_growth {block_growth!r}")
         self.device = resolve_device(device)
         if prompt_len is None and not buckets:
             raise ValueError("need prompt_len and/or buckets")
@@ -179,6 +230,31 @@ class Engine:
                              sinks=spec.sinks)
         self.spec = spec
 
+        # paged block-table cache (continuous batching only): one pool per
+        # layer + a per-slot table; a request pins only the blocks its
+        # budgeted length needs, and retired blocks recycle (core/paging)
+        self.paged = bool(paged)
+        self._S_phys = spec.main_store_len(prompt_len + max_new)
+        self.block_len = (paging.resolve_block_len(spec, self._S_phys,
+                                                   block_len)
+                          if paged else 0)
+        self.n_max_blocks = self._S_phys // self.block_len if paged else 0
+        self.pool_blocks = ((int(pool_blocks) if pool_blocks
+                             else slots * self.n_max_blocks) if paged else 0)
+        self.block_allocator: Optional[paging.BlockAllocator] = None
+        self.last_audit: Optional[dict] = None
+
+        # chunked prefill (continuous batching only): chunk_len snaps to
+        # the mass group, so chunked and monolithic admissions fold the
+        # attention mass in the same association chain
+        self.chunked_prefill = bool(chunked_prefill)
+        self.chunk_len = 0
+        if self.chunked_prefill:
+            M._check_chunkable(cfg)
+            self.chunk_len = max(MASS_GROUP,
+                                 int(chunk_len) - int(chunk_len) % MASS_GROUP)
+            self._check_aligned(self.buckets)
+
         n_attn = cfg.num_attn_layers()
         alloc = budgets_lib.ALLOCATORS[policy.allocator]
         kw = dict(policy.allocator_kwargs)
@@ -193,6 +269,21 @@ class Engine:
                                         spec.main_store_len(prompt_len))
 
     # ------------------------------------------------------------------
+    def _check_aligned(self, buckets) -> None:
+        bad = [int(b) for b in buckets if int(b) % MASS_GROUP]
+        if bad:
+            raise ValueError(f"chunked prefill needs MASS_GROUP({MASS_GROUP})"
+                             f"-aligned prompt buckets, got {bad}")
+
+    def _h2d(self, a: np.ndarray) -> torch.Tensor:
+        """A small host array on the engine's device without a stream
+        sync: a pinned staging copy, sent non-blocking (the caching host
+        allocator keeps the staging buffer until the copy is done)."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
     def _prefill(self, tokens: np.ndarray):
         batch = {"tokens": torch.as_tensor(np.asarray(tokens, np.int64),
                                            device=self.device)}
@@ -208,6 +299,153 @@ class Engine:
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _request_blocks(self, req: Request) -> int:
+        """Pool blocks an admission reserves (eager growth): the request's
+        whole budgeted length — prompt, decode headroom, quantization
+        slack."""
+        return paging.request_blocks(self.spec, self._S_phys,
+                                     len(req.tokens), req.max_new,
+                                     self.block_len)
+
+    def _verbatim_ok(self, bucket: int) -> bool:
+        """True when prefill keeps every prompt row verbatim (no selection,
+        no quantization, no ring): the prefill-direct case, where chunk
+        K/V rows stream straight into pool blocks and the insert writes
+        metadata only (`M.prefill_finalize_meta`)."""
+        s = self.spec
+        return (not s.quantized and s.window == 0
+                and s.main_store_len(bucket) >= bucket)
+
+    def _insert(self, cache: M.ModelCache, sched: Scheduler, slot: int,
+                pc: M.ModelCache, *, pool_write: bool = True) -> None:
+        """Copy a batch-1 prefilled cache into `slot` of the live cache; a
+        paged cache maps the slot's granted blocks and scatters the rows
+        into them (not at all on the prefill-direct path)."""
+        if not self.paged:
+            kvcache.insert_request(cache.attn, slot, pc.attn, batch_axis=2)
+            return
+        ids = np.full(self.n_max_blocks, -1, np.int32)
+        got = sched.slot_blocks(slot)
+        ids[:len(got)] = got
+        paging.insert_request_paged(cache.attn, slot, pc.attn,
+                                    self._h2d(ids), batch_axis=2,
+                                    pool_write=pool_write)
+
+    def _reset(self, cache: M.ModelCache, slot: int) -> None:
+        """Clear a slot (paged: its table row too, so a free slot's
+        garbage appends never route into re-granted blocks)."""
+        if self.paged:
+            paging.reset_slot_paged(cache.attn, slot, batch_axis=2)
+        else:
+            kvcache.reset_slot(cache.attn, slot, batch_axis=2)
+
+    # ------------------------------------------------------------------
+    # Chunked admission: at most one in flight, advanced one bounded step
+    # (a prompt segment, the compress, or the insert) per decode step
+    # ------------------------------------------------------------------
+    def _start_chunked_admission(self, sched: Scheduler
+                                 ) -> Optional[_ChunkedAdmission]:
+        """Begin a chunked admission into the first free slot; heads that
+        can never fit the pool fail at once."""
+        while sched.pending:
+            free = sched.free_slots()
+            if not free:
+                return None
+            req = sched.head_request()
+            total = self._request_blocks(req) if self.paged else 0
+            if self.paged and total > self.pool_blocks:
+                sched.fail_head()
+                continue
+            slot = free[0]
+            L, C = len(req.tokens), self.chunk_len
+            sched.begin_prefill(slot)
+            starts = list(range(0, L, C))
+            return _ChunkedAdmission(
+                slot=slot,
+                st=M.init_prefill_state(self.cfg, L, device=self.device),
+                segs=[req.tokens[s:s + C] for s in starts], starts=starts,
+                total_blocks=total,
+                direct=self.paged and self._verbatim_ok(L))
+        return None
+
+    def _grant(self, adm: _ChunkedAdmission, sched: Scheduler,
+               target: int) -> bool:
+        """Top the admission's grant up to `target` blocks. False: the pool
+        cannot cover it yet and the admission stalls until a retire. With
+        nothing decoding nothing will retire — impossible while every
+        admission fits the pool and only one is in flight."""
+        if target <= adm.granted:
+            return True
+        if sched.grant_blocks(adm.slot, target - adm.granted):
+            adm.granted = target
+            return True
+        if not sched.active_slots():
+            raise RuntimeError("chunked admission stalled with no active "
+                               "slots (allocator invariant violated)")
+        return False
+
+    def _advance_chunked_admission(self, adm: Optional[_ChunkedAdmission],
+                                   sched: Scheduler, cache: M.ModelCache, *,
+                                   run_all: bool):
+        """Advance the in-flight admission by one step: a prompt segment,
+        the finalize (compress), or the insert + first-token sample — each
+        costs work in proportion to the prompt, so lumping them together
+        would itself stall resident decode. `run_all` drains every step
+        back to back (nothing is decoding, so nothing can stall). Returns
+        (adm or None, first, seconds): `first` is (slot, first token on
+        the device) once the slot goes ACTIVE."""
+        if adm is None:
+            return None, None, 0.0
+        t0 = time.perf_counter()
+        first = None
+        while adm is not None:
+            i = adm.next_i
+            if i == len(adm.segs):                  # compress the scratch
+                fin = (M.prefill_finalize_meta if adm.direct
+                       else M.prefill_finalize)
+                adm.pc = fin(self.cfg, adm.st, self.spec,
+                             layer_budgets=self.layer_budgets)
+                adm.next_i += 1
+            elif i == len(adm.segs) + 1:            # insert + first token
+                # the full grant (decode headroom, quantization slack) is
+                # in place before the insert scatters
+                if self.paged and not self._grant(adm, sched,
+                                                  adm.total_blocks):
+                    break
+                self._insert(cache, sched, adm.slot, adm.pc,
+                             pool_write=not adm.direct)
+                sched.finish_prefill(adm.slot)
+                first = (adm.slot, sampler_lib.greedy(adm.last_logits))
+                adm = None
+                break
+            else:                                   # one prompt segment
+                c0 = adm.starts[i]
+                c1 = c0 + len(adm.segs[i])
+                if self.paged and not self._grant(
+                        adm, sched, min(adm.total_blocks,
+                                        paging.request_blocks_prefix(
+                                            self.spec, self._S_phys, c1,
+                                            self.block_len))):
+                    break                           # chunk-wise grants
+                adm.last_logits, _ = M.prefill_chunk(
+                    self.params, self.cfg, adm.st,
+                    self._h2d(adm.segs[i][None].astype(np.int64)), c0,
+                    self.spec)
+                if adm.direct:
+                    # prefill-direct: the segment's exact K/V rows go
+                    # straight into the slot's granted blocks
+                    got, bl = sched.slot_blocks(adm.slot), self.block_len
+                    rows = np.asarray([got[t // bl] * bl + t % bl
+                                       for t in range(c0, c1)], np.int64)
+                    paging.write_prefill_rows(
+                        cache.attn, self._h2d(rows),
+                        adm.st.k[:, :, :, c0:c1], adm.st.v[:, :, :, c0:c1],
+                        batch_axis=2)
+                adm.next_i += 1
+            if not run_all:
+                break
+        return adm, first, time.perf_counter() - t0
 
     def _logical_bytes_per_seq(self) -> float:
         """Per-sequence logical cache bytes under the layer budgets."""
@@ -282,17 +520,26 @@ class Engine:
     ) -> ContinuousGenerationResult:
         """Serve `requests` through one persistent `slots`-wide cache.
 
-        Each request is prefilled at its prompt bucket (batch 1) and
-        copied into a free batch slot; every decode step advances all
-        occupied slots at once; a request hitting its `eos_id` or
-        `max_new` retires immediately and its slot goes to the next
-        queued request. Bare arrays become
-        `Request(tokens, max_new=self.max_new)`."""
+        Each request is prefilled at its prompt bucket (batch 1; chunked:
+        segment by segment between decode steps) and copied into a free
+        batch slot; every decode step advances all active slots at once;
+        a request hitting its `eos_id` or `max_new` retires immediately
+        and its slot (paged: its blocks) goes to the next queued request.
+        Bare arrays become `Request(tokens, max_new=self.max_new)`."""
         if buckets and max(int(b) for b in buckets) > self.prompt_len:
             raise ValueError(
                 f"bucket {max(int(b) for b in buckets)} exceeds engine "
                 f"prompt_len {self.prompt_len}")
-        sched = Scheduler(buckets or self.buckets, self.slots)
+        if buckets and self.chunked_prefill:
+            self._check_aligned(buckets)
+        if self.paged:
+            # a fresh free list per run, kept for post-run inspection
+            self.block_allocator = paging.BlockAllocator(self.pool_blocks)
+            sched = Scheduler(buckets or self.buckets, self.slots,
+                              allocator=self.block_allocator,
+                              block_need=self._request_blocks)
+        else:
+            sched = Scheduler(buckets or self.buckets, self.slots)
         for r in requests:
             if not isinstance(r, Request):
                 r = Request(tokens=r, max_new=self.max_new)
@@ -304,7 +551,9 @@ class Engine:
         cache = M.init_cache(self.cfg, self.spec, self.slots,
                              self.prompt_len + self.max_new,
                              layer_budgets=self.layer_budgets,
-                             device=self.device)
+                             device=self.device, paged=self.paged,
+                             block_len=self.block_len,
+                             pool_blocks=self.pool_blocks)
         next_tok = np.zeros(self.slots, np.int32)
         prefill_s = 0.0
         decode_tokens = 0
@@ -313,27 +562,42 @@ class Engine:
         clean_slots = set(range(self.slots))
         ring = RingMirror(self.spec, self.slots)
         fetch = _TokenFetch(self.device, self.slots)
+        first_fetch = _TokenFetch(self.device, 1)
+
+        def reset(slot_idx: int) -> None:
+            """Clear the slot so stale KV never leaks into a later
+            occupant or the accounting — paged, so a stale table never
+            routes the free slot's garbage appends into re-granted
+            blocks."""
+            self._reset(cache, slot_idx)
+            ring.clear(slot_idx)
+            clean_slots.add(slot_idx)
 
         def admit_into(slot_idx: int) -> bool:
             """Fill a free slot from the queue: batch-1 prefill, copy into
             the live cache, record the first token. Loops in case a
             request finishes on its first token. True when a request now
-            occupies the slot (its first token in `next_tok`)."""
+            occupies the slot (its first token in `next_tok`). Paged,
+            `admit_next` refuses while the pool cannot cover the head;
+            the slot then idles until a retire frees blocks."""
             nonlocal prefill_s
             while True:
                 req = sched.admit_next(slot_idx)
                 if req is None:
+                    if self.paged and sched.pending:
+                        sched.note_retry()
+                        if (not sched.active_slots()
+                                and not sched.prefilling_slots()):
+                            # nothing running will ever free blocks: the
+                            # head does not fit this pool at all
+                            sched.fail_head()
+                            continue
                     if slot_idx not in clean_slots:
-                        # clear the slot so stale KV never leaks into a
-                        # later occupant or the accounting
-                        kvcache.reset_slot(cache.attn, slot_idx, batch_axis=2)
-                        ring.clear(slot_idx)
-                        clean_slots.add(slot_idx)
+                        reset(slot_idx)
                     return False
                 t0 = time.perf_counter()
                 logits, pc = self._prefill(req.tokens[None])
-                kvcache.insert_request(cache.attn, slot_idx, pc.attn,
-                                       batch_axis=2)
+                self._insert(cache, sched, slot_idx, pc)
                 ring.fill(slot_idx)
                 clean_slots.discard(slot_idx)
                 # kvlint: ok(host-sync: admission prefill's first token — once per admitted request, not per decode step)
@@ -345,20 +609,30 @@ class Engine:
                     return True
                 sched.retire(slot_idx, reason)   # 1-token request; refill
 
-        for i in range(self.slots):
-            admit_into(i)
+        use_adm = self.chunked_prefill
+        if not use_adm:
+            for i in range(self.slots):
+                admit_into(i)
 
         # Double-buffered decode: step N+1 is dispatched from step N's
         # device-side tokens before the host reads step N's tokens. A
         # slot that retires at step N already has a stale step N+1 in
         # flight: its output is dropped from the valid set, and the
-        # admission's insert overwrites the slot (wiping the stale
-        # append) before the next dispatch carries the new first token.
+        # admission's insert (or the reset) overwrites the slot, wiping
+        # the stale append, before the next dispatch. A chunked admission
+        # joins the dispatch after its insert with its first token
+        # device-side; the host reads that token one iteration later.
         tok_in = torch.as_tensor(next_tok, device=self.device)
         pending = None                          # (fetch handle, valid slots)
+        first_pending = None                    # (slot, fetch handle)
+        adm: Optional[_ChunkedAdmission] = None
         loop_t0 = time.perf_counter()
         prefill_at_loop = prefill_s
         while True:
+            if use_adm and adm is None:
+                t0 = time.perf_counter()
+                adm = self._start_chunked_admission(sched)
+                prefill_s += time.perf_counter() - t0
             active = sched.active_slots()
             new_pending = None
             if active:
@@ -366,22 +640,61 @@ class Engine:
                 sched.note_decode_step()
                 new_pending = (fetch.start(tok_dev), list(active))
                 tok_in = tok_dev                # feed N+1 from N, no sync
-            if new_pending is None and pending is None and not sched.pending:
+            if first_pending is not None:
+                slot0, fhandle = first_pending
+                # kvlint: ok(host-sync: pipelined — last iteration's chunk-admitted first token, read behind this dispatch)
+                tok_i = int(first_fetch.get(fhandle)[0])
+                next_tok[slot0] = tok_i
+                reason = sched.record_token(slot0, tok_i)
+                if reason is not None:
+                    sched.retire(slot0, reason)         # 1-token request
+                    if new_pending is not None and slot0 in new_pending[1]:
+                        new_pending[1].remove(slot0)
+                    reset(slot0)
+                first_pending = None
+            if use_adm:
+                # at most one admission step per decode step; with nothing
+                # decoding there is nothing to stall, so drain it
+                adm, first, dt = self._advance_chunked_admission(
+                    adm, sched, cache, run_all=not active)
+                prefill_s += dt
+                if first is not None:
+                    slot0, ftok = first
+                    ring.fill(slot0)
+                    clean_slots.discard(slot0)
+                    tok_in[slot0:slot0 + 1] = ftok   # device to device
+                    first_pending = (slot0, first_fetch.start(ftok))
+            if (pending is None and new_pending is None and adm is None
+                    and first_pending is None and not sched.pending):
                 break
             if pending is not None:
                 handle, pvalid = pending
                 # kvlint: ok(host-sync: the one pipelined read — step N-1's tokens, behind step N's dispatch)
                 toks = fetch.get(handle)
                 admitted = []
+                retired_any = False
                 for i in pvalid:
                     decode_tokens += 1
                     reason = sched.record_token(i, toks[i])
                     if reason is not None:
                         sched.retire(i, reason)
+                        retired_any = True
                         if new_pending is not None and i in new_pending[1]:
                             new_pending[1].remove(i)
-                        if admit_into(i):
+                        if use_adm:
+                            # admissions start at the top of the loop
+                            reset(i)
+                        elif admit_into(i):
                             admitted.append(i)
+                if self.paged and retired_any and sched.pending \
+                        and not use_adm:
+                    # a retire frees blocks, not just its slot: a slot
+                    # refused while the pool was exhausted may fit now
+                    # (FIFO: the first refusal settles the rest)
+                    for i in sched.free_slots():
+                        if not sched.pending or not admit_into(i):
+                            break
+                        admitted.append(i)
                 if admitted:
                     idx = torch.as_tensor(admitted, device=self.device)
                     tok_in = tok_in.index_put(
@@ -390,9 +703,34 @@ class Engine:
             pending = new_pending
         decode_s = ((time.perf_counter() - loop_t0)
                     - (prefill_s - prefill_at_loop))
+        if self.paged:
+            # every run ends with a host-side audit: all slots retired, so
+            # no block may still be allocated
+            self.last_audit = paging.audit_pool(self.block_allocator,
+                                                sched.occupied_blocks())
+        return self._continuous_result(sched, cache, prefill_s=prefill_s,
+                                       decode_s=decode_s,
+                                       decode_tokens=decode_tokens)
 
+    def _continuous_result(self, sched: Scheduler, cache: M.ModelCache, *,
+                           prefill_s: float, decode_s: float,
+                           decode_tokens: int) -> ContinuousGenerationResult:
+        pool_stats = {}
+        if self.paged:
+            # real pool usage, not the reserved worst case: the blocks the
+            # run pinned at its high-water mark, plus the dense metadata
+            per_block = paging.bytes_per_block(cache.attn)
+            meta = (sum(t.numel() * t.element_size() for t in cache.attn)
+                    - paging.pool_bytes(cache.attn))
+            peak = self.block_allocator.peak_used
+            phys = meta + peak * per_block
+            pool_stats = dict(pool_blocks=self.pool_blocks,
+                              pool_block_bytes=per_block,
+                              pool_peak_blocks=peak)
+        else:
+            phys = kvcache.cache_physical_bytes(cache.attn)
         results = sorted(sched.results, key=lambda r: r.uid)
-        ttfts = [r.ttft_s for r in results]
+        ttfts = [r.ttft_s for r in results if r.finish_reason != "failed"]
         logical = self._logical_bytes_per_seq() * self.slots
         full = (self.cfg.kv_bytes_per_token()
                 * (self.prompt_len + self.max_new) * self.slots)
@@ -403,8 +741,8 @@ class Engine:
             decode_tokens_per_s=decode_tokens / max(decode_s, 1e-9),
             occupancy=sched.occupancy,
             ttft_mean_s=float(np.mean(ttfts)) if ttfts else 0.0,
-            cache_physical_bytes=kvcache.cache_physical_bytes(cache.attn),
+            cache_physical_bytes=int(phys),
             cache_logical_bytes=float(logical),
             full_cache_bytes=float(full),
             compression_ratio=float(full / max(logical, 1.0)),
-            policy_name=self.policy.name)
+            policy_name=self.policy.name, **pool_stats)

@@ -1,6 +1,7 @@
-"""Continuous-batching request lifecycle: queue, slots, accounting (the
-dense-path part of `repro.serving.scheduler`, which the port cannot
-import without importing the JAX engine).
+"""Continuous-batching request lifecycle: queue, slots, block grants,
+accounting (the dense, paged and chunked-admission parts of
+`repro.serving.scheduler`, which the port cannot import without
+importing the JAX engine).
 
 The survey frames compression as a *serving* problem — bytes per sequence
 bound how many sequences fit, and only a scheduler that reclaims freed
@@ -13,8 +14,8 @@ detects EOS / max-new completion, and accounts per-request latency
 No device code here: the `Engine` owns all device state (persistent
 slots-wide cache, per-bucket prefill, the decode step) and drives this
 class — which makes the lifecycle unit-testable with a fake clock.
-Block grants (paged pool), chunked admission, preemption and tiering
-come with the slices that port those paths.
+Preemption, prefix adoption and tiering come with the slices that port
+those paths.
 """
 from __future__ import annotations
 
@@ -42,6 +43,8 @@ class Request:
     eos_id: Optional[int] = None
     uid: int = field(default_factory=lambda: next(_uid_counter))
 
+    n_retries: int = 0            # admission attempts refused by the pool
+
     def __post_init__(self):
         self.tokens = np.asarray(self.tokens, np.int32)
         if self.tokens.ndim != 1:
@@ -56,13 +59,14 @@ class RequestResult:
     tokens: np.ndarray            # [n_emitted] generated (EOS included)
     prompt_len: int
     bucket: int
-    slot: int
-    finish_reason: str            # "eos" | "length"
-    ttft_s: float                 # submit -> first token
+    slot: int                     # -1: failed before ever holding a slot
+    finish_reason: str            # "eos" | "length" | "failed"
+    ttft_s: float                 # submit -> first token (0.0 if failed)
     total_s: float                # submit -> retirement
     decode_s: float               # first token -> retirement
     token_times: np.ndarray = field(  # [n_emitted] clock at each token —
         default_factory=lambda: np.zeros(0))  # inter-token stall analysis
+    n_retries: int = 0            # admission attempts refused by the pool
 
     @property
     def n_tokens(self) -> int:
@@ -78,6 +82,9 @@ class _SlotState:
     t_first: float = 0.0
     emitted: List[int] = field(default_factory=list)
     token_times: List[float] = field(default_factory=list)
+    blocks: List[int] = field(default_factory=list)   # paged-pool block ids
+    prefilling: bool = False      # chunked admission in flight: occupied,
+                                  # not yet decoding (no tokens yet)
 
 
 class Scheduler:
@@ -88,18 +95,39 @@ class Scheduler:
     sampled token through `record_token` (which returns a finish reason
     once EOS or the request's max_new is hit), then `retire`s the slot —
     freeing it for the next queued request immediately, mid-decode.
+
+    **Chunked admission** inserts a PREFILLING stage: QUEUED ->
+    (begin_prefill) PREFILLING -> (grant_blocks x chunks, paged) ->
+    (finish_prefill) ACTIVE -> ... The slot is occupied but takes no
+    decode steps; TTFT still clocks at the real first token. A request
+    that can never be served is retired from the queue head with
+    `fail_head` ("failed").
+
+    **Block-aware admission** (paged cache): pass `allocator` (with
+    `alloc(n) -> list | None` / `free(ids)`, e.g.
+    `core.paging.BlockAllocator`) and `block_need(req) -> int`. A request
+    is admitted only when the allocator covers its budgeted length;
+    otherwise `admit_next` returns None and it stays at the head of the
+    queue (FIFO head-of-line). `retire` frees the slot's blocks through
+    `release`, the one seam every block returns by.
     """
 
     def __init__(self, buckets: Sequence[int], n_slots: int, *,
                  clock: Callable[[], float] = time.perf_counter,
+                 allocator=None,
+                 block_need: Optional[Callable[[Request], int]] = None,
                  tracer=None):
         buckets = tuple(sorted({int(b) for b in buckets}))
         if not buckets or buckets[0] <= 0:
             raise ValueError(f"need positive prompt buckets, got {buckets}")
         if n_slots < 1:
             raise ValueError(f"need >= 1 slot, got {n_slots}")
+        if (allocator is None) != (block_need is None):
+            raise ValueError("allocator and block_need come together")
         self.buckets = buckets
         self.n_slots = n_slots
+        self.allocator = allocator
+        self._block_need = block_need
         self._clock = clock
         # lifecycle tracing: the scheduler owns every request timestamp,
         # so it emits the request spans — submit / admit / first-token
@@ -130,24 +158,109 @@ class Scheduler:
     def pending(self) -> int:
         return len(self._queue)
 
+    def head_request(self) -> Optional[Request]:
+        """The request admission takes next (None when the queue is
+        empty)."""
+        return self._queue[0][0] if self._queue else None
+
     # ---- slots -----------------------------------------------------------
+    def free_slots(self) -> List[int]:
+        return [i for i, s in enumerate(self._slots) if s is None]
+
     def active_slots(self) -> List[int]:
-        return [i for i, s in enumerate(self._slots) if s is not None]
+        """Slots decoding (PREFILLING slots are occupied but not active:
+        they take no decode steps and emit no tokens yet)."""
+        return [i for i, s in enumerate(self._slots)
+                if s is not None and not s.prefilling]
+
+    def prefilling_slots(self) -> List[int]:
+        return [i for i, s in enumerate(self._slots)
+                if s is not None and s.prefilling]
 
     def admit_next(self, slot_idx: int) -> Optional[Request]:
         """Pop the next queued request into a free slot (FIFO). Returns
-        None when the queue is empty."""
+        None when the queue is empty or (block-aware mode) the allocator
+        cannot cover the head request's blocks yet."""
+        if self._slots[slot_idx] is not None:
+            raise ValueError(f"slot {slot_idx} is occupied")
+        if not self._queue:
+            return None
+        blocks: List[int] = []
+        if self.allocator is not None:
+            got = self.allocator.alloc(self._block_need(self._queue[0][0]))
+            if got is None:
+                return None            # pool exhausted: wait for a retire
+            blocks = got
+        req, t_submit = self._queue.popleft()
+        self._slots[slot_idx] = _SlotState(
+            req, self.bucket_for(len(req.tokens)), t_submit, self._clock(),
+            blocks=blocks)
+        if self.trace:
+            self.trace.instant("admit", tid=slot_idx + 1,
+                               args=dict(uid=req.uid, slot=slot_idx,
+                                         blocks=len(blocks)))
+        return req
+
+    def slot_blocks(self, slot_idx: int) -> List[int]:
+        """Pool block ids granted to the slot's current request, in table
+        order."""
+        st = self._slots[slot_idx]
+        if st is None:
+            raise ValueError(f"slot {slot_idx} is empty")
+        return list(st.blocks)
+
+    # ---- chunked-prefill lifecycle (QUEUED -> PREFILLING -> ACTIVE) ------
+    def begin_prefill(self, slot_idx: int) -> Optional[Request]:
+        """Pop the head request into a free slot in the PREFILLING state:
+        the slot is occupied (it owns its scratch and, paged, its
+        chunk-wise grants) but takes no decode steps until
+        `finish_prefill`. Nothing is allocated here: the engine paces the
+        grants through `grant_blocks`."""
         if self._slots[slot_idx] is not None:
             raise ValueError(f"slot {slot_idx} is occupied")
         if not self._queue:
             return None
         req, t_submit = self._queue.popleft()
         self._slots[slot_idx] = _SlotState(
-            req, self.bucket_for(len(req.tokens)), t_submit, self._clock())
+            req, self.bucket_for(len(req.tokens)), t_submit, self._clock(),
+            prefilling=True)
         if self.trace:
             self.trace.instant("admit", tid=slot_idx + 1,
-                               args=dict(uid=req.uid, slot=slot_idx))
+                               args=dict(uid=req.uid, slot=slot_idx,
+                                         chunked=True))
         return req
+
+    def grant_blocks(self, slot_idx: int, n: int) -> bool:
+        """Grant `n` more pool blocks to an occupied slot (chunk-wise
+        pacing of a PREFILLING slot). False when the allocator cannot
+        cover them yet: the admission stalls until a retire."""
+        st = self._slots[slot_idx]
+        if st is None:
+            raise ValueError(f"slot {slot_idx} is empty")
+        if self.allocator is None or n <= 0:
+            return True
+        got = self.allocator.alloc(n)
+        if got is None:
+            return False
+        st.blocks.extend(got)
+        return True
+
+    def release(self, slot_idx: int, ids: Sequence[int]) -> None:
+        """Single choke point: every block returned to the allocator
+        funnels through here, so ownership changes have one auditable
+        seam. `slot_idx` is the releasing slot."""
+        if self.allocator is None or not ids:
+            return
+        self.allocator.free(ids)
+
+    def finish_prefill(self, slot_idx: int) -> None:
+        """PREFILLING -> ACTIVE: the admission's cache is inserted and
+        the request starts decoding (TTFT clocks at the first
+        `record_token`, the real first token)."""
+        st = self._slots[slot_idx]
+        if st is None or not st.prefilling:
+            raise ValueError(f"slot {slot_idx} is not prefilling")
+        st.prefilling = False
 
     # ---- token stream ----------------------------------------------------
     def record_token(self, slot_idx: int, token: int) -> Optional[str]:
@@ -156,6 +269,8 @@ class Scheduler:
         st = self._slots[slot_idx]
         if st is None:
             raise ValueError(f"slot {slot_idx} is empty")
+        if st.prefilling:
+            raise ValueError(f"slot {slot_idx} is still prefilling")
         token = int(token)
         now = self._clock()
         if not st.emitted:
@@ -176,6 +291,7 @@ class Scheduler:
         if st is None:
             raise ValueError(f"slot {slot_idx} is empty")
         self._slots[slot_idx] = None
+        self.release(slot_idx, st.blocks)      # freed capacity is reusable
         now = self._clock()
         req = st.req
         res = RequestResult(
@@ -185,10 +301,12 @@ class Scheduler:
             bucket=st.bucket,
             slot=slot_idx,
             finish_reason=reason,
-            ttft_s=st.t_first - st.t_submit,
+            # a slot retired before its first token has no t_first
+            ttft_s=(st.t_first - st.t_submit) if st.emitted else 0.0,
             total_s=now - st.t_submit,
-            decode_s=now - st.t_first,
+            decode_s=(now - st.t_first) if st.emitted else 0.0,
             token_times=np.asarray(st.token_times, np.float64),
+            n_retries=req.n_retries,
         )
         self.results.append(res)
         if self.trace:
@@ -202,6 +320,41 @@ class Scheduler:
                 "request", st.t_admit, now, tid=slot_idx + 1,
                 args=dict(uid=req.uid, reason=reason,
                           tokens=len(st.emitted)))
+        return res
+
+    def note_retry(self) -> int:
+        """An admission attempt for the head request was refused by the
+        pool: count it on the request. Returns its retries so far (0 when
+        the queue is empty)."""
+        req = self.head_request()
+        if req is None:
+            return 0
+        req.n_retries += 1
+        return req.n_retries
+
+    def occupied_blocks(self) -> dict:
+        """slot -> grant list for every occupied slot (audit input)."""
+        return {i: list(st.blocks) for i, st in enumerate(self._slots)
+                if st is not None}
+
+    def fail_head(self, reason: str = "failed") -> RequestResult:
+        """Retire the head of the queue without admitting it: the request
+        cannot be served (its budgeted length exceeds the whole pool).
+        Earlier completions keep their results."""
+        if not self._queue:
+            raise ValueError("queue is empty")
+        req, t_submit = self._queue.popleft()
+        res = RequestResult(
+            uid=req.uid, tokens=np.zeros(0, np.int32),
+            prompt_len=len(req.tokens),
+            bucket=self.bucket_for(len(req.tokens)), slot=-1,
+            finish_reason=reason, ttft_s=0.0,
+            total_s=self._clock() - t_submit, decode_s=0.0,
+            n_retries=req.n_retries)
+        self.results.append(res)
+        if self.trace:
+            self.trace.instant("request_failed",
+                               args=dict(uid=req.uid, reason=reason))
         return res
 
     # ---- fleet accounting ------------------------------------------------

@@ -158,11 +158,12 @@ def test_wave_generate_equals_jax(model):
 
 def test_unported_engine_options_raise(model):
     jcfg, jp, cfg, p = model
-    for flag in ("paged", "chunked_prefill", "speculative", "prefix_sharing",
-                 "preemption", "degrade", "tiering"):
+    for flag, value in (("block_growth", "lazy"), ("speculative", True),
+                        ("prefix_sharing", True), ("preemption", True),
+                        ("degrade", True), ("tiering", True)):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             Engine(cfg, p, presets(BUDGET, WINDOW)["h2o"], prompt_len=32,
-                   max_new=4, device="cpu", **{flag: True})
+                   max_new=4, device="cpu", **{flag: value})
     with pytest.raises(NotImplementedError):
         Engine(cfg, p, presets(BUDGET, WINDOW)["nacl"], prompt_len=32,
                max_new=4, device="cpu")

@@ -14,9 +14,11 @@ from repro_torch.configs.base import reduced
 from repro_torch.configs.granite_8b import CONFIG as GRANITE
 from repro_torch.core.policy import presets
 from repro_torch.kernels.decode_qattn import ops as dq_ops
-from repro_torch.kernels.decode_qattn.ref import decode_attn_ref
+from repro_torch.kernels.decode_qattn.ref import (decode_attn_paged_ref,
+                                                  decode_attn_ref, gather_pool)
 from repro_torch.kernels.flash_prefill import ops as fp_ops
-from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
+from repro_torch.kernels.flash_prefill.ref import (flash_prefill_chunk_ref,
+                                                   flash_prefill_ref)
 from repro_torch.nn import model as M
 from repro_torch.serving.engine import Engine
 from repro_torch.serving.scheduler import Request
@@ -113,6 +115,117 @@ def test_flash_prefill_kernel_matches_plain(cuda, dt, T, window, D):
                                rtol=rtol)
 
 
+def _paged_inputs(dev, dt, bits, ring, B=8, Hq=32, Hkv=8, D=128, W=128):
+    """Main-path shapes: 128-row blocks (the group) for a quantized pool,
+    16-row blocks for a dense one; a shuffled table over a pool with
+    spare blocks, -1 past each row's length, one all -1 (free) slot.
+    Returns (paged args, the same rows as dense-store args)."""
+    bl = 128 if bits < 16 else 16
+    S = 512
+    n_max = S // bl
+    nb = B * n_max + 5
+    g = torch.Generator(device=dev).manual_seed(100 + bits + 2 * ring)
+
+    def rnd(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+    length = torch.tensor([S, 300, 17, 0, S - 1, 128, 64, 1], device=dev)
+    ids = torch.randperm(nb, generator=g, device=dev)[:B * n_max]
+    used = (torch.arange(n_max, device=dev)[None] * bl) < length[:, None]
+    tbl = torch.where(used, ids.view(B, n_max), -1).to(torch.int32)
+    bias = torch.where(torch.arange(S, device=dev)[None] < length[:, None],
+                       0.0, -1e30)
+    if bits < 16:
+        Dp = D * bits // 8
+        pk, pv = (torch.randint(-128, 128, (nb, bl, Hkv, Dp), generator=g,
+                                device=dev, dtype=torch.int8)
+                  for _ in range(2))
+        unit = 3.0 / ((1 << bits) - 1)
+        meta = ((rnd(nb, bl // 128, Hkv, D).abs() * 0.1 + 0.01) * unit,
+                rnd(nb, bl // 128, Hkv, D),
+                (rnd(nb, bl, Hkv).abs() * 0.1 + 0.01) * unit, rnd(nb, bl, Hkv))
+    else:
+        pk, pv = rnd(nb, bl, Hkv, D, dtype=dt), rnd(nb, bl, Hkv, D, dtype=dt)
+        meta = (None,) * 4
+    if ring:
+        rk, rv = rnd(B, W, Hkv, D, dtype=dt), rnd(B, W, Hkv, D, dtype=dt)
+        rbias = torch.where(torch.arange(W, device=dev)[None] < torch.tensor(
+            [W, 5, 1, 0, 64, W, 1, W - 1], device=dev)[:, None], 0.0, -1e30)
+    else:
+        rk = rv = rbias = None
+    q = rnd(B, Hq, D, dtype=dt)
+    ks, kz, vs, vz = meta
+    paged = (q, tbl, pk, ks, kz, pv, vs, vz, bias, rk, rv, rbias)
+
+    def gd(pool):
+        return None if pool is None else gather_pool(pool, tbl).contiguous()
+
+    dense = (q, gd(pk), gd(ks), gd(kz), gd(pv), gd(vs), gd(vz), bias, rk, rv,
+             rbias)
+    return paged, dense
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("bits,ring", [(2, True), (4, True), (16, True),
+                                       (16, False)])
+@pytest.mark.parametrize("mass", [True, False], ids=["mass", "no-mass"])
+def test_paged_decode_kernel_matches_plain_and_dense(cuda, dt, bits, ring,
+                                                     mass):
+    """Against its plain version within TOL, and against the dense kernel
+    on the same rows bit for bit (one kernel body, two row addressings)."""
+    paged, dense = _paged_inputs(cuda, dt, bits, ring)
+    kw = dict(bits=bits, group=128, return_mass=mass, compute_dtype=dt)
+    out, m = dq_ops.decode_attn_paged_cuda(*paged, **kw)
+    out_d, m_d = dq_ops.decode_attn_cuda(*dense, **kw)
+    out_r, m_r = decode_attn_paged_ref(*paged, bits=bits, group=128,
+                                       compute_dtype=dt)
+    torch.cuda.synchronize()
+    atol, rtol = TOL[dt]
+    torch.testing.assert_close(out.float(), out_r.float(), atol=atol,
+                               rtol=rtol)
+    assert torch.equal(out, out_d)
+    if mass:
+        torch.testing.assert_close(m, m_r, atol=MASS_TOL[0],
+                                   rtol=MASS_TOL[1])
+        assert torch.equal(m, m_d)
+    else:
+        assert m is None
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("T,C,window,D", [(1024, 256, 0, 128),
+                                          (1000, 384, 0, 128),
+                                          (777, 128, 200, 128),
+                                          (300, 64, 0, 64)])
+def test_flash_chunk_kernel_matches_plain_and_monolithic(cuda, dt, T, C,
+                                                         window, D):
+    """Each segment against its plain version over a scratch whose rows
+    past the segment are zero; with C a multiple of the 64-row tile, the
+    concatenated segments equal the monolithic kernel bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(T + C)
+    q, k, v = (torch.randn(2, T, h, D, generator=g, device=cuda).to(dt)
+               for h in (32, 8, 8))
+    atol, rtol = TOL[dt]
+    outs = []
+    for c0 in range(0, T, C):
+        c1 = min(c0 + C, T)
+        ks, vs = torch.zeros_like(k), torch.zeros_like(v)
+        ks[:, :c1], vs[:, :c1] = k[:, :c1], v[:, :c1]
+        out = fp_ops.flash_prefill_chunk_cuda(q[:, c0:c1], ks, vs,
+                                              q_offset=c0, window=window)
+        ref = flash_prefill_chunk_ref(q[:, c0:c1], ks, vs, q_offset=c0,
+                                      window=window)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), ref.float(), atol=atol,
+                                   rtol=rtol)
+        outs.append(out)
+    whole = fp_ops.flash_prefill_cuda(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(outs, 1), whole)
+
+
 def test_kernels_refuse_what_they_do_not_take(cuda):
     q = torch.zeros(1, 8, 4, 96, device=cuda)          # head_dim 96
     with pytest.raises(ValueError):
@@ -124,6 +237,18 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
             torch.zeros(1, 8, 2, 64, device=cuda), None, None,
             torch.zeros(1, 8, device=cuda, dtype=torch.float16), None, None,
             None, bits=16, group=1)
+    q = torch.zeros(1, 64, 4, 64, device=cuda)
+    with pytest.raises(ValueError):                     # segment past Tk
+        fp_ops.flash_prefill_chunk_cuda(q, q[:, :, :2], q[:, :, :2],
+                                        q_offset=1)
+    with pytest.raises(ValueError):                     # table not int32
+        dq_ops.decode_attn_paged_cuda(
+            torch.zeros(1, 4, 64, device=cuda),
+            torch.zeros(1, 2, device=cuda, dtype=torch.int64),
+            torch.zeros(3, 8, 2, 64, device=cuda), None, None,
+            torch.zeros(3, 8, 2, 64, device=cuda), None, None,
+            torch.zeros(1, 16, device=cuda), None, None, None, bits=16,
+            group=1)
 
 
 @pytest.mark.parametrize("pname", ["full", "h2o", "kivi2", "h2o+kivi2"])
@@ -159,3 +284,38 @@ def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
     return tree.to(dev)
+
+
+@pytest.mark.parametrize("pname", ["full", "h2o", "kivi2", "h2o+kivi2"])
+def test_reduced_paged_chunked_engine_on_card_matches_cpu(cuda, pname):
+    """`Engine(paged=True, chunked_prefill=True)`, reduced granite-8b in
+    f32: the card's streams equal the CPU's, the decode went through the
+    paged kernel only, and the admissions through the chunked flash
+    kernel for the policies that read no mass."""
+    cfg = reduced(GRANITE)
+    pol = presets(16, 8)[pname]
+    reqs = [Request(tokens=torch.randint(0, cfg.vocab_size, (n,),
+                                         generator=torch.Generator()
+                                         .manual_seed(n)).numpy(),
+                    max_new=6) for n in (32, 48, 32)]
+    kernels = (dq_ops.decode_attn_kernel, dq_ops.decode_attn_paged_kernel,
+               fp_ops.flash_prefill_kernel, fp_ops.flash_prefill_chunk_kernel)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = M.init_params(cfg, seed=0, device="cpu")
+        params = {k: _to(v, dev) for k, v in params.items()}
+        eng = Engine(cfg, params, pol, prompt_len=48, max_new=6, slots=2,
+                     buckets=(32, 48), device=dev, paged=True,
+                     chunked_prefill=True, chunk_len=16)
+        for k in kernels:
+            k.launches = 0
+        out[dev] = eng.generate_continuous(
+            [Request(tokens=r.tokens, max_new=r.max_new) for r in reqs])
+        assert eng.last_audit["clean"]
+    dense_dec, paged_dec, mono, chunk = (k.launches for k in kernels)
+    assert (dense_dec, mono) == (0, 0)
+    assert paged_dec == out["cuda"].decode_steps * cfg.num_layers
+    if not pol.spec.track_scores():
+        assert chunk == (2 + 3 + 2) * cfg.num_layers     # 16-row segments
+    for a, b in zip(out["cpu"].results, out["cuda"].results):
+        assert a.tokens.tolist() == b.tokens.tolist()

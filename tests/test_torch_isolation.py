@@ -12,7 +12,7 @@ torch = pytest.importorskip("torch")
 import repro_torch
 from repro_torch import bridge
 from repro_torch.configs import base, granite_8b, paper_llama_7b
-from repro_torch.core import budgets, cache, policy, quantization
+from repro_torch.core import budgets, cache, paging, policy, quantization
 from repro_torch.kernels import build
 from repro_torch.kernels.decode_qattn import ops as dq_ops
 from repro_torch.kernels.decode_qattn import ref as dq_ref
@@ -25,9 +25,9 @@ from repro_torch.obs import trace
 from repro_torch.serving import engine, sampler, scheduler
 
 MODULES = [repro_torch, bridge, base, granite_8b, paper_llama_7b, budgets,
-           cache, policy, quantization, build, dq_ops, dq_ref, fp_ops, fp_ref,
-           kvq_ref, serve, attention, blocks, layers, model, rope, trace,
-           engine, sampler, scheduler]
+           cache, paging, policy, quantization, build, dq_ops, dq_ref, fp_ops,
+           fp_ref, kvq_ref, serve, attention, blocks, layers, model, rope,
+           trace, engine, sampler, scheduler]
 
 _CHILD = textwrap.dedent("""
     import importlib, sys
@@ -38,6 +38,12 @@ _CHILD = textwrap.dedent("""
                 "--budget", "16", "--window", "8", "--requests", "3",
                 "--prompt-len", "32", "--max-new", "3", "--slots", "2",
                 "--continuous", "--buckets", "32,48", "--device", "cpu"])
+    serve.main(["--arch", "granite-8b", "--reduced", "--policy", "kivi2",
+                "--budget", "16", "--window", "8", "--requests", "3",
+                "--prompt-len", "32", "--max-new", "3", "--slots", "2",
+                "--continuous", "--buckets", "32,48", "--device", "cpu",
+                "--paged", "--chunked-prefill", "--chunk-len", "16",
+                "--use-kernels", "off"])
     serve.main(["--arch", "paper-llama-7b", "--reduced", "--policy", "kivi2",
                 "--budget", "16", "--window", "8", "--requests", "2",
                 "--prompt-len", "32", "--max-new", "2", "--slots", "2",
@@ -57,6 +63,7 @@ def test_port_imports_no_jax_and_no_repro():
     assert "LEAKED []" in r.stdout, r.stdout
     assert "policy=h2o+kivi2 continuous requests=3" in r.stdout, r.stdout
     assert "policy=kivi2" in r.stdout, r.stdout
+    assert "audit clean=True" in r.stdout, r.stdout
 
 
 def test_entry_points_default_to_cuda():
