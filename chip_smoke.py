@@ -7,26 +7,31 @@ Phases, each printing its own lines; any failure exits non-zero:
 
   1. device   card name, count, torch / CUDA / nvcc versions, power limit
   2. build    the two CUDA sources from the checkout (one nvcc per source,
-              started together; each holds two kernels), with nvcc's
-              -Xptxas -v lines
+              started together; the decode source holds two kernels, the
+              flash source three), with nvcc's -Xptxas -v lines
   3. parity   each kernel against its plain PyTorch version at the main
               path's shapes (granite-8b: Hq 32, Hkv 8, D 128), timed
               beside the plain version and a PyTorch library yardstick;
               the paged decode kernel against the dense one on the same
               rows, and the chunked flash kernel's segments against the
-              monolithic one, both bit for bit
+              monolithic one, both bit for bit; the speculative-verify
+              kernel over dense, quantized-ring and paged cache views;
+              the back-compat quantized decode wrapper
   4. serve    granite-8b at full width and depth, random bf16 weights from
               a seed, `Engine.generate_continuous` under full / h2o /
               kivi2 / h2o+kivi2 (dense cache, monolithic prefill), then
               full / kivi2 / h2o+kivi2 over a paged pool with chunked
-              prefill; each run must go through its kernels, and only
-              its kernels
+              prefill, then self-speculative decoding (gamma 4): full with
+              the `same` drafter, kivi2 with a `window:64` drafter, full
+              paged + chunked with `same`; each run must go through its
+              kernels, and only its kernels, as many times as its steps
   5. e2e      4-layer granite-8b: prefill + decode logits with the kernels
               against an engine built with use_kernels=False, dense and
-              paged + chunked
-  6. profile  one decode step at full depth, 8 slots, dense and paged:
-              wall vs dispatch time, device-busy time and the top kernels
-              (torch.profiler)
+              paged + chunked; then in f32 the speculative streams against
+              the plain ones, token for token
+  6. profile  one decode step at full depth, 8 slots, dense and paged, and
+              one verify round: wall vs dispatch time, device-busy time
+              and the top kernels (torch.profiler)
 
 Then one JSON line describing every ported kernel, and as the last line
 ``{"ok": true, "device": {...}}``. There is no CPU path: without a CUDA
@@ -51,7 +56,8 @@ PHASES = ("device", "build", "parity", "serve", "e2e", "profile")
 # differ by f32 summation order (readings <= 1e-6) and, for bf16 outputs,
 # by the final rounding: at most one bf16 ulp, <= 2^-7 |out| (readings:
 # out 4.9e-4 at |out| in [2^-4, 2^-3), flash prefill 2.0e-3 in
-# [2^-2, 2^-1)). Masses are f32 on both sides (readings <= 4.8e-7).
+# [2^-2, 2^-1), flash verify 7.8e-3 in [1, 2)). Masses are f32 on both
+# sides (readings <= 4.8e-7).
 OUT_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (1e-4, 1e-2)}
 MASS_TOL = (1e-5, 1e-5)
 # published H100 SXM peaks (NVIDIA H100 datasheet: HBM3 rate, dense tensor/FP32 rates)
@@ -142,7 +148,7 @@ def phase_build(info: dict) -> None:
             for line in src.build_log.splitlines():
                 if "registers" in line or "spill" in line or "smem" in line:
                     print(f"[build] {src.path.name}: {line.strip()}")
-    print(f"[build] {len(sources)} sources (4 kernels) built in "
+    print(f"[build] {len(sources)} sources (5 kernels) built in "
           f"{time.perf_counter() - t0:.1f} s")
 
 
@@ -242,14 +248,6 @@ def phase_parity(info: dict) -> None:
               f"{ms:.4f} ms (plain {plain_ms:.4f} ms, sdpa "
               f"{'null' if lib_ms is None else '%.4f ms' % lib_ms}, bound "
               f"{bms:.4f} ms by {by})")
-        if dt == torch.bfloat16 and bits == 2 and mass:
-            rows["decode_attn"] = dict(
-                name="decode_attn_cuda", route="cuda",
-                source="src/repro_torch/kernels/decode_qattn/csrc/"
-                       "decode_attn.cu",
-                replaces="src/repro/kernels/decode_qattn/kernel.py:158",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=by, library_ms=lib_ms)
 
     # ---- B2: causal flash prefill ----
     for dt in (torch.float32, torch.bfloat16):
@@ -282,8 +280,221 @@ def phase_parity(info: dict) -> None:
                     max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                     bound_by=by, library_ms=lib_ms)
             del q, k, v, out_k, out_r
+    _parity_decode_full_path(info)
     _parity_paged_decode(info)
     _parity_chunk_prefill(info)
+    _parity_verify(info)
+    _parity_quantized_wrapper(info)
+
+
+def _parity_decode_full_path(info: dict) -> None:
+    """B1 at the case the `full` serve path runs (the largest share of
+    its device time): bf16, dense 16-bit store of S = 2112 rows (prompt
+    2048 + 64 new), no ring, no mass, ragged rows and one empty slot. It
+    has a one-call library equivalent: SDPA with the validity bias as a
+    float mask (mask construction excluded)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_qattn import ops as dq
+    from repro_torch.kernels.decode_qattn.ref import decode_attn_ref
+    args = _decode_case(torch, torch.bfloat16, 16, False, S=FULL_S)
+    q, k, _, _, v, _, _, bm = args[:8]
+    bm[:, :] = torch.where(torch.arange(FULL_S, device="cuda")[None]
+                           < torch.tensor([2112, 2000, 1024, 0, 1500, 64, 2,
+                                           1100], device="cuda")[:, None],
+                           0.0, -1e30)
+    kw = dict(bits=16, group=128, return_mass=False,
+              compute_dtype=torch.bfloat16)
+    out_k, _ = dq.decode_attn_cuda(*args, **kw)
+    out_r, _ = decode_attn_ref(*args, bits=16, group=128,
+                               compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    err = check_close("decode_attn full path out", out_k, out_r,
+                      *OUT_TOL["bfloat16"])
+    ms = median_ms(lambda: dq.decode_attn_cuda(*args, **kw))
+    plain_ms = median_ms(lambda: decode_attn_ref(
+        *args, bits=16, group=128, compute_dtype=torch.bfloat16))
+    qh, kh, vh = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+    mask = bm[:, None, None].to(torch.bfloat16)
+    lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=mask, enable_gqa=True))
+    B, Hq, D = q.shape
+    bms, by = bound(nbytes(q, k, v, bm, out_k), 4.0 * B * Hq * FULL_S * D,
+                    "bfloat16")
+    print(f"[parity] decode_attn bfloat16 bits=16 S={FULL_S} mass=False "
+          f"ring=False (the full path): max|err| out {err:.3g}; {ms:.4f} ms "
+          f"(plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+          f"{bms:.4f} ms by {by})")
+    info["kernel_rows"]["decode_attn"] = dict(
+        name="decode_attn_cuda", route="cuda",
+        source="src/repro_torch/kernels/decode_qattn/csrc/decode_attn.cu",
+        replaces="src/repro/kernels/decode_qattn/kernel.py:158",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+        bound_by=by, library_ms=lib_ms)
+
+
+# the serve path's cache views: `full` keeps prompt + new tokens verbatim,
+# kivi2 a 512-row quantized store and a 128-row ring
+FULL_S = 2112
+GAMMA = 4
+
+
+def _verify_case(torch, dt, *, kind: str, B=8, Hq=32, Hkv=8, D=128, seed=0):
+    """A speculative-verify input at the serve path's shapes: an L = 5
+    segment (gamma 4) per slot, already appended, over the materialized
+    view the engine hands the kernel. `kind`:
+
+      * ``full``   dense view of S = 2112 rows, positions 0.. in order, the
+                   segment in the main store (ring-free: W 0);
+      * ``kivi``   512 main rows at streaming positions + a 128-row ring
+                   whose `pos - rlen + arange` labels are true positions,
+                   the segment in the ring;
+      * ``paged``  the `full` view gathered from a shuffled 16-row-block
+                   pool (-1 past each slot's length, read as block 0).
+
+    Ragged segments: valid_len 5, 4, 3, 2, 1, 0, 5, 1 (rows past it still
+    run at their positions; slot 5 appended nothing). Slot 3 holds no
+    committed row (`full`: its rows see only its own segment; `kivi`: an
+    empty main store). Returns (q, k, v, kv_pos, bias, q_pos)."""
+    from repro_torch.kernels.decode_qattn.ref import gather_pool
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev, L = "cuda", GAMMA + 1
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(dt)
+
+    valid = torch.tensor([5, 4, 3, 2, 1, 0, 5, 1], device=dev)
+    if kind in ("full", "paged"):
+        S = FULL_S
+        # committed rows before the segment, then the valid segment rows
+        before = torch.tensor([2048, 1500, 1030, 0, 2000, 1024, 7, 2100],
+                              device=dev)
+        length = before + valid
+        idx = torch.arange(S, device=dev)[None]
+        kv_pos = torch.where(idx < length[:, None], idx, -1).to(torch.int32)
+        bias = torch.where(idx < length[:, None], 0.0, -1e30)
+        k, v = rnd(B, S, Hkv, D), rnd(B, S, Hkv, D)
+        if kind == "paged":
+            bl, n_max = 16, S // 16
+            nb = B * n_max + 5
+            ids = torch.randperm(nb, generator=g, device=dev)[:B * n_max]
+            used = (torch.arange(n_max, device=dev)[None] * bl
+                    < length[:, None])
+            tbl = torch.where(used, ids.view(B, n_max), -1).to(torch.int32)
+            pool_k, pool_v = rnd(nb, bl, Hkv, D), rnd(nb, bl, Hkv, D)
+            k = gather_pool(pool_k, tbl).contiguous()
+            v = gather_pool(pool_v, tbl).contiguous()
+        q_pos = (before[:, None] + torch.arange(L, device=dev)[None])
+    else:
+        S, W = 512, 128
+        pos_before = torch.tensor([2048, 1500, 1030, 40, 2000, 1024, 600,
+                                   2100], device=dev)
+        rlen = torch.tensor([100, 5, 127, 4, 64, 1, 5, 128], device=dev)
+        rlen = torch.maximum(rlen, valid)     # the segment sits in the ring
+        pos = pos_before + valid
+        n_main = torch.tensor([512, 384, 512, 0, 512, 512, 256, 512],
+                              device=dev)
+        idx = torch.arange(S, device=dev)[None]
+        # streaming keeps the sinks and the most recent flushed groups
+        main_pos = torch.where(idx < 128, idx,
+                               (pos - rlen)[:, None] - (n_main[:, None] - idx))
+        main_ok = idx < n_main[:, None]
+        ring_idx = torch.arange(W, device=dev)[None]
+        ring_pos = (pos - rlen)[:, None] + ring_idx
+        kv_pos = torch.cat([torch.where(main_ok, main_pos, -1), ring_pos],
+                           1).to(torch.int32)
+        bias = torch.cat([torch.where(main_ok, 0.0, -1e30),
+                          torch.where(ring_idx < rlen[:, None], 0.0, -1e30)],
+                         1)
+        k, v = rnd(B, S + W, Hkv, D), rnd(B, S + W, Hkv, D)
+        q_pos = pos_before[:, None] + torch.arange(L, device=dev)[None]
+    return (rnd(B, L, Hq, D), k, v, kv_pos, bias.float().contiguous(),
+            q_pos.to(torch.int32).contiguous())
+
+
+def _parity_verify(info: dict) -> None:
+    """B5 against its plain version: f32 and bf16, the `full` dense view,
+    the kivi2 quantized-ring view at window 0 and 64, and the paged view;
+    the bf16 `full` case is timed beside its plain version and SDPA with
+    the float mask built from kv_pos / q_pos / window / bias (built
+    outside the timing)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_prefill import ops as fp
+    from repro_torch.kernels.flash_prefill.ref import flash_verify_ref
+    rows = info["kernel_rows"]
+    for dt in (torch.float32, torch.bfloat16):
+        for kind, window in (("full", 0), ("kivi", 0), ("kivi", 64),
+                             ("paged", 0)):
+            args = _verify_case(torch, dt, kind=kind)
+            out_k = fp.flash_verify_cuda(*args, window=window)
+            out_r = flash_verify_ref(*args, window=window)
+            torch.cuda.synchronize()
+            name = str(dt)[6:]
+            what = f"flash_verify {name} {kind} window={window}"
+            err = check_close(what, out_k, out_r, *OUT_TOL[name])
+            ms = median_ms(lambda: fp.flash_verify_cuda(*args, window=window))
+            plain_ms = median_ms(lambda: flash_verify_ref(*args,
+                                                          window=window))
+            q, k, v, kv_pos, bias, q_pos = args
+            ok = kv_pos[:, None, :] <= q_pos[:, :, None]
+            if window:
+                ok = ok & (kv_pos[:, None, :] > q_pos[:, :, None] - window)
+            mask = (bias[:, None, :] + torch.where(ok, 0.0, -1e30)
+                    )[:, None].to(dt)                       # [B,1,L,Tk]
+            qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+            lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask, enable_gqa=True))
+            B, L, Hq, D = q.shape
+            bms, by = bound(nbytes(*args, out_k),
+                            4.0 * B * Hq * L * k.shape[1] * D, name)
+            print(f"[parity] {what} (B {B}, L {L}, Tk {k.shape[1]}): "
+                  f"max|err| {err:.3g}; {ms:.4f} ms (plain {plain_ms:.4f} "
+                  f"ms, sdpa {lib_ms:.4f} ms, bound {bms:.4f} ms by {by})")
+            if dt == torch.bfloat16 and kind == "full":
+                rows["flash_verify"] = dict(
+                    name="flash_verify_cuda", route="cuda",
+                    source="src/repro_torch/kernels/flash_prefill/csrc/"
+                           "flash_prefill.cu",
+                    replaces="src/repro/kernels/flash_prefill/kernel.py:169",
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                    bound_by=by, library_ms=lib_ms)
+            del args, out_k, out_r, mask
+
+
+def _parity_quantized_wrapper(info: dict) -> None:
+    """B1w (the back-compat wrapper over B1: quantized store, no ring, no
+    mass, f32 compute) against its plain version at B1's 2-bit shapes."""
+    import torch
+    from repro_torch.kernels.decode_qattn import ops as dq
+    from repro_torch.kernels.decode_qattn.ref import decode_attn_ref
+    args = _decode_case(torch, torch.bfloat16, 2, False)[:8]
+    kw = dict(bits=2, group=128)
+    n0 = dq.decode_qattn_count.launches
+    out_k = dq.decode_attention_quantized(*args, **kw)
+    if dq.decode_qattn_count.launches != n0 + 1:
+        fail("decode_attention_quantized: its launch was not counted")
+    out_r, _ = decode_attn_ref(*args, None, None, None, **kw,
+                               compute_dtype=torch.float32)
+    torch.cuda.synchronize()
+    err = check_close("decode_attention_quantized", out_k, out_r,
+                      *OUT_TOL["bfloat16"])
+    ms = median_ms(lambda: dq.decode_attention_quantized(*args, **kw))
+    plain_ms = median_ms(lambda: decode_attn_ref(
+        *args, None, None, None, **kw, compute_dtype=torch.float32))
+    q, k = args[0], args[1]
+    B, Hq, D = q.shape
+    bms, by = bound(nbytes(*args, out_k), 4.0 * B * Hq * k.shape[1] * D,
+                    "bfloat16")
+    print(f"[parity] decode_attention_quantized bfloat16 bits=2: max|err| "
+          f"{err:.3g}; {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
+          f"{bms:.4f} ms by {by})")
+    info["kernel_rows"]["decode_qattn"] = dict(
+        name="decode_attention_quantized", route="cuda",
+        source="src/repro_torch/kernels/decode_qattn/csrc/decode_attn.cu",
+        replaces="src/repro/kernels/decode_qattn/kernel.py:378",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+        bound_by=by, library_ms=None)
 
 
 def _paged_case(torch, dt, bits, ring, B=8, S=512, W=128, Hq=32, Hkv=8,
@@ -492,12 +703,18 @@ def _parity_chunk_prefill(info: dict) -> None:
 SERVE_POLICIES = ("full", "h2o", "kivi2", "h2o+kivi2")
 BUCKETS = (1024, 2048)
 N_REQUESTS, MAX_NEW, SLOTS, BUDGET, WINDOW = 16, 64, 8, 512, 128
+# plain runs no speculative run is set beside serve N_SHORT requests
+# (one wave of the 8 slots), to keep the script's time down
+N_SHORT = 8
 # paged + chunked runs: (policy, pool blocks; None = parity with the dense
 # layout). `full` keeps 2112 rows a slot in 16-row blocks: parity is
 # 8 x 132 = 1056 blocks, so at 640 admissions wait on retirements.
 PAGED_RUNS = (("full", 640), ("kivi2", None), ("h2o+kivi2", None))
+# speculative runs (gamma GAMMA): (policy, drafter, paged + chunked?)
+SPEC_RUNS = (("full", "same", False), ("kivi2", "window:64", False),
+             ("full", "same", True))
 KERNELS = ("decode_attn", "flash_prefill", "decode_attn_paged",
-           "flash_prefill_chunk")
+           "flash_prefill_chunk", "flash_verify", "decode_qattn")
 
 
 def _kernel_objs():
@@ -506,7 +723,42 @@ def _kernel_objs():
     return dict(decode_attn=dq.decode_attn_kernel,
                 flash_prefill=fp.flash_prefill_kernel,
                 decode_attn_paged=dq.decode_attn_paged_kernel,
-                flash_prefill_chunk=fp.flash_prefill_chunk_kernel)
+                flash_prefill_chunk=fp.flash_prefill_chunk_kernel,
+                flash_verify=fp.flash_verify_kernel,
+                decode_qattn=dq.decode_qattn_count)
+
+
+def _want_launches(eng, res, n_layers: int, n_req: int, segments: int):
+    """The launches a serve run must show, per kernel, from its own step
+    counts: one per layer for every decode step (B1 dense / B3 paged),
+    admission (B2) or prompt segment (B4) of a policy that reads no mass,
+    and, speculative, verify round (B5) and drafter decode step and
+    drafter admission (B1 / B2: the drafter's cache is dense)."""
+    want = dict.fromkeys(KERNELS, 0)
+    dec, pre = (("decode_attn_paged", "flash_prefill_chunk") if eng.paged
+                else ("decode_attn", "flash_prefill"))
+    st = res.spec
+    want[dec] = (st.plain_rounds if st else res.decode_steps) * n_layers
+    if not eng.spec.track_scores():
+        want[pre] = (segments if eng.chunked_prefill else n_req) * n_layers
+    if st:
+        want["flash_verify"] += st.verify_rounds * n_layers
+        want["decode_attn"] += st.draft_calls * n_layers
+        if not eng.draft.spec.track_scores():
+            want["flash_prefill"] += n_req * n_layers
+    return want
+
+
+def _agreement(res_a, res_b):
+    """(requests with equal streams, tokens equal position by position,
+    tokens) of two runs over the same requests."""
+    same = tok = n = 0
+    for a, b in zip(res_a.results, res_b.results):
+        same += int(a.tokens.tolist() == b.tokens.tolist())
+        m = min(len(a.tokens), len(b.tokens))
+        tok += int((a.tokens[:m] == b.tokens[:m]).sum())
+        n += max(len(a.tokens), len(b.tokens))
+    return same, tok, n
 
 
 def phase_serve(info: dict) -> None:
@@ -533,15 +785,25 @@ def phase_serve(info: dict) -> None:
     kernels = _kernel_objs()
     launches = info.setdefault("launches", dict.fromkeys(KERNELS, 0))
     L = cfg.num_layers
-    segments = sum(-(-len(p) // CHUNK_LEN) for p in prompts)
-    runs = [(p, {}) for p in SERVE_POLICIES] + [
-        (p, dict(paged=True, chunked_prefill=True, chunk_len=CHUNK_LEN,
-                 pool_blocks=nb)) for p, nb in PAGED_RUNS]
-    for pname, opts in runs:
+    chunked = dict(paged=True, chunked_prefill=True, chunk_len=CHUNK_LEN)
+    runs = ([(p, {}, None) for p in SERVE_POLICIES]
+            + [(p, dict(chunked, pool_blocks=nb), None)
+               for p, nb in PAGED_RUNS]
+            + [(p, dict(chunked, pool_blocks=640) if pg else {}, d)
+               for p, d, pg in SPEC_RUNS])
+    baselines = {(p, pg) for p, _, pg in SPEC_RUNS}
+    plain = {}
+    for pname, opts, draft in runs:
+        n_req = (N_REQUESTS if draft or (pname, bool(opts)) in baselines
+                 else N_SHORT)
+        segments = sum(-(-len(p) // CHUNK_LEN) for p in prompts[:n_req])
         pol = presets(budget=BUDGET, window=WINDOW)[pname]
+        spec_kw = (dict(speculative=True, gamma=GAMMA, draft_policy=draft)
+                   if draft else {})
         eng = Engine(cfg, params, pol, prompt_len=max(BUCKETS),
-                     max_new=MAX_NEW, slots=SLOTS, buckets=BUCKETS, **opts)
-        reqs = [Request(tokens=p, max_new=MAX_NEW) for p in prompts]
+                     max_new=MAX_NEW, slots=SLOTS, buckets=BUCKETS, **opts,
+                     **spec_kw)
+        reqs = [Request(tokens=p, max_new=MAX_NEW) for p in prompts[:n_req]]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         for k in kernels.values():
@@ -556,14 +818,15 @@ def phase_serve(info: dict) -> None:
         done = [r for r in res.results if r.finish_reason == "length"
                 and r.n_tokens == MAX_NEW]
         toks = np.concatenate([r.tokens for r in res.results])
-        label = pname + (" paged+chunked" if opts else "")
+        label = (pname + (" paged+chunked" if opts else "")
+                 + (f" spec[{draft}]" if draft else ""))
         pool = ""
         if opts:
             pool = (f", pool peak {res.pool_peak_blocks}/{res.pool_blocks} "
                     f"blocks of {eng.block_len} rows"
                     f"{' (prefill-direct)' if eng._verbatim_ok(BUCKETS[1]) else ''}"
                     f", audit clean={eng.last_audit['clean']}")
-        print(f"[serve] {label}: {len(done)}/{N_REQUESTS} requests "
+        print(f"[serve] {label}: {len(done)}/{n_req} requests "
               f"completed, prefill {res.prefill_seconds:.3f} s, decode "
               f"{res.decode_tokens_per_s:.1f} tok/s over "
               f"{res.decode_steps} steps, ttft mean {res.ttft_mean_s:.3f} "
@@ -571,28 +834,41 @@ def phase_serve(info: dict) -> None:
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, cache "
               f"{res.cache_physical_bytes / 2**20:.1f} MiB physical{pool}; "
               f"launches " + " ".join(f"{k} {v}" for k, v in n.items()))
-        if len(done) != N_REQUESTS:
-            fail(f"{label}: only {len(done)} of {N_REQUESTS} requests "
-                 "completed")
+        if draft is None:
+            plain[(pname, bool(opts))] = res
+        else:
+            st, base = res.spec, plain[(pname, bool(opts))]
+            same, tok, ntok = _agreement(res, base)
+            print(f"[serve]   {st.describe()}; {st.verify_rounds} verify + "
+                  f"{st.plain_rounds} plain rounds, {st.draft_calls} drafter "
+                  f"steps; tok/s {res.decode_tokens_per_s:.1f} vs plain "
+                  f"{base.decode_tokens_per_s:.1f}, ttft mean "
+                  f"{res.ttft_mean_s:.3f} s vs {base.ttft_mean_s:.3f} s; bf16 "
+                  f"streams equal to plain: {same}/{N_REQUESTS} requests, "
+                  f"{tok}/{ntok} tokens (reported, not gated)")
+            info.setdefault("spec_serve", []).append(
+                dict(label=label, acceptance=st.acceptance_rate,
+                     committed_per_verify=st.committed_per_verify_step,
+                     tok_s=res.decode_tokens_per_s,
+                     plain_tok_s=base.decode_tokens_per_s))
+            if st.verify_rounds == 0:
+                fail(f"{label}: no verify round ran")
+        if len(done) != n_req:
+            fail(f"{label}: only {len(done)} of {n_req} requests completed")
         if toks.min() < 0 or toks.max() >= cfg.vocab_size:
             fail(f"{label}: token ids out of range")
-        dec, pre = (("decode_attn_paged", "flash_prefill_chunk") if opts
-                    else ("decode_attn", "flash_prefill"))
-        want = {k: 0 for k in KERNELS}
-        want[dec] = res.decode_steps * L
-        # the flash kernels serve the policies that read no mass
-        if not pol.spec.track_scores():
-            want[pre] = (segments if opts else N_REQUESTS) * L
+        want = _want_launches(eng, res, L, n_req, segments)
         if n != want:
             fail(f"{label}: kernel launches {n}, want {want} "
-                 f"({res.decode_steps} decode steps, {L} layers)")
+                 f"({res.decode_steps} decode steps, {L} layers"
+                 f"{'; ' + res.spec.describe() if res.spec else ''})")
         if opts and not (eng.last_audit["clean"]
                          and res.pool_peak_blocks <= res.pool_blocks):
             fail(f"{label}: pool audit {eng.last_audit}, peak "
                  f"{res.pool_peak_blocks} of {res.pool_blocks} blocks")
         del eng, res
         torch.cuda.empty_cache()
-    del params
+    del params, plain
     torch.cuda.empty_cache()
 
 
@@ -691,6 +967,90 @@ def phase_e2e(info: dict) -> None:
         del engs, admitted, logits
     del params, params32
     torch.cuda.empty_cache()
+    _e2e_spec()
+
+
+# speculative e2e, 4-layer granite-8b in f32 with the kernels: requests,
+# new tokens and slots of the run, and the top-2 logit margin below which
+# a divergence from the plain stream is a near-tie (f32 summation order
+# of the batched verify GEMMs, M = slots x L rows, against the decode
+# GEMMs, M = slots), not a fault
+E2E_SPEC_REQUESTS, E2E_SPEC_NEW, E2E_SPEC_SLOTS = 8, 24, 4
+E2E_MARGIN = 1e-4
+
+
+def _e2e_spec() -> None:
+    """Speculative streams against plain streams, token for token, in
+    f32 with the kernels (`full` and `kivi2` dense, `full` paged +
+    chunked; drafters `same` and `window:32`): the JAX package's
+    contract. A divergence fails unless the target's top-2 margin at that
+    step (recomputed from the plain stream) is below E2E_MARGIN."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.granite_8b import CONFIG
+    from repro_torch.core.policy import presets
+    from repro_torch.nn import model as M
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.scheduler import Request
+    cfg = CONFIG.replace(num_layers=E2E_LAYERS, dtype=torch.float32)
+    params = M.init_params(cfg, seed=3, device="cuda")
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, size=BUCKETS[i % 2])
+               for i in range(E2E_SPEC_REQUESTS)]
+    chunked = dict(paged=True, chunked_prefill=True, chunk_len=CHUNK_LEN)
+
+    def serve(pol, **kw):
+        eng = Engine(cfg, params, pol, prompt_len=max(BUCKETS),
+                     max_new=E2E_SPEC_NEW, slots=E2E_SPEC_SLOTS,
+                     buckets=BUCKETS, **kw)
+        res = eng.generate_continuous(
+            [Request(tokens=p, max_new=E2E_SPEC_NEW) for p in prompts])
+        if eng.paged and not eng.last_audit["clean"]:
+            fail(f"e2e spec: pool audit {eng.last_audit}")
+        return eng, res
+
+    def margin(eng, prompt, stream, i):
+        """Top-2 logit margin of the target at token i of the stream."""
+        toks = torch.as_tensor(prompt[None], device="cuda")
+        lg, pc = M.prefill(params, cfg, {"tokens": toks}, eng.spec,
+                           layer_budgets=eng.layer_budgets)
+        for t in stream[:i]:
+            lg, _ = M.decode_step(params, cfg, pc, torch.as_tensor(
+                [[int(t)]], device="cuda"), eng.spec)
+        top = torch.topk(lg[0], 2).values
+        return (top[0] - top[1]).item()
+
+    for pname, paged in (("full", False), ("kivi2", False), ("full", True)):
+        pol = presets(budget=BUDGET, window=WINDOW)[pname]
+        opts = chunked if paged else {}
+        eng, base = serve(pol, **opts)
+        for draft in ("same", "window:32"):
+            _, res = serve(pol, speculative=True, gamma=GAMMA,
+                           draft_policy=draft, **opts)
+            label = f"{pname}{' paged+chunked' if paged else ''} [{draft}]"
+            div = []
+            for r, (a, b) in enumerate(zip(base.results, res.results)):
+                if a.tokens.tolist() != b.tokens.tolist():
+                    m = min(len(a.tokens), len(b.tokens))
+                    i = next((j for j in range(m)
+                              if a.tokens[j] != b.tokens[j]), m)
+                    div.append((r, i, margin(eng, prompts[r],
+                                             a.tokens.tolist(), i)))
+            st = res.spec
+            print(f"[e2e] spec f32 {label}: "
+                  f"{E2E_SPEC_REQUESTS - len(div)}/{E2E_SPEC_REQUESTS} "
+                  f"streams token-equal to plain; {st.describe()}"
+                  + "".join(f"; request {r} diverges at token {i}, target "
+                            f"top-2 margin {mg:.3g}" for r, i, mg in div))
+            if st.verify_steps == 0:
+                fail(f"e2e spec {label}: no drafted verify step")
+            bad = [(r, i, mg) for r, i, mg in div if not mg < E2E_MARGIN]
+            if bad:
+                fail(f"e2e spec {label}: streams diverge from plain decode "
+                     f"at (request, token, margin) {bad}, margins not below "
+                     f"{E2E_MARGIN}")
+    del params
+    torch.cuda.empty_cache()
 
 
 def _admit_paged_chunked(eng, prompts):
@@ -735,7 +1095,6 @@ PROFILE_POLICIES = ("full", "h2o+kivi2")
 def phase_profile(info: dict) -> None:
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs.granite_8b import CONFIG
     from repro_torch.core import cache as kvcache
@@ -784,22 +1143,15 @@ def phase_profile(info: dict) -> None:
         host_ms = (time.perf_counter() - t0) * 1e3 / n   # dispatch only
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
+        # two profiled steps: the profiler takes seconds to fold each
+        # step's ~15 thousand host ops
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(4):
+            for _ in range(2):
                 step()
             torch.cuda.synchronize()
-        ka = prof.key_averages()
-        # device-side events only (kernels, memcpy, memset): an aten op's
-        # own row repeats the time of the kernels it launched
-        rows = [(e.key, e.self_device_time_total / 1e3 / 4, e.count // 4)
-                for e in ka if e.device_type == DeviceType.CUDA
-                and e.self_device_time_total > 0]
+        rows, n_aten, n_launch = _profile_rows(prof, 2)
         busy = sum(r[1] for r in rows)
-        n_aten = sum(e.count for e in ka if e.key.startswith("aten::")) // 4
-        n_launch = sum(e.count for e in ka
-                       if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC",
-                                    "cuLaunchKernel", "cuLaunchKernelEx")) // 4
         print(f"[profile] {label}: decode step {wall_ms:.2f} ms wall "
               f"({host_ms:.2f} ms to dispatch), device busy "
               f"{busy:.2f} ms/step, idle share {1 - busy / wall_ms:.3f}; "
@@ -809,7 +1161,92 @@ def phase_profile(info: dict) -> None:
             print(f"[profile]   {ms:8.3f} ms/step  x{cnt:<5d} {key[:90]}")
         del eng, cache
         torch.cuda.empty_cache()
+    _profile_verify(params)
     del params
+    torch.cuda.empty_cache()
+
+
+def _profile_rows(prof, n: int):
+    """Device-side events only (kernels, memcpy, memset: an aten op's own
+    row repeats the time of the kernels it launched), per step; plus the
+    host's aten ops and kernel launches per step."""
+    from torch.autograd import DeviceType
+    ka = prof.key_averages()
+    rows = [(e.key, e.self_device_time_total / 1e3 / n, e.count // n)
+            for e in ka if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    n_aten = sum(e.count for e in ka if e.key.startswith("aten::")) // n
+    n_launch = sum(e.count for e in ka
+                   if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                                "cuLaunchKernel", "cuLaunchKernelEx")) // n
+    return rows, n_aten, n_launch
+
+
+def _profile_verify(params) -> None:
+    """One verify round of the `full` dense speculative run: 8 slots after
+    8 admissions of 1024 tokens, a gamma-4 segment each (random drafts:
+    one row commits), `verify_step` as the loop dispatches it."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.granite_8b import CONFIG
+    from repro_torch.core import cache as kvcache
+    from repro_torch.core.policy import presets
+    from repro_torch.nn import model as M
+    from repro_torch.serving.engine import Engine
+    cfg = CONFIG
+    eng = Engine(cfg, params, presets(budget=BUDGET, window=WINDOW)["full"],
+                 prompt_len=max(BUCKETS), max_new=MAX_NEW, slots=SLOTS,
+                 buckets=BUCKETS, speculative=True, gamma=GAMMA,
+                 draft_policy="same")
+    rng = np.random.default_rng(4)
+    cache = M.init_cache(cfg, eng.spec, SLOTS, max(BUCKETS) + MAX_NEW,
+                         layer_budgets=eng.layer_budgets, device="cuda")
+    for s in range(SLOTS):
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                            (1, BUCKETS[0])), device="cuda")
+        _, pc = M.prefill(params, cfg, {"tokens": toks}, eng.spec,
+                          layer_budgets=eng.layer_budgets)
+        kvcache.insert_request(cache.attn, s, pc.attn, batch_axis=2)
+    seg = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                       (SLOTS, GAMMA + 1)), device="cuda")
+    valid = torch.full((SLOTS,), GAMMA + 1, dtype=torch.int32, device="cuda")
+
+    def step():
+        return eng._verify(cache, seg, valid, [False] * (GAMMA + 1))
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    n = 4
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step()
+    host_ms = (time.perf_counter() - t0) * 1e3 / n
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    # one profiled round: ~45 thousand host ops, whose trace alone takes
+    # the profiler tens of seconds to fold per round
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    rows, n_aten, n_launch = _profile_rows(prof, 1)
+    busy = sum(r[1] for r in rows)
+    print(f"[profile] full spec verify round (L {GAMMA + 1}): "
+          f"{wall_ms:.2f} ms wall ({host_ms:.2f} ms to dispatch), device "
+          f"busy {busy:.2f} ms/round, idle share {1 - busy / wall_ms:.3f}; "
+          f"host: {n_aten} aten ops, {n_launch} kernel launches per round")
+    b5 = [r for r in rows if "flash_verify" in r[0]]
+    copies = [r for r in rows if any(w in r[0].lower() for w in
+                                     ("copy", "memcpy", "cat"))]
+    print(f"[profile]   B5: {sum(r[1] for r in b5):.3f} ms/round x"
+          f"{sum(r[2] for r in b5)}; copy / cat kernels (materialize_kv "
+          f"and the rest): {sum(r[1] for r in copies):.3f} ms/round x"
+          f"{sum(r[2] for r in copies)}")
+    for key, ms, cnt in sorted(rows, key=lambda r: -r[1])[:8]:
+        print(f"[profile]   {ms:8.3f} ms/round  x{cnt:<5d} {key[:90]}")
+    del eng, cache
     torch.cuda.empty_cache()
 
 
@@ -832,8 +1269,8 @@ def main() -> int:
               flush=True)
     # launches: the serve phase's counts (set to 0 before each run, read
     # right after it, summed over the runs)
-    kernels = [dict(info["kernel_rows"][key],
-                    launches=info["launches"][key]) for key in KERNELS]
+    kernels = [dict(info["kernel_rows"][key], launches=info["launches"][key])
+               for key in KERNELS]
     print(info["smi"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

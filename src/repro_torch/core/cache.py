@@ -20,14 +20,19 @@ accumulation here run on either store; `append_token`,
 `materialize_kv` and `cache_physical_bytes` dispatch to `core.paging`
 for it.
 
-Not ported yet: `append_segment` / `truncate_rows` (speculative),
-`SSMState`, and the NACL / Keyformer noise (those policies raise at the
-engine).
+**Masked appends.** Every append takes an optional ``mask`` [B] bool:
+a row where it is False keeps its K/V, scores, `slot_pos`, `length`,
+`rlen` and `pos` (ragged speculative drafts and verify segments).
+`append_segment` is L such appends in order, and `truncate_rows`
+un-appends a row's newest tokens (speculative rollback).
+
+Not ported yet: `SSMState`, and the NACL / Keyformer noise (those
+policies raise at the engine).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
@@ -265,20 +270,40 @@ def reset_slot(stacked: LayerKV, slot_idx: int, *,
 # ---------------------------------------------------------------------------
 
 
+def _put_rows(arr: torch.Tensor, slot: torch.Tensor, val: torch.Tensor,
+              mask: Optional[torch.Tensor]) -> None:
+    """arr[b, slot[b]] = val[b] in place; a row where ``mask[b]`` is False
+    keeps its old value (its old entry is read and written back)."""
+    rows = torch.arange(arr.shape[0], device=arr.device)
+    val = val.to(arr.dtype)
+    if mask is not None:
+        val = torch.where(mask.view(-1, *([1] * (val.dim() - 1))), val,
+                          arr[rows, slot])
+    arr[rows, slot] = val
+
+
+def _advance(counter: torch.Tensor, mask: Optional[torch.Tensor]) -> None:
+    """counter += 1 on the rows the mask lets through (all without one)."""
+    counter.add_(1 if mask is None else mask.to(counter.dtype))
+
+
 def append_token_dense(lc: LayerKV, spec: CacheSpec, k_new: torch.Tensor,
-                       v_new: torch.Tensor) -> LayerKV:
-    """k_new/v_new: [B, H, D] (post-RoPE). Fixed-budget eviction append."""
+                       v_new: torch.Tensor, *,
+                       mask: Optional[torch.Tensor] = None) -> LayerKV:
+    """k_new/v_new: [B, H, D] (post-RoPE). Fixed-budget eviction append;
+    rows where `mask` [B] is False are left untouched."""
     B, S = lc.scores.shape
-    rows = torch.arange(B, device=lc.k.device)
     cap = torch.clamp(lc.budget, max=S)
     full = lc.length >= cap
     slot = torch.where(full, select_victim(lc, spec), lc.length)
-    lc.k[rows, slot] = k_new.to(lc.k.dtype)
-    lc.v[rows, slot] = v_new.to(lc.v.dtype)
-    lc.scores[rows, slot] = 0.0
-    lc.slot_pos[rows, slot] = lc.pos
-    lc.length.copy_(torch.minimum(lc.length + 1, cap))
-    lc.pos.add_(1)
+    _put_rows(lc.k, slot, k_new, mask)
+    _put_rows(lc.v, slot, v_new, mask)
+    _put_rows(lc.scores, slot, lc.scores.new_zeros(B), mask)
+    _put_rows(lc.slot_pos, slot, lc.pos, mask)
+    new_len = torch.minimum(lc.length + 1, cap)
+    lc.length.copy_(new_len if mask is None
+                    else torch.where(mask, new_len, lc.length))
+    _advance(lc.pos, mask)
     return lc
 
 
@@ -311,24 +336,49 @@ def plan_group_flush(lc: LayerKV, spec: CacheSpec, S: int):
     return gslot, cap_groups, kq, vq, new_pos
 
 
+def flush_need(lc, spec: CacheSpec,
+               mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """[B] rows whose append flushes the ring first: a full ring, on a
+    row the mask lets append (a masked row's append, flush included,
+    never happens)."""
+    need = lc.rlen >= spec.window
+    return need if mask is None else need & mask
+
+
+def ring_append(lc, k_new: torch.Tensor, v_new: torch.Tensor,
+                mask: Optional[torch.Tensor]) -> None:
+    """Write the token at ring row `rlen` and advance `rlen` / `pos`
+    (rows the mask lets through). A masked row may sit at a full ring:
+    its index clamps to the last row, whose value is written back."""
+    W = lc.rk.shape[1]
+    at = lc.rlen.long() if mask is None else lc.rlen.clamp(max=W - 1).long()
+    _put_rows(lc.rk, at, k_new, mask)
+    _put_rows(lc.rv, at, v_new, mask)
+    _put_rows(lc.r_scores, at, lc.r_scores.new_zeros(lc.rk.shape[0]), mask)
+    _advance(lc.rlen, mask)
+    _advance(lc.pos, mask)
+
+
 def append_token_quantized(lc: LayerKV, spec: CacheSpec,
                            k_new: torch.Tensor, v_new: torch.Tensor, *,
-                           ring_full: Optional[bool] = None) -> LayerKV:
+                           ring_full: Optional[bool] = None,
+                           mask: Optional[torch.Tensor] = None) -> LayerKV:
     """Append to the fp residual ring; a row whose ring is full first
     quantizes it as one per-channel group (KIVI) and flushes it into the
     main store, evicting a whole group when at budget.
 
     The flush is per row (rows sit at different ring phases under
     continuous batching). It is computed for the whole batch and written
-    only where the row's ring is full, so no row's decision needs the
-    host. `ring_full` is the caller's host-side knowledge of whether any
-    row is full this step: False skips the flush work, True runs it;
-    None asks the device (one sync) — the engine keeps a host mirror of
-    the ring lengths and passes it, so its decode loop never syncs here."""
+    only where the row's ring is full (and `mask` lets the row append),
+    so no row's decision needs the host. `ring_full` is the caller's
+    host-side knowledge of whether any row flushes this step: False
+    skips the flush work, True runs it; None asks the device (one sync)
+    — the engines keep host mirrors of the ring lengths and pass it, so
+    their loops never sync here."""
     W = G = spec.window
     B, S = lc.scores.shape
     rows = torch.arange(B, device=lc.k.device)
-    need = lc.rlen >= W                                       # [B]
+    need = flush_need(lc, spec, mask)                         # [B]
     if ring_full is None:
         ring_full = bool(need.any())
     if ring_full:
@@ -355,27 +405,77 @@ def append_token_quantized(lc: LayerKV, spec: CacheSpec,
             need, torch.minimum(lc.length + W, cap_groups * G), lc.length))
         lc.r_scores.masked_fill_(need[:, None], 0.0)
         lc.rlen.masked_fill_(need, 0)
-    at = lc.rlen.long()
-    lc.rk[rows, at] = k_new.to(lc.rk.dtype)
-    lc.rv[rows, at] = v_new.to(lc.rv.dtype)
-    lc.r_scores[rows, at] = 0.0
-    lc.rlen.add_(1)
-    lc.pos.add_(1)
+    ring_append(lc, k_new, v_new, mask)
     return lc
 
 
 def append_token(lc, spec: CacheSpec, k_new: torch.Tensor,
-                 v_new: torch.Tensor, *, ring_full: Optional[bool] = None):
+                 v_new: torch.Tensor, *, ring_full: Optional[bool] = None,
+                 mask: Optional[torch.Tensor] = None):
+    """One token per row, in place; `mask` [B] bool (None: every row)
+    gates the rows that append, `ring_full` as in
+    `append_token_quantized`."""
     if not isinstance(lc, LayerKV):
         # paged store: same eviction / flush semantics, K/V writes routed
         # through the block table
         from repro_torch.core import paging
         return paging.append_token_paged(lc, spec, k_new, v_new,
-                                         ring_full=ring_full)
+                                         ring_full=ring_full, mask=mask)
     if spec.quantized:
         return append_token_quantized(lc, spec, k_new, v_new,
-                                      ring_full=ring_full)
-    return append_token_dense(lc, spec, k_new, v_new)
+                                      ring_full=ring_full, mask=mask)
+    return append_token_dense(lc, spec, k_new, v_new, mask=mask)
+
+
+def append_segment(lc, spec: CacheSpec, k_seg: torch.Tensor,
+                   v_seg: torch.Tensor, *,
+                   valid_len: Optional[torch.Tensor] = None,
+                   ring_full: Optional[Sequence[bool]] = None):
+    """Append n tokens per row in order: k_seg/v_seg [B, n, H, D]
+    (post-RoPE), in place. The body is n masked `append_token`s, so
+    evictions and quantized flushes fire at exactly the positions a
+    token-at-a-time loop would fire them (bit-equal by construction), on
+    either store. `valid_len` [B] int: row b appends only its first
+    `valid_len[b]` tokens (0: none). `ring_full`: one host flag per
+    sub-step (None asks the device)."""
+    for t in range(k_seg.shape[1]):
+        append_token(lc, spec, k_seg[:, t], v_seg[:, t],
+                     ring_full=None if ring_full is None else ring_full[t],
+                     mask=None if valid_len is None else t < valid_len)
+    return lc
+
+
+# ---------------------------------------------------------------------------
+# Speculative rollback: un-append the most recent tokens, in place
+# ---------------------------------------------------------------------------
+
+
+def truncate_rows(lc, spec: CacheSpec, n_drop: torch.Tensor):
+    """Un-append the `n_drop[b]` newest tokens of row b (rejected
+    speculative drafts); n_drop [B] int, 0 keeps the row. Leaves may carry
+    leading layer dims: one call serves a per-layer piece or a whole
+    stacked cache, dense or paged.
+
+    The rollback contract (kept by the speculative loop's depth cap): the
+    undone appends crossed no eviction and no quantized flush. A dense
+    store then lowers `length` / `pos` and clears the dropped rows'
+    metadata (slot_pos -1, scores 0, so they leave no trace in victim
+    selection); a quantized store lowers `rlen` / `pos` — ring rows past
+    `rlen` are masked by the validity bias and rewritten before any flush
+    reads them. Dropped K/V bytes stay, masked like a reset slot's."""
+    n_drop = n_drop.clamp(min=0).to(lc.length.dtype)
+    if spec.quantized:
+        lc.rlen.sub_(n_drop)
+        lc.pos.sub_(n_drop)
+        return lc
+    idx = torch.arange(lc.scores.shape[-1], device=lc.scores.device)
+    new_len = lc.length - n_drop
+    dropped = (idx >= new_len[..., None]) & (idx < lc.length[..., None])
+    lc.scores.masked_fill_(dropped, 0.0)
+    lc.slot_pos.masked_fill_(dropped, -1)
+    lc.length.copy_(new_len)
+    lc.pos.sub_(n_drop)
+    return lc
 
 
 # ---------------------------------------------------------------------------
@@ -383,16 +483,23 @@ def append_token(lc, spec: CacheSpec, k_new: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def accumulate_scores(lc: LayerKV, spec: CacheSpec,
-                      attn_mass: torch.Tensor) -> LayerKV:
+def accumulate_scores(lc: LayerKV, spec: CacheSpec, attn_mass: torch.Tensor,
+                      *, gate: Optional[torch.Tensor] = None) -> LayerKV:
     """attn_mass: [B, S+W] this step's attention mass per slot, aligned
-    with `materialize_kv` ordering."""
+    with `materialize_kv` ordering. `gate` [B] bool: rows where it is
+    False add an exact 0.0 (speculative verify applies only the accepted
+    rows' masses; the float association chain stays that of a row that
+    never saw the step)."""
     if not spec.track_scores():
         return lc
     S = lc.scores.shape[1]
-    lc.scores.add_(attn_mass[:, :S])
+    main, resid = attn_mass[:, :S], attn_mass[:, S:]
+    if gate is not None:
+        main = torch.where(gate[:, None], main, 0.0)
+        resid = torch.where(gate[:, None], resid, 0.0)
+    lc.scores.add_(main)
     if lc.r_scores.shape[1] > 0:
-        lc.r_scores.add_(attn_mass[:, S:])
+        lc.r_scores.add_(resid)
     return lc
 
 

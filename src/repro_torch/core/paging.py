@@ -199,38 +199,44 @@ def _scatter_rows(pool: torch.Tensor, rows: torch.Tensor,
 
 def append_token_paged(p: PagedLayerKV, spec: CacheSpec, k_new: torch.Tensor,
                        v_new: torch.Tensor, *,
-                       ring_full: Optional[bool] = None) -> PagedLayerKV:
+                       ring_full: Optional[bool] = None,
+                       mask: Optional[torch.Tensor] = None) -> PagedLayerKV:
     """Paged twin of `cache.append_token`: the same eviction / ring-flush
     semantics (shared planning helpers), K/V writes routed through the
-    block table. `ring_full` as in `cache.append_token_quantized`."""
+    block table. `ring_full` and `mask` as in `cache.append_token`: a
+    masked row's pool writes go to the drop block, its metadata stays."""
     if spec.quantized:
         return _append_quantized_paged(p, spec, k_new, v_new,
-                                       ring_full=ring_full)
+                                       ring_full=ring_full, mask=mask)
     B, S = p.scores.shape
     bl = p.pk.shape[1]
-    rows = torch.arange(B, device=p.pk.device)
     cap = torch.clamp(p.budget, max=S)
     full = p.length >= cap
     slot = torch.where(full, kvcache.select_victim(p, spec), p.length)
     phys = _phys_rows(p.block_tbl, slot, bl, n_blocks(p))
+    if mask is not None:
+        phys = torch.where(mask, phys, n_blocks(p) * bl)
     _scatter_rows(p.pk, phys, k_new)
     _scatter_rows(p.pv, phys, v_new)
-    p.scores[rows, slot] = 0.0
-    p.slot_pos[rows, slot] = p.pos
-    p.length.copy_(torch.minimum(p.length + 1, cap))
-    p.pos.add_(1)
+    kvcache._put_rows(p.scores, slot, p.scores.new_zeros(B), mask)
+    kvcache._put_rows(p.slot_pos, slot, p.pos, mask)
+    new_len = torch.minimum(p.length + 1, cap)
+    p.length.copy_(new_len if mask is None
+                   else torch.where(mask, new_len, p.length))
+    kvcache._advance(p.pos, mask)
     return p
 
 
 def _append_quantized_paged(p: PagedLayerKV, spec: CacheSpec,
                             k_new: torch.Tensor, v_new: torch.Tensor, *,
-                            ring_full: Optional[bool]) -> PagedLayerKV:
+                            ring_full: Optional[bool],
+                            mask: Optional[torch.Tensor]) -> PagedLayerKV:
     W = G = spec.window
     B, S = p.scores.shape
     if p.pk.shape[1] != G:
         raise ValueError("quantized pools flush one block per group")
     rows = torch.arange(B, device=p.pk.device)
-    need = p.rlen >= W                                       # [B]
+    need = kvcache.flush_need(p, spec, mask)                 # [B]
     if ring_full is None:
         ring_full = bool(need.any())
     if ring_full:
@@ -260,12 +266,7 @@ def _append_quantized_paged(p: PagedLayerKV, spec: CacheSpec,
             need, torch.minimum(p.length + W, cap_groups * G), p.length))
         p.r_scores.masked_fill_(need[:, None], 0.0)
         p.rlen.masked_fill_(need, 0)
-    at = p.rlen.long()
-    p.rk[rows, at] = k_new.to(p.rk.dtype)
-    p.rv[rows, at] = v_new.to(p.rv.dtype)
-    p.r_scores[rows, at] = 0.0
-    p.rlen.add_(1)
-    p.pos.add_(1)
+    kvcache.ring_append(p, k_new, v_new, mask)
     return p
 
 

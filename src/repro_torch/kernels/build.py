@@ -120,6 +120,15 @@ class CudaKernel:
         self.launches += 1
 
 
+class LaunchCount:
+    """The launch count of a wrapper that launches another entry point's
+    kernel (each such launch counts there too): the wrapper adds one
+    right after that kernel's launch returns."""
+
+    def __init__(self) -> None:
+        self.launches = 0
+
+
 def stream_handle(device) -> Optional[int]:
     """Raw handle of the current CUDA stream on `device` (a Python int
     for the ``void*`` stream argument)."""

@@ -6,7 +6,9 @@ kernels' wrappers, and the device dispatch.
 (`ref.decode_attn_ref`, `ref.decode_attn_paged_ref`) for tensors on the
 CPU and the CUDA kernels (`decode_attn_cuda`, `decode_attn_paged_cuda`,
 one source) for tensors on the card; on the card there is no other path
-— a shape or type a kernel does not take raises."""
+— a shape or type a kernel does not take raises.
+`decode_attention_quantized` is the JAX package's back-compat wrapper
+over the dense kernel (`decode_qattn_pallas`)."""
 from __future__ import annotations
 
 import ctypes
@@ -15,7 +17,8 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels.build import CudaKernel, CudaSource, stream_handle
+from repro_torch.kernels.build import (CudaKernel, CudaSource, LaunchCount,
+                                      stream_handle)
 from repro_torch.kernels.decode_qattn import ref
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -25,6 +28,8 @@ decode_attn_kernel = CudaKernel(SOURCE, "decode_attn_launch",
                                 [_P] * 14 + [_I] * 10 + [_F, _P])
 decode_attn_paged_kernel = CudaKernel(SOURCE, "decode_attn_paged_launch",
                                       [_P] * 15 + [_I] * 12 + [_F, _P])
+# B1w launches through decode_attn_kernel; this counts them on their own
+decode_qattn_count = LaunchCount()
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 D_MAX, GQ_MAX = 128, 16
@@ -218,3 +223,21 @@ def decode_attention_paged(q, block_tbl, pk, pk_scale, pk_zero, pv,
         q, block_tbl, pk, pk_scale, pk_zero, pv, pv_scale, pv_zero,
         bias_main, rk, rv, bias_ring, bits=bits, group=group,
         return_mass=return_mass, compute_dtype=compute_dtype)
+
+
+def decode_attention_quantized(q, kq, ks, kz, vq, vs, vz, bias, *,
+                               bits: int, group: int):
+    """Back-compat wrapper over the fused decode kernel (counterpart of
+    `repro.kernels.decode_qattn.kernel.decode_qattn_pallas`): a quantized
+    main store only (shapes as `decode_attn_cuda`, bits < 16), no ring,
+    no mass, f32 compute. Returns out [B, Hq, D] in q.dtype."""
+    if bits >= 16:
+        raise ValueError(f"decode_attention_quantized: bits={bits} (the "
+                         "wrapper takes a quantized store)")
+    out, _ = decode_attention_fused(q, kq, ks, kz, vq, vs, vz, bias, None,
+                                    None, None, bits=bits, group=group,
+                                    return_mass=False,
+                                    compute_dtype=torch.float32)
+    if q.device.type != "cpu":
+        decode_qattn_count.launches += 1
+    return out

@@ -1,6 +1,7 @@
-"""Causal flash prefill, monolithic and chunked: the CUDA kernels'
-wrappers, and the device dispatch (plain versions for CPU tensors, the
-kernels on the card — no other path there)."""
+"""Causal flash prefill, monolithic and chunked, and the speculative-verify
+attention: the CUDA kernels' wrappers, and the device dispatch (plain
+versions for CPU tensors, the kernels on the card — no other path
+there)."""
 from __future__ import annotations
 
 import ctypes
@@ -19,9 +20,12 @@ flash_prefill_kernel = CudaKernel(SOURCE, "flash_prefill_launch",
                                   [_P] * 4 + [_I] * 7 + [_F, _P])
 flash_prefill_chunk_kernel = CudaKernel(SOURCE, "flash_prefill_chunk_launch",
                                         [_P] * 4 + [_I] * 9 + [_F, _P])
+flash_verify_kernel = CudaKernel(SOURCE, "flash_verify_launch",
+                                 [_P] * 7 + [_I] * 8 + [_F, _P])
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128)
+VERIFY_L_MAX = 16
 
 
 def _check(q, k, v, what):
@@ -76,6 +80,38 @@ def flash_prefill_chunk_cuda(q, k, v, *, q_offset: int, window: int = 0):
     return out
 
 
+def flash_verify_cuda(q, k, v, kv_pos, bias, q_pos, *, window: int = 0):
+    """q: [B, L, Hq, D] (L <= VERIFY_L_MAX), one speculated segment per
+    row at absolute positions q_pos [B, L] int32; k, v: [B, Tk, Hkv, D],
+    the materialized cache view, its rows at kv_pos [B, Tk] int32 with the
+    additive validity bias [B, Tk] f32 (CUDA, one dtype of f32 / bf16, D
+    in HEAD_DIMS). Returns [B, L, Hq, D] in q.dtype (`ref.flash_verify_ref`)."""
+    _check(q, k, v, "flash_verify_cuda")
+    B, L, Hq, D = q.shape
+    Tk = k.shape[1]
+    if not 1 <= L <= VERIFY_L_MAX:
+        raise ValueError(f"flash_verify_cuda: segment length {L} not in "
+                         f"1..{VERIFY_L_MAX}")
+    for t, dt, shape, what in ((kv_pos, torch.int32, (B, Tk), "kv_pos"),
+                               (bias, torch.float32, (B, Tk), "bias"),
+                               (q_pos, torch.int32, (B, L), "q_pos")):
+        if t.dtype != dt or tuple(t.shape) != shape or t.device != q.device:
+            raise ValueError(f"flash_verify_cuda: {what} {tuple(t.shape)} "
+                             f"{t.dtype} {t.device}, want {shape} {dt}")
+    # the kernel stages K/V rows with 16-byte loads
+    k, v = k.contiguous(), v.contiguous()
+    k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (k, v))
+    q = q.contiguous()
+    kv_pos, bias, q_pos = (t.contiguous() for t in (kv_pos, bias, q_pos))
+    out = torch.empty_like(q)
+    flash_verify_kernel(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_pos.data_ptr(),
+        bias.data_ptr(), q_pos.data_ptr(), out.data_ptr(), B, L, Tk, Hq,
+        k.shape[2], D, int(window), _DTYPES[q.dtype], 1.0 / math.sqrt(D),
+        stream_handle(q.device))
+    return out
+
+
 def flash_attention(q, k, v, *, window: int = 0):
     """Causal flash attention (shapes as `flash_prefill_cuda`): the
     kernel on the card, the plain version on the CPU."""
@@ -92,3 +128,12 @@ def flash_attention_chunk(q, k, v, *, q_offset: int, window: int = 0):
         return ref.flash_prefill_chunk_ref(q, k, v, q_offset=q_offset,
                                            window=window)
     return flash_prefill_chunk_cuda(q, k, v, q_offset=q_offset, window=window)
+
+
+def flash_verify(q, k, v, kv_pos, bias, q_pos, *, window: int = 0):
+    """Speculative-verify attention (shapes as `flash_verify_cuda`): the
+    kernel on the card, the plain version on the CPU."""
+    if q.device.type == "cpu":
+        return ref.flash_verify_ref(q, k, v, kv_pos, bias, q_pos,
+                                    window=window)
+    return flash_verify_cuda(q, k, v, kv_pos, bias, q_pos, window=window)

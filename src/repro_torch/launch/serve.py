@@ -15,6 +15,11 @@ seed, on the card unless ``--device cpu``.
     python -m repro_torch.launch.serve --arch granite-8b --reduced \\
         --policy h2o+kivi2 --budget 64 --continuous --buckets 128,256 \\
         --paged --chunked-prefill --chunk-len 64
+
+    # self-speculative decoding: 4 drafts a round against a window view
+    python -m repro_torch.launch.serve --arch granite-8b --reduced \\
+        --policy full --continuous --speculative --gamma 4 \\
+        --draft-policy window:64
 """
 from __future__ import annotations
 
@@ -72,10 +77,29 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--chunk-len", type=int, default=64,
                     help="prompt tokens per prefill segment (snapped "
                          "down to the mass-accumulation group)")
+    ap.add_argument("--speculative", action="store_true",
+                    help="self-speculative decoding (--continuous only): "
+                         "the same weights draft against a cheap cache "
+                         "view, one rectangular verify commits accepted "
+                         "tokens and rolls rejects back; greedy streams "
+                         "equal non-speculative decode")
+    ap.add_argument("--gamma", type=int, default=4,
+                    help="max draft tokens per verify step (per-slot "
+                         "depth is capped to the cache's rollback "
+                         "headroom)")
+    ap.add_argument("--draft-policy", default="window:64",
+                    help="drafter cache view: window:N (sliding-window "
+                         "attention over an uncompressed store), "
+                         "kivi2[:budget[:window]] / kivi4 / int8 "
+                         "(quantized ring), or same (target clone: "
+                         "acceptance ceiling)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; cpu runs the "
                          "kernels' plain versions)")
     args = ap.parse_args(argv)
+    if args.speculative and not args.continuous:
+        ap.error("--speculative requires --continuous (the draft/verify "
+                 "loop lives in the continuous engine)")
 
     device = resolve_device(args.device)
     use_kernels = args.use_kernels == "on"
@@ -95,7 +119,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                      paged=args.paged, block_len=args.block_len,
                      pool_blocks=args.pool_blocks or None,
                      chunked_prefill=args.chunked_prefill,
-                     chunk_len=args.chunk_len)
+                     chunk_len=args.chunk_len, speculative=args.speculative,
+                     gamma=args.gamma, draft_policy=args.draft_policy)
         eos = args.eos_id if args.eos_id >= 0 else None
         reqs = [
             Request(tokens=rng.integers(0, cfg.vocab_size,
@@ -120,6 +145,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             print(f"paged: pool {res.pool_blocks} blocks, peak "
                   f"{res.pool_peak_blocks}, failed {len(res.failed())}, "
                   f"audit clean={eng.last_audit['clean']}")
+        if res.spec is not None:
+            print(res.spec.describe())
         return
 
     prompts = rng.integers(0, cfg.vocab_size,

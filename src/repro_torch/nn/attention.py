@@ -1,6 +1,6 @@
 """GQA attention (counterpart of `repro.nn.attention`): chunked
-full-sequence attention with the per-key attention mass for prefill, and
-cache-aware single-token decode.
+full-sequence attention with the per-key attention mass for prefill,
+cache-aware single-token decode, and the speculative verify segment.
 
 Decode has two implementations of one contract:
 
@@ -22,6 +22,7 @@ import torch
 from repro_torch.core import cache as kvcache
 from repro_torch.core.cache import CacheSpec, LayerKV
 from repro_torch.kernels.decode_qattn import ops as dq_ops
+from repro_torch.kernels.flash_prefill import ops as fp_ops
 from repro_torch.nn import layers as L
 from repro_torch.nn.rope import apply_rope
 
@@ -197,3 +198,71 @@ def decode_attention(q: torch.Tensor, lc, spec: CacheSpec, *,
     return gqa_attention(q, k, v, causal=False, kv_positions=kv_positions,
                          kv_bias=bias, q_positions=q_pos[:, None],
                          return_mass=True)
+
+
+# ---------------------------------------------------------------------------
+# Speculative verify: a rectangular segment of queries over the cache
+# ---------------------------------------------------------------------------
+#
+# The verify step appends the whole speculated segment (last committed
+# token + drafts) with `cache.append_segment`, then every segment row
+# attends the cache in one pass. The speculative loop's depth cap keeps
+# the drafts' appends free of evictions and flushes, so the cache each row
+# sees equals what sequential decode would see at that sub-step plus the
+# later drafts' rows, which the causal test on absolute positions masks
+# to an exact 0.0: each row reproduces the decode step it replaces.
+
+
+def verify_attention(q: torch.Tensor, lc, spec: CacheSpec, *,
+                     q_pos: torch.Tensor, window: int = 0,
+                     dtype=torch.bfloat16, use_kernels: bool = True):
+    """q: [B, L, Hq, D] rotated at absolute positions q_pos [B, L]; the
+    segment's K/V are already appended (rows past a slot's ragged length
+    carry positions the causal test masks). `lc` is a dense `LayerKV` or
+    a `paging.PagedLayerKV`.
+
+    Returns (out [B, L, Hq, D], row_mass [B, L, S+W]): the per-row mass,
+    aligned with `materialize_kv` ordering and not summed over rows (the
+    caller accumulates only the accepted rows'). The kernel route (policies
+    that read no mass) reports zeros."""
+    B, L, Hq, D = q.shape
+    S, W = lc.scores.shape[1], lc.rk.shape[1]
+    dev = q.device
+    ring_pos = (lc.pos[:, None] - lc.rlen[:, None]
+                + torch.arange(W, device=dev)[None]).to(torch.int32)
+    # Causal-test positions. Main-store rows carry their true position in
+    # `slot_pos`. A quantized ring is the live tail (it holds the
+    # segment's own drafts): its `pos - rlen + arange` labels are true
+    # positions. A dense ring is frozen at prefill and decode reads all
+    # of it: an impossible-low label keeps every ring row visible.
+    ring_causal = (ring_pos if spec.quantized
+                   else torch.full((B, W), -(2 ** 30), dtype=torch.int32,
+                                   device=dev))
+    causal_pos = (torch.cat([lc.slot_pos, ring_causal], 1) if W
+                  else lc.slot_pos)
+    bias = kvcache.validity_bias(lc)                         # [B, S+W]
+    k, v = kvcache.materialize_kv(lc, spec, dtype)
+    if use_kernels and not spec.track_scores() and (window == 0
+                                                    or spec.quantized):
+        # the flash rule: policies that never read the mass take the
+        # verify kernel over the materialized view (a sliding window over
+        # a dense frozen ring needs two position sets: reference route)
+        out = fp_ops.flash_verify(q.contiguous(), k, v,
+                                  causal_pos.contiguous(), bias,
+                                  q_pos.to(torch.int32), window=window)
+        return out.to(dtype), torch.zeros((B, L, S + W), dtype=torch.float32,
+                                          device=dev)
+    # per-row additive bias: validity + causal by absolute position (+ the
+    # sliding window on decode's ring labels). A visible key adds an exact
+    # 0.0, so each row's bias is bit-equal to `decode_attention`'s.
+    ok = causal_pos[:, None, :] <= q_pos[:, :, None]         # [B, L, S+W]
+    if window > 0:
+        win_pos = (torch.cat([lc.slot_pos, ring_pos], 1) if W
+                   else lc.slot_pos)
+        ok = ok & (win_pos[:, None, :] > (q_pos[:, :, None] - window))
+    full_bias = bias[:, None, :] + torch.where(ok, 0.0, NEG_INF)
+    Hkv = k.shape[2]
+    out, row_mass = _attend_block(q.reshape(B, L, Hkv, Hq // Hkv, D), k, v,
+                                  full_bias[:, None, None],
+                                  1.0 / math.sqrt(D))
+    return out.reshape(B, L, Hq, D), row_mass

@@ -1,6 +1,7 @@
 """Decoder blocks: attention mixer + dense SwiGLU FFN, pre-norm residual
 (counterpart of `repro.nn.blocks` for `attn` mixers with a dense FFN):
-monolithic prefill, one chunked-prefill segment, and decode."""
+monolithic prefill, one chunked-prefill segment, speculative verify, and
+decode."""
 from __future__ import annotations
 
 from typing import Optional
@@ -82,21 +83,48 @@ def _use_flash_prefill_chunk(cfg, spec: CacheSpec) -> bool:
     return cfg.use_kernels and not spec.track_scores()
 
 
+def block_verify(p: dict, x: torch.Tensor, cfg, spec: CacheSpec, lc,
+                 valid_len: torch.Tensor, *, ring_full=None):
+    """One attention layer's step of a speculative verify. x: [B, L,
+    d_model], the segment (last committed token + drafts, row b ragged at
+    `valid_len[b]`). The segment's K/V are appended first (in place,
+    `cache.append_segment`: L sequential masked appends), then every row
+    attends the cache in one pass. The mass is not accumulated here:
+    `verify_step` applies the accepted rows' once acceptance is known.
+    `ring_full`: one host flag per sub-step. Returns (x, row_mass
+    [B, L, S+W])."""
+    h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
+    B, Lseg, _ = x.shape
+    # absolute positions, snapshotted before the append advances lc.pos
+    positions = lc.pos[:, None] + torch.arange(Lseg, device=x.device)[None]
+    q, k_new, v_new = attn.qkv(p["attn"], h, cfg, positions)
+    kvcache.append_segment(lc, spec, k_new, v_new, valid_len=valid_len,
+                           ring_full=ring_full)
+    o, row_mass = attn.verify_attention(
+        q, lc, spec, q_pos=positions, window=cfg.sliding_window,
+        dtype=cfg.dtype, use_kernels=cfg.use_kernels)
+    x = x + L.linear(p["attn"]["wo"], o.reshape(B, Lseg, -1))
+    return _ffn(p, x, cfg), row_mass
+
+
 def block_decode(p: dict, x: torch.Tensor, cfg, spec: CacheSpec, lc, *,
-                 ring_full: Optional[bool] = None):
+                 ring_full: Optional[bool] = None,
+                 append_mask: Optional[torch.Tensor] = None):
     """x: [B, 1, d_model]. Appends this token's K/V to `lc` (a dense or
     paged layer cache, in place), attends over the cache, accumulates
-    the mass. Returns x."""
+    the mass. `append_mask` [B] bool: rows where it is False leave the
+    cache untouched (their output is computed and discarded by the
+    caller: the speculative drafter's ragged depths). Returns x."""
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
     pos = lc.pos[:, None].clone()   # [B, 1]; the append advances lc.pos
     q, k_new, v_new = attn.qkv(p["attn"], h, cfg, pos)
     # append-first: the new token attends to itself through the cache
     kvcache.append_token(lc, spec, k_new[:, 0], v_new[:, 0],
-                         ring_full=ring_full)
+                         ring_full=ring_full, mask=append_mask)
     o, mass = attn.decode_attention(
         q, lc, spec, window=cfg.sliding_window, dtype=cfg.dtype,
         q_pos=pos[:, 0], use_kernels=cfg.use_kernels)
-    kvcache.accumulate_scores(lc, spec, mass)
+    kvcache.accumulate_scores(lc, spec, mass, gate=append_mask)
     B = x.shape[0]
     x = x + L.linear(p["attn"]["wo"], o.reshape(B, 1, -1))
     return _ffn(p, x, cfg)

@@ -1,6 +1,6 @@
 """The LM: init_params / prefill / chunked prefill / decode_step /
-init_cache (counterpart of `repro.nn.model` for attention-only dense
-decoders).
+verify_step / init_cache (counterpart of `repro.nn.model` for
+attention-only dense decoders).
 
 Parameters keep the JAX package's tree: ``blocks/sub0/...`` leaves carry
 a leading ``[n_sb]`` layer dim (one layer per superblock: n_sb is the
@@ -244,19 +244,92 @@ def prefill_finalize_meta(cfg, st: PrefillState, spec: CacheSpec, *,
 
 
 def decode_step(params, cfg, cache: ModelCache, token: torch.Tensor,
-                spec: CacheSpec, *, ring_full: Optional[bool] = None):
+                spec: CacheSpec, *, ring_full: Optional[bool] = None,
+                append_mask: Optional[torch.Tensor] = None):
     """token: [B, 1] int. Appends one token to every layer's cache (in
     place) and returns (logits [B, V] f32, the same ModelCache).
 
-    ring_full: host-side knowledge of whether any row's quantized ring is
-    full this step (see `cache.append_token_quantized`); None asks the
-    device once per layer."""
+    ring_full: host-side knowledge of whether any row's quantized ring
+    flushes this step (see `cache.append_token_quantized`); None asks the
+    device once per layer. append_mask: [B] bool, rows where it is False
+    leave the cache untouched (the speculative drafter's ragged depths)."""
     x = L.embed(params["embed"], token)
     for i in range(cfg.num_layers):
         x = B.block_decode(_layer(params["blocks"]["sub0"], i), x, cfg, spec,
                            kvcache.layer_view(cache.attn, i, 0),
-                           ring_full=ring_full)
+                           ring_full=ring_full, append_mask=append_mask)
     return _logits(params, cfg, x)[:, 0], cache
+
+
+# ---------------------------------------------------------------------------
+# Speculative verify: score a drafted segment in one forward, commit the
+# accepted prefix, roll the rest back
+# ---------------------------------------------------------------------------
+#
+# Self-speculative decoding (serving/speculative.py) drafts gamma tokens
+# against a cheap cache view of the same weights, then `verify_step`
+# scores the whole segment (last committed token + drafts) in ONE forward
+# over the real cache: the segment is appended (`append_segment`), every
+# row attends in one pass (`verify_attention`), and greedy acceptance is
+# match-and-truncate. Rejected rows are un-appended (`truncate_rows`) and
+# only the accepted rows' masses are accumulated, in sequential order with
+# exact-zero padding, so the cache is that of the sequential decode steps
+# the segment replaces.
+
+
+def _check_speculable(cfg) -> None:
+    try:
+        _check_chunkable(cfg)
+    except ValueError as e:
+        raise ValueError(f"speculative decoding: {e}") from None
+
+
+def verify_step(params, cfg, cache: ModelCache, tokens: torch.Tensor,
+                valid_len: torch.Tensor, spec: CacheSpec, *,
+                ring_full: Optional[Sequence[bool]] = None):
+    """tokens: [B, L] int, per row [last committed token, draft_1 ..
+    draft_g, padding]; valid_len: [B] int segment lengths (1 + g; 0 for
+    a slot that must not step). ring_full: one host flag per sub-step
+    (`cache.append_segment`).
+
+    Returns (y [B, L], accepted [B], the same ModelCache): y[b, t] is the
+    greedy token after row b's tokens 0..t; accepted[b] counts the
+    leading drafts that match y, so y[b, 0..accepted[b]] commit. The
+    cache, updated in place, holds exactly the committed rows."""
+    _check_speculable(cfg)
+    x = L.embed(params["embed"], tokens)
+    Lseg = tokens.shape[1]
+    valid_len = valid_len.to(torch.int32)
+    masses = []
+    for i in range(cfg.num_layers):
+        x, rm = B.block_verify(_layer(params["blocks"]["sub0"], i), x, cfg,
+                               spec, kvcache.layer_view(cache.attn, i, 0),
+                               valid_len, ring_full=ring_full)
+        masses.append(rm)
+    y = torch.argmax(_logits(params, cfg, x), dim=-1).to(torch.int32)
+
+    # the longest accepted draft prefix: draft i (tokens[:, i]) must equal
+    # the target's y[:, i-1] for every i up to the cut
+    if Lseg > 1:
+        match = tokens[:, 1:].to(torch.int32) == y[:, :-1]
+        valid_draft = (torch.arange(Lseg - 1, device=x.device)[None]
+                       < (valid_len[:, None] - 1))
+        accepted = torch.cumprod((match & valid_draft).to(torch.int32),
+                                 dim=1).sum(dim=1).to(torch.int32)
+    else:
+        accepted = torch.zeros_like(valid_len)
+    n_drop = torch.clamp(valid_len - 1 - accepted, min=0)
+
+    # pass 2 (no attention): the accepted rows' masses in sequential
+    # order, then un-append the rejects
+    for i, mi in enumerate(masses):
+        lc = kvcache.layer_view(cache.attn, i, 0)
+        if spec.track_scores():
+            for t in range(Lseg):
+                gate = (t <= accepted) & (t < valid_len)
+                kvcache.accumulate_scores(lc, spec, mi[:, t], gate=gate)
+        kvcache.truncate_rows(lc, spec, n_drop)
+    return y, accepted, cache
 
 
 def init_cache(cfg, spec: CacheSpec, batch: int, max_len: int, *,

@@ -17,7 +17,13 @@ continuous-batching path).
     only when the free list covers its budgeted length, and its blocks
     return to the pool when it retires.
 
-Both decode loops are double-buffered: step N+1 is dispatched from step
+With ``speculative=True`` `generate_continuous` runs the draft / verify
+loop of `serving.speculative` instead: the same weights draft `gamma`
+tokens per slot against a cheap cache view (`draft_policy`), and one
+rectangular `verify_step` commits the accepted prefix (greedy streams
+equal the plain loop's).
+
+Both plain decode loops are double-buffered: step N+1 is dispatched from step
 N's device-side tokens before the host reads step N's tokens, and the
 read waits on an event recorded right behind step N's token copy — not
 on step N+1. The quantized ring's flush decision rides a host mirror of
@@ -26,9 +32,8 @@ chunked admission's first token takes the same pipelined read one
 iteration later.
 
 Not ported yet (the constructor raises NotImplementedError): lazy block
-growth, speculative decoding, prefix sharing, the overload ladder
-(preemption, degradation) and tiering; samplers other than greedy;
-tracing and metrics.
+growth, prefix sharing, the overload ladder (preemption, degradation)
+and tiering; samplers other than greedy; tracing and metrics.
 """
 from __future__ import annotations
 
@@ -48,6 +53,7 @@ from repro_torch.core.policy import CompressionPolicy
 from repro_torch.nn import model as M
 from repro_torch.nn.attention import MASS_GROUP
 from repro_torch.serving import sampler as sampler_lib
+from repro_torch.serving import speculative as spec_lib
 from repro_torch.serving.scheduler import Request, RequestResult, Scheduler
 
 
@@ -84,6 +90,7 @@ class ContinuousGenerationResult:
     pool_blocks: int = 0          # paged runs only: reserved pool size,
     pool_block_bytes: int = 0     # bytes one block pins across layers,
     pool_peak_blocks: int = 0     # high-water allocated blocks
+    spec: Optional[spec_lib.SpecStats] = None   # speculative runs only
 
     def failed(self) -> List[RequestResult]:
         """Requests retired without being served (a paged pool too small
@@ -178,8 +185,9 @@ class Engine:
     live on the engine's device. `use_kernels` overrides the config's
     kernels-or-reference switch. `paged` (with `block_len`,
     `pool_blocks`: None is capacity parity with the dense layout) and
-    `chunked_prefill` (with `chunk_len`) apply to `generate_continuous`,
-    as in the JAX engine."""
+    `chunked_prefill` (with `chunk_len`) and `speculative` (with `gamma`
+    and `draft_policy`) apply to `generate_continuous`, as in the JAX
+    engine. `sampler` must be greedy (the only one ported)."""
 
     def __init__(self, cfg, params, policy: CompressionPolicy, *,
                  prompt_len: Optional[int] = None, max_new: int,
@@ -189,10 +197,11 @@ class Engine:
                  pool_blocks: Optional[int] = None,
                  chunked_prefill: bool = False, chunk_len: int = 64,
                  block_growth: str = "eager", speculative: bool = False,
+                 gamma: int = 4, draft_policy: str = "window:64",
+                 sampler=sampler_lib.greedy,
                  prefix_sharing: bool = False, preemption: bool = False,
                  degrade: bool = False, tiering: bool = False):
         for flag, on in (("block_growth='lazy'", block_growth == "lazy"),
-                         ("speculative", speculative),
                          ("prefix_sharing", prefix_sharing),
                          ("preemption", preemption), ("degrade", degrade),
                          ("tiering", tiering)):
@@ -200,6 +209,13 @@ class Engine:
                 raise NotImplementedError(f"{flag}: not yet ported")
         if block_growth not in ("eager", "lazy"):
             raise ValueError(f"unknown block_growth {block_growth!r}")
+        if sampler is not sampler_lib.greedy:
+            if speculative:
+                raise ValueError(
+                    "speculative decoding requires the greedy sampler "
+                    "(acceptance is exact match-and-truncate under argmax)")
+            raise NotImplementedError("samplers other than greedy: not yet "
+                                      "ported")
         self.device = resolve_device(device)
         if prompt_len is None and not buckets:
             raise ValueError("need prompt_len and/or buckets")
@@ -268,6 +284,25 @@ class Engine:
         self.layer_budgets = np.minimum(alloc(n_attn, spec.budget, **kw),
                                         spec.main_store_len(prompt_len))
 
+        # speculative decoding (continuous only): a second, per-slot cache
+        # over the same weights drafts against a cheap view; the verify
+        # step scores each segment against the real cache in one forward
+        self.speculative = bool(speculative)
+        self.gamma = int(gamma)
+        if self.speculative:
+            if self.gamma < 1:
+                raise ValueError(f"gamma must be >= 1, got {gamma}")
+            M._check_speculable(cfg)
+            self.draft = spec_lib.resolve_draft_policy(
+                draft_policy, cfg, self.spec, prompt_len, max_new)
+            dS = self.draft.spec.main_store_len(prompt_len + max_new)
+            self.draft_layer_budgets = np.minimum(
+                budgets_lib.ALLOCATORS["uniform"](
+                    n_attn, self.draft.spec.budget or dS,
+                    multiple=(self.draft.spec.group
+                              if self.draft.spec.quantized else 1)),
+                dS)
+
     # ------------------------------------------------------------------
     def _check_aligned(self, buckets) -> None:
         bad = [int(b) for b in buckets if int(b) % MASS_GROUP]
@@ -284,17 +319,36 @@ class Engine:
             return t
         return t.pin_memory().to(self.device, non_blocking=True)
 
-    def _prefill(self, tokens: np.ndarray):
+    def _model_of(self, draft: bool):
+        """(cfg, cache spec, layer budgets) of the target or the drafter
+        (same weights)."""
+        if draft:
+            return self.draft.cfg, self.draft.spec, self.draft_layer_budgets
+        return self.cfg, self.spec, self.layer_budgets
+
+    def _prefill(self, tokens: np.ndarray, *, draft: bool = False):
+        cfg, spec, budgets = self._model_of(draft)
         batch = {"tokens": torch.as_tensor(np.asarray(tokens, np.int64),
                                            device=self.device)}
-        return M.prefill(self.params, self.cfg, batch, self.spec,
-                         layer_budgets=self.layer_budgets)
+        return M.prefill(self.params, cfg, batch, spec,
+                         layer_budgets=budgets)
 
     def _decode(self, cache: M.ModelCache, tok: torch.Tensor,
-                ring_full: bool) -> torch.Tensor:
-        logits, _ = M.decode_step(self.params, self.cfg, cache, tok,
-                                  self.spec, ring_full=ring_full)
+                ring_full: bool, *,
+                append_mask: Optional[torch.Tensor] = None,
+                draft: bool = False) -> torch.Tensor:
+        cfg, spec, _ = self._model_of(draft)
+        logits, _ = M.decode_step(self.params, cfg, cache, tok, spec,
+                                  ring_full=ring_full,
+                                  append_mask=append_mask)
         return sampler_lib.greedy(logits)
+
+    # the speculative loop's verify step (`serving.speculative`)
+    def _verify(self, cache: M.ModelCache, tokens: torch.Tensor,
+                valid_len: torch.Tensor, ring_full):
+        y, acc, _ = M.verify_step(self.params, self.cfg, cache, tokens,
+                                  valid_len, self.spec, ring_full=ring_full)
+        return y, acc
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -459,6 +513,10 @@ class Engine:
     # ------------------------------------------------------------------
     def generate(self, prompts: np.ndarray) -> GenerationResult:
         """prompts: [n, prompt_len] int (exact bucket length)."""
+        if self.speculative:
+            raise ValueError(
+                "speculative decoding lives in the continuous engine "
+                "(per-slot draft state); use generate_continuous()")
         n, L = prompts.shape
         if L != self.prompt_len:
             raise ValueError(f"prompt length {L} != {self.prompt_len}")
@@ -532,6 +590,11 @@ class Engine:
                 f"prompt_len {self.prompt_len}")
         if buckets and self.chunked_prefill:
             self._check_aligned(buckets)
+        if self.speculative:
+            # draft / verify loop: synchronous rounds, since drafting needs
+            # each round's committed tokens
+            return spec_lib.generate_continuous_spec(self, requests,
+                                                     buckets=buckets)
         if self.paged:
             # a fresh free list per run, kept for post-run inspection
             self.block_allocator = paging.BlockAllocator(self.pool_blocks)
@@ -714,7 +777,9 @@ class Engine:
 
     def _continuous_result(self, sched: Scheduler, cache: M.ModelCache, *,
                            prefill_s: float, decode_s: float,
-                           decode_tokens: int) -> ContinuousGenerationResult:
+                           decode_tokens: int, spec_stats=None
+                           ) -> ContinuousGenerationResult:
+        """Accounting shared by the plain and speculative loops."""
         pool_stats = {}
         if self.paged:
             # real pool usage, not the reserved worst case: the blocks the
@@ -745,4 +810,4 @@ class Engine:
             cache_logical_bytes=float(logical),
             full_cache_bytes=float(full),
             compression_ratio=float(full / max(logical, 1.0)),
-            policy_name=self.policy.name, **pool_stats)
+            policy_name=self.policy.name, spec=spec_stats, **pool_stats)

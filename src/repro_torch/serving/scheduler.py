@@ -177,6 +177,11 @@ class Scheduler:
         return [i for i, s in enumerate(self._slots)
                 if s is not None and s.prefilling]
 
+    def slot_request(self, slot_idx: int) -> Optional[Request]:
+        """The request occupying the slot (None when it is free)."""
+        st = self._slots[slot_idx]
+        return st.req if st is not None else None
+
     def admit_next(self, slot_idx: int) -> Optional[Request]:
         """Pop the next queued request into a free slot (FIFO). Returns
         None when the queue is empty or (block-aware mode) the allocator

@@ -18,7 +18,8 @@ from repro_torch.kernels.decode_qattn.ref import (decode_attn_paged_ref,
                                                   decode_attn_ref, gather_pool)
 from repro_torch.kernels.flash_prefill import ops as fp_ops
 from repro_torch.kernels.flash_prefill.ref import (flash_prefill_chunk_ref,
-                                                   flash_prefill_ref)
+                                                   flash_prefill_ref,
+                                                   flash_verify_ref)
 from repro_torch.nn import model as M
 from repro_torch.serving.engine import Engine
 from repro_torch.serving.scheduler import Request
@@ -226,6 +227,89 @@ def test_flash_chunk_kernel_matches_plain_and_monolithic(cuda, dt, T, C,
     assert torch.equal(torch.cat(outs, 1), whole)
 
 
+def _verify_inputs(dev, dt, Tk, W, L, Hq=32, Hkv=8, D=128, paged=False):
+    """A verify segment over a materialized view of Tk rows: main rows at
+    positions 0.. (W = 0) or streaming positions with the last W rows a
+    ring labelled `pos - rlen + arange`; ragged valid lengths (5, 4, 3, 2,
+    1, 0, 5, 1: rows past them still run), one empty main store; with
+    `paged`, K/V gathered from a shuffled 16-row-block pool."""
+    g = torch.Generator(device=dev).manual_seed(Tk + W + L)
+    B, S = 8, Tk - W
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(dt)
+
+    valid = torch.tensor([5, 4, 3, 2, 1, 0, 5, 1], device=dev).clamp(max=L)
+    before = torch.tensor([S - 64, S // 2, 17, 0, S - 5, 100, 7, 3],
+                          device=dev)
+    idx = torch.arange(S, device=dev)[None]
+    if W:
+        rlen = torch.maximum(torch.tensor([W, 5, W - 1, 4, 64, 1, 5, 9],
+                                          device=dev), valid)
+        n_main = before.clamp(max=S)
+        n_main[3] = 0
+        pos = before + W + valid
+        main = torch.where(idx < n_main[:, None],
+                           (pos - rlen)[:, None] - (n_main[:, None] - idx), -1)
+        ring = (pos - rlen)[:, None] + torch.arange(W, device=dev)[None]
+        kv_pos = torch.cat([main, ring], 1)
+        bias = torch.cat([torch.where(idx < n_main[:, None], 0.0, -1e30),
+                          torch.where(torch.arange(W, device=dev)[None]
+                                      < rlen[:, None], 0.0, -1e30)], 1)
+        q_pos = (pos - valid)[:, None] + torch.arange(L, device=dev)[None]
+    else:
+        length = before + valid
+        kv_pos = torch.where(idx < length[:, None], idx, -1)
+        bias = torch.where(idx < length[:, None], 0.0, -1e30)
+        q_pos = before[:, None] + torch.arange(L, device=dev)[None]
+    k, v = rnd(B, Tk, Hkv, D), rnd(B, Tk, Hkv, D)
+    if paged:
+        nb = B * (Tk // 16) + 3
+        ids = torch.randperm(nb, generator=g, device=dev)[:B * (Tk // 16)]
+        tbl = ids.view(B, Tk // 16).to(torch.int32)
+        k = gather_pool(rnd(nb, 16, Hkv, D), tbl).contiguous()
+        v = gather_pool(rnd(nb, 16, Hkv, D), tbl).contiguous()
+    return (rnd(B, L, Hq, D), k, v, kv_pos.to(torch.int32).contiguous(),
+            bias.float().contiguous(), q_pos.to(torch.int32).contiguous())
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("Tk,W,window,L,D,paged", [
+    (2112, 0, 0, 5, 128, False),      # `full` at the serve shape
+    (640, 128, 0, 5, 128, False),     # kivi2 512 + ring 128
+    (640, 128, 64, 5, 128, False),    # ... under a sliding window
+    (2112, 0, 0, 5, 128, True),       # a paged view, gathered
+    (200, 40, 0, 16, 64, False),      # the longest segment, D 64
+    (77, 0, 0, 1, 128, False)])       # a ragged key tile, one row
+def test_flash_verify_kernel_matches_plain(cuda, dt, Tk, W, window, L, D,
+                                           paged):
+    args = _verify_inputs(cuda, dt, Tk, W, L, D=D, paged=paged)
+    out = fp_ops.flash_verify_cuda(*args, window=window)
+    ref = flash_verify_ref(*args, window=window)
+    torch.cuda.synchronize()
+    atol, rtol = TOL[dt]
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol,
+                               rtol=rtol)
+
+
+def test_quantized_wrapper_matches_plain(cuda):
+    """B1w: the fused kernel on a quantized store, no ring, no mass, f32
+    compute."""
+    args = _decode_inputs(cuda, torch.bfloat16, 4, False)[:8]
+    n0 = dq_ops.decode_qattn_count.launches
+    b0 = dq_ops.decode_attn_kernel.launches
+    out = dq_ops.decode_attention_quantized(*args, bits=4, group=128)
+    assert dq_ops.decode_qattn_count.launches == n0 + 1
+    assert dq_ops.decode_attn_kernel.launches == b0 + 1
+    ref, _ = decode_attn_ref(*args, None, None, None, bits=4, group=128,
+                             compute_dtype=torch.float32)
+    torch.cuda.synchronize()
+    atol, rtol = TOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol,
+                               rtol=rtol)
+
+
 def test_kernels_refuse_what_they_do_not_take(cuda):
     q = torch.zeros(1, 8, 4, 96, device=cuda)          # head_dim 96
     with pytest.raises(ValueError):
@@ -249,6 +333,13 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
             torch.zeros(3, 8, 2, 64, device=cuda), None, None,
             torch.zeros(1, 16, device=cuda), None, None, None, bits=16,
             group=1)
+    q = torch.zeros(1, 17, 4, 64, device=cuda)          # segment of 17
+    kv = torch.zeros(1, 8, 2, 64, device=cuda)
+    with pytest.raises(ValueError):
+        fp_ops.flash_verify_cuda(
+            q, kv, kv, torch.zeros(1, 8, dtype=torch.int32, device=cuda),
+            torch.zeros(1, 8, device=cuda),
+            torch.zeros(1, 17, dtype=torch.int32, device=cuda))
 
 
 @pytest.mark.parametrize("pname", ["full", "h2o", "kivi2", "h2o+kivi2"])
@@ -319,3 +410,33 @@ def test_reduced_paged_chunked_engine_on_card_matches_cpu(cuda, pname):
         assert chunk == (2 + 3 + 2) * cfg.num_layers     # 16-row segments
     for a, b in zip(out["cpu"].results, out["cuda"].results):
         assert a.tokens.tolist() == b.tokens.tolist()
+
+
+@pytest.mark.parametrize("pname,draft,paged", [("full", "same", False),
+                                               ("kivi2", "window:16", False),
+                                               ("full", "same", True)])
+def test_reduced_spec_engine_on_card_matches_cpu(cuda, pname, draft, paged):
+    """`Engine(speculative=True)`, reduced granite-8b in f32: the card's
+    streams equal the CPU's and the plain engine's, and every verify
+    round went through the verify kernel, once per layer."""
+    cfg = reduced(GRANITE)
+    pol = presets(16, 8)[pname]
+    reqs = [torch.randint(0, cfg.vocab_size, (n,), generator=torch.Generator()
+                          .manual_seed(n)).numpy() for n in (32, 48, 32)]
+    kw = dict(paged=True, chunked_prefill=True, chunk_len=16) if paged else {}
+    out = {}
+    for dev, spec_on in (("cpu", True), ("cuda", True), ("cuda", False)):
+        params = M.init_params(cfg, seed=0, device="cpu")
+        params = {k: _to(v, dev) for k, v in params.items()}
+        eng = Engine(cfg, params, pol, prompt_len=48, max_new=8, slots=2,
+                     buckets=(32, 48), device=dev, speculative=spec_on,
+                     gamma=3, draft_policy=draft, **kw)
+        fp_ops.flash_verify_kernel.launches = 0
+        out[dev, spec_on] = eng.generate_continuous(
+            [Request(tokens=r, max_new=8) for r in reqs])
+        if spec_on and dev == "cuda":
+            assert fp_ops.flash_verify_kernel.launches == \
+                out[dev, spec_on].spec.verify_rounds * cfg.num_layers > 0
+    for key in (("cuda", True), ("cuda", False)):
+        for a, b in zip(out["cpu", True].results, out[key].results):
+            assert a.tokens.tolist() == b.tokens.tolist(), key

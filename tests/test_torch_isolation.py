@@ -22,12 +22,12 @@ from repro_torch.kernels.kvquant import ref as kvq_ref
 from repro_torch.launch import serve
 from repro_torch.nn import attention, blocks, layers, model, rope
 from repro_torch.obs import trace
-from repro_torch.serving import engine, sampler, scheduler
+from repro_torch.serving import engine, sampler, scheduler, speculative
 
 MODULES = [repro_torch, bridge, base, granite_8b, paper_llama_7b, budgets,
            cache, paging, policy, quantization, build, dq_ops, dq_ref, fp_ops,
            fp_ref, kvq_ref, serve, attention, blocks, layers, model, rope,
-           trace, engine, sampler, scheduler]
+           trace, engine, sampler, scheduler, speculative]
 
 _CHILD = textwrap.dedent("""
     import importlib, sys
@@ -44,6 +44,11 @@ _CHILD = textwrap.dedent("""
                 "--continuous", "--buckets", "32,48", "--device", "cpu",
                 "--paged", "--chunked-prefill", "--chunk-len", "16",
                 "--use-kernels", "off"])
+    serve.main(["--arch", "granite-8b", "--reduced", "--policy", "full",
+                "--requests", "3", "--prompt-len", "32", "--max-new", "4",
+                "--slots", "2", "--continuous", "--buckets", "32,48",
+                "--device", "cpu", "--speculative", "--gamma", "2",
+                "--draft-policy", "window:16"])
     serve.main(["--arch", "paper-llama-7b", "--reduced", "--policy", "kivi2",
                 "--budget", "16", "--window", "8", "--requests", "2",
                 "--prompt-len", "32", "--max-new", "2", "--slots", "2",
@@ -64,6 +69,7 @@ def test_port_imports_no_jax_and_no_repro():
     assert "policy=h2o+kivi2 continuous requests=3" in r.stdout, r.stdout
     assert "policy=kivi2" in r.stdout, r.stdout
     assert "audit clean=True" in r.stdout, r.stdout
+    assert "spec[window:16 gamma=2]" in r.stdout, r.stdout
 
 
 def test_entry_points_default_to_cuda():
@@ -79,6 +85,9 @@ def test_entry_points_default_to_cuda():
         model.init_params(cfg, seed=0)
     with pytest.raises(RuntimeError, match="CUDA"):
         engine.Engine(cfg, params, pol, prompt_len=32, max_new=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        engine.Engine(cfg, params, pol, prompt_len=32, max_new=4,
+                      speculative=True)
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--arch", "granite-8b", "--reduced"])
 

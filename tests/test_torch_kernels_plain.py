@@ -7,6 +7,8 @@ B1: `repro_torch.nn.attention.decode_attention(use_kernels=True)` runs
 (`use_kernels=True, interpret=True`) and with the materialize oracle, over
 the lived-in caches of tests/test_decode_kernel_path.py. B2: the plain
 flash prefill against `repro.kernels.flash_prefill.ops.flash_attention`.
+B1w: the back-compat quantized wrapper against the JAX
+`decode_qattn_ref` and the Pallas wrapper (interpret mode).
 """
 import pytest
 
@@ -18,6 +20,8 @@ import jax.numpy as jnp
 import numpy as np
 
 from repro.core.cache import CacheSpec as JaxCacheSpec
+from repro.kernels.decode_qattn import kernel as jax_dq_kernel
+from repro.kernels.decode_qattn import ref as jax_dq_ref
 from repro.kernels.flash_prefill import ops as jax_fp
 from repro.nn import attention as JA
 from repro_torch.bridge import layer_kv_from_numpy
@@ -140,3 +144,36 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         dq_ops.decode_attn_cuda(x[:, 0], x, None, None, x, None, None,
                                 torch.zeros(1, 4), None, None, None, bits=16,
                                 group=1)
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_decode_attention_quantized_wrapper(bits):
+    """B1w: quantized store, no ring, no mass, f32 compute; ragged rows
+    and one all-empty row (bias -1e30 everywhere)."""
+    rng = np.random.default_rng(bits)
+    B, S, Hkv, Gq, D, G = 3, 32, 2, 2, 32, 8
+    Dp = D * bits // 8
+    q = rng.standard_normal((B, Hkv * Gq, D)).astype(np.float32)
+    kq, vq = (rng.integers(-128, 128, (B, S, Hkv, Dp)).astype(np.int8)
+              for _ in range(2))
+    ks = (rng.random((B, S // G, Hkv, D)) * 0.1 + 0.01).astype(np.float32)
+    kz = rng.standard_normal((B, S // G, Hkv, D)).astype(np.float32)
+    vs = (rng.random((B, S, Hkv)) * 0.1 + 0.01).astype(np.float32)
+    vz = rng.standard_normal((B, S, Hkv)).astype(np.float32)
+    length = np.asarray([S, 13, 0])
+    bias = np.where(np.arange(S)[None] < length[:, None], 0.0,
+                    -1e30).astype(np.float32)
+    args = (q, kq, ks, kz, vq, vs, vz, bias)
+    kw = dict(bits=bits, group=G)
+    got = dq_ops.decode_attention_quantized(*map(torch.tensor, args), **kw)
+    want = jax_dq_ref.decode_qattn_ref(*map(jnp.asarray, args), **kw)
+    pallas = jax_dq_kernel.decode_qattn_pallas(*map(jnp.asarray, args),
+                                               block_s=16, interpret=True,
+                                               **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL,
+                               rtol=TOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), atol=TOL,
+                               rtol=TOL)
+    with pytest.raises(ValueError, match="quantized"):
+        dq_ops.decode_attention_quantized(*map(torch.tensor, args), bits=16,
+                                          group=G)
