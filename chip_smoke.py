@@ -6,9 +6,10 @@
 Phases, each printing its own lines; any failure exits non-zero:
 
   1. device   card name, count, torch / CUDA / nvcc versions, power limit
-  2. build    the two CUDA sources from the checkout (one nvcc per source,
-              started together; the decode source holds two kernels, the
-              flash source three), with nvcc's -Xptxas -v lines
+  2. build    the three CUDA sources from the checkout (one nvcc per
+              source, started together; the decode source holds two
+              kernels, the flash source three, the KIVI quantize source
+              two), with nvcc's -Xptxas -v lines
   3. parity   each kernel against its plain PyTorch version at the main
               path's shapes (granite-8b: Hq 32, Hkv 8, D 128), timed
               beside the plain version and a PyTorch library yardstick;
@@ -16,22 +17,31 @@ Phases, each printing its own lines; any failure exits non-zero:
               rows, and the chunked flash kernel's segments against the
               monolithic one, both bit for bit; the speculative-verify
               kernel over dense, quantized-ring and paged cache views;
-              the back-compat quantized decode wrapper
+              the back-compat quantized decode wrapper; the fused KIVI
+              quantize-and-pack kernels at the flush and prompt shapes
   4. serve    granite-8b at full width and depth, random bf16 weights from
               a seed, `Engine.generate_continuous` under full / h2o /
               kivi2 / h2o+kivi2 (dense cache, monolithic prefill), then
               full / kivi2 / h2o+kivi2 over a paged pool with chunked
               prefill, then self-speculative decoding (gamma 4): full with
               the `same` drafter, kivi2 with a `window:64` drafter, full
-              paged + chunked with `same`; each run must go through its
-              kernels, and only its kernels, as many times as its steps
+              paged + chunked with `same`; then the prefix cache (paged +
+              chunked, templated prompts): full and kivi2 with sharing,
+              each beside the same requests without, and full near-hits
+              through CacheBlend at recompute 1.0 and 0.25; each run must
+              go through its kernels, and only its kernels, as many times
+              as its steps (flushes and quantized admissions for KIVI)
   5. e2e      4-layer granite-8b: prefill + decode logits with the kernels
               against an engine built with use_kernels=False, dense and
               paged + chunked; then in f32 the speculative streams against
-              the plain ones, token for token
+              the plain ones, the sharing streams against the non-sharing
+              ones (and a near-hit at recompute 1.0 against a cold
+              admission), and kivi2 with the fused quantizer against the
+              plain one, token for token
   6. profile  one decode step at full depth, 8 slots, dense and paged, and
               one verify round: wall vs dispatch time, device-busy time
-              and the top kernels (torch.profiler)
+              and the top kernels (torch.profiler); for h2o+kivi2 also a
+              step whose ring flushes (the fused quantizer's share)
 
 Then one JSON line describing every ported kernel, and as the last line
 ``{"ok": true, "device": {...}}``. There is no CPU path: without a CUDA
@@ -40,6 +50,7 @@ device the script exits non-zero before printing any result.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import json
 import math
 import os
@@ -140,7 +151,8 @@ def phase_device(info: dict) -> None:
 def phase_build(info: dict) -> None:
     from repro_torch.kernels.decode_qattn import ops as dq
     from repro_torch.kernels.flash_prefill import ops as fp
-    sources = [dq.SOURCE, fp.SOURCE]
+    from repro_torch.kernels.kvquant import ops as kvq
+    sources = [dq.SOURCE, fp.SOURCE, kvq.SOURCE]
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as ex:
         for src, fut in [(s, ex.submit(s.build)) for s in sources]:
@@ -148,7 +160,7 @@ def phase_build(info: dict) -> None:
             for line in src.build_log.splitlines():
                 if "registers" in line or "spill" in line or "smem" in line:
                     print(f"[build] {src.path.name}: {line.strip()}")
-    print(f"[build] {len(sources)} sources (5 kernels) built in "
+    print(f"[build] {len(sources)} sources (7 kernels) built in "
           f"{time.perf_counter() - t0:.1f} s")
 
 
@@ -285,6 +297,7 @@ def phase_parity(info: dict) -> None:
     _parity_chunk_prefill(info)
     _parity_verify(info)
     _parity_quantized_wrapper(info)
+    _parity_kvquant(info)
 
 
 def _parity_decode_full_path(info: dict) -> None:
@@ -495,6 +508,113 @@ def _parity_quantized_wrapper(info: dict) -> None:
         replaces="src/repro/kernels/decode_qattn/kernel.py:378",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
         bound_by=by, library_ms=None)
+
+
+# B6 at the serve path's shapes: the ring flush of 8 slots (one 128-row
+# group a row) and the prompt compressions of kivi2 at budget 512 and
+# 1920 (the prefix runs' budget)
+KVQUANT_CASES = ((8, 128), (1, 512), (1, 1920))
+KVQUANT_TIE = 1e-5
+
+
+def _code_ties(torch, x, packed_k, packed_r, scale, zero, bits, group):
+    """(codes that differ, of them the ones at a tie): a difference of
+    one level is allowed only where the plain version's own quotient
+    (x - lo) / scale lies within KVQUANT_TIE of a .5 tie. `scale` / `zero`
+    are the plain version's, per channel over `group` rows (K) when
+    `group`, else per row (V). Fails on any other difference."""
+    from repro_torch.kernels.kvquant.ref import unpack_ref
+    D = x.shape[-1]
+    a = unpack_ref(packed_k, bits, D)
+    b = unpack_ref(packed_r, bits, D)
+    if group:
+        lo = zero.repeat_interleave(group, dim=1)
+        sc = scale.repeat_interleave(group, dim=1)
+    else:
+        lo, sc = zero[..., None], scale[..., None]
+    quot = (x.float() - lo) / sc
+    tie = (quot - quot.floor() - 0.5).abs() <= KVQUANT_TIE
+    diff = (a - b).abs()
+    bad = int(((diff > 1) | ((diff == 1) & ~tie)).sum().item())
+    return int((diff > 0).sum().item()), int((tie & (diff == 1)).sum().item()), bad
+
+
+def _parity_kvquant(info: dict) -> None:
+    """B6 (kquant / vquant) against its plain version on the card, bf16
+    and f32, bits 2 / 4 / 8, at KVQUANT_CASES: zeros bit-equal, scales
+    within one f32 ulp (the reading printed: both divide exactly, the
+    plain version by a 0-d device tensor), codes equal but for tie-only
+    differences (counted and printed); each call adds one to its launch
+    count. The bf16 2-bit flush case is timed into the
+    kernels line (what every kivi2 flush runs): bytes read + codes and
+    scale / zero written, at the HBM rate; no single PyTorch call
+    quantizes and packs, so no library time."""
+    import torch
+    from repro_torch.kernels.kvquant import ops as kvq
+    from repro_torch.kernels.kvquant.ref import (dequant_k_ref,
+                                                 dequant_v_ref, kquant_ref,
+                                                 vquant_ref)
+    rows = info["kernel_rows"]
+    G = 128
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt)[6:]
+        for B, S in KVQUANT_CASES:
+            g = torch.Generator(device="cuda").manual_seed(B * S)
+            x = (torch.randn(B, S, 8, 128, generator=g, device="cuda")
+                 * 2).to(dt)
+            for bits in (2, 4, 8):
+                for kind, fn, kern, plain in (
+                        ("kquant", kvq.kquant_cuda, kvq.kquant_kernel,
+                         lambda: kquant_ref(x, bits, G)),
+                        ("vquant", kvq.vquant_cuda, kvq.vquant_kernel,
+                         lambda: vquant_ref(x, bits))):
+                    n0 = kern.launches
+                    pk, sk, zk = fn(x, bits=bits, group=G)
+                    if kern.launches != n0 + 1:
+                        fail(f"{kind}: its launch was not counted")
+                    pr, sr, zr = plain()
+                    torch.cuda.synchronize()
+                    what = (f"{kind} {name} [{B}, {S}, 8, 128] G {G} "
+                            f"bits={bits}")
+                    if not torch.equal(zk, zr):
+                        fail(f"{what}: zeros differ from the plain version")
+                    ds = (sk.view(torch.int32) - sr.view(torch.int32)).abs()
+                    ulp = int(ds.max().item())
+                    if ulp > 1:
+                        fail(f"{what}: scales differ by {ulp} f32 ulp")
+                    n_diff, n_tie, bad = _code_ties(
+                        torch, x, pk, pr, sr, zr, bits,
+                        G if kind == "kquant" else 0)
+                    if bad:
+                        fail(f"{what}: {bad} codes differ beyond a tie")
+                    if kind == "kquant":
+                        deq = [dequant_k_ref(p_, s_, z_, bits, G,
+                                             torch.float32)
+                               for p_, s_, z_ in ((pk, sk, zk), (pr, sr, zr))]
+                    else:
+                        deq = [dequant_v_ref(p_, s_, z_, bits, torch.float32)
+                               for p_, s_, z_ in ((pk, sk, zk), (pr, sr, zr))]
+                    err = (deq[0] - deq[1]).abs().max().item()
+                    ms = median_ms(lambda: fn(x, bits=bits, group=G))
+                    plain_ms = median_ms(plain)
+                    bms, by = bound(nbytes(x, pk, sk, zk), 0.0, name)
+                    print(f"[parity] {what}: codes differing {n_diff} (at "
+                          f"ties {n_tie}), max|err| dequantized {err:.3g}, "
+                          f"scale max ulp {ulp}, zeros bit-equal; "
+                          f"{ms:.4f} ms (plain {plain_ms:.4f} "
+                          f"ms, library null, bound {bms:.4f} ms by {by})")
+                    if dt == torch.bfloat16 and (B, S) == (8, 128) \
+                            and bits == 2:
+                        rows[kind] = dict(
+                            name=f"{kind}_cuda", route="cuda",
+                            source="src/repro_torch/kernels/kvquant/csrc/"
+                                   "kvquant.cu",
+                            replaces="src/repro/kernels/kvquant/kernel.py:"
+                                     + ("67" if kind == "kquant" else "96"),
+                            max_abs_err=err, ms=ms,
+                            plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                            library_ms=None)
+            del x
 
 
 def _paged_case(torch, dt, bits, ring, B=8, S=512, W=128, Hq=32, Hkv=8,
@@ -714,18 +834,21 @@ PAGED_RUNS = (("full", 640), ("kivi2", None), ("h2o+kivi2", None))
 SPEC_RUNS = (("full", "same", False), ("kivi2", "window:64", False),
              ("full", "same", True))
 KERNELS = ("decode_attn", "flash_prefill", "decode_attn_paged",
-           "flash_prefill_chunk", "flash_verify", "decode_qattn")
+           "flash_prefill_chunk", "flash_verify", "decode_qattn", "kquant",
+           "vquant")
 
 
 def _kernel_objs():
     from repro_torch.kernels.decode_qattn import ops as dq
     from repro_torch.kernels.flash_prefill import ops as fp
+    from repro_torch.kernels.kvquant import ops as kvq
     return dict(decode_attn=dq.decode_attn_kernel,
                 flash_prefill=fp.flash_prefill_kernel,
                 decode_attn_paged=dq.decode_attn_paged_kernel,
                 flash_prefill_chunk=fp.flash_prefill_chunk_kernel,
                 flash_verify=fp.flash_verify_kernel,
-                decode_qattn=dq.decode_qattn_count)
+                decode_qattn=dq.decode_qattn_count,
+                kquant=kvq.kquant_kernel, vquant=kvq.vquant_kernel)
 
 
 def _want_launches(eng, res, n_layers: int, n_req: int, segments: int):
@@ -733,7 +856,11 @@ def _want_launches(eng, res, n_layers: int, n_req: int, segments: int):
     counts: one per layer for every decode step (B1 dense / B3 paged),
     admission (B2) or prompt segment (B4) of a policy that reads no mass,
     and, speculative, verify round (B5) and drafter decode step and
-    drafter admission (B1 / B2: the drafter's cache is dense)."""
+    drafter admission (B1 / B2: the drafter's cache is dense); for a
+    quantized (KIVI) cache, B6 (kquant and vquant) once per layer for
+    every append step whose ring flushed (decided on the host: the run's
+    `kv_flush_steps`) and every quantized admission (target, and drafter
+    when its view is quantized)."""
     want = dict.fromkeys(KERNELS, 0)
     dec, pre = (("decode_attn_paged", "flash_prefill_chunk") if eng.paged
                 else ("decode_attn", "flash_prefill"))
@@ -746,6 +873,10 @@ def _want_launches(eng, res, n_layers: int, n_req: int, segments: int):
         want["decode_attn"] += st.draft_calls * n_layers
         if not eng.draft.spec.track_scores():
             want["flash_prefill"] += n_req * n_layers
+    n_quant = n_req * (int(eng.spec.quantized)
+                       + int(bool(st) and eng.draft.spec.quantized))
+    want["kquant"] = want["vquant"] = (res.kv_flush_steps
+                                       + n_quant) * n_layers
     return want
 
 
@@ -868,8 +999,157 @@ def phase_serve(info: dict) -> None:
                  f"{res.pool_peak_blocks} of {res.pool_blocks} blocks")
         del eng, res
         torch.cuda.empty_cache()
-    del params, plain
+    del plain
+    _serve_prefix(info, params, kernels)
+    del params
     torch.cuda.empty_cache()
+
+
+# prefix-cache runs: paged + chunked (CHUNK_LEN), SLOTS slots, MAX_NEW new
+# tokens, N_REQUESTS prompts of 2048 tokens whose first PREFIX_SHARED are
+# one template. (policy, engine options): `full` keeps every row in
+# 16-row blocks at the 640-block pool; kivi2 at budget 1920 keeps the
+# whole pre-window prompt (the smallest budget at which all of it is
+# shareable) in 128-row blocks, its pool 192 blocks — 1.6x the 8 x 15
+# blocks of parity, so the index (template + 3 suffix blocks a request)
+# is never reclaimed and the counts below are exact. Each run with
+# sharing is set beside the same requests without it.
+PREFIX_SHARED = 1536
+PREFIX_RUNS = (("full", dict(pool_blocks=640)),
+               ("kivi2", dict(budget=1920, pool_blocks=192)))
+# near-hits: NEAR_REQUESTS copies of one template with tokens NEAR_EDIT
+# replaced (a 256-row exact prefix, overlap 0.97 >= 0.8): every request
+# after the first goes through CacheBlend, at each recompute fraction
+NEAR_REQUESTS, NEAR_EDIT, NEAR_FRACS = 8, (256, 320), (1.0, 0.25)
+
+
+def _prefix_prompts(rng, vocab: int, n: int):
+    """(templated prompts, near-hit prompts) of 2048 tokens."""
+    import numpy as np
+    L = max(BUCKETS)
+    template = rng.integers(0, vocab, size=L)
+    exact = [np.concatenate([template[:PREFIX_SHARED],
+                             rng.integers(0, vocab, size=L - PREFIX_SHARED)])
+             for _ in range(n)]
+    near = []
+    for _ in range(NEAR_REQUESTS):
+        p = template.copy()
+        p[NEAR_EDIT[0]:NEAR_EDIT[1]] = rng.integers(
+            0, vocab, size=NEAR_EDIT[1] - NEAR_EDIT[0])
+        near.append(p)
+    return exact, near
+
+
+def _serve_prefix(info: dict, params, kernels) -> None:
+    """The prefix-cache runs at full width and depth: completion, the
+    warm / cold / near-hit / copy-on-write counts the schedule implies
+    (one admission at a time, so every request after the first finds the
+    first one's blocks indexed; kivi2's first flush of every slot evicts
+    at cap, so every slot un-shares), exact launches (B4 only for the
+    segments streamed: all of a cold prompt, the suffix of a warm one,
+    none of a near-hit), a clean audit with the index's references, and
+    the pool peaks, prefill seconds and mean TTFT beside the twin run."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.granite_8b import CONFIG as cfg
+    from repro_torch.core.policy import presets
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.scheduler import Request
+    launches = info["launches"]
+    L, C, n_layers = max(BUCKETS), CHUNK_LEN, cfg.num_layers
+    exact, near = _prefix_prompts(np.random.default_rng(5), cfg.vocab_size,
+                                  N_REQUESTS)
+    runs = [(pname, kw, exact, dict(prefix_sharing=share))
+            for pname, kw in PREFIX_RUNS for share in (True, False)]
+    runs += [("full", dict(pool_blocks=640), near,
+              dict(prefix_sharing=True, near_hit=frac))
+             for frac in NEAR_FRACS]
+    twin = {}
+    for pname, kw, prompts, share_kw in runs:
+        kw = dict(kw)
+        pol = presets(budget=kw.pop("budget", BUDGET), window=WINDOW)[pname]
+        eng = Engine(cfg, params, pol, prompt_len=L, max_new=MAX_NEW,
+                     slots=SLOTS, buckets=(L,), paged=True,
+                     chunked_prefill=True, chunk_len=C, **kw, **share_kw)
+        n_req = len(prompts)
+        sharing, frac = share_kw["prefix_sharing"], share_kw.get("near_hit")
+        label = (f"{pname} paged+chunked "
+                 + (f"near-hit {frac}" if frac else
+                    "sharing" if sharing else "no sharing"))
+        torch.cuda.synchronize()
+        for k in kernels.values():
+            k.launches = 0
+        t1 = time.perf_counter()
+        res = eng.generate_continuous([Request(tokens=p, max_new=MAX_NEW)
+                                       for p in prompts])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        n = {name: k.launches for name, k in kernels.items()}
+        for name in KERNELS:
+            launches[name] += n[name]
+        done = [r for r in res.results if r.finish_reason == "length"
+                and r.n_tokens == MAX_NEW]
+        if len(done) != n_req:
+            fail(f"{label}: only {len(done)} of {n_req} requests completed")
+        pf = res.prefix
+        if sharing:
+            # what the schedule implies
+            want_pf = dict(cold=1, warm_hits=0 if frac else n_req - 1,
+                           near_hits=n_req - 1 if frac else 0,
+                           cow_copies=n_req if pol.spec.quantized else 0)
+            got_pf = {k: pf[k] for k in want_pf}
+            if got_pf != want_pf:
+                fail(f"{label}: prefix counts {got_pf}, want {want_pf}")
+            warm_segs = 0 if frac else -(-(L - PREFIX_SHARED) // C)
+            segments = (-(-L // C) + (n_req - 1) * warm_segs)
+        else:
+            segments = n_req * -(-L // C)
+        want = _want_launches(eng, res, n_layers, n_req, segments)
+        if n != want:
+            fail(f"{label}: kernel launches {n}, want {want} "
+                 f"({res.decode_steps} decode steps, {res.kv_flush_steps} "
+                 f"flush steps, {n_layers} layers)")
+        if not (eng.last_audit["clean"]
+                and res.pool_peak_blocks <= res.pool_blocks):
+            fail(f"{label}: pool audit {eng.last_audit}")
+        mapped = pf["peak_mapped_blocks"] if pf else res.pool_peak_blocks
+        line = (f"[serve] {label}: {len(done)}/{n_req} requests completed, "
+                f"prefill {res.prefill_seconds:.3f} s, ttft mean "
+                f"{res.ttft_mean_s:.3f} s, decode "
+                f"{res.decode_tokens_per_s:.1f} tok/s, wall {wall:.2f} s; "
+                f"pool peak {res.pool_peak_blocks}/{res.pool_blocks} blocks "
+                f"of {eng.block_len} rows allocated, {mapped} mapped by "
+                f"slots; audit clean ({eng.last_audit['holders']} holders)")
+        if pf:
+            wp, cp = pf["warm_prefill_s"], pf["cold_prefill_s"]
+            line += (f"; {pf['warm_hits']} warm / {pf['cold']} cold / "
+                     f"{pf['near_hits']} near-hit, {pf['cow_copies']} CoW, "
+                     f"{pf['ingested_blocks']} blocks indexed, "
+                     f"{pf['evicted_blocks']} evicted, {pf['index_blocks']} "
+                     f"held at the end; admission prefill mean warm / "
+                     f"near {np.mean(wp) if wp else 0.0:.3f} s, cold "
+                     f"{np.mean(cp) if cp else 0.0:.3f} s")
+        print(line + "; launches " + " ".join(f"{k} {v}"
+                                               for k, v in n.items()))
+        row = dict(label=label, prefill_s=res.prefill_seconds,
+                   ttft=res.ttft_mean_s, tok_s=res.decode_tokens_per_s,
+                   peak=res.pool_peak_blocks, mapped=mapped, wall=wall)
+        if sharing and not frac:
+            twin[pname] = row
+        elif not sharing:
+            on = twin[pname]
+            print(f"[serve]   {pname}: sharing vs not: prefill "
+                  f"{on['prefill_s']:.3f} / {row['prefill_s']:.3f} s, ttft "
+                  f"mean {on['ttft']:.3f} / {row['ttft']:.3f} s, tok/s "
+                  f"{on['tok_s']:.1f} / {row['tok_s']:.1f}, blocks mapped "
+                  f"by slots at peak {on['mapped']} / {row['mapped']}, "
+                  f"allocated {on['peak']} / {row['peak']}")
+            if pname == "full" and not on["mapped"] < row["mapped"]:
+                fail(f"{pname}: sharing mapped {on['mapped']} blocks at "
+                     f"peak, not fewer than {row['mapped']} without")
+        info.setdefault("prefix_serve", []).append(row)
+        del eng, res
+        torch.cuda.empty_cache()
 
 
 def _leaves(tree):
@@ -968,6 +1248,7 @@ def phase_e2e(info: dict) -> None:
     del params, params32
     torch.cuda.empty_cache()
     _e2e_spec()
+    _e2e_prefix()
 
 
 # speculative e2e, 4-layer granite-8b in f32 with the kernels: requests,
@@ -1050,6 +1331,111 @@ def _e2e_spec() -> None:
                      f"at (request, token, margin) {bad}, margins not below "
                      f"{E2E_MARGIN}")
     del params
+    torch.cuda.empty_cache()
+
+
+# prefix e2e, 4-layer granite-8b in f32 with the kernels: the prefix
+# runs' prompts (first PREFIX_SHARED tokens one template) and near-hit
+# edits, fewer requests and new tokens, 4 slots
+E2E_PREFIX_REQUESTS, E2E_PREFIX_NEW, E2E_PREFIX_SLOTS = 6, 24, 4
+
+
+@contextlib.contextmanager
+def _plain_quantizer():
+    """Route the KIVI quantize-and-pack calls of the cache
+    (`kvquant.ops.quantize_k` / `quantize_v`) to their plain versions on
+    the card, so a run can be set beside the same run through B6."""
+    from repro_torch.kernels.kvquant import ops as kvq
+    from repro_torch.kernels.kvquant import ref
+    saved = kvq.quantize_k, kvq.quantize_v
+    kvq.quantize_k = lambda k, *, bits, group: ref.kquant_ref(k, bits, group)
+    kvq.quantize_v = lambda v, *, bits, group: ref.vquant_ref(v, bits)
+    try:
+        yield
+    finally:
+        kvq.quantize_k, kvq.quantize_v = saved
+
+
+def _e2e_prefix() -> None:
+    """Token-for-token gates in f32 with the kernels: sharing streams
+    equal non-sharing streams (`full`, kivi2 with copy-on-write), a
+    near-hit at recompute 1.0 equals the cold admission of the same
+    prompts, and kivi2 through B6 equals kivi2 through the plain
+    quantizer on the card (streams, and the packed store after one
+    prefill: codes bit-equal or the tie-only differences counted)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.granite_8b import CONFIG
+    from repro_torch.core.policy import presets
+    from repro_torch.kernels.kvquant import ops as kvq
+    from repro_torch.nn import model as M
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.scheduler import Request
+    cfg = CONFIG.replace(num_layers=E2E_LAYERS, dtype=torch.float32)
+    params = M.init_params(cfg, seed=5, device="cuda")
+    exact, near = _prefix_prompts(np.random.default_rng(6), cfg.vocab_size,
+                                  E2E_PREFIX_REQUESTS)
+    L = max(BUCKETS)
+
+    def serve(pname, prompts, budget=BUDGET, pool=640, **kw):
+        pol = presets(budget=budget, window=WINDOW)[pname]
+        eng = Engine(cfg, params, pol, prompt_len=L, max_new=E2E_PREFIX_NEW,
+                     slots=E2E_PREFIX_SLOTS, buckets=(L,), paged=True,
+                     chunked_prefill=True, chunk_len=CHUNK_LEN,
+                     pool_blocks=pool, **kw)
+        res = eng.generate_continuous(
+            [Request(tokens=p, max_new=E2E_PREFIX_NEW) for p in prompts])
+        if not eng.last_audit["clean"]:
+            fail(f"e2e prefix: pool audit {eng.last_audit}")
+        return eng, res
+
+    def gate(label, a, b, extra=""):
+        same = sum(x.tokens.tolist() == y.tokens.tolist()
+                   for x, y in zip(a.results, b.results))
+        print(f"[e2e] prefix f32 {label}: {same}/{len(a.results)} streams "
+              f"token-equal{extra}")
+        if same != len(a.results):
+            fail(f"e2e prefix {label}: streams differ")
+
+    for pname, budget, pool in (("full", BUDGET, 640), ("kivi2", 1920, 128)):
+        _, off = serve(pname, exact, budget, pool)
+        _, on = serve(pname, exact, budget, pool, prefix_sharing=True)
+        pf = on.prefix
+        gate(f"{pname} sharing vs not", on, off,
+             f" ({pf['warm_hits']} warm / {pf['cold']} cold, "
+             f"{pf['cow_copies']} CoW)")
+        if pf["warm_hits"] == 0:
+            fail(f"e2e prefix {pname}: no warm hit")
+    _, cold = serve("full", near)
+    _, blend = serve("full", near, prefix_sharing=True, near_hit=1.0)
+    gate("near-hit at recompute 1.0 vs cold", blend, cold,
+         f" ({blend.prefix['near_hits']} near-hits)")
+    if blend.prefix["near_hits"] == 0:
+        fail("e2e prefix: no near-hit")
+    # kivi2 through B6 vs through the plain quantizer on the card
+    kvq.kquant_kernel.launches = 0
+    eng, fused = serve("kivi2", exact, 1920, 128, prefix_sharing=True)
+    n_b6 = kvq.kquant_kernel.launches
+    with _plain_quantizer():
+        _, plain = serve("kivi2", exact, 1920, 128, prefix_sharing=True)
+    if n_b6 == 0 or kvq.kquant_kernel.launches != n_b6:
+        fail(f"e2e prefix: B6 launches {n_b6} with the kernel, "
+             f"{kvq.kquant_kernel.launches - n_b6} without")
+    toks = torch.as_tensor(exact[0][None], device="cuda")
+    _, pc_k = M.prefill(params, cfg, {"tokens": toks}, eng.spec,
+                        layer_budgets=eng.layer_budgets)
+    with _plain_quantizer():
+        _, pc_p = M.prefill(params, cfg, {"tokens": toks}, eng.spec,
+                            layer_budgets=eng.layer_budgets)
+    diff = {f: int((getattr(pc_k.attn, f) != getattr(pc_p.attn, f))
+                   .sum().item())
+            for f in ("k", "v", "k_scale", "k_zero", "v_scale", "v_zero")}
+    gate("kivi2 B6 vs plain quantizer", fused, plain,
+         f"; packed store after one prefill: differing entries {diff}")
+    if any(diff.values()):
+        fail(f"e2e prefix: B6 and the plain quantizer store {diff} "
+             "differing entries (f32 inputs: no ties expected)")
+    del params, eng
     torch.cuda.empty_cache()
 
 
@@ -1159,6 +1545,23 @@ def phase_profile(info: dict) -> None:
               f"step")
         for key, ms, cnt in sorted(rows, key=lambda r: -r[1])[:8]:
             print(f"[profile]   {ms:8.3f} ms/step  x{cnt:<5d} {key[:90]}")
+        if eng.spec.quantized:
+            # a step whose ring flushes: the loop computes the flush for
+            # the whole batch whenever any row's ring is full (here no
+            # row's is, so the flush is computed and written nowhere)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                M.decode_step(params, cfg, cache, tok, eng.spec,
+                              ring_full=True)
+                torch.cuda.synchronize()
+            rows, n_aten, n_launch = _profile_rows(prof, 1)
+            b6 = [r for r in rows if "quant_kernel" in r[0]]
+            print(f"[profile] {label}: flushing step, device busy "
+                  f"{sum(r[1] for r in rows):.2f} ms; B6 (kquant + vquant) "
+                  f"{sum(r[1] for r in b6):.3f} ms x{sum(r[2] for r in b6)}"
+                  f"; host: {n_aten} aten ops, {n_launch} kernel launches")
+            for key, ms, cnt in sorted(b6, key=lambda r: -r[1]):
+                print(f"[profile]   {ms:8.3f} ms/step  x{cnt:<5d} {key[:90]}")
         del eng, cache
         torch.cuda.empty_cache()
     _profile_verify(params)

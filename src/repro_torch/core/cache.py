@@ -37,6 +37,7 @@ from typing import NamedTuple, Optional, Sequence
 import torch
 
 from repro_torch.core import quantization as qz
+from repro_torch.kernels.kvquant import ops as kvq_ops
 
 NEG_INF = -1e30
 _I32_MAX = torch.iinfo(torch.int32).max
@@ -307,11 +308,35 @@ def append_token_dense(lc: LayerKV, spec: CacheSpec, k_new: torch.Tensor,
     return lc
 
 
-def plan_group_flush(lc: LayerKV, spec: CacheSpec, S: int):
+def quantize_kv(k: torch.Tensor, v: torch.Tensor, spec: CacheSpec, *,
+                use_kernels: bool = True):
+    """KIVI-quantize and pack k, v [B, S, H, D] (one K group per
+    `spec.group` rows): ``(kq, vq)`` as `quantization.Quantized` with
+    packed codes [B, S, H, D*bits/8] and the layouts of
+    `quantize_k_per_channel` / `quantize_v_per_token` (K scale / zero
+    [B, S/G, 1, H, D], V [B, S, H, 1]). With `use_kernels` the fused
+    kernel (`kernels.kvquant`: CUDA on the card, its plain version on the
+    CPU), its outputs adapted by views; without, `core.quantization` +
+    `pack_codes`. Both compute the same function."""
+    bits, G = spec.bits, spec.group
+    if use_kernels:
+        kp, ks, kz = kvq_ops.quantize_k(k, bits=bits, group=G)
+        vp, vs, vz = kvq_ops.quantize_v(v, bits=bits, group=G)
+        return (qz.Quantized(kp, ks[:, :, None], kz[:, :, None]),
+                qz.Quantized(vp, vs[..., None], vz[..., None]))
+    kq = qz.quantize_k_per_channel(k, bits, G)
+    vq = qz.quantize_v_per_token(v, bits)
+    return (kq._replace(q=qz.pack_codes(kq.q, bits)),
+            vq._replace(q=qz.pack_codes(vq.q, bits)))
+
+
+def plan_group_flush(lc: LayerKV, spec: CacheSpec, S: int, *,
+                     use_kernels: bool = True):
     """Quantized-flush planning: returns ``(gslot, cap_groups, kq, vq,
     new_pos)`` — the destination group per row (the victim group when at
     budget, else the next free one), the group capacity, the packed
-    quantized ring, and the absolute positions of the flushed tokens."""
+    quantized ring (`quantize_kv`: the whole [B, W, H, D] ring, one group
+    a row), and the absolute positions of the flushed tokens."""
     B = lc.scores.shape[0]
     G, W = spec.group, spec.window
     n_groups = S // G
@@ -327,10 +352,7 @@ def plan_group_flush(lc: LayerKV, spec: CacheSpec, S: int):
     else:
         crit = torch.where(evictable, gscores, float("inf"))
     gslot = torch.where(at_cap, torch.argmin(crit, dim=-1), lc.length // G)
-    kq = qz.quantize_k_per_channel(lc.rk, spec.bits, G)
-    vq = qz.quantize_v_per_token(lc.rv, spec.bits)
-    kq = kq._replace(q=qz.pack_codes(kq.q, spec.bits))
-    vq = vq._replace(q=qz.pack_codes(vq.q, spec.bits))
+    kq, vq = quantize_kv(lc.rk, lc.rv, spec, use_kernels=use_kernels)
     new_pos = (lc.pos[:, None] - W
                + torch.arange(W, device=dev)[None]).to(torch.int32)
     return gslot, cap_groups, kq, vq, new_pos
@@ -362,7 +384,8 @@ def ring_append(lc, k_new: torch.Tensor, v_new: torch.Tensor,
 def append_token_quantized(lc: LayerKV, spec: CacheSpec,
                            k_new: torch.Tensor, v_new: torch.Tensor, *,
                            ring_full: Optional[bool] = None,
-                           mask: Optional[torch.Tensor] = None) -> LayerKV:
+                           mask: Optional[torch.Tensor] = None,
+                           use_kernels: bool = True) -> LayerKV:
     """Append to the fp residual ring; a row whose ring is full first
     quantizes it as one per-channel group (KIVI) and flushes it into the
     main store, evicting a whole group when at budget.
@@ -374,7 +397,8 @@ def append_token_quantized(lc: LayerKV, spec: CacheSpec,
     host-side knowledge of whether any row flushes this step: False
     skips the flush work, True runs it; None asks the device (one sync)
     — the engines keep host mirrors of the ring lengths and pass it, so
-    their loops never sync here."""
+    their loops never sync here. `use_kernels` picks the flush's
+    quantizer (`quantize_kv`)."""
     W = G = spec.window
     B, S = lc.scores.shape
     rows = torch.arange(B, device=lc.k.device)
@@ -383,7 +407,8 @@ def append_token_quantized(lc: LayerKV, spec: CacheSpec,
         ring_full = bool(need.any())
     if ring_full:
         n_groups = S // G
-        gslot, cap_groups, kq, vq, new_pos = plan_group_flush(lc, spec, S)
+        gslot, cap_groups, kq, vq, new_pos = plan_group_flush(
+            lc, spec, S, use_kernels=use_kernels)
 
         def put(arr, val):
             """arr[b, gslot[b]] = val[b] (arr viewed as [B, n_groups,
@@ -411,37 +436,43 @@ def append_token_quantized(lc: LayerKV, spec: CacheSpec,
 
 def append_token(lc, spec: CacheSpec, k_new: torch.Tensor,
                  v_new: torch.Tensor, *, ring_full: Optional[bool] = None,
-                 mask: Optional[torch.Tensor] = None):
+                 mask: Optional[torch.Tensor] = None,
+                 use_kernels: bool = True):
     """One token per row, in place; `mask` [B] bool (None: every row)
-    gates the rows that append, `ring_full` as in
+    gates the rows that append, `ring_full` and `use_kernels` as in
     `append_token_quantized`."""
     if not isinstance(lc, LayerKV):
         # paged store: same eviction / flush semantics, K/V writes routed
         # through the block table
         from repro_torch.core import paging
         return paging.append_token_paged(lc, spec, k_new, v_new,
-                                         ring_full=ring_full, mask=mask)
+                                         ring_full=ring_full, mask=mask,
+                                         use_kernels=use_kernels)
     if spec.quantized:
         return append_token_quantized(lc, spec, k_new, v_new,
-                                      ring_full=ring_full, mask=mask)
+                                      ring_full=ring_full, mask=mask,
+                                      use_kernels=use_kernels)
     return append_token_dense(lc, spec, k_new, v_new, mask=mask)
 
 
 def append_segment(lc, spec: CacheSpec, k_seg: torch.Tensor,
                    v_seg: torch.Tensor, *,
                    valid_len: Optional[torch.Tensor] = None,
-                   ring_full: Optional[Sequence[bool]] = None):
+                   ring_full: Optional[Sequence[bool]] = None,
+                   use_kernels: bool = True):
     """Append n tokens per row in order: k_seg/v_seg [B, n, H, D]
     (post-RoPE), in place. The body is n masked `append_token`s, so
     evictions and quantized flushes fire at exactly the positions a
     token-at-a-time loop would fire them (bit-equal by construction), on
     either store. `valid_len` [B] int: row b appends only its first
     `valid_len[b]` tokens (0: none). `ring_full`: one host flag per
-    sub-step (None asks the device)."""
+    sub-step (None asks the device); `use_kernels` picks the flushes'
+    quantizer."""
     for t in range(k_seg.shape[1]):
         append_token(lc, spec, k_seg[:, t], v_seg[:, t],
                      ring_full=None if ring_full is None else ring_full[t],
-                     mask=None if valid_len is None else t < valid_len)
+                     mask=None if valid_len is None else t < valid_len,
+                     use_kernels=use_kernels)
     return lc
 
 
@@ -510,7 +541,8 @@ def accumulate_scores(lc: LayerKV, spec: CacheSpec, attn_mass: torch.Tensor,
 
 def compress_prompt(spec: CacheSpec, k: torch.Tensor, v: torch.Tensor,
                     attn_mass: torch.Tensor, *, dtype=torch.bfloat16,
-                    logical_budget: Optional[int] = None) -> LayerKV:
+                    logical_budget: Optional[int] = None,
+                    use_kernels: bool = True) -> LayerKV:
     """k, v: [B, S_p, H, D] post-RoPE prompt KV; attn_mass: [B, S_p]
     accumulated attention mass of the prefill pass. Returns a LayerKV at
     the physical budget (last `window` tokens -> residual ring, fp).
@@ -518,7 +550,9 @@ def compress_prompt(spec: CacheSpec, k: torch.Tensor, v: torch.Tensor,
     Selection is a top-S by policy score in which ties go to the lower
     index, as `jax.lax.top_k` breaks them (a stable descending sort):
     sinks score +inf, ring and headroom padding -inf, so ties are common,
-    and a picked padding row feeds a quantized group's K min/max."""
+    and a picked padding row feeds a quantized group's K min/max.
+    `use_kernels` picks the quantizer of a quantized store
+    (`quantize_kv`)."""
     B, S_p, H, D = k.shape
     S = spec.main_store_len(S_p)
     W = spec.window
@@ -578,10 +612,9 @@ def compress_prompt(spec: CacheSpec, k: torch.Tensor, v: torch.Tensor,
     lc = init_layer_kv(spec, B, S_p, H, D, dtype, device=dev,
                        logical_budget=lb)
     if spec.quantized:
-        kq = qz.quantize_k_per_channel(k_sel, spec.bits, spec.group)
-        vq = qz.quantize_v_per_token(v_sel, spec.bits)
+        kq, vq = quantize_kv(k_sel, v_sel, spec, use_kernels=use_kernels)
         lc = lc._replace(
-            k=qz.pack_codes(kq.q, spec.bits), v=qz.pack_codes(vq.q, spec.bits),
+            k=kq.q, v=vq.q,
             k_scale=kq.scale.squeeze(2), k_zero=kq.zero.squeeze(2),
             v_scale=vq.scale.squeeze(-1), v_zero=vq.zero.squeeze(-1))
     else:

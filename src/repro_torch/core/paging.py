@@ -29,14 +29,19 @@ validity bias, as in the JAX package.
 Like `core.cache`, the decode-time functions update the live tensors in
 place and return the same object.
 
+Prefix sharing maps one block into several slots' tables: the
+allocator refcounts every holder (slots and the prefix index), an insert
+skips the adopted leading blocks (`n_skip`), and copy-on-write clones
+shared blocks into fresh ones (`copy_pool_blocks`).
+
 Not ported yet: `FaultPlan`, `HostTier`, `degrade_slot_groups`, the
-pool-block gather / scatter / copy of tiering and prefix sharing, and
-lazy block growth.
+pool-block gather / scatter of tiering, and lazy block growth.
 """
 from __future__ import annotations
 
 import warnings
-from typing import Dict, List, Mapping, NamedTuple, Optional, Sequence
+from typing import (Dict, Iterable, List, Mapping, NamedTuple, Optional,
+                    Sequence)
 
 import torch
 
@@ -200,14 +205,17 @@ def _scatter_rows(pool: torch.Tensor, rows: torch.Tensor,
 def append_token_paged(p: PagedLayerKV, spec: CacheSpec, k_new: torch.Tensor,
                        v_new: torch.Tensor, *,
                        ring_full: Optional[bool] = None,
-                       mask: Optional[torch.Tensor] = None) -> PagedLayerKV:
+                       mask: Optional[torch.Tensor] = None,
+                       use_kernels: bool = True) -> PagedLayerKV:
     """Paged twin of `cache.append_token`: the same eviction / ring-flush
     semantics (shared planning helpers), K/V writes routed through the
-    block table. `ring_full` and `mask` as in `cache.append_token`: a
-    masked row's pool writes go to the drop block, its metadata stays."""
+    block table. `ring_full`, `mask` and `use_kernels` as in
+    `cache.append_token`: a masked row's pool writes go to the drop
+    block, its metadata stays."""
     if spec.quantized:
         return _append_quantized_paged(p, spec, k_new, v_new,
-                                       ring_full=ring_full, mask=mask)
+                                       ring_full=ring_full, mask=mask,
+                                       use_kernels=use_kernels)
     B, S = p.scores.shape
     bl = p.pk.shape[1]
     cap = torch.clamp(p.budget, max=S)
@@ -230,7 +238,8 @@ def append_token_paged(p: PagedLayerKV, spec: CacheSpec, k_new: torch.Tensor,
 def _append_quantized_paged(p: PagedLayerKV, spec: CacheSpec,
                             k_new: torch.Tensor, v_new: torch.Tensor, *,
                             ring_full: Optional[bool],
-                            mask: Optional[torch.Tensor]) -> PagedLayerKV:
+                            mask: Optional[torch.Tensor],
+                            use_kernels: bool) -> PagedLayerKV:
     W = G = spec.window
     B, S = p.scores.shape
     if p.pk.shape[1] != G:
@@ -242,7 +251,7 @@ def _append_quantized_paged(p: PagedLayerKV, spec: CacheSpec,
     if ring_full:
         n_groups = S // G
         gslot, cap_groups, kq, vq, new_pos = kvcache.plan_group_flush(
-            p, spec, S)
+            p, spec, S, use_kernels=use_kernels)
         # destination block per row; rows not flushing (or with an
         # unmapped group: a free slot) write the drop block
         blk = torch.gather(p.block_tbl, 1, gslot[:, None])[:, 0]
@@ -283,7 +292,7 @@ def _flat_rows(pool: torch.Tensor, batch_axis: int) -> torch.Tensor:
 
 def insert_request_paged(stacked: PagedLayerKV, slot_idx: int,
                          prefilled: LayerKV, block_ids: torch.Tensor, *,
-                         batch_axis: int = 1,
+                         batch_axis: int = 1, n_skip: int = 0,
                          pool_write: bool = True) -> PagedLayerKV:
     """Scatter one request's prefilled *dense* `LayerKV` (batch 1 at
     `batch_axis`) into slot `slot_idx` of a live paged cache whose blocks
@@ -292,8 +301,12 @@ def insert_request_paged(stacked: PagedLayerKV, slot_idx: int,
     `insert_request`, store rows scatter into the granted blocks, and
     the table row becomes `block_ids`. Rows past the granted blocks are
     headroom beyond the request's budgeted length and go to the drop
-    block. `pool_write=False` skips the K/V scatter: the prefill-direct
-    path already streamed the rows into the pool."""
+    block. `n_skip` (host int) sends the pool writes of the first
+    `n_skip` table positions to the drop block too: those blocks were
+    adopted read-only from the prefix index and already hold the same
+    rows, which other slots map. `pool_write=False` skips the K/V
+    scatter: the prefill-direct path already streamed the rows into the
+    pool."""
     for f in META_FIELDS:
         getattr(stacked, f).narrow(batch_axis, slot_idx, 1).copy_(
             getattr(prefilled, f))
@@ -310,11 +323,32 @@ def insert_request_paged(stacked: PagedLayerKV, slot_idx: int,
         if r == 0:
             continue
         ar = torch.arange(r, device=ids.device)
-        rows = torch.where(ids[:, None] < 0, nb * r + ar,
-                           ids[:, None] * r + ar).reshape(-1)
+        skip = ids[:, None] < 0
+        if n_skip:
+            skip = skip | (torch.arange(ids.shape[0],
+                                        device=ids.device)[:, None] < n_skip)
+        rows = torch.where(skip, nb * r + ar, ids[:, None] * r + ar
+                           ).reshape(-1)
         val = getattr(prefilled, src).select(batch_axis, 0)
         _flat_rows(pool, batch_axis).index_copy_(batch_axis, rows,
                                                  val.to(pool.dtype))
+    return stacked
+
+
+def copy_pool_blocks(stacked: PagedLayerKV, src_ids: torch.Tensor,
+                     dst_ids: torch.Tensor, *,
+                     batch_axis: int = 1) -> PagedLayerKV:
+    """Copy whole pool blocks `src_ids` -> `dst_ids` ([k] int64 on the
+    cache's device, every layer at once), in place: the device half of
+    copy-on-write — the engine allocates fresh ids, copies the shared
+    blocks' rows, then rewrites the diverging slot's table entries to the
+    copies (`write_block_table`)."""
+    for f in POOL_FIELDS:
+        pool = getattr(stacked, f)
+        if pool.shape[batch_axis + 1] == 0:
+            continue
+        pool.index_copy_(batch_axis, dst_ids,
+                         pool.index_select(batch_axis, src_ids))
     return stacked
 
 
@@ -353,6 +387,16 @@ def write_block_table(stacked: PagedLayerKV, slot_idx: int, start: int,
     return stacked
 
 
+def clear_block_table_from(stacked: PagedLayerKV, slot_idx: int, start: int,
+                           *, batch_axis: int = 1) -> PagedLayerKV:
+    """Unmap table entries >= `start` of row `slot_idx` (host ints), in
+    every layer copy: blocks released host-side must stop receiving this
+    slot's rows before the free list re-grants them."""
+    row = stacked.block_tbl.narrow(batch_axis, slot_idx, 1)
+    row.narrow(-1, start, row.shape[-1] - start).fill_(-1)
+    return stacked
+
+
 # ---------------------------------------------------------------------------
 # Free-list allocator (host-side, like the scheduler)
 # ---------------------------------------------------------------------------
@@ -366,8 +410,10 @@ class BlockAllocator:
     """Refcounted free list over the shared block-id space; one id
     reserves the same row of every layer's pools. `alloc` is
     all-or-nothing: a request that does not fit leaves the pool
-    untouched (admission refusal). `free` drops one reference; freeing a
-    block that was never allocated raises."""
+    untouched (admission refusal). `incref` adds a holder (the prefix
+    index, a slot adopting a shared block); `free` drops one reference
+    and recycles the block with its last. Freeing or increfing a block
+    that is not allocated raises."""
 
     def __init__(self, n_blocks: int):
         if n_blocks < 1:
@@ -402,6 +448,15 @@ class BlockAllocator:
         self.peak_used = max(self.peak_used, self.used)
         return ids
 
+    def refcount(self, block_id: int) -> int:
+        return self._refs.get(block_id, 0)
+
+    def incref(self, ids: Sequence[int]) -> None:
+        for i in ids:
+            if i not in self._refs:
+                raise ValueError(f"block {i} is not allocated")
+            self._refs[i] += 1
+
     def free(self, ids: Sequence[int]) -> None:
         for i in ids:
             if i not in self._refs:
@@ -413,10 +468,12 @@ class BlockAllocator:
 
 
 def audit_pool(allocator: BlockAllocator,
-               slot_blocks: Mapping[int, Sequence[int]], *,
+               slot_blocks: Mapping[int, Sequence[int]],
+               index_blocks: Iterable[int] = (), *,
                block_tbl=None, tbl_slots=None) -> Dict[str, object]:
     """Cross-check the allocator against every holder (`slot_blocks`:
-    slot -> table-order grant list): each block is free or held by
+    slot -> table-order grant list; `index_blocks`: the prefix index's
+    resident ids, one reference each): each block is free or held by
     exactly `refcount` holders — no leaks, no double maps, no skew.
 
     `block_tbl` (host array ``[..., B, n_max]``, layer dims leading) adds
@@ -454,11 +511,13 @@ def audit_pool(allocator: BlockAllocator,
                 double_mapped.append(i)
                 problems.append(f"slot {slot} maps freed block {i}")
             holders[i] = holders.get(i, 0) + 1
+    for i in index_blocks:
+        holders[i] = holders.get(i, 0) + 1
 
     leaked = sorted(i for i in refs if holders.get(i, 0) == 0)
     for i in leaked:
         problems.append(f"block {i} allocated (refs={refs[i]}) but held "
-                        "by no slot (leak)")
+                        "by no slot and no index entry (leak)")
     skewed: List[int] = []
     for i, n_hold in sorted(holders.items()):
         if refs.get(i, 0) != n_hold:

@@ -47,7 +47,11 @@ def _minmax_quant(x: torch.Tensor, bits: int, dims) -> Quantized:
     lo = xf.amin(dim=dims, keepdim=True)
     hi = xf.amax(dim=dims, keepdim=True)
     levels = (1 << bits) - 1
-    scale = torch.clamp(hi - lo, min=1e-8) / levels
+    # a 0-d divisor on the device: PyTorch's CUDA division by a Python
+    # number multiplies by its reciprocal, one bit off the IEEE quotient
+    # of the JAX package and of the fused kernel (`kernels/kvquant`)
+    scale = torch.clamp(hi - lo, min=1e-8) / torch.full(
+        (), levels, dtype=torch.float32, device=x.device)
     q = torch.clamp(torch.round((xf - lo) / scale), 0, levels).to(torch.uint8)
     return Quantized(q, scale, lo)
 

@@ -1,1 +1,2 @@
-"""Plain dequantization helpers for the KIVI packed layout."""
+"""Fused KIVI quantize-and-pack (CUDA) with its plain versions and the
+dequantization helpers of the KIVI packed layout."""

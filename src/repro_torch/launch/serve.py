@@ -20,6 +20,11 @@ seed, on the card unless ``--device cpu``.
     python -m repro_torch.launch.serve --arch granite-8b --reduced \\
         --policy full --continuous --speculative --gamma 4 \\
         --draft-policy window:64
+
+    # prefix cache: requests sharing a 96-token template reuse its blocks
+    python -m repro_torch.launch.serve --arch granite-8b --reduced \\
+        --policy full --continuous --buckets 128 --paged \\
+        --prefix-sharing --shared-prefix 96
 """
 from __future__ import annotations
 
@@ -93,6 +98,22 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                          "kivi2[:budget[:window]] / kivi4 / int8 "
                          "(quantized ring), or same (target clone: "
                          "acceptance ceiling)")
+    ap.add_argument("--prefix-sharing", action="store_true",
+                    help="cross-request prefix cache (--continuous --paged "
+                         "only): a radix index over the pool maps repeated "
+                         "prompt prefixes read-only into new slots, which "
+                         "prefill only their suffix; copy-on-write "
+                         "un-shares on divergence, streams unchanged")
+    ap.add_argument("--near-hit", type=float, default=0.0,
+                    help="CacheBlend recompute fraction in (0, 1] for "
+                         "--prefix-sharing with the full policy: a prompt "
+                         "overlapping a recent one by >= 0.8 with a short "
+                         "exact prefix recomputes only this fraction of "
+                         "its tokens instead of a full prefill "
+                         "(approximate below 1; 0 disables)")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="give every synthetic request the same leading N "
+                         "tokens (exercises --prefix-sharing warm hits)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; cpu runs the "
                          "kernels' plain versions)")
@@ -100,6 +121,15 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     if args.speculative and not args.continuous:
         ap.error("--speculative requires --continuous (the draft/verify "
                  "loop lives in the continuous engine)")
+    if args.prefix_sharing and not (args.continuous and args.paged):
+        ap.error("--prefix-sharing requires --continuous --paged (the "
+                 "radix index maps pool blocks into block tables)")
+    if args.near_hit and not args.prefix_sharing:
+        ap.error("--near-hit requires --prefix-sharing")
+    if args.prefix_sharing and args.speculative:
+        ap.error("--prefix-sharing and --speculative are mutually "
+                 "exclusive (the draft cache holds no block tables to "
+                 "share)")
 
     device = resolve_device(args.device)
     use_kernels = args.use_kernels == "on"
@@ -120,11 +150,20 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                      pool_blocks=args.pool_blocks or None,
                      chunked_prefill=args.chunked_prefill,
                      chunk_len=args.chunk_len, speculative=args.speculative,
-                     gamma=args.gamma, draft_policy=args.draft_policy)
+                     gamma=args.gamma, draft_policy=args.draft_policy,
+                     prefix_sharing=args.prefix_sharing,
+                     near_hit=args.near_hit)
         eos = args.eos_id if args.eos_id >= 0 else None
+        shared = (rng.integers(0, cfg.vocab_size, size=args.shared_prefix)
+                  if args.shared_prefix > 0 else np.zeros(0, np.int64))
+
+        def prompt(L):
+            tail = rng.integers(0, cfg.vocab_size,
+                                size=max(L - len(shared), 0))
+            return np.concatenate([shared[:L], tail])
+
         reqs = [
-            Request(tokens=rng.integers(0, cfg.vocab_size,
-                                        size=buckets[i % len(buckets)]),
+            Request(tokens=prompt(buckets[i % len(buckets)]),
                     max_new=int(rng.integers(max(1, args.max_new // 2),
                                              args.max_new + 1)),
                     eos_id=eos)
@@ -147,6 +186,14 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                   f"audit clean={eng.last_audit['clean']}")
         if res.spec is not None:
             print(res.spec.describe())
+        if res.prefix is not None:
+            p = res.prefix
+            print(f"prefix cache: {p['warm_hits']} warm / {p['cold']} cold "
+                  f"/ {p['near_hits']} near-hit admissions; "
+                  f"{p['ingested_blocks']} blocks indexed, "
+                  f"{p['index_blocks']} resident, "
+                  f"{p['evicted_blocks']} evicted, "
+                  f"{p['cow_copies']} copy-on-write copies")
         return
 
     prompts = rng.integers(0, cfg.vocab_size,

@@ -37,7 +37,8 @@ def block_prefill(p: dict, x: torch.Tensor, cfg, spec: CacheSpec, *,
     B, T, _ = x.shape
     x = x + L.linear(p["attn"]["wo"], o.reshape(B, T, -1))
     lc = kvcache.compress_prompt(spec, k, v, mass, dtype=cfg.dtype,
-                                 logical_budget=logical_budget)
+                                 logical_budget=logical_budget,
+                                 use_kernels=cfg.use_kernels)
     return _ffn(p, x, cfg), lc
 
 
@@ -99,7 +100,7 @@ def block_verify(p: dict, x: torch.Tensor, cfg, spec: CacheSpec, lc,
     positions = lc.pos[:, None] + torch.arange(Lseg, device=x.device)[None]
     q, k_new, v_new = attn.qkv(p["attn"], h, cfg, positions)
     kvcache.append_segment(lc, spec, k_new, v_new, valid_len=valid_len,
-                           ring_full=ring_full)
+                           ring_full=ring_full, use_kernels=cfg.use_kernels)
     o, row_mass = attn.verify_attention(
         q, lc, spec, q_pos=positions, window=cfg.sliding_window,
         dtype=cfg.dtype, use_kernels=cfg.use_kernels)
@@ -120,7 +121,8 @@ def block_decode(p: dict, x: torch.Tensor, cfg, spec: CacheSpec, lc, *,
     q, k_new, v_new = attn.qkv(p["attn"], h, cfg, pos)
     # append-first: the new token attends to itself through the cache
     kvcache.append_token(lc, spec, k_new[:, 0], v_new[:, 0],
-                         ring_full=ring_full, mask=append_mask)
+                         ring_full=ring_full, mask=append_mask,
+                         use_kernels=cfg.use_kernels)
     o, mass = attn.decode_attention(
         q, lc, spec, window=cfg.sliding_window, dtype=cfg.dtype,
         q_pos=pos[:, 0], use_kernels=cfg.use_kernels)

@@ -196,7 +196,8 @@ def prefill_finalize(cfg, st: PrefillState, spec: CacheSpec, *,
     return _stack_layers([
         kvcache.compress_prompt(spec, st.k[i, 0], st.v[i, 0], st.mass[i, 0],
                                 dtype=cfg.dtype,
-                                logical_budget=int(layer_budgets[i]))
+                                logical_budget=int(layer_budgets[i]),
+                                use_kernels=cfg.use_kernels)
         for i in range(cfg.num_layers)])
 
 
@@ -241,6 +242,23 @@ def prefill_finalize_meta(cfg, st: PrefillState, spec: CacheSpec, *,
         rlen=z(dt=i32), pos=torch.full(lead, T, dtype=i32, device=dev),
         budget=torch.as_tensor([int(b) for b in layer_budgets], dtype=i32,
                                device=dev).view(n_sb, 1)))
+
+
+def prefill_from_kv(cfg, spec: CacheSpec, ks: torch.Tensor,
+                    vs: torch.Tensor, *,
+                    layer_budgets: Optional[Sequence[int]] = None
+                    ) -> ModelCache:
+    """An insert-ready prefill cache from externally computed per-layer
+    K / V ``[L, B, S, Hkv, D]`` (CacheBlend's blended prompt KV): the
+    finalize of a chunked admission over that scratch, attention mass
+    zero — legal only for policies whose selection ignores the mass (the
+    engine routes near-hits for policy "none" only)."""
+    _check_chunkable(cfg)
+    st = PrefillState(k=ks[:, None].to(cfg.dtype), v=vs[:, None].to(cfg.dtype),
+                      mass=torch.zeros((ks.shape[0], 1, *ks.shape[1:3]),
+                                       dtype=torch.float32,
+                                       device=ks.device))
+    return prefill_finalize(cfg, st, spec, layer_budgets=layer_budgets)
 
 
 def decode_step(params, cfg, cache: ModelCache, token: torch.Tensor,

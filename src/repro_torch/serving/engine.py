@@ -31,12 +31,22 @@ the ring lengths, so a decode step needs no device sync at all. A
 chunked admission's first token takes the same pipelined read one
 iteration later.
 
+With ``prefix_sharing=True`` (paged) a radix index over the pool
+(`serving.prefix`) lets admissions that share a prompt prefix map the
+same physical blocks read-only (refcounted) and stream only their
+suffix; a shared block is copied the moment its slot would write it
+(copy-on-write), and ``near_hit`` routes same-template, edited-middle
+prompts through CacheBlend's selective recompute
+(`serving.cacheblend`). Every sharing admission goes through the chunked
+machinery, so streams equal those of a run without sharing.
+
 Not ported yet (the constructor raises NotImplementedError): lazy block
-growth, prefix sharing, the overload ladder (preemption, degradation)
-and tiering; samplers other than greedy; tracing and metrics.
+growth, the overload ladder (preemption, degradation) and tiering;
+samplers other than greedy; tracing and metrics.
 """
 from __future__ import annotations
 
+import math
 import time
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Union
@@ -52,6 +62,8 @@ from repro_torch.core.cache import CacheSpec, cache_logical_bytes_per_layer
 from repro_torch.core.policy import CompressionPolicy
 from repro_torch.nn import model as M
 from repro_torch.nn.attention import MASS_GROUP
+from repro_torch.serving import cacheblend as cacheblend_lib
+from repro_torch.serving import prefix as prefix_lib
 from repro_torch.serving import sampler as sampler_lib
 from repro_torch.serving import speculative as spec_lib
 from repro_torch.serving.scheduler import Request, RequestResult, Scheduler
@@ -91,6 +103,11 @@ class ContinuousGenerationResult:
     pool_block_bytes: int = 0     # bytes one block pins across layers,
     pool_peak_blocks: int = 0     # high-water allocated blocks
     spec: Optional[spec_lib.SpecStats] = None   # speculative runs only
+    prefix: Optional[dict] = None  # prefix-sharing runs only: warm / cold /
+                                   # near-hit admissions, CoW copies, blocks
+    # append steps whose quantized ring flushed (host-decided; one per
+    # decode step, verify sub-step or drafter step that flushed any row)
+    kv_flush_steps: int = 0
 
     def failed(self) -> List[RequestResult]:
         """Requests retired without being served (a paged pool too small
@@ -119,6 +136,10 @@ class _ChunkedAdmission:
     last_logits: Optional[torch.Tensor] = None   # the last segment's logits
     pc: Optional[M.ModelCache] = None            # finalized, awaiting insert
     direct: bool = False           # prefill-direct: segments write the pool
+    restore_m: int = 0             # prefix rows restored from the index
+    n_adopt: int = 0               # leading blocks adopted read-only
+    blend: bool = False            # near-hit CacheBlend admission
+    secs: float = 0.0              # accumulated prefill seconds
 
 
 class RingMirror:
@@ -185,9 +206,11 @@ class Engine:
     live on the engine's device. `use_kernels` overrides the config's
     kernels-or-reference switch. `paged` (with `block_len`,
     `pool_blocks`: None is capacity parity with the dense layout) and
-    `chunked_prefill` (with `chunk_len`) and `speculative` (with `gamma`
-    and `draft_policy`) apply to `generate_continuous`, as in the JAX
-    engine. `sampler` must be greedy (the only one ported)."""
+    `chunked_prefill` (with `chunk_len`), `speculative` (with `gamma`
+    and `draft_policy`) and `prefix_sharing` (with `near_hit`, the
+    CacheBlend recompute fraction; 0 turns near-hits off) apply to
+    `generate_continuous`, as in the JAX engine. `sampler` must be greedy
+    (the only one ported)."""
 
     def __init__(self, cfg, params, policy: CompressionPolicy, *,
                  prompt_len: Optional[int] = None, max_new: int,
@@ -199,10 +222,10 @@ class Engine:
                  block_growth: str = "eager", speculative: bool = False,
                  gamma: int = 4, draft_policy: str = "window:64",
                  sampler=sampler_lib.greedy,
-                 prefix_sharing: bool = False, preemption: bool = False,
-                 degrade: bool = False, tiering: bool = False):
+                 prefix_sharing: bool = False, near_hit: float = 0.0,
+                 preemption: bool = False, degrade: bool = False,
+                 tiering: bool = False):
         for flag, on in (("block_growth='lazy'", block_growth == "lazy"),
-                         ("prefix_sharing", prefix_sharing),
                          ("preemption", preemption), ("degrade", degrade),
                          ("tiering", tiering)):
             if on:
@@ -260,12 +283,35 @@ class Engine:
         self.block_allocator: Optional[paging.BlockAllocator] = None
         self.last_audit: Optional[dict] = None
 
+        # cross-request prefix sharing (paged + continuous only): a radix
+        # index over the pool lets admissions sharing a prompt prefix map
+        # the same blocks read-only and prefill only their suffix. Every
+        # admission then goes through the chunked machinery (a warm hit
+        # is a chunked prefill resumed at the match offset)
+        self.prefix_sharing = bool(prefix_sharing)
+        self.near_hit = float(near_hit)
+        if self.prefix_sharing:
+            if not paged:
+                raise ValueError("prefix_sharing requires paged=True")
+            if speculative:
+                raise ValueError(
+                    "prefix_sharing + speculative is unsupported (the "
+                    "draft cache holds no block tables to share)")
+        if self.near_hit:
+            if not self.prefix_sharing:
+                raise ValueError("near_hit requires prefix_sharing=True")
+            if not 0.0 < self.near_hit <= 1.0:
+                raise ValueError(f"near_hit is a recompute fraction in "
+                                 f"(0, 1], got {self.near_hit}")
+        self._share_state: Optional[dict] = None   # live during a sharing run
+        self.flush_steps = 0
+
         # chunked prefill (continuous batching only): chunk_len snaps to
         # the mass group, so chunked and monolithic admissions fold the
         # attention mass in the same association chain
         self.chunked_prefill = bool(chunked_prefill)
         self.chunk_len = 0
-        if self.chunked_prefill:
+        if self.chunked_prefill or self.prefix_sharing:
             M._check_chunkable(cfg)
             self.chunk_len = max(MASS_GROUP,
                                  int(chunk_len) - int(chunk_len) % MASS_GROUP)
@@ -319,6 +365,10 @@ class Engine:
             return t
         return t.pin_memory().to(self.device, non_blocking=True)
 
+    def _h2d_ids(self, ids: Sequence[int], dtype=np.int64) -> torch.Tensor:
+        """Host block ids (a Python list) on the engine's device."""
+        return self._h2d(np.array(ids, dtype))
+
     def _model_of(self, draft: bool):
         """(cfg, cache spec, layer budgets) of the target or the drafter
         (same weights)."""
@@ -338,6 +388,7 @@ class Engine:
                 append_mask: Optional[torch.Tensor] = None,
                 draft: bool = False) -> torch.Tensor:
         cfg, spec, _ = self._model_of(draft)
+        self.flush_steps += bool(ring_full)
         logits, _ = M.decode_step(self.params, cfg, cache, tok, spec,
                                   ring_full=ring_full,
                                   append_mask=append_mask)
@@ -346,6 +397,7 @@ class Engine:
     # the speculative loop's verify step (`serving.speculative`)
     def _verify(self, cache: M.ModelCache, tokens: torch.Tensor,
                 valid_len: torch.Tensor, ring_full):
+        self.flush_steps += sum(map(bool, ring_full))
         y, acc, _ = M.verify_step(self.params, self.cfg, cache, tokens,
                                   valid_len, self.spec, ring_full=ring_full)
         return y, acc
@@ -372,10 +424,12 @@ class Engine:
                 and s.main_store_len(bucket) >= bucket)
 
     def _insert(self, cache: M.ModelCache, sched: Scheduler, slot: int,
-                pc: M.ModelCache, *, pool_write: bool = True) -> None:
+                pc: M.ModelCache, *, pool_write: bool = True,
+                n_skip: int = 0) -> None:
         """Copy a batch-1 prefilled cache into `slot` of the live cache; a
         paged cache maps the slot's granted blocks and scatters the rows
-        into them (not at all on the prefill-direct path)."""
+        into them (not at all on the prefill-direct path, and not into the
+        first `n_skip` blocks, adopted read-only from the prefix index)."""
         if not self.paged:
             kvcache.insert_request(cache.attn, slot, pc.attn, batch_axis=2)
             return
@@ -384,7 +438,7 @@ class Engine:
         ids[:len(got)] = got
         paging.insert_request_paged(cache.attn, slot, pc.attn,
                                     self._h2d(ids), batch_axis=2,
-                                    pool_write=pool_write)
+                                    n_skip=n_skip, pool_write=pool_write)
 
     def _reset(self, cache: M.ModelCache, slot: int) -> None:
         """Clear a slot (paged: its table row too, so a free slot's
@@ -395,13 +449,58 @@ class Engine:
             kvcache.reset_slot(cache.attn, slot, batch_axis=2)
 
     # ------------------------------------------------------------------
+    # Prefix sharing: eligibility and the host-side copy-on-write trigger
+    # ------------------------------------------------------------------
+    def _share_retained(self, bucket: int) -> int:
+        """Leading prompt rows of a `bucket`-length admission whose final
+        cache rows are blockwise deterministic and in position order: the
+        shareable prefix (pool block b can then be mapped by any request
+        whose tokens agree on rows [b*block_len, (b+1)*block_len)). 0 when
+        this spec cannot share: score-carrying eviction orders rows by
+        data, and a budget too small to keep the whole pre-window prompt
+        drops rows mid-prefix."""
+        spec = self.spec
+        if spec.policy not in ("none", "streaming") or spec.track_scores():
+            return 0
+        min_lb = int(np.min(self.layer_budgets))
+        if spec.window == 0:
+            # verbatim prefill branch: every prompt row kept in place
+            if spec.quantized:
+                return 0
+            ok = spec.main_store_len(bucket) >= bucket and min_lb >= bucket
+            return bucket if ok else 0
+        # streaming selection: rows [0, bucket - window) land in position
+        # order in the main store when the store covers them all
+        n_main = bucket - spec.window
+        if n_main <= 0 or spec.main_store_len(bucket) < n_main:
+            return 0
+        cap = ((min_lb // spec.group) * spec.group if spec.quantized
+               else min_lb)
+        return n_main if cap >= n_main else 0
+
+    def _cow_due(self, mirror, slot: int) -> bool:
+        """Could this slot's next append write rows below its shared
+        prefix? Appends and non-evicting flushes write at or above the
+        slot's own length (past the shared rows by construction), so only
+        an evict-at-cap flush can reach a shared block; a quantized ring
+        flushes nothing until it is full."""
+        if self.spec.quantized and int(mirror.rlen[slot]) < self.spec.window:
+            return False
+        return bool(np.any(mirror.length[slot] >= mirror.cap_rows))
+
+    # ------------------------------------------------------------------
     # Chunked admission: at most one in flight, advanced one bounded step
     # (a prompt segment, the compress, or the insert) per decode step
     # ------------------------------------------------------------------
     def _start_chunked_admission(self, sched: Scheduler
                                  ) -> Optional[_ChunkedAdmission]:
         """Begin a chunked admission into the first free slot; heads that
-        can never fit the pool fail at once."""
+        can never fit the pool fail at once. Under prefix sharing the
+        admission consults the radix index first: an exact block-aligned
+        prefix hit adopts the matched blocks read-only and streams only
+        the suffix; a near-hit (same template, edited middle) goes
+        through CacheBlend's selective recompute."""
+        share = self._share_state
         while sched.pending:
             free = sched.free_slots()
             if not free:
@@ -413,15 +512,142 @@ class Engine:
                 continue
             slot = free[0]
             L, C = len(req.tokens), self.chunk_len
+            m = 0
+            adopt_ids: List[int] = []
+            pieces: List[tuple] = []
+            if share is not None and self._share_retained(L):
+                ids, pcs = share["index"].match(req.tokens)
+                m_exact = len(ids) * self.block_len
+                if (share["near_ok"] and m_exact * 2 < L
+                        and share["index"].near_overlap(req.tokens) >= 0.8):
+                    adm = self._start_blend_admission(sched, slot, req,
+                                                      total, m_exact)
+                    if adm is not None:
+                        return adm
+                # restore length: whole matched blocks, snapped down to the
+                # resume quantum (chunked prefill folds the mass per
+                # MASS_GROUP rows), leaving >= 1 suffix token for the
+                # first token's logits
+                m = min(m_exact, L - 1)
+                m -= m % share["align"]
+                if m > 0:
+                    n_adopt = min(m // self.block_len,
+                                  self._share_retained(L) // self.block_len)
+                    adopt_ids = ids[:n_adopt]
+                    pieces = pcs[:m // self.block_len]
             sched.begin_prefill(slot)
-            starts = list(range(0, L, C))
+            if adopt_ids:
+                sched.adopt_blocks(slot, adopt_ids)
+            st = (self._restore_scratch(L, m, pieces) if m > 0 else
+                  M.init_prefill_state(self.cfg, L, device=self.device))
+            starts = list(range(m, L, C))
             return _ChunkedAdmission(
-                slot=slot,
-                st=M.init_prefill_state(self.cfg, L, device=self.device),
-                segs=[req.tokens[s:s + C] for s in starts], starts=starts,
-                total_blocks=total,
-                direct=self.paged and self._verbatim_ok(L))
+                slot=slot, st=st, segs=[req.tokens[s:s + C] for s in starts],
+                starts=starts, total_blocks=total, granted=len(adopt_ids),
+                direct=self.paged and self._verbatim_ok(L), restore_m=m,
+                n_adopt=len(adopt_ids))
         return None
+
+    def _start_blend_admission(self, sched: Scheduler, slot: int,
+                               req: Request, total: int, m_exact: int
+                               ) -> Optional[_ChunkedAdmission]:
+        """Near-hit admission: CacheBlend recomputes only the tokens of
+        highest KV deviation past the exact prefix and reuses the rest
+        (`serving.cacheblend`), then the blended K / V are compressed into
+        an ordinary batch-1 cache (`M.prefill_from_kv`). Approximate for a
+        recompute fraction below 1, so it is never ingested into the
+        index. None when the exact prefix is too short to anchor it."""
+        if m_exact < self.block_len:
+            return None
+        t0 = time.perf_counter()
+        tokens = torch.as_tensor(req.tokens[None].astype(np.int64),
+                                 device=self.device)
+        logits, (ks, vs), _ = cacheblend_lib.blend_prefill(
+            self.params, self.cfg, tokens, [0, m_exact],
+            recompute_frac=self.near_hit)
+        pc = M.prefill_from_kv(self.cfg, self.spec, ks, vs,
+                               layer_budgets=self.layer_budgets)
+        sched.begin_prefill(slot)
+        self._share_state["stats"]["near_hits"] += 1
+        return _ChunkedAdmission(
+            slot=slot, st=None, segs=[], starts=[], total_blocks=total,
+            next_i=1, last_logits=logits, pc=pc, blend=True,
+            secs=time.perf_counter() - t0)
+
+    def _restore_scratch(self, L: int, m: int, pieces) -> M.PrefillState:
+        """A prefill scratch whose first `m` rows are the indexed prefix's
+        host pieces (per block: K / V rows and attention mass), so
+        `prefill_chunk` can resume at offset m with only the suffix. Equal
+        to streaming the whole prompt: rows [0, m) of the ingesting run's
+        final scratch are what this prompt's own segments would produce
+        (causal within a segment, the canonical mass fold). Each piece is
+        one contiguous pinned block, so its upload is one asynchronous
+        copy into a staging tensor, which one device copy lays out."""
+        st = M.init_prefill_state(self.cfg, L, device=self.device)
+        for j, dst in enumerate((st.k, st.v, st.mass)):
+            stage = torch.empty((len(pieces), *pieces[0][j].shape),
+                                dtype=dst.dtype, device=self.device)
+            for b, piece in enumerate(pieces):
+                stage[b].copy_(piece[j], non_blocking=True)
+            # [n_blocks, n_sb, nA, 1, bl, ...] -> [n_sb, nA, 1, m, ...]
+            dst.narrow(3, 0, m).copy_(
+                stage.movedim(0, 3).reshape(*dst.shape[:3], m,
+                                            *dst.shape[4:]))
+        return st
+
+    @staticmethod
+    def _host_pieces(t: torch.Tensor, r0: int, r1: int, bl: int):
+        """Scratch rows [r0, r1) of `t` ([n_sb, nA, 1, T, ...]) as one host
+        copy per `bl`-row block, each contiguous: [n_sb, nA, 1, bl, ...].
+        On the card the copy goes asynchronously into pinned memory (the
+        restore's uploads, later on the same stream, are ordered after
+        it), so the ingest never waits for the device."""
+        x = t.narrow(3, r0, r1 - r0)
+        x = x.reshape(*x.shape[:3], (r1 - r0) // bl, bl, *x.shape[4:])
+        x = x.movedim(3, 0).contiguous()
+        pin = x.device.type == "cuda"
+        host = torch.empty(x.shape, dtype=x.dtype, pin_memory=pin)
+        host.copy_(x, non_blocking=pin)
+        return host.unbind(0)
+
+    def _note_inserted(self, sched: Scheduler, adm: _ChunkedAdmission,
+                       share: dict) -> None:
+        """Sharing bookkeeping after an insert: ingest the admission's
+        retained full blocks into the index (exact admissions only: a
+        blend cache is approximate), remember the prompt for near-hits,
+        admit the host row mirror, and record which leading blocks the
+        slot maps shared (the copy-on-write watch set)."""
+        slot = adm.slot
+        req = sched.slot_request(slot)
+        L = len(req.tokens)
+        bl = self.block_len
+        n_ing = 0
+        if not adm.blend:
+            n_ing = self._share_retained(L) // bl
+            if n_ing > 0:
+                # host copies of the final scratch rows, block-sliced (the
+                # index outlives the scratch); blocks already indexed keep
+                # their first writer's piece, so only the rest are copied
+                index = share["index"]
+                have = len(index.match(req.tokens[:n_ing * bl])[0])
+                new = [self._host_pieces(t, have * bl, n_ing * bl, bl)
+                       for t in (adm.st.k, adm.st.v, adm.st.mass)]
+                pieces = [None] * have + list(zip(*new))
+                share["stats"]["ingested_blocks"] += index.ingest(
+                    req.tokens, sched.slot_blocks(slot)[:n_ing], pieces,
+                    self.block_allocator)
+        share["index"].note_prompt(req.tokens)
+        share["mirror"].admit(slot, L)
+        # CoW watch set: every leading block the index now references —
+        # adopted blocks and the slot's own freshly ingested ones (an
+        # evicting flush into either would corrupt the cached prefix)
+        n_watch = max(adm.n_adopt, n_ing)
+        if n_watch > 0:
+            share["upto"][slot] = n_watch
+        if adm.n_adopt > 0:
+            share["stats"]["warm_hits"] += 1
+        elif not adm.blend:
+            share["stats"]["cold"] += 1
 
     def _grant(self, adm: _ChunkedAdmission, sched: Scheduler,
                target: int) -> bool:
@@ -453,6 +679,7 @@ class Engine:
             return None, None, 0.0
         t0 = time.perf_counter()
         first = None
+        cur = adm
         while adm is not None:
             i = adm.next_i
             if i == len(adm.segs):                  # compress the scratch
@@ -468,7 +695,9 @@ class Engine:
                                                   adm.total_blocks):
                     break
                 self._insert(cache, sched, adm.slot, adm.pc,
-                             pool_write=not adm.direct)
+                             pool_write=not adm.direct, n_skip=adm.n_adopt)
+                if self._share_state is not None:
+                    self._note_inserted(sched, adm, self._share_state)
                 sched.finish_prefill(adm.slot)
                 first = (adm.slot, sampler_lib.greedy(adm.last_logits))
                 adm = None
@@ -488,7 +717,8 @@ class Engine:
                     self.spec)
                 if adm.direct:
                     # prefill-direct: the segment's exact K/V rows go
-                    # straight into the slot's granted blocks
+                    # straight into the slot's granted blocks (restored
+                    # prefix rows live in adopted blocks already)
                     got, bl = sched.slot_blocks(adm.slot), self.block_len
                     rows = np.asarray([got[t // bl] * bl + t % bl
                                        for t in range(c0, c1)], np.int64)
@@ -499,7 +729,14 @@ class Engine:
                 adm.next_i += 1
             if not run_all:
                 break
-        return adm, first, time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        cur.secs += dt
+        if first is not None and self._share_state is not None:
+            warm = cur.restore_m > 0 or cur.blend
+            self._share_state["stats"][
+                "warm_prefill_s" if warm else "cold_prefill_s"].append(
+                    cur.secs)
+        return adm, first, dt
 
     def _logical_bytes_per_seq(self) -> float:
         """Per-sequence logical cache bytes under the layer budgets."""
@@ -588,8 +825,10 @@ class Engine:
             raise ValueError(
                 f"bucket {max(int(b) for b in buckets)} exceeds engine "
                 f"prompt_len {self.prompt_len}")
-        if buckets and self.chunked_prefill:
+        if buckets and (self.chunked_prefill or self.prefix_sharing):
             self._check_aligned(buckets)
+        self.flush_steps = 0
+        self._share_state = None
         if self.speculative:
             # draft / verify loop: synchronous rounds, since drafting needs
             # each round's committed tokens
@@ -610,6 +849,31 @@ class Engine:
                 raise ValueError(f"request max_new {r.max_new} exceeds "
                                  f"engine headroom {self.max_new}")
             sched.submit(r)
+
+        share = None
+        if self.prefix_sharing:
+            align = math.lcm(self.block_len, MASS_GROUP)
+            index = prefix_lib.PrefixIndex(self.block_len, align=align)
+            share = self._share_state = dict(
+                index=index,
+                mirror=spec_lib.CacheMirror(self.spec, self.layer_budgets,
+                                            self._S_phys, self.slots),
+                upto={},            # slot -> leading blocks mapped shared
+                align=align,
+                near_ok=self.near_hit > 0 and self.spec.policy == "none",
+                stats=dict(warm_hits=0, cold=0, near_hits=0, cow_copies=0,
+                           ingested_blocks=0, evicted_blocks=0,
+                           peak_mapped_blocks=0, warm_prefill_s=[],
+                           cold_prefill_s=[]))
+
+            def reclaim(shortfall: int) -> None:
+                # resident requests outrank the prompt cache: lingering
+                # index blocks go, LRU leaf first
+                freed = index.evict(shortfall, self.block_allocator)
+                share["stats"]["evicted_blocks"] += len(freed)
+                sched.release(-1, freed)
+
+            sched.reclaim = reclaim
 
         cache = M.init_cache(self.cfg, self.spec, self.slots,
                              self.prompt_len + self.max_new,
@@ -635,6 +899,9 @@ class Engine:
             self._reset(cache, slot_idx)
             ring.clear(slot_idx)
             clean_slots.add(slot_idx)
+            if share is not None:
+                share["upto"].pop(slot_idx, None)
+                share["mirror"].reset(slot_idx)
 
         def admit_into(slot_idx: int) -> bool:
             """Fill a free slot from the queue: batch-1 prefill, copy into
@@ -672,7 +939,7 @@ class Engine:
                     return True
                 sched.retire(slot_idx, reason)   # 1-token request; refill
 
-        use_adm = self.chunked_prefill
+        use_adm = self.chunked_prefill or self.prefix_sharing
         if not use_adm:
             for i in range(self.slots):
                 admit_into(i)
@@ -697,12 +964,72 @@ class Engine:
                 adm = self._start_chunked_admission(sched)
                 prefill_s += time.perf_counter() - t0
             active = sched.active_slots()
+            if share is not None and active:
+                # copy-on-write: a slot whose next append could flush an
+                # eviction into its shared prefix blocks un-shares them
+                # first (fresh blocks, a device row copy, a table
+                # rewrite); all leading shared blocks swap at once, since
+                # the evicted group depends on the data
+                for s in [s for s in list(active) if share["upto"].get(s)]:
+                    if not self._cow_due(share["mirror"], s):
+                        continue
+                    n_watch = share["upto"][s]
+                    res = sched.cow_swap(s, n_watch)
+                    if res is None:
+                        # the pool cannot cover the whole un-share. A copy
+                        # is needed only for blocks another resident slot
+                        # maps (refcount >= 3: slot + index + other); the
+                        # index gives up its claim on the rest (refcounts
+                        # fall with trie depth, so the must-copy set is a
+                        # prefix)
+                        ids_w = sched.slot_blocks(s)[:n_watch]
+                        rc = self.block_allocator.refcount
+                        n_copy = 0
+                        while n_copy < n_watch and rc(ids_w[n_copy]) >= 3:
+                            n_copy += 1
+                        dropped = share["index"].disown(ids_w[n_copy:])
+                        share["stats"]["evicted_blocks"] += len(dropped)
+                        sched.release(-1, dropped)
+                        res = (([], []) if n_copy == 0
+                               else sched.cow_swap(s, n_copy))
+                    if res is not None:
+                        old, new = res
+                        if new:
+                            paging.copy_pool_blocks(
+                                cache.attn, self._h2d_ids(old),
+                                self._h2d_ids(new), batch_axis=2)
+                            paging.write_block_table(
+                                cache.attn, s, 0,
+                                self._h2d_ids(new, np.int32), batch_axis=2)
+                            share["stats"]["cow_copies"] += 1
+                        share["upto"].pop(s)
+                        continue
+                    # the pool cannot cover the un-share: retire the slot
+                    # "oom", its committed-but-unread token recorded first
+                    reason = None
+                    if pending is not None and s in pending[1]:
+                        decode_tokens += 1
+                        # kvlint: ok(host-sync: un-share OOM retire is a rare pressure event — read the pending token before the slot dies)
+                        reason = sched.record_token(
+                            s, fetch.get(pending[0])[s])
+                        pending[1].remove(s)
+                    elif first_pending is not None and first_pending[0] == s:
+                        # kvlint: ok(host-sync: un-share OOM retire is a rare pressure event — read the pending first token before the slot dies)
+                        reason = sched.record_token(
+                            s, int(first_fetch.get(first_pending[1])[0]))
+                        first_pending = None
+                    sched.retire(s, reason or "oom")
+                    reset(s)
+                    active.remove(s)
             new_pending = None
             if active:
                 tok_dev = self._decode(cache, tok_in[:, None], ring.advance())
                 sched.note_decode_step()
                 new_pending = (fetch.start(tok_dev), list(active))
                 tok_in = tok_dev                # feed N+1 from N, no sync
+                if share is not None:
+                    for s in active:
+                        share["mirror"].append(s, 1)
             if first_pending is not None:
                 slot0, fhandle = first_pending
                 # kvlint: ok(host-sync: pipelined — last iteration's chunk-admitted first token, read behind this dispatch)
@@ -727,6 +1054,14 @@ class Engine:
                     clean_slots.discard(slot0)
                     tok_in[slot0:slot0 + 1] = ftok   # device to device
                     first_pending = (slot0, first_fetch.start(ftok))
+            if share is not None:
+                # distinct blocks the occupied slots map (the allocator's
+                # peak also counts the lingering prompt cache)
+                mapped = len({i for ids in sched.occupied_blocks().values()
+                              for i in ids})
+                st = share["stats"]
+                st["peak_mapped_blocks"] = max(st["peak_mapped_blocks"],
+                                               mapped)
             if (pending is None and new_pending is None and adm is None
                     and first_pending is None and not sched.pending):
                 break
@@ -768,9 +1103,10 @@ class Engine:
                     - (prefill_s - prefill_at_loop))
         if self.paged:
             # every run ends with a host-side audit: all slots retired, so
-            # no block may still be allocated
-            self.last_audit = paging.audit_pool(self.block_allocator,
-                                                sched.occupied_blocks())
+            # every block still allocated must be the prefix index's
+            self.last_audit = paging.audit_pool(
+                self.block_allocator, sched.occupied_blocks(),
+                share["index"].block_ids() if share is not None else ())
         return self._continuous_result(sched, cache, prefill_s=prefill_s,
                                        decode_s=decode_s,
                                        decode_tokens=decode_tokens)
@@ -796,6 +1132,10 @@ class Engine:
             phys = kvcache.cache_physical_bytes(cache.attn)
         results = sorted(sched.results, key=lambda r: r.uid)
         ttfts = [r.ttft_s for r in results if r.finish_reason != "failed"]
+        prefix_stats = None
+        if self._share_state is not None:
+            prefix_stats = dict(self._share_state["stats"],
+                                index_blocks=len(self._share_state["index"]))
         logical = self._logical_bytes_per_seq() * self.slots
         full = (self.cfg.kv_bytes_per_token()
                 * (self.prompt_len + self.max_new) * self.slots)
@@ -810,4 +1150,6 @@ class Engine:
             cache_logical_bytes=float(logical),
             full_cache_bytes=float(full),
             compression_ratio=float(full / max(logical, 1.0)),
-            policy_name=self.policy.name, spec=spec_stats, **pool_stats)
+            policy_name=self.policy.name, spec=spec_stats,
+            prefix=prefix_stats, kv_flush_steps=self.flush_steps,
+            **pool_stats)

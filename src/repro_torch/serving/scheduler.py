@@ -14,8 +14,10 @@ detects EOS / max-new completion, and accounts per-request latency
 No device code here: the `Engine` owns all device state (persistent
 slots-wide cache, per-bucket prefill, the decode step) and drives this
 class — which makes the lifecycle unit-testable with a fake clock.
-Preemption, prefix adoption and tiering come with the slices that port
-those paths.
+Prefix sharing adds the `reclaim` hook (one retry of a refused
+allocation after the prefix index drops lingering blocks),
+`adopt_blocks` and `cow_swap`. Preemption and tiering (the tier-aware
+second reclaim pass) come with the slices that port those paths.
 """
 from __future__ import annotations
 
@@ -109,7 +111,10 @@ class Scheduler:
     is admitted only when the allocator covers its budgeted length;
     otherwise `admit_next` returns None and it stays at the head of the
     queue (FIFO head-of-line). `retire` frees the slot's blocks through
-    `release`, the one seam every block returns by.
+    `release`, the one seam every block returns by. `reclaim` (optional,
+    set by the engine under prefix sharing) is called with the shortfall
+    when an allocation fails, to drop lingering prefix-index references
+    before one retry: resident requests outrank the prompt cache.
     """
 
     def __init__(self, buckets: Sequence[int], n_slots: int, *,
@@ -134,6 +139,7 @@ class Scheduler:
         # instants, the queued + request complete events at retire.
         # Host values only.
         self.trace = tracer if tracer is not None else NULL_TRACER
+        self.reclaim: Optional[Callable[[int], None]] = None
         self._queue: Deque[Tuple[Request, float]] = deque()
         self._slots: List[Optional[_SlotState]] = [None] * n_slots
         self.results: List[RequestResult] = []
@@ -192,7 +198,7 @@ class Scheduler:
             return None
         blocks: List[int] = []
         if self.allocator is not None:
-            got = self.allocator.alloc(self._block_need(self._queue[0][0]))
+            got = self._alloc(self._block_need(self._queue[0][0]))
             if got is None:
                 return None            # pool exhausted: wait for a retire
             blocks = got
@@ -244,16 +250,63 @@ class Scheduler:
             raise ValueError(f"slot {slot_idx} is empty")
         if self.allocator is None or n <= 0:
             return True
-        got = self.allocator.alloc(n)
+        got = self._alloc(n)
         if got is None:
             return False
         st.blocks.extend(got)
         return True
 
+    def _alloc(self, n: int) -> Optional[List[int]]:
+        """Allocate with one reclaim retry: under pool pressure the
+        `reclaim` hook drops lingering prefix-index references first."""
+        got = self.allocator.alloc(n)
+        if got is None and self.reclaim is not None:
+            self.reclaim(n - self.allocator.available)
+            got = self.allocator.alloc(n)
+        return got
+
+    def adopt_blocks(self, slot_idx: int, ids: Sequence[int]) -> None:
+        """Map already-allocated blocks (a matched prefix from the index)
+        into an occupied slot read-only: one reference per id, appended
+        to the slot's grant list. Called right after `begin_prefill`,
+        before any suffix grant, so table order stays [shared prefix |
+        owned suffix]."""
+        st = self._slots[slot_idx]
+        if st is None:
+            raise ValueError(f"slot {slot_idx} is empty")
+        if not ids:
+            return
+        if st.blocks:
+            raise ValueError("adopt before any suffix grant")
+        self.allocator.incref(ids)
+        st.blocks.extend(ids)
+
+    def cow_swap(self, slot_idx: int, n: int
+                 ) -> Optional[Tuple[List[int], List[int]]]:
+        """Copy-on-write: replace the slot's first `n` (shared) blocks
+        with freshly allocated exclusive ids and drop this slot's
+        references to the old ones (the index keeps its own). Returns
+        (old_ids, new_ids) for the device row copy and table rewrite, or
+        None when the pool cannot cover the copies."""
+        st = self._slots[slot_idx]
+        if st is None:
+            raise ValueError(f"slot {slot_idx} is empty")
+        if not 0 < n <= len(st.blocks):
+            raise ValueError(f"cow_swap of {n} blocks, slot holds "
+                             f"{len(st.blocks)}")
+        new = self._alloc(n)
+        if new is None:
+            return None
+        old = st.blocks[:n]
+        st.blocks[:n] = new
+        self.release(slot_idx, old)
+        return old, new
+
     def release(self, slot_idx: int, ids: Sequence[int]) -> None:
         """Single choke point: every block returned to the allocator
         funnels through here, so ownership changes have one auditable
-        seam. `slot_idx` is the releasing slot."""
+        seam. `slot_idx` is the releasing slot (-1: blocks no slot holds,
+        such as the prefix index's)."""
         if self.allocator is None or not ids:
             return
         self.allocator.free(ids)

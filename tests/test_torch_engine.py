@@ -158,8 +158,7 @@ def test_wave_generate_equals_jax(model):
 
 def test_unported_engine_options_raise(model):
     jcfg, jp, cfg, p = model
-    for flag, value in (("block_growth", "lazy"),
-                        ("prefix_sharing", True), ("preemption", True),
+    for flag, value in (("block_growth", "lazy"), ("preemption", True),
                         ("degrade", True), ("tiering", True)):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             Engine(cfg, p, presets(BUDGET, WINDOW)["h2o"], prompt_len=32,

@@ -20,6 +20,9 @@ from repro_torch.kernels.flash_prefill import ops as fp_ops
 from repro_torch.kernels.flash_prefill.ref import (flash_prefill_chunk_ref,
                                                    flash_prefill_ref,
                                                    flash_verify_ref)
+from repro_torch.kernels.kvquant import ops as kvq_ops
+from repro_torch.kernels.kvquant.ref import (kquant_ref, unpack_ref,
+                                             vquant_ref)
 from repro_torch.nn import model as M
 from repro_torch.serving.engine import Engine
 from repro_torch.serving.scheduler import Request
@@ -440,3 +443,94 @@ def test_reduced_spec_engine_on_card_matches_cpu(cuda, pname, draft, paged):
     for key in (("cuda", True), ("cuda", False)):
         for a, b in zip(out["cpu", True].results, out[key].results):
             assert a.tokens.tolist() == b.tokens.tolist(), key
+
+
+# B6: codes may differ from the plain version by one level only where the
+# plain version's own quotient (x - lo) / scale lies within KV_TIE of a
+# .5 tie; zeros bit-equal; scales within one f32 ulp (both divide exactly)
+KV_TIE = 1e-5
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("B,S,H,D,G", [(8, 128, 8, 128, 128),
+                                       (1, 512, 8, 128, 128),
+                                       (1, 1920, 8, 128, 128),
+                                       (2, 64, 2, 32, 16)])
+def test_kvquant_kernels_match_plain(cuda, dt, bits, B, S, H, D, G):
+    """kquant / vquant at the serve path's shapes (the ring flush of 8
+    slots, kivi2's prompt compressions) and a small odd one; each call
+    adds one to its own launch count."""
+    g = torch.Generator(device=cuda).manual_seed(S + bits)
+    x = (torch.randn(B, S, H, D, generator=g, device=cuda) * 2).to(dt)
+    for fn, kern, plain, group in (
+            (kvq_ops.kquant_cuda, kvq_ops.kquant_kernel,
+             lambda: kquant_ref(x, bits, G), G),
+            (kvq_ops.vquant_cuda, kvq_ops.vquant_kernel,
+             lambda: vquant_ref(x, bits), 0)):
+        n0 = kern.launches
+        pk, sk, zk = fn(x, bits=bits, group=G)
+        assert kern.launches == n0 + 1
+        pr, sr, zr = plain()
+        torch.cuda.synchronize()
+        assert torch.equal(zk, zr)
+        assert (sk.view(torch.int32) - sr.view(torch.int32)).abs().max() <= 1
+        a, b = unpack_ref(pk, bits, D), unpack_ref(pr, bits, D)
+        if group:
+            lo = zr.repeat_interleave(group, 1)
+            sc = sr.repeat_interleave(group, 1)
+        else:
+            lo, sc = zr[..., None], sr[..., None]
+        q = (x.float() - lo) / sc
+        tie = (q - q.floor() - 0.5).abs() <= KV_TIE
+        diff = (a - b).abs()
+        assert not ((diff > 1) | ((diff == 1) & ~tie)).any()
+
+
+def test_kvquant_refuses_what_it_does_not_take(cuda):
+    x = torch.zeros(1, 64, 2, 32, device=cuda)
+    for fn in (kvq_ops.kquant_cuda, kvq_ops.vquant_cuda):
+        with pytest.raises(ValueError):
+            fn(x, bits=3, group=16)                 # bits
+        with pytest.raises(ValueError):
+            fn(x, bits=2, group=48)                 # S % group
+        with pytest.raises(ValueError):
+            fn(x.half(), bits=2, group=16)          # dtype
+
+
+@pytest.mark.parametrize("pname", ["full", "kivi2"])
+def test_reduced_prefix_engine_on_card_matches_cpu(cuda, pname):
+    """`Engine(prefix_sharing=True)` on templated prompts, reduced
+    granite-8b in f32: the card's streams and prefix counters equal the
+    CPU's, warm hits happen, and under kivi2 every flush and quantized
+    admission went through B6 (one kquant and one vquant per layer)."""
+    cfg = reduced(GRANITE)
+    pol = presets(24, 8)[pname]
+    gen = torch.Generator().manual_seed(3)
+    shared = torch.randint(0, cfg.vocab_size, (24,), generator=gen)
+    reqs = [torch.cat([shared, torch.randint(0, cfg.vocab_size, (8,),
+                                             generator=gen)]).numpy()
+            for _ in range(4)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = M.init_params(cfg, seed=0, device="cpu")
+        params = {k: _to(v, dev) for k, v in params.items()}
+        eng = Engine(cfg, params, pol, prompt_len=32, max_new=12, slots=2,
+                     device=dev, paged=True, block_len=8,
+                     prefix_sharing=True)
+        for k in (kvq_ops.kquant_kernel, kvq_ops.vquant_kernel):
+            k.launches = 0
+        out[dev] = eng.generate_continuous(
+            [Request(tokens=r, max_new=12) for r in reqs])
+        assert eng.last_audit["clean"]
+    res = out["cuda"]
+    assert res.prefix["warm_hits"] >= 1
+    assert res.prefix == out["cpu"].prefix | {
+        k: res.prefix[k] for k in ("warm_prefill_s", "cold_prefill_s")}
+    want = ((res.kv_flush_steps + len(reqs)) * cfg.num_layers
+            if pol.spec.quantized else 0)
+    assert kvq_ops.kquant_kernel.launches == want
+    assert kvq_ops.vquant_kernel.launches == want
+    for a, b in zip(out["cpu"].results, res.results):
+        assert a.tokens.tolist() == b.tokens.tolist()

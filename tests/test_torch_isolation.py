@@ -1,6 +1,7 @@
 """The port stands alone: importing every `repro_torch` module and running
 its serving CLI leaves no `jax` and nothing of the JAX package in
 `sys.modules`; its entry points default to the card."""
+import re
 import subprocess
 import sys
 import textwrap
@@ -18,16 +19,19 @@ from repro_torch.kernels.decode_qattn import ops as dq_ops
 from repro_torch.kernels.decode_qattn import ref as dq_ref
 from repro_torch.kernels.flash_prefill import ops as fp_ops
 from repro_torch.kernels.flash_prefill import ref as fp_ref
+from repro_torch.kernels.kvquant import ops as kvq_ops
 from repro_torch.kernels.kvquant import ref as kvq_ref
 from repro_torch.launch import serve
 from repro_torch.nn import attention, blocks, layers, model, rope
 from repro_torch.obs import trace
-from repro_torch.serving import engine, sampler, scheduler, speculative
+from repro_torch.serving import (cacheblend, engine, prefix, sampler,
+                                 scheduler, speculative)
 
 MODULES = [repro_torch, bridge, base, granite_8b, paper_llama_7b, budgets,
            cache, paging, policy, quantization, build, dq_ops, dq_ref, fp_ops,
-           fp_ref, kvq_ref, serve, attention, blocks, layers, model, rope,
-           trace, engine, sampler, scheduler, speculative]
+           fp_ref, kvq_ops, kvq_ref, serve, attention, blocks, layers, model,
+           rope, trace, cacheblend, engine, prefix, sampler, scheduler,
+           speculative]
 
 _CHILD = textwrap.dedent("""
     import importlib, sys
@@ -49,6 +53,11 @@ _CHILD = textwrap.dedent("""
                 "--slots", "2", "--continuous", "--buckets", "32,48",
                 "--device", "cpu", "--speculative", "--gamma", "2",
                 "--draft-policy", "window:16"])
+    serve.main(["--arch", "granite-8b", "--reduced", "--policy", "kivi2",
+                "--budget", "24", "--window", "8", "--requests", "4",
+                "--prompt-len", "32", "--max-new", "12", "--slots", "2",
+                "--continuous", "--device", "cpu", "--paged",
+                "--prefix-sharing", "--shared-prefix", "24"])
     serve.main(["--arch", "paper-llama-7b", "--reduced", "--policy", "kivi2",
                 "--budget", "16", "--window", "8", "--requests", "2",
                 "--prompt-len", "32", "--max-new", "2", "--slots", "2",
@@ -70,6 +79,7 @@ def test_port_imports_no_jax_and_no_repro():
     assert "policy=kivi2" in r.stdout, r.stdout
     assert "audit clean=True" in r.stdout, r.stdout
     assert "spec[window:16 gamma=2]" in r.stdout, r.stdout
+    assert re.search(r"prefix cache: [1-9]\d* warm", r.stdout), r.stdout
 
 
 def test_entry_points_default_to_cuda():
