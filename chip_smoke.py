@@ -99,6 +99,23 @@ def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return times[len(times) // 2]
 
 
+def device_ms(fn, n: int = 20) -> float:
+    """Kernel time per call of `fn` on the device (torch.profiler, the
+    sum of its kernels over `n` calls): an event-timed call also holds
+    the host time the device waits on before its kernel is enqueued."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / n
+
+
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
@@ -259,7 +276,7 @@ def phase_parity(info: dict) -> None:
               f"ring={ring}: max|err| out {err:.3g} mass {merr:.3g}; "
               f"{ms:.4f} ms (plain {plain_ms:.4f} ms, sdpa "
               f"{'null' if lib_ms is None else '%.4f ms' % lib_ms}, bound "
-              f"{bms:.4f} ms by {by})")
+              f"{bms:.4f} ms by {by}, {bms / ms:.1%} of it)")
 
     # ---- B2: causal flash prefill ----
     for dt in (torch.float32, torch.bfloat16):
@@ -280,9 +297,11 @@ def phase_parity(info: dict) -> None:
             moved = nbytes(q, k, v, out_k)
             flops = 4.0 * 32 * 128 * T * (T + 1) / 2
             bms, by = bound(moved, flops, str(dt).split(".")[1])
+            dev = device_ms(lambda: fp.flash_prefill_cuda(q, k, v), n=10)
             print(f"[parity] flash_prefill {str(dt)[6:]} T={T}: max|err| "
-                  f"{err:.3g}; {ms:.4f} ms (plain {plain_ms:.4f} ms, sdpa "
-                  f"{lib_ms:.4f} ms, bound {bms:.4f} ms by {by})")
+                  f"{err:.3g}; {ms:.4f} ms, device {dev:.4f} ms (plain "
+                  f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+                  f"{bms:.4f} ms by {by}, {bms / ms:.1%} of it)")
             if dt == torch.bfloat16 and T == 2048:
                 rows["flash_prefill"] = dict(
                     name="flash_prefill_cuda", route="cuda",
@@ -294,6 +313,7 @@ def phase_parity(info: dict) -> None:
             del q, k, v, out_k, out_r
     _parity_decode_full_path(info)
     _parity_paged_decode(info)
+    _parity_paged_full_path(info)
     _parity_chunk_prefill(info)
     _parity_verify(info)
     _parity_quantized_wrapper(info)
@@ -334,10 +354,16 @@ def _parity_decode_full_path(info: dict) -> None:
     B, Hq, D = q.shape
     bms, by = bound(nbytes(q, k, v, bm, out_k), 4.0 * B * Hq * FULL_S * D,
                     "bfloat16")
+    dev = device_ms(lambda: dq.decode_attn_cuda(*args, **kw))
+    n_split, _ = dq.decode_splits(
+        B, k.shape[2], FULL_S,
+        torch.cuda.get_device_properties(0).multi_processor_count)
     print(f"[parity] decode_attn bfloat16 bits=16 S={FULL_S} mass=False "
-          f"ring=False (the full path): max|err| out {err:.3g}; {ms:.4f} ms "
+          f"ring=False (the full path, {n_split} splits: "
+          f"{B * k.shape[2] * n_split} CTAs): max|err| out {err:.3g}; "
+          f"{ms:.4f} ms, device {dev:.4f} ms "
           f"(plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
-          f"{bms:.4f} ms by {by})")
+          f"{bms:.4f} ms by {by}, {bms / ms:.1%} of it)")
     info["kernel_rows"]["decode_attn"] = dict(
         name="decode_attn_cuda", route="cuda",
         source="src/repro_torch/kernels/decode_qattn/csrc/decode_attn.cu",
@@ -463,7 +489,8 @@ def _parity_verify(info: dict) -> None:
                             4.0 * B * Hq * L * k.shape[1] * D, name)
             print(f"[parity] {what} (B {B}, L {L}, Tk {k.shape[1]}): "
                   f"max|err| {err:.3g}; {ms:.4f} ms (plain {plain_ms:.4f} "
-                  f"ms, sdpa {lib_ms:.4f} ms, bound {bms:.4f} ms by {by})")
+                  f"ms, sdpa {lib_ms:.4f} ms, bound {bms:.4f} ms by {by}, "
+                  f"{bms / ms:.1%} of it)")
             if dt == torch.bfloat16 and kind == "full":
                 rows["flash_verify"] = dict(
                     name="flash_verify_cuda", route="cuda",
@@ -501,7 +528,7 @@ def _parity_quantized_wrapper(info: dict) -> None:
                     "bfloat16")
     print(f"[parity] decode_attention_quantized bfloat16 bits=2: max|err| "
           f"{err:.3g}; {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
-          f"{bms:.4f} ms by {by})")
+          f"{bms:.4f} ms by {by}, {bms / ms:.1%} of it)")
     info["kernel_rows"]["decode_qattn"] = dict(
         name="decode_attention_quantized", route="cuda",
         source="src/repro_torch/kernels/decode_qattn/csrc/decode_attn.cu",
@@ -602,7 +629,8 @@ def _parity_kvquant(info: dict) -> None:
                           f"ties {n_tie}), max|err| dequantized {err:.3g}, "
                           f"scale max ulp {ulp}, zeros bit-equal; "
                           f"{ms:.4f} ms (plain {plain_ms:.4f} "
-                          f"ms, library null, bound {bms:.4f} ms by {by})")
+                          f"ms, library null, bound {bms:.4f} ms by {by}, "
+                          f"{bms / ms:.1%} of it)")
                     if dt == torch.bfloat16 and (B, S) == (8, 128) \
                             and bits == 2:
                         rows[kind] = dict(
@@ -677,7 +705,6 @@ def _parity_paged_decode(info: dict) -> None:
     import torch.nn.functional as F
     from repro_torch.kernels.decode_qattn import ops as dq
     from repro_torch.kernels.decode_qattn.ref import decode_attn_paged_ref
-    rows = info["kernel_rows"]
     for dt in (torch.float32, torch.bfloat16):
         for bits in (2, 16):
             for mass in (True, False):
@@ -736,16 +763,61 @@ def _parity_paged_decode(info: dict) -> None:
                           f"{merr:.3g}, vs decode_attn {d_b1:.3g}; "
                           f"{ms:.4f} ms (plain {plain_ms:.4f} ms, sdpa "
                           f"{'null' if lib_ms is None else '%.4f ms' % lib_ms}"
-                          f", bound {bms:.4f} ms by {by})")
-                    if dt == torch.bfloat16 and bits == 2 and mass:
-                        rows["decode_attn_paged"] = dict(
-                            name="decode_attn_paged_cuda", route="cuda",
-                            source="src/repro_torch/kernels/decode_qattn/"
-                                   "csrc/decode_attn.cu",
-                            replaces="src/repro/kernels/decode_qattn/"
-                                     "kernel.py:258",
-                            max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                            bound_ms=bms, bound_by=by, library_ms=lib_ms)
+                          f", bound {bms:.4f} ms by {by}, "
+                          f"{bms / ms:.1%} of it)")
+
+
+def _parity_paged_full_path(info: dict) -> None:
+    """B3 at the case the `full paged` serve path runs (the largest share
+    of its device time): bf16, a 16-bit pool of 16-row blocks, S = 2112,
+    no ring, no mass, a shuffled table with ragged rows and one free
+    slot; bit-equal to B1 on the gathered rows. Its one-call library
+    equivalent: SDPA over the gathered view with the bias as a float mask
+    (gather and mask construction excluded)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_qattn import ops as dq
+    from repro_torch.kernels.decode_qattn.ref import decode_attn_paged_ref
+    bf = torch.bfloat16
+    paged, dense = _paged_case(torch, bf, 16, False, S=FULL_S)
+    kw = dict(bits=16, group=128, return_mass=False, compute_dtype=bf)
+    out_k, _ = dq.decode_attn_paged_cuda(*paged, **kw)
+    out_d, _ = dq.decode_attn_cuda(*dense, **kw)
+    out_r, _ = decode_attn_paged_ref(*paged, bits=16, group=128,
+                                     compute_dtype=bf)
+    torch.cuda.synchronize()
+    what = f"decode_attn_paged bfloat16 bits=16 block=16 S={FULL_S}"
+    err = check_close(what + " out", out_k, out_r, *OUT_TOL["bfloat16"])
+    d_b1 = (out_k.float() - out_d.float()).abs().max().item()
+    if d_b1 != 0.0:
+        fail(f"{what}: differs from decode_attn on the same rows by "
+             f"{d_b1:.3g} (want bit-equal)")
+    ms = median_ms(lambda: dq.decode_attn_paged_cuda(*paged, **kw))
+    plain_ms = median_ms(lambda: decode_attn_paged_ref(
+        *paged, bits=16, group=128, compute_dtype=bf))
+    q, tbl = paged[:2]
+    _, kd, _, _, vd, _, _, bm = dense[:8]
+    qh, kh, vh = q[:, :, None], kd.transpose(1, 2), vd.transpose(1, 2)
+    mask = bm[:, None, None].to(bf)
+    lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=mask, enable_gqa=True))
+    B, Hq, D = q.shape
+    # each input read once: the rows the table walks (the gathered view),
+    # the table, bias, query; out written once
+    bms, by = bound(nbytes(q, kd, vd, bm, tbl, out_k),
+                    4.0 * B * Hq * FULL_S * D, "bfloat16")
+    dev = device_ms(lambda: dq.decode_attn_paged_cuda(*paged, **kw))
+    print(f"[parity] {what} ring=False mass=False (the full paged path): "
+          f"max|err| out {err:.3g}, vs decode_attn {d_b1:.3g}; {ms:.4f} ms, "
+          f"device {dev:.4f} ms (plain {plain_ms:.4f} ms, sdpa "
+          f"{lib_ms:.4f} ms, bound "
+          f"{bms:.4f} ms by {by}, {bms / ms:.1%} of it)")
+    info["kernel_rows"]["decode_attn_paged"] = dict(
+        name="decode_attn_paged_cuda", route="cuda",
+        source="src/repro_torch/kernels/decode_qattn/csrc/decode_attn.cu",
+        replaces="src/repro/kernels/decode_qattn/kernel.py:258",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+        bound_by=by, library_ms=lib_ms)
 
 
 CHUNK_LEN = 512
@@ -799,12 +871,15 @@ def _parity_chunk_prefill(info: dict) -> None:
             moved = nbytes(qs, k[:, :c1], v[:, :c1], outs[-1])
             flops = 4.0 * 32 * 128 * float((qpos + 1).sum().item())
             bms, by = bound(moved, flops, str(dt).split(".")[1])
+            dev = device_ms(lambda: fp.flash_prefill_chunk_cuda(
+                qs, ks, vs, q_offset=c0), n=10)
             print(f"[parity] flash_prefill_chunk {str(dt)[6:]} T={T} "
                   f"chunk {CHUNK_LEN}: max|err| {max(errs):.3g} over "
                   f"{len(outs)} segments, vs flash_prefill {d_b2:.3g}; "
-                  f"last segment ({c1 - c0} rows at {c0}) {ms:.4f} ms "
+                  f"last segment ({c1 - c0} rows at {c0}) {ms:.4f} ms, "
+                  f"device {dev:.4f} ms "
                   f"(plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
-                  f"{bms:.4f} ms by {by})")
+                  f"{bms:.4f} ms by {by}, {bms / ms:.1%} of it)")
             if dt == torch.bfloat16 and T == 2048:
                 rows["flash_prefill_chunk"] = dict(
                     name="flash_prefill_chunk_cuda", route="cuda",

@@ -25,18 +25,67 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 SOURCE = CudaSource(Path(__file__).parent / "csrc" / "decode_attn.cu")
 decode_attn_kernel = CudaKernel(SOURCE, "decode_attn_launch",
-                                [_P] * 14 + [_I] * 10 + [_F, _P])
+                                [_P] * 16 + [_I] * 12 + [_F, _P])
 decode_attn_paged_kernel = CudaKernel(SOURCE, "decode_attn_paged_launch",
-                                      [_P] * 15 + [_I] * 12 + [_F, _P])
+                                      [_P] * 17 + [_I] * 14 + [_F, _P])
 # B1w launches through decode_attn_kernel; this counts them on their own
 decode_qattn_count = LaunchCount()
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-D_MAX, GQ_MAX = 128, 16
+HEAD_DIMS, GQ_MAX = (64, 128), 16
+SPLIT_TILE = 32          # keys per tile of the kernel: splits are whole tiles
+CTAS_PER_SM = 4          # the split count aims at this many CTAs an SM
+SPLIT_MAX = 64           # the kernel's merge holds at most this many splits
+
+
+def decode_splits(B: int, Hkv: int, n_keys: int, n_sm: int):
+    """Split of the key axis [main | ring] of `n_keys` keys for the decode
+    kernel: (n_split, split_len). As many splits as keep B*Hkv*n_split
+    CTAs within one wave of CTAS_PER_SM on each of `n_sm` SMs (a second,
+    partial wave would double the time), each split a whole number of
+    SPLIT_TILE-key tiles, at most SPLIT_MAX; the splits cover
+    [0, n_keys) and none is empty (a cache of one tile or less gets one
+    split)."""
+    want = min(SPLIT_MAX, max(1, CTAS_PER_SM * n_sm // (B * Hkv)))
+    per = max(SPLIT_TILE, -(-n_keys // want))
+    per = -(-per // SPLIT_TILE) * SPLIT_TILE
+    return -(-n_keys // per), per
+
+
+_SM_COUNT: dict = {}
+_TICKETS: dict = {}
+
+
+def _launch_scratch(device, B, Hkv, Gq, D, n_keys):
+    """(n_split, split_len, partials scratch, tickets) of one launch. The
+    SM count is read once per device; the ticket counters (int32, one per
+    (sequence, kv head)) live in a zeroed per-device buffer that the
+    kernel leaves zeroed, grown when a launch needs more. One buffer per
+    device: launches on one device are ordered on its compute stream."""
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _SM_COUNT:
+        _SM_COUNT[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    n_split, split_len = decode_splits(B, Hkv, n_keys, _SM_COUNT[idx])
+    tickets = _TICKETS.get(idx)
+    if tickets is None or tickets.numel() < B * Hkv:
+        tickets = _TICKETS[idx] = torch.zeros(B * Hkv, dtype=torch.int32,
+                                              device=device)
+    # per (sequence, kv head, split, query head): acc[D], m, l, 2 pad
+    part = torch.empty(B * Hkv * n_split * Gq * (D + 4), dtype=torch.float32,
+                       device=device)
+    return n_split, split_len, part, tickets
 
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
+
+
+def _aligned(t):
+    """`t` itself when its data is 16-byte aligned (the kernel copies rows
+    in 16-byte pieces), else an aligned copy."""
+    return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _check(tensors, device) -> None:
@@ -58,9 +107,10 @@ def _check_q(q, compute_dtype):
 
 
 def _check_heads(Hq, Hkv, D, S):
-    if Hkv < 1 or Hq % Hkv or Hq // Hkv > GQ_MAX or D > D_MAX or S < 1:
+    if (Hkv < 1 or Hq % Hkv or Hq // Hkv > GQ_MAX or D not in HEAD_DIMS
+            or S < 1):
         raise ValueError(f"shape out of range: Hq={Hq} Hkv={Hkv} D={D} "
-                         f"S={S} (Gq <= {GQ_MAX}, D <= {D_MAX})")
+                         f"S={S} (Gq <= {GQ_MAX}, D in {HEAD_DIMS})")
 
 
 def _ring_and_mass(q, rk, rv, bias_ring, B, Hkv, Stot, return_mass):
@@ -119,15 +169,19 @@ def decode_attn_cuda(q, k, k_scale, k_zero, v, v_scale, v_zero, bias_main,
     W, ring, out, scores, mass_h = _ring_and_mass(q, rk, rv, bias_ring, B,
                                                   Hkv, S, return_mass)
     _check(tensors + ring, q.device)
+    k, v = _aligned(k), _aligned(v)
+    rk, rv = (_aligned(rk), _aligned(rv)) if W else (None, None)
+    n_split, split_len, part, tickets = _launch_scratch(
+        q.device, B, Hkv, Hq // Hkv, D, S + W)
     decode_attn_kernel(
         _ptr(q), _ptr(k), _ptr(k_scale if quant else None),
         _ptr(k_zero if quant else None), _ptr(v),
         _ptr(v_scale if quant else None), _ptr(v_zero if quant else None),
-        _ptr(bias_main), _ptr(rk if W else None), _ptr(rv if W else None),
-        _ptr(bias_ring if W else None), _ptr(out), _ptr(scores),
-        _ptr(mass_h), B, S, W, Hkv, Hq // Hkv, D, group if quant else 1,
-        bits, _DTYPES[q.dtype], int(compute_dtype == torch.bfloat16),
-        1.0 / math.sqrt(D), stream_handle(q.device))
+        _ptr(bias_main), _ptr(rk), _ptr(rv), _ptr(bias_ring if W else None),
+        _ptr(out), _ptr(scores), _ptr(mass_h), _ptr(part), _ptr(tickets), B,
+        S, W, Hkv, Hq // Hkv, D, group if quant else 1, bits,
+        _DTYPES[q.dtype], int(compute_dtype == torch.bfloat16), n_split,
+        split_len, 1.0 / math.sqrt(D), stream_handle(q.device))
     return out, (mass_h.sum(dim=1) if return_mass else None)
 
 
@@ -173,17 +227,20 @@ def decode_attn_paged_cuda(q, block_tbl, pk, pk_scale, pk_zero, pv,
     W, ring, out, scores, mass_h = _ring_and_mass(q, rk, rv, bias_ring, B,
                                                   Hkv, S, return_mass)
     _check(tensors + ring, q.device)
+    pk, pv = _aligned(pk), _aligned(pv)
+    rk, rv = (_aligned(rk), _aligned(rv)) if W else (None, None)
+    n_split, split_len, part, tickets = _launch_scratch(
+        q.device, B, Hkv, Hq // Hkv, D, S + W)
     decode_attn_paged_kernel(
         _ptr(q), _ptr(block_tbl), _ptr(pk),
         _ptr(pk_scale if quant else None), _ptr(pk_zero if quant else None),
         _ptr(pv), _ptr(pv_scale if quant else None),
-        _ptr(pv_zero if quant else None), _ptr(bias_main),
-        _ptr(rk if W else None), _ptr(rv if W else None),
-        _ptr(bias_ring if W else None), _ptr(out), _ptr(scores),
-        _ptr(mass_h), B, n_max, bl, nb, W, Hkv, Hq // Hkv, D,
-        group if quant else 1, bits, _DTYPES[q.dtype],
-        int(compute_dtype == torch.bfloat16), 1.0 / math.sqrt(D),
-        stream_handle(q.device))
+        _ptr(pv_zero if quant else None), _ptr(bias_main), _ptr(rk),
+        _ptr(rv), _ptr(bias_ring if W else None), _ptr(out), _ptr(scores),
+        _ptr(mass_h), _ptr(part), _ptr(tickets), B, n_max, bl, nb, W, Hkv,
+        Hq // Hkv, D, group if quant else 1, bits, _DTYPES[q.dtype],
+        int(compute_dtype == torch.bfloat16), n_split, split_len,
+        1.0 / math.sqrt(D), stream_handle(q.device))
     return out, (mass_h.sum(dim=1) if return_mass else None)
 
 

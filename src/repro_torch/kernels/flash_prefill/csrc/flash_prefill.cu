@@ -24,28 +24,45 @@
 // What bounds it on an H100: operations. Each 64x64 score tile costs
 // 2*64*64*D flops for QK^T and as many for PV against 2*64*D loaded
 // elements, so at D = 128 the kernel does hundreds of flops per byte;
-// causal T = 2048 is ~2*T^2*D flops per head (half the square).
+// causal T = 2048 is ~2*T^2*D flops per head (half the square). Only the
+// tensor cores reach that rate: the card's f32 CUDA cores give 67 TFLOP/s
+// against 989 in bf16.
 //
-// Design: one CTA of 256 threads per (64-row query tile, query head,
-// sequence); the CTA loops over 64-row key tiles from the window's start
-// up to the causal diagonal of its last absolute row — the loop replaces the TPU's sequential kv
-// grid axis, and fully masked tiles are never visited at all. GQA maps
-// query head h to kv head h / Gq. Q/K/V tiles and the probability tile
-// live in shared memory as f32 (dynamic shared memory, ~113 KB at
-// D = 128); each thread owns a 4-row x (D/16)-column block of the output
-// accumulator and a 4x4 block of every score tile, so its inner loops
-// are register-blocked scalar FMAs. The online softmax runs in f32 with
-// the reference's finite -1e30 mask. Query tiles are issued longest
-// first (the diagonal tiles near the end of the prompt do the most
-// work), which evens out the causal imbalance across SMs.
+// Design (bf16, `flash_prefill_mma_kernel`), FlashAttention-2 shaped: one
+// CTA of 4 warps per (64-row query tile, query head, sequence), each warp
+// 16 query rows; the CTA loops over 64-row key tiles from the window's
+// start up to the causal diagonal of its last absolute row — the loop
+// replaces the TPU's sequential kv grid axis, and fully masked tiles are
+// never visited. GQA maps query head h to kv head h / Gq. Q, K and V
+// tiles are bf16 in shared memory in an XOR-swizzled layout (16-byte
+// chunk c of row r at chunk c ^ (r % 8): ldmatrix reads conflict-free),
+// filled by 16-byte cp.async copies (rows past the end zero-filled) in a
+// two-stage ring, so the next key tile loads while this one computes.
+// S = Q K^T and O += P V run on mma.sync.m16n8k16 (bf16 in, f32
+// accumulate), fed by ldmatrix (V transposed on the load); S and O stay in
+// registers, and the online softmax (exp2 of log2e-scaled scores, finite
+// -1e30 mask) reuses S's accumulator layout as PV's A operand. P is
+// split into a bf16 high part and a bf16 remainder, two products into
+// the same accumulator: rounding P to one bf16 (FlashAttention's choice)
+// leaves ~2^-9 relative error per weight, more than the plain version's
+// bound allows where a row of few keys cancels; the pair keeps ~16 bits.
+// Query tiles are issued longest first (the diagonal tiles near the end
+// of the prompt do the most work), which evens out the causal imbalance.
+// A masked key's weight is exactly 0 and every row a tile holds is finite
+// (rows past Tk are zero-filled by the copy; a segment's tiles end at its
+// last row), so chunked segments stay bit-equal to the monolithic run.
+// wgmma with TMA and warp specialisation is the next step (ROADMAP B).
 //
-// Simple first: scalar f32 FMAs, not tensor cores. bf16 mma/wgmma with
-// f32 accumulation is later work; the plain version's f32 products of
-// bf16 inputs are exact in f32, so only the summation order would move.
+// f32 keeps a scalar body (`flash_prefill_kernel<float, D>`): it serves
+// the f32 correctness gates only, which bf16 tensor cores (or TF32)
+// cannot reproduce. Each thread owns a 4-row x (D/16)-column block of the
+// output accumulator and a 4x4 block of every score tile; Q/K/V tiles
+// and the probability tile live in shared memory as f32.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <limits.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -210,19 +227,280 @@ __global__ void __launch_bounds__(NT) flash_prefill_kernel(Params p) {
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const Params& p, cudaStream_t st) {
-  static bool configured = false;   // opt in to >48 KB once per instance
-  constexpr size_t smem = smem_bytes<D>();
-  if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(
-        flash_prefill_kernel<T, D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-    configured = true;
+// ---- bf16 on tensor cores ------------------------------------------------
+
+constexpr int MT = 128;   // 4 warps x 16 query rows
+
+using bf16 = __nv_bfloat16;
+
+template <int D>
+constexpr size_t mma_smem_bytes() {   // Q tile + 2 stages of K and V
+  return sizeof(bf16) * (BQ * D + 2 * 2 * BK * D);
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+// 16 bytes global -> shared; src_bytes 0 zero-fills
+__device__ __forceinline__ void cp_async16(unsigned dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+__device__ __forceinline__ void ldsm_x4(unsigned addr, uint32_t* r) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(unsigned addr, uint32_t* r) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+// c[16x8] += a[16x16] * b[16x8], bf16 in, f32 accumulate
+__device__ __forceinline__ void mma16816(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+// (x0, x1) as a bf16 pair, and the pair of what that rounding left
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 f = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(x0 - f.x, x1 - f.y);
+}
+
+// element offset of 16-byte chunk c of row r in a swizzled [rows][D] tile
+template <int D>
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * D + ((c ^ (r & 7)) << 3);
+}
+
+// rows r0 .. r0+63 of a [rows, *, D] bf16 tensor (row stride `stride`
+// elements) into a swizzled tile; rows >= n_rows become zeros
+template <int D>
+__device__ __forceinline__ void load_tile(bf16* tile, const bf16* base,
+                                          size_t stride, int r0, int n_rows,
+                                          int t) {
+  constexpr int CPR = D / 8;
+#pragma unroll
+  for (int i = t; i < 64 * CPR; i += MT) {
+    const int r = i / CPR, c = i % CPR;
+    const bool ok = r0 + r < n_rows;
+    const bf16* src = base + (size_t)(ok ? r0 + r : 0) * stride + c * 8;
+    cp_async16(smem_u32(tile + swz<D>(r, c)), src, ok ? 16 : 0);
   }
+}
+
+template <int D>
+__global__ void __launch_bounds__(MT) flash_prefill_mma_kernel(Params p) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  constexpr int NK = D / 16;        // k-steps of QK^T; n-tile pairs of PV
+  constexpr int NS = BK / 8;        // n-tiles of a score row block
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* KV = Qs + BQ * D;           // stage s: K at KV + 2*s*BK*D, V after
+
+  const int qt = gridDim.x - 1 - blockIdx.x;   // longest tiles first
+  const int hq = blockIdx.y, b = blockIdx.z;
+  const int Gq = p.Hq / p.Hkv, hk = hq / Gq;
+  const int Tq = p.Tq, Tk = p.Tk;
+  const int q0 = qt * BQ;                // first segment row of the tile
+  const int qa0 = p.q_offset + q0;       // its absolute position
+  const int t = threadIdx.x, warp = t / 32, lane = t % 32;
+  const int g = lane >> 2, tig = lane & 3;
+  const size_t qstride = (size_t)p.Hq * D, kstride = (size_t)p.Hkv * D;
+  const bf16* qg = (const bf16*)p.q + ((size_t)b * Tq * p.Hq + hq) * D;
+  const bf16* kg = (const bf16*)p.k + ((size_t)b * Tk * p.Hkv + hk) * D;
+  const bf16* vg = (const bf16*)p.v + ((size_t)b * Tk * p.Hkv + hk) * D;
+
+  // key tiles kt_begin .. kt_end: the window's first tile that any row of
+  // this tile sees, up to the tile of the last key its last row sees
+  const int q_last = p.q_offset + min(q0 + BQ, Tq) - 1;
+  const int kt_end = min(q_last, Tk - 1) / BK;
+  int kt_begin = 0;
+  if (p.window > 0 && qa0 - p.window >= BK - 1)
+    kt_begin = (qa0 - p.window - (BK - 1)) / BK + 1;
+  const int n_tiles = kt_end - kt_begin + 1;
+
+  load_tile<D>(Qs, qg, qstride, q0, Tq, t);
+  load_tile<D>(KV, kg, kstride, kt_begin * BK, Tk, t);
+  load_tile<D>(KV + BK * D, vg, kstride, kt_begin * BK, Tk, t);
+  cp_async_commit();
+
+  uint32_t qf[NK][4];
+  float o[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m_r[2] = {NEG_INF, NEG_INF}, l_r[2] = {0.f, 0.f};
+  const float sl2 = p.scale * 1.4426950408889634f;   // scale * log2(e)
+  const int wrow = qa0 + warp * 16;                    // warp's first row
+  const int row0 = wrow + g;                           // and row0 + 8
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int k0 = (kt_begin + i) * BK;
+    cp_async_wait_all();   // tile i (and Q) landed for this thread
+    __syncthreads();       // for every thread; stage (i+1)&1 is free
+    if (i + 1 < n_tiles) {
+      bf16* nk = KV + ((i + 1) & 1) * 2 * BK * D;
+      load_tile<D>(nk, kg, kstride, k0 + BK, Tk, t);
+      load_tile<D>(nk + BK * D, vg, kstride, k0 + BK, Tk, t);
+    }
+    cp_async_commit();
+    if (i == 0) {
+#pragma unroll
+      for (int kk = 0; kk < NK; ++kk)
+        ldsm_x4(smem_u32(Qs + swz<D>(warp * 16 + (lane & 15),
+                                     kk * 2 + (lane >> 4))), qf[kk]);
+    }
+    const bf16* Ks = KV + (i & 1) * 2 * BK * D;
+    const bf16* Vs = Ks + BK * D;
+
+    float s[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk) {
+#pragma unroll
+      for (int nn = 0; nn < NS / 2; ++nn) {
+        uint32_t bk[4];
+        ldsm_x4(smem_u32(Ks + swz<D>(nn * 16 + (lane & 7) + ((lane >> 4) << 3),
+                                     kk * 2 + ((lane >> 3) & 1))), bk);
+        mma16816(s[2 * nn], qf[kk], bk[0], bk[1]);
+        mma16816(s[2 * nn + 1], qf[kk], bk[2], bk[3]);
+      }
+    }
+
+    // mask (only tiles the diagonal, the window edge or the end cuts),
+    // then the online softmax of the thread's rows row0 and row0 + 8
+    const bool whole = k0 + BK - 1 <= wrow && k0 + BK <= Tk
+                       && (p.window == 0 || k0 > wrow + 15 - p.window);
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * sl2;
+        if (!whole) {
+          const int kpos = k0 + n * 8 + 2 * tig + (e & 1);
+          const int qpos = row0 + (e >> 1) * 8;
+          bool ok = kpos <= qpos && kpos < Tk;
+          if (p.window > 0) ok = ok && kpos > qpos - p.window;
+          x = ok ? x : NEG_INF;
+        }
+        s[n][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      // the 4 threads of a row are the 4 lanes of a quad
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m_r[r], mx[r]);
+      alpha[r] = exp2f(m_r[r] - m_new);
+      m_r[r] = m_new;
+    }
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float pv = exp2f(s[n][e] - m_r[e >> 1]);
+        s[n][e] = pv;
+        rs[e >> 1] += pv;
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l_r[r] = l_r[r] * alpha[r] + rs[r];
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      o[n][0] *= alpha[0];
+      o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1];
+      o[n][3] *= alpha[1];
+    }
+
+    // O += P V: S's accumulators of n-tiles 2kk, 2kk+1 are the A operand
+    // of key step kk
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t ah[4], al[4];
+      split_bf16(s[2 * kk][0], s[2 * kk][1], ah[0], al[0]);
+      split_bf16(s[2 * kk][2], s[2 * kk][3], ah[1], al[1]);
+      split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], ah[2], al[2]);
+      split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], ah[3], al[3]);
+#pragma unroll
+      for (int dd = 0; dd < NK; ++dd) {
+        uint32_t bv[4];
+        ldsm_x4_t(smem_u32(Vs + swz<D>(kk * 16 + (lane & 7)
+                                           + (((lane >> 3) & 1) << 3),
+                                       dd * 2 + (lane >> 4))), bv);
+        mma16816(o[2 * dd], ah, bv[0], bv[1]);
+        mma16816(o[2 * dd], al, bv[0], bv[1]);
+        mma16816(o[2 * dd + 1], ah, bv[2], bv[3]);
+        mma16816(o[2 * dd + 1], al, bv[2], bv[3]);
+      }
+    }
+  }
+
+  bf16* og = (bf16*)p.out;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_r[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float l_i = fmaxf(l, 1e-30f);
+    const int qrow = q0 + warp * 16 + g + r * 8;
+    if (qrow >= Tq) continue;
+    bf16* orow = og + (((size_t)b * Tq + qrow) * p.Hq + hq) * D + 2 * tig;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(orow + n * 8) =
+          __floats2bfloat162_rn(o[n][2 * r] / l_i, o[n][2 * r + 1] / l_i);
+  }
+}
+
+template <typename K>
+cudaError_t opt_in(K kernel, size_t smem, bool& configured) {
+  if (configured) return cudaSuccess;   // >48 KB needs the opt-in, once
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  configured = e == cudaSuccess;
+  return e;
+}
+
+template <int D>
+cudaError_t launch(const Params& p, bool bf16_in, cudaStream_t st) {
   dim3 grid((p.Tq + BQ - 1) / BQ, p.Hq, p.B);
-  flash_prefill_kernel<T, D><<<grid, NT, smem, st>>>(p);
+  if (bf16_in) {
+    static bool configured = false;
+    constexpr size_t smem = mma_smem_bytes<D>();
+    cudaError_t e = opt_in(flash_prefill_mma_kernel<D>, smem, configured);
+    if (e != cudaSuccess) return e;
+    flash_prefill_mma_kernel<D><<<grid, MT, smem, st>>>(p);
+  } else {
+    static bool configured = false;
+    constexpr size_t smem = smem_bytes<D>();
+    cudaError_t e = opt_in(flash_prefill_kernel<float, D>, smem, configured);
+    if (e != cudaSuccess) return e;
+    flash_prefill_kernel<float, D><<<grid, NT, smem, st>>>(p);
+  }
   return cudaGetLastError();
 }
 
@@ -233,11 +511,9 @@ int launch_any(const Params& p, int D, int dtype, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t e;
   if (D == 128)
-    e = dtype == 1 ? launch<__nv_bfloat16, 128>(p, st)
-                   : launch<float, 128>(p, st);
+    e = launch<128>(p, dtype == 1, st);
   else if (D == 64)
-    e = dtype == 1 ? launch<__nv_bfloat16, 64>(p, st)
-                   : launch<float, 64>(p, st);
+    e = launch<64>(p, dtype == 1, st);
   else
     e = cudaErrorInvalidValue;
   return (int)e;

@@ -41,6 +41,12 @@ def _check(q, k, v, what):
                          f"{v.dtype} (CUDA, D in {HEAD_DIMS})")
 
 
+def _aligned(*ts):
+    """The tensors, each copied where its data is not 16-byte aligned:
+    the kernels move rows in 16-byte pieces."""
+    return tuple(t if t.data_ptr() % 16 == 0 else t.clone() for t in ts)
+
+
 def flash_prefill_cuda(q, k, v, *, window: int = 0):
     """q: [B, T, Hq, D]; k, v: [B, T, Hkv, D] (CUDA, one dtype of f32 /
     bf16, D in HEAD_DIMS). Causal, optionally sliding-window attention;
@@ -49,7 +55,7 @@ def flash_prefill_cuda(q, k, v, *, window: int = 0):
     B, T, Hq, D = q.shape
     if k.shape[1] != T:
         raise ValueError(f"flash_prefill_cuda: {T} queries, {k.shape[1]} keys")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = _aligned(q.contiguous(), k.contiguous(), v.contiguous())
     out = torch.empty_like(q)
     flash_prefill_kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                          out.data_ptr(), B, T, Hq, k.shape[2], D,
@@ -71,7 +77,7 @@ def flash_prefill_chunk_cuda(q, k, v, *, q_offset: int, window: int = 0):
     if q_offset < 0 or q_offset + Tq > Tk:
         raise ValueError(f"flash_prefill_chunk_cuda: segment {q_offset}+"
                          f"{Tq} outside the {Tk}-row scratch")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = _aligned(q.contiguous(), k.contiguous(), v.contiguous())
     out = torch.empty_like(q)
     flash_prefill_chunk_kernel(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Tq, Tk,
@@ -98,9 +104,7 @@ def flash_verify_cuda(q, k, v, kv_pos, bias, q_pos, *, window: int = 0):
         if t.dtype != dt or tuple(t.shape) != shape or t.device != q.device:
             raise ValueError(f"flash_verify_cuda: {what} {tuple(t.shape)} "
                              f"{t.dtype} {t.device}, want {shape} {dt}")
-    # the kernel stages K/V rows with 16-byte loads
-    k, v = k.contiguous(), v.contiguous()
-    k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (k, v))
+    k, v = _aligned(k.contiguous(), v.contiguous())
     q = q.contiguous()
     kv_pos, bias, q_pos = (t.contiguous() for t in (kv_pos, bias, q_pos))
     out = torch.empty_like(q)

@@ -119,13 +119,13 @@ def test_flash_prefill_kernel_matches_plain(cuda, dt, T, window, D):
                                rtol=rtol)
 
 
-def _paged_inputs(dev, dt, bits, ring, B=8, Hq=32, Hkv=8, D=128, W=128):
+def _paged_inputs(dev, dt, bits, ring, B=8, Hq=32, Hkv=8, D=128, W=128,
+                  S=512):
     """Main-path shapes: 128-row blocks (the group) for a quantized pool,
     16-row blocks for a dense one; a shuffled table over a pool with
     spare blocks, -1 past each row's length, one all -1 (free) slot.
     Returns (paged args, the same rows as dense-store args)."""
     bl = 128 if bits < 16 else 16
-    S = 512
     n_max = S // bl
     nb = B * n_max + 5
     g = torch.Generator(device=dev).manual_seed(100 + bits + 2 * ring)
@@ -195,6 +195,146 @@ def test_paged_decode_kernel_matches_plain_and_dense(cuda, dt, bits, ring,
         assert torch.equal(m, m_d)
     else:
         assert m is None
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("ring", [True, False], ids=["ring", "no-ring"])
+@pytest.mark.parametrize("mass", [True, False], ids=["mass", "no-mass"])
+def test_paged_decode_full_path_bit_equal_to_dense(cuda, dt, ring, mass):
+    """The `full paged` serve case: a 16-bit pool of 16-row blocks, S 2112
+    (several splits of the key axis, split boundaries inside blocks):
+    within TOL of the plain version and bit-equal to the dense kernel on
+    the same rows."""
+    paged, dense = _paged_inputs(cuda, dt, 16, ring, S=2112)
+    kw = dict(bits=16, group=128, return_mass=mass, compute_dtype=dt)
+    out, m = dq_ops.decode_attn_paged_cuda(*paged, **kw)
+    out_d, m_d = dq_ops.decode_attn_cuda(*dense, **kw)
+    out_r, m_r = decode_attn_paged_ref(*paged, bits=16, group=128,
+                                       compute_dtype=dt)
+    torch.cuda.synchronize()
+    atol, rtol = TOL[dt]
+    torch.testing.assert_close(out.float(), out_r.float(), atol=atol,
+                               rtol=rtol)
+    assert torch.equal(out, out_d)
+    if mass:
+        torch.testing.assert_close(m, m_r, atol=MASS_TOL[0],
+                                   rtol=MASS_TOL[1])
+        assert torch.equal(m, m_d)
+
+
+# edges of the key split: (bits, group, S, W, Hq, Hkv, D, valid main
+# rows per slot, valid ring rows per slot) — a (lo, hi) range each
+DECODE_EDGES = {
+    # S+W = 2013: not a multiple of any split length (whole 32-key tiles)
+    "ragged-split": (16, 1, 2000, 13, 32, 8, 128,
+                     [(0, 2000), (0, 1500), (0, 0), (0, 1)],
+                     [(0, 13), (0, 2), (0, 0), (0, 13)]),
+    # S+W = 21: less than one split, one tile
+    "below-one-split": (2, 8, 16, 5, 32, 8, 128,
+                        [(0, 16), (0, 3), (0, 0), (0, 16)],
+                        [(0, 5), (0, 0), (0, 0), (0, 1)]),
+    # every unmasked key of slot 0 in one split, the others all masked;
+    # slot 1 a window of keys across a split boundary
+    "one-split-row": (16, 1, 2112, 0, 32, 8, 128,
+                      [(1000, 1010), (250, 330), (0, 0), (0, 2112)], None),
+    # the free slot (2) with mass over a quantized store and a ring
+    "free-slot": (4, 128, 512, 128, 32, 8, 128,
+                  [(0, 512), (0, 0), (0, 0), (0, 100)],
+                  [(0, 128), (0, 7), (0, 0), (0, 0)]),
+    "gq1": (16, 1, 700, 40, 8, 8, 64,
+            [(0, 700), (0, 300), (0, 0), (0, 1)],
+            [(0, 40), (0, 1), (0, 0), (0, 39)]),
+    "gq1-2bit": (2, 8, 704, 40, 8, 8, 64,
+                 [(0, 704), (0, 300), (0, 0), (0, 8)],
+                 [(0, 40), (0, 1), (0, 0), (0, 39)]),
+    "gq8": (16, 1, 1100, 128, 64, 8, 128,
+            [(0, 1100), (0, 999), (0, 0), (0, 64)],
+            [(0, 128), (0, 5), (0, 0), (0, 128)]),
+}
+
+
+def _edge_inputs(dev, dt, bits, G, S, W, Hq, Hkv, D, valid, rvalid):
+    g = torch.Generator(device=dev).manual_seed(S + W + Hq + bits)
+    B = len(valid)
+
+    def rnd(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+    def bias_of(ranges, n):
+        idx = torch.arange(n, device=dev)[None]
+        lo = torch.tensor([r[0] for r in ranges], device=dev)[:, None]
+        hi = torch.tensor([r[1] for r in ranges], device=dev)[:, None]
+        return torch.where((idx >= lo) & (idx < hi), 0.0, -1e30)
+
+    if bits < 16:
+        Dp = D * bits // 8
+        k, v = (torch.randint(-128, 128, (B, S, Hkv, Dp), generator=g,
+                              device=dev, dtype=torch.int8) for _ in range(2))
+        unit = 3.0 / ((1 << bits) - 1)
+        meta = ((rnd(B, S // G, Hkv, D).abs() * 0.1 + 0.01) * unit,
+                rnd(B, S // G, Hkv, D),
+                (rnd(B, S, Hkv).abs() * 0.1 + 0.01) * unit, rnd(B, S, Hkv))
+    else:
+        k, v = rnd(B, S, Hkv, D, dtype=dt), rnd(B, S, Hkv, D, dtype=dt)
+        meta = (None,) * 4
+    ks, kz, vs, vz = meta
+    if W:
+        rk, rv = rnd(B, W, Hkv, D, dtype=dt), rnd(B, W, Hkv, D, dtype=dt)
+        rbias = bias_of(rvalid, W)
+    else:
+        rk = rv = rbias = None
+    return (rnd(B, Hq, D, dtype=dt), k, ks, kz, v, vs, vz, bias_of(valid, S),
+            rk, rv, rbias)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(DECODE_EDGES))
+def test_decode_attn_kernel_at_split_edges(cuda, dt, case):
+    """B1 with mass at the edges of the split-KV design, against its
+    plain version; a slot whose every key is masked (the free slot)
+    softmaxes uniformly over all S+W keys, as the plain version does."""
+    bits, G, S, W, Hq, Hkv, D, valid, rvalid = DECODE_EDGES[case]
+    args = _edge_inputs(cuda, dt, bits, G, S, W, Hq, Hkv, D, valid, rvalid)
+    kw = dict(bits=bits, group=G, return_mass=True, compute_dtype=dt)
+    out, m = dq_ops.decode_attn_cuda(*args, **kw)
+    out_r, m_r = decode_attn_ref(*args, bits=bits, group=G, compute_dtype=dt)
+    torch.cuda.synchronize()
+    atol, rtol = TOL[dt]
+    torch.testing.assert_close(out.float(), out_r.float(), atol=atol,
+                               rtol=rtol)
+    torch.testing.assert_close(m, m_r, atol=MASS_TOL[0], rtol=MASS_TOL[1])
+    free = [i for i, r in enumerate(valid)
+            if r[0] == r[1] and (not W or rvalid[i][0] == rvalid[i][1])]
+    for i in free:
+        torch.testing.assert_close(m[i], torch.full_like(m[i], Hq / (S + W)),
+                                   atol=MASS_TOL[0], rtol=MASS_TOL[1])
+    # a second call reuses the tickets the first left at zero
+    out2, m2 = dq_ops.decode_attn_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2) and torch.equal(m, m2)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,T,Hq,Hkv,D,window", [
+    (2, 1000, 8, 8, 128, 0),       # Hq = Hkv, T not a multiple of 64
+    (2, 777, 8, 8, 64, 200),       # ... under a window, D 64
+    (1, 65, 32, 8, 64, 0),         # one row past a tile
+    (2, 1, 32, 8, 128, 0),         # a single row
+    (1, 2048, 32, 8, 128, 64)])    # window tiles skipped, the serve width
+def test_flash_prefill_kernel_at_tile_edges(cuda, dt, B, T, Hq, Hkv, D,
+                                            window):
+    g = torch.Generator(device=cuda).manual_seed(T + D + window)
+    q, k, v = (torch.randn(B, T, h, D, generator=g, device=cuda).to(dt)
+               for h in (Hq, Hkv, Hkv))
+    out = fp_ops.flash_prefill_cuda(q, k, v, window=window)
+    ref = flash_prefill_ref(q, k, v, window=window)
+    torch.cuda.synchronize()
+    atol, rtol = TOL[dt]
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol,
+                               rtol=rtol)
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],

@@ -10,6 +10,8 @@ flash prefill against `repro.kernels.flash_prefill.ops.flash_attention`.
 B1w: the back-compat quantized wrapper against the JAX
 `decode_qattn_ref` and the Pallas wrapper (interpret mode).
 """
+import math
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -177,3 +179,111 @@ def test_decode_attention_quantized_wrapper(bits):
     with pytest.raises(ValueError, match="quantized"):
         dq_ops.decode_attention_quantized(*map(torch.tensor, args), bits=16,
                                           group=G)
+
+
+# ---- the split-KV decode kernel's key split and combine ----
+
+
+@pytest.mark.parametrize("B,Hkv,n_keys,n_sm", [
+    (8, 8, 2112, 132), (8, 8, 640, 132), (8, 8, 33, 132), (1, 8, 16, 132),
+    (1, 1, 1, 132), (64, 8, 2112, 132), (2, 2, 4000, 16), (3, 4, 95, 7),
+    (1, 1, 32768, 132)])
+def test_decode_splits_cover_the_keys(B, Hkv, n_keys, n_sm):
+    """The splits cover [0, n_keys) exactly in whole tiles, none empty."""
+    n_split, split_len = dq_ops.decode_splits(B, Hkv, n_keys, n_sm)
+    assert 1 <= n_split <= dq_ops.SPLIT_MAX
+    assert split_len % dq_ops.SPLIT_TILE == 0
+    starts = [s * split_len for s in range(n_split)]
+    ends = [min(n_keys, s + split_len) for s in starts]
+    assert starts[0] == 0 and ends[-1] == n_keys
+    assert all(e > s for s, e in zip(starts, ends))          # none empty
+    assert all(a == b for a, b in zip(ends, starts[1:]))     # contiguous
+    if n_keys <= dq_ops.SPLIT_TILE:
+        assert n_split == 1
+    # within one wave of CTAS_PER_SM a SM, unless one split is all there is
+    assert n_split == 1 or B * Hkv * n_split <= dq_ops.CTAS_PER_SM * n_sm
+
+
+def test_decode_splits_fill_the_card_at_the_serve_shape():
+    """granite-8b, 8 slots, the `full` cache of 2112 rows on 132 SMs:
+    at least two CTAs an SM, where one per (slot, kv head) gave 64."""
+    n_split, _ = dq_ops.decode_splits(8, 8, 2112, 132)
+    assert 8 * 8 * n_split >= 264
+
+
+def _split_combine(q, kd, vd, bias, n_split, split_len):
+    """The kernel's arithmetic in plain f32: per split, (m, l, acc) of the
+    split's keys; merged in split order against the global max; the mass
+    from the raw scores with the merged M and L. q [B, Hq, D], kd / vd
+    [B, S, Hkv, D], bias [B, S] -> (out [B, Hq, D], mass [B, S])."""
+    B, Hq, D = q.shape
+    Hkv = kd.shape[2]
+    s = torch.einsum("bhgd,bshd->bhgs", q.reshape(B, Hkv, Hq // Hkv, D),
+                     kd) / math.sqrt(D) + bias[:, None, None, :]
+    parts = []
+    for i in range(n_split):
+        si = s[..., i * split_len:(i + 1) * split_len]
+        m = si.amax(-1, keepdim=True)
+        p = torch.exp(si - m)
+        parts.append((m, p.sum(-1, keepdim=True), torch.einsum(
+            "bhgs,bshd->bhgd", p,
+            vd[:, i * split_len:(i + 1) * split_len])))
+    M = parts[0][0]
+    for m, _, _ in parts[1:]:
+        M = torch.maximum(M, m)
+    L = torch.zeros_like(M)
+    O = torch.zeros_like(parts[0][2])
+    for m, lsum, acc in parts:                 # split-index order
+        w = torch.exp(m - M)
+        L = L + lsum * w
+        O = O + acc * w
+    out = (O / L).reshape(B, Hq, D)
+    mass = (torch.exp(s - M) / L).sum(dim=(1, 2))
+    return out, mass
+
+
+@pytest.mark.parametrize("bits", [16, 2])
+def test_split_combine_model_matches_plain(bits):
+    """The split-and-combine arithmetic equals `decode_attn_ref` in f32 on
+    ragged rows, an all-masked row (uniform softmax) and a row whose only
+    valid keys lie in one split (the other splits all masked)."""
+    from repro_torch.kernels.decode_qattn.ref import decode_attn_ref
+    from repro_torch.kernels.kvquant import ref as qref
+    rng = np.random.default_rng(bits)
+    B, S, Hkv, Gq, D, G = 4, 256, 2, 4, 32, 32
+    q = torch.tensor(rng.standard_normal((B, Hkv * Gq, D)),
+                     dtype=torch.float32)
+    if bits < 16:
+        Dp = D * bits // 8
+        k, v = (torch.tensor(rng.integers(-128, 128, (B, S, Hkv, Dp)),
+                             dtype=torch.int8) for _ in range(2))
+        ks = torch.tensor(rng.random((B, S // G, Hkv, D)) * 0.1 + 0.01,
+                          dtype=torch.float32)
+        kz = torch.tensor(rng.standard_normal((B, S // G, Hkv, D)),
+                          dtype=torch.float32)
+        vs = torch.tensor(rng.random((B, S, Hkv)) * 0.1 + 0.01,
+                          dtype=torch.float32)
+        vz = torch.tensor(rng.standard_normal((B, S, Hkv)),
+                          dtype=torch.float32)
+        kd = qref.dequant_k_ref(k, ks, kz, bits, G, torch.float32)
+        vd = qref.dequant_v_ref(v, vs, vz, bits, torch.float32)
+    else:
+        k, v = (torch.tensor(rng.standard_normal((B, S, Hkv, D)),
+                             dtype=torch.float32) for _ in range(2))
+        ks = kz = vs = vz = None
+        kd, vd = k, v
+    idx = torch.arange(S)[None]
+    valid = torch.stack([idx[0] < S, idx[0] < 77,            # ragged
+                         idx[0] < 0,                          # all masked
+                         (idx[0] >= 150) & (idx[0] < 160)])   # one split
+    bias = torch.where(valid, 0.0, -1e30).float()
+    want, want_mass = decode_attn_ref(q, k, ks, kz, v, vs, vz, bias, None,
+                                      None, None, bits=bits, group=G)
+    n_split, split_len = dq_ops.decode_splits(B, Hkv, S, 8)
+    assert n_split == 4 and split_len == 64
+    got, mass = _split_combine(q, kd, vd, bias, n_split, split_len)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6,
+                               rtol=1e-6)
+    np.testing.assert_allclose(mass.numpy(), want_mass.numpy(), atol=1e-6,
+                               rtol=1e-6)
+    np.testing.assert_allclose(mass[2].numpy(), Hkv * Gq / S, rtol=1e-6)
