@@ -15,10 +15,11 @@ Phases, each printing its own lines; any failure exits non-zero:
               beside the plain version and a PyTorch library yardstick;
               the paged decode kernel against the dense one on the same
               rows, and the chunked flash kernel's segments against the
-              monolithic one, both bit for bit; the speculative-verify
-              kernel over dense, quantized-ring and paged cache views;
-              the back-compat quantized decode wrapper; the fused KIVI
-              quantize-and-pack kernels at the flush and prompt shapes
+              monolithic one, both bit for bit; the split-KV
+              speculative-verify kernel over dense, quantized-ring and
+              paged cache views (two launches bit-equal); the back-compat
+              quantized decode wrapper; the fused KIVI quantize-and-pack
+              kernels at the flush and prompt shapes
   4. serve    granite-8b at full width and depth, random bf16 weights from
               a seed, `Engine.generate_continuous` under full / h2o /
               kivi2 / h2o+kivi2 (dense cache, monolithic prefill), then
@@ -328,6 +329,7 @@ def _parity_decode_full_path(info: dict) -> None:
     float mask (mask construction excluded)."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels.build import decode_splits, sm_count
     from repro_torch.kernels.decode_qattn import ops as dq
     from repro_torch.kernels.decode_qattn.ref import decode_attn_ref
     args = _decode_case(torch, torch.bfloat16, 16, False, S=FULL_S)
@@ -355,9 +357,7 @@ def _parity_decode_full_path(info: dict) -> None:
     bms, by = bound(nbytes(q, k, v, bm, out_k), 4.0 * B * Hq * FULL_S * D,
                     "bfloat16")
     dev = device_ms(lambda: dq.decode_attn_cuda(*args, **kw))
-    n_split, _ = dq.decode_splits(
-        B, k.shape[2], FULL_S,
-        torch.cuda.get_device_properties(0).multi_processor_count)
+    n_split, _ = decode_splits(B, k.shape[2], FULL_S, sm_count(q.device))
     print(f"[parity] decode_attn bfloat16 bits=16 S={FULL_S} mass=False "
           f"ring=False (the full path, {n_split} splits: "
           f"{B * k.shape[2] * n_split} CTAs): max|err| out {err:.3g}; "
@@ -454,11 +454,14 @@ def _verify_case(torch, dt, *, kind: str, B=8, Hq=32, Hkv=8, D=128, seed=0):
 def _parity_verify(info: dict) -> None:
     """B5 against its plain version: f32 and bf16, the `full` dense view,
     the kivi2 quantized-ring view at window 0 and 64, and the paged view;
-    the bf16 `full` case is timed beside its plain version and SDPA with
-    the float mask built from kv_pos / q_pos / window / bias (built
-    outside the timing)."""
+    a second launch on the same inputs must be bit-equal (the split merge
+    does not depend on which CTA arrives last). Each case is timed beside
+    its plain version and SDPA with the float mask built from kv_pos /
+    q_pos / window / bias (built outside the timing); bf16 cases also
+    read the kernel's device time (profiler)."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels.build import sm_count
     from repro_torch.kernels.flash_prefill import ops as fp
     from repro_torch.kernels.flash_prefill.ref import flash_verify_ref
     rows = info["kernel_rows"]
@@ -467,11 +470,14 @@ def _parity_verify(info: dict) -> None:
                              ("paged", 0)):
             args = _verify_case(torch, dt, kind=kind)
             out_k = fp.flash_verify_cuda(*args, window=window)
+            out_2 = fp.flash_verify_cuda(*args, window=window)
             out_r = flash_verify_ref(*args, window=window)
             torch.cuda.synchronize()
             name = str(dt)[6:]
             what = f"flash_verify {name} {kind} window={window}"
             err = check_close(what, out_k, out_r, *OUT_TOL[name])
+            if not torch.equal(out_k, out_2):
+                fail(f"{what}: two launches on the same inputs differ")
             ms = median_ms(lambda: fp.flash_verify_cuda(*args, window=window))
             plain_ms = median_ms(lambda: flash_verify_ref(*args,
                                                           window=window))
@@ -485,12 +491,20 @@ def _parity_verify(info: dict) -> None:
             lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
                 qh, kh, vh, attn_mask=mask, enable_gqa=True))
             B, L, Hq, D = q.shape
+            Tk, Hkv = k.shape[1], k.shape[2]
             bms, by = bound(nbytes(*args, out_k),
-                            4.0 * B * Hq * L * k.shape[1] * D, name)
-            print(f"[parity] {what} (B {B}, L {L}, Tk {k.shape[1]}): "
-                  f"max|err| {err:.3g}; {ms:.4f} ms (plain {plain_ms:.4f} "
-                  f"ms, sdpa {lib_ms:.4f} ms, bound {bms:.4f} ms by {by}, "
-                  f"{bms / ms:.1%} of it)")
+                            4.0 * B * Hq * L * Tk * D, name)
+            n_rt, n_split, split_len = fp.verify_splits(
+                B, Hkv, Hq // Hkv * L, Tk, sm_count(q.device))
+            dev = (device_ms(lambda: fp.flash_verify_cuda(*args,
+                                                          window=window))
+                   if dt == torch.bfloat16 else None)
+            print(f"[parity] {what} (B {B}, L {L}, Tk {Tk}; {n_split} "
+                  f"splits of {split_len}: {B * Hkv * n_rt * n_split} "
+                  f"CTAs): max|err| {err:.3g}, repeat bit-equal; {ms:.4f} "
+                  f"ms{'' if dev is None else ', device %.4f ms' % dev} "
+                  f"(plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+                  f"{bms:.4f} ms by {by}, {bms / ms:.1%} of it)")
             if dt == torch.bfloat16 and kind == "full":
                 rows["flash_verify"] = dict(
                     name="flash_verify_cuda", route="cuda",
@@ -499,7 +513,7 @@ def _parity_verify(info: dict) -> None:
                     replaces="src/repro/kernels/flash_prefill/kernel.py:169",
                     max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                     bound_by=by, library_ms=lib_ms)
-            del args, out_k, out_r, mask
+            del args, out_k, out_2, out_r, mask
 
 
 def _parity_quantized_wrapper(info: dict) -> None:
@@ -625,14 +639,19 @@ def _parity_kvquant(info: dict) -> None:
                     ms = median_ms(lambda: fn(x, bits=bits, group=G))
                     plain_ms = median_ms(plain)
                     bms, by = bound(nbytes(x, pk, sk, zk), 0.0, name)
+                    row = dt == torch.bfloat16 and (B, S) == (8, 128) \
+                        and bits == 2
+                    dev = (device_ms(lambda: fn(x, bits=bits, group=G))
+                           if dt == torch.bfloat16 and bits == 2 else None)
                     print(f"[parity] {what}: codes differing {n_diff} (at "
                           f"ties {n_tie}), max|err| dequantized {err:.3g}, "
                           f"scale max ulp {ulp}, zeros bit-equal; "
-                          f"{ms:.4f} ms (plain {plain_ms:.4f} "
+                          f"{ms:.4f} ms"
+                          f"{'' if dev is None else ', device %.4f ms' % dev}"
+                          f" (plain {plain_ms:.4f} "
                           f"ms, library null, bound {bms:.4f} ms by {by}, "
                           f"{bms / ms:.1%} of it)")
-                    if dt == torch.bfloat16 and (B, S) == (8, 128) \
-                            and bits == 2:
+                    if row:
                         rows[kind] = dict(
                             name=f"{kind}_cuda", route="cuda",
                             source="src/repro_torch/kernels/kvquant/csrc/"

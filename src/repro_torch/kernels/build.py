@@ -25,7 +25,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Optional, Sequence
+from typing import Sequence
 
 REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO_ROOT / "build" / "kernels"
@@ -129,8 +129,96 @@ class LaunchCount:
         self.launches = 0
 
 
-def stream_handle(device) -> Optional[int]:
-    """Raw handle of the current CUDA stream on `device` (a Python int
-    for the ``void*`` stream argument)."""
+SPLIT_TILE = 32      # keys per tile of the split-KV kernels (decode_attn.cu
+                     # TS, flash_prefill.cu VK): a split is whole tiles
+CTAS_PER_SM = 4      # the split count aims at this many CTAs an SM
+SPLIT_MAX = 64       # their merges hold at most this many splits
+
+
+def decode_splits(B: int, Hkv: int, n_keys: int, n_sm: int):
+    """Split of a key axis of `n_keys` keys for the split-KV kernels
+    (decode attention, with B sequences; speculative verify, with B
+    sequences x row tiles): (n_split, split_len). As many splits as keep
+    B*Hkv*n_split CTAs within one wave of CTAS_PER_SM on each of `n_sm`
+    SMs (a second, partial wave would double the time), each split a
+    whole number of SPLIT_TILE-key tiles, at most SPLIT_MAX; the splits
+    cover [0, n_keys) and none is empty (a cache of one tile or less gets
+    one split). The launchers refuse a split_len that is not whole tiles
+    or more than SPLIT_MAX splits."""
+    want = min(SPLIT_MAX, max(1, CTAS_PER_SM * n_sm // (B * Hkv)))
+    per = max(SPLIT_TILE, -(-n_keys // want))
+    per = -(-per // SPLIT_TILE) * SPLIT_TILE
+    return -(-n_keys // per), per
+
+
+def _device_index(device) -> int:
     import torch
-    return torch.cuda.current_stream(device).cuda_stream
+    return device.index if device.index is not None \
+        else torch.cuda.current_device()
+
+
+_SM_COUNT: dict = {}
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of the CUDA `device` (read once per
+    device): the split-KV kernels size their grids to one wave of it."""
+    import torch
+    idx = _device_index(device)
+    n = _SM_COUNT.get(idx)
+    if n is None:
+        n = _SM_COUNT[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return n
+
+
+class ShapePlans:
+    """A wrapper's launch constants per operand shape: `plans(key, *args)`
+    returns `make(*args)` as made at the first call with `key` (checks
+    run there, once) and kept. A plan holds host constants only — grid,
+    offsets, int arguments, no device memory — so nothing is evicted: the
+    cache grows by one small tuple per distinct shape a process
+    launches."""
+
+    def __init__(self, make) -> None:
+        self._make = make
+        self._plans: dict = {}
+
+    def __call__(self, key, *args):
+        plan = self._plans.get(key)
+        if plan is None:
+            plan = self._plans[key] = self._make(*args)
+        return plan
+
+
+class DeviceScratch:
+    """One buffer per device, grown to the largest request and reused by
+    every launch: `scratch(device, n)` is a buffer of at least `n`
+    elements. Safe because the launches on a device are ordered on its
+    compute stream and each launch is done with the buffer when it ends —
+    a partials scratch is consumed by the same launch; `zeroed` buffers
+    (ticket counters) are made zero and each launch leaves them so."""
+
+    def __init__(self, dtype_name: str, zeroed: bool = False) -> None:
+        self.dtype_name = dtype_name
+        self.zeroed = zeroed
+        self._bufs: dict = {}
+
+    def __call__(self, device, n: int):
+        import torch
+        idx = _device_index(device)
+        buf = self._bufs.get(idx)
+        if buf is None or buf.numel() < n:
+            make = torch.zeros if self.zeroed else torch.empty
+            buf = self._bufs[idx] = make(
+                n, dtype=getattr(torch, self.dtype_name), device=device)
+        return buf
+
+
+def stream_handle(device) -> int:
+    """Raw handle of the current CUDA stream on `device` (a Python int
+    for the ``void*`` stream argument), through PyTorch's raw-stream
+    getter: ~0.2 us a call, where building a Stream object
+    (`torch.cuda.current_stream`) costs ~11 us (H100 host, PERF.md)."""
+    import torch
+    return torch._C._cuda_getCurrentRawStream(_device_index(device))

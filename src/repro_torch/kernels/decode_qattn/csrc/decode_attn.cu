@@ -75,6 +75,8 @@ namespace {
 
 constexpr int NT = 128;            // threads per CTA
 constexpr int NW = NT / 32;        // warps
+// TS and SPLIT_MAX are kernels/build.py's SPLIT_TILE and SPLIT_MAX (the
+// launch refuses a split that breaks them)
 constexpr int TS = 32;             // keys per tile
 constexpr int GQ_MAX = 16;
 constexpr int SPLIT_MAX = 64;      // the merge's weights fit every stage area
@@ -549,7 +551,8 @@ int launch(Params& p, int D, int bits, int dtype, bool paged, void* stream) {
   const int Stot = p.S + p.W;
   if (p.Gq > GQ_MAX || p.Gq < 1 || p.S < 1 || p.G < 1 || p.n_split < 1
       || p.n_split > SPLIT_MAX
-      || p.split_len < 1 || (long)(p.n_split - 1) * p.split_len >= Stot
+      || p.split_len < 1 || p.split_len % TS
+      || (long)(p.n_split - 1) * p.split_len >= Stot
       || (long)p.n_split * p.split_len < Stot)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
@@ -586,7 +589,8 @@ Params make_params(const void* q, const void* k, const void* k_scale,
 // head_dim D must be 64 or 128. scores/mass_h null: no attention mass.
 // part: f32 scratch [B*Hkv, n_split, Gq, D+4]; tickets: int32 [B*Hkv],
 // zero before the launch and zero again after it. The key axis [main |
-// ring] splits into n_split <= 64 runs of split_len keys, none empty.
+// ring] splits into n_split <= 64 runs of split_len keys (whole 32-key
+// tiles), none empty.
 extern "C" int decode_attn_launch(
     const void* q, const void* k, const void* k_scale, const void* k_zero,
     const void* v, const void* v_scale, const void* v_zero,

@@ -17,8 +17,9 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels.build import (CudaKernel, CudaSource, LaunchCount,
-                                      stream_handle)
+from repro_torch.kernels.build import (CudaKernel, CudaSource,
+                                      DeviceScratch, LaunchCount,
+                                      decode_splits, sm_count, stream_handle)
 from repro_torch.kernels.decode_qattn import ref
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -33,49 +34,19 @@ decode_qattn_count = LaunchCount()
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS, GQ_MAX = (64, 128), 16
-SPLIT_TILE = 32          # keys per tile of the kernel: splits are whole tiles
-CTAS_PER_SM = 4          # the split count aims at this many CTAs an SM
-SPLIT_MAX = 64           # the kernel's merge holds at most this many splits
-
-
-def decode_splits(B: int, Hkv: int, n_keys: int, n_sm: int):
-    """Split of the key axis [main | ring] of `n_keys` keys for the decode
-    kernel: (n_split, split_len). As many splits as keep B*Hkv*n_split
-    CTAs within one wave of CTAS_PER_SM on each of `n_sm` SMs (a second,
-    partial wave would double the time), each split a whole number of
-    SPLIT_TILE-key tiles, at most SPLIT_MAX; the splits cover
-    [0, n_keys) and none is empty (a cache of one tile or less gets one
-    split)."""
-    want = min(SPLIT_MAX, max(1, CTAS_PER_SM * n_sm // (B * Hkv)))
-    per = max(SPLIT_TILE, -(-n_keys // want))
-    per = -(-per // SPLIT_TILE) * SPLIT_TILE
-    return -(-n_keys // per), per
-
-
-_SM_COUNT: dict = {}
-_TICKETS: dict = {}
+# the split-KV launches' partials scratch and zeroed ticket counters
+# (int32, one per (sequence, kv head)), one of each per device; the verify
+# kernel keeps its own
+_PARTIALS = DeviceScratch("float32")
+_TICKETS = DeviceScratch("int32", zeroed=True)
 
 
 def _launch_scratch(device, B, Hkv, Gq, D, n_keys):
-    """(n_split, split_len, partials scratch, tickets) of one launch. The
-    SM count is read once per device; the ticket counters (int32, one per
-    (sequence, kv head)) live in a zeroed per-device buffer that the
-    kernel leaves zeroed, grown when a launch needs more. One buffer per
-    device: launches on one device are ordered on its compute stream."""
-    idx = device.index if device.index is not None \
-        else torch.cuda.current_device()
-    if idx not in _SM_COUNT:
-        _SM_COUNT[idx] = torch.cuda.get_device_properties(
-            idx).multi_processor_count
-    n_split, split_len = decode_splits(B, Hkv, n_keys, _SM_COUNT[idx])
-    tickets = _TICKETS.get(idx)
-    if tickets is None or tickets.numel() < B * Hkv:
-        tickets = _TICKETS[idx] = torch.zeros(B * Hkv, dtype=torch.int32,
-                                              device=device)
+    """(n_split, split_len, partials scratch, tickets) of one launch."""
+    n_split, split_len = decode_splits(B, Hkv, n_keys, sm_count(device))
     # per (sequence, kv head, split, query head): acc[D], m, l, 2 pad
-    part = torch.empty(B * Hkv * n_split * Gq * (D + 4), dtype=torch.float32,
-                       device=device)
-    return n_split, split_len, part, tickets
+    part = _PARTIALS(device, B * Hkv * n_split * Gq * (D + 4))
+    return n_split, split_len, part, _TICKETS(device, B * Hkv)
 
 
 def _ptr(t):

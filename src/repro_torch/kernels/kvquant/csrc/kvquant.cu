@@ -26,15 +26,23 @@
 // and bits/8 written: far below the ~295 flops/byte at which the card's
 // arithmetic would be the limit.
 //
-// Design. kquant: a CTA per (slice of KQ_TX packed bytes, group,
-// sequence); column tx owns packed byte j of the row, i.e. the 8/bits
-// consecutive channels j*8/bits .. of the H*D row, so neighbouring threads
-// read neighbouring addresses, and the KQ_TY row lanes split the group's
-// G rows. Pass 1 takes each lane's min / max, folded through shared
-// memory; pass 2 walks the rows again (from L2: a group is at most
-// G*H*D*4 bytes) to quantize and write one byte per row; lane 0 writes
-// the channels' scale and zero. (A first version walked all G rows in
-// one thread per byte: 16 CTAs at the flush shape, 0.083 ms a call.) vquant: one warp per (b, s, h) row; each lane owns
+// Design. kquant (one pass over device memory): a CTA of 128 threads per
+// (16-channel slice, group, sequence), so the kivi2 ring flush of 8 slots
+// ([8, 128, 8, 128]) runs 512 CTAs and the prompt compressions [1, 512 |
+// 1920, 8, 128] 256 and 960 (32-byte slices of packed bytes gave 64, 32
+// and 120 on 132 SMs). A thread owns one 16-byte chunk of a row (8 bf16 or 4 f32
+// channels: whole packed bytes at 2, 4 and 8 bits) for the rows ty, ty +
+// TY, ... of the group, loads each with one vector load and keeps up to
+// KQ_RPT of them in registers, so the quantize pass reads no row again
+// (a group longer than KQ_RPT * TY rows re-reads the rest). min / max
+// fold over the warp's row lanes by shuffles, then over the warps through
+// shared memory; each thread then writes its row's packed bytes in one
+// store, row lanes 0 / 1 the chunk's scales / zeros. A row whose width
+// is not a whole number of aligned chunks takes element loads and byte
+// stores (the same arithmetic). (The previous design read each row
+// twice, the second time from L2, with 2-byte loads: 0.0119 ms of device
+// time at the flush shape on an H100.)
+// vquant: one warp per (b, s, h) row; each lane owns
 // packed bytes lane, lane+32, ... of the row, min / max reduce through
 // warp shuffles (exact, order-independent), lane 0 writes scale / zero.
 // The TPU kernel's grid over (b, group) ran in order on one core; here
@@ -47,8 +55,9 @@
 
 namespace {
 
-constexpr int KQ_TX = 32;            // kquant packed bytes per CTA
-constexpr int KQ_TY = 8;             // kquant row lanes per CTA
+constexpr int KQ_CW = 16;            // kquant channels per CTA
+constexpr int KQ_NT = 128;           // kquant threads per CTA
+constexpr int KQ_RPT = 4;            // kquant rows a thread keeps in registers
 constexpr int VQ_WARPS = 8;          // vquant rows (warps) per CTA
 
 template <typename T> __device__ __forceinline__ float ld(const T* p);
@@ -71,77 +80,166 @@ __device__ __forceinline__ uint32_t code_of(float x, float lo, float scale,
   return (uint32_t)c;
 }
 
+// 16 bytes of k as raw bits: one vector load when `vec` (the chunk is
+// whole and 16-byte aligned), else the chunk's nc elements one by one
+// (the rest zero: they take no part)
+template <typename T>
+__device__ __forceinline__ uint4 load_chunk(const T* p, int nc, bool vec) {
+  if (vec) return __ldg(reinterpret_cast<const uint4*>(p));
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
+  if constexpr (sizeof(T) == 4) {
+    for (int e = 0; e < 4; ++e)
+      if (e < nc) w[e] = __ldg(reinterpret_cast<const unsigned*>(p) + e);
+  } else {
+    const unsigned short* h = reinterpret_cast<const unsigned short*>(p);
+    for (int e = 0; e < 8; ++e)
+      if (e < nc) w[e / 2] |= (uint32_t)__ldg(h + e) << (16 * (e % 2));
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// the chunk's 16 bytes as f32 channels (exact: bf16 is the top half of f32)
+template <typename T>
+__device__ __forceinline__ void expand(uint4 u, float* f) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    if constexpr (sizeof(T) == 4) {
+      f[e] = __uint_as_float(w[e]);
+    } else {
+      f[2 * e] = __uint_as_float(w[e] << 16);
+      f[2 * e + 1] = __uint_as_float(w[e] & 0xffff0000u);
+    }
+  }
+}
+
 // k [B, S, H*D] T -> codes [B, S, H*D*BITS/8] int8, scale / zero
-// [B, S/G, H*D] f32. grid (ceil(HDp / KQ_TX), S/G, B), block
-// (KQ_TX, KQ_TY): thread (tx, ty) owns packed byte j = x*KQ_TX + tx of
-// rows ty, ty + KQ_TY, ... of the group.
+// [B, S/G, H*D] f32. grid (ceil(HD / KQ_CW), S/G, B), KQ_NT threads:
+// thread t owns the VEC-channel chunk c0 = x*KQ_CW + (t % TX)*VEC (16
+// bytes of a row) of rows t / TX, t / TX + TY, ... of the group, and
+// keeps the first KQ_RPT of them in registers between the two passes.
 template <typename T, int BITS>
-__global__ void __launch_bounds__(KQ_TX * KQ_TY) kquant_kernel(
+__global__ void __launch_bounds__(KQ_NT) kquant_kernel(
     const T* __restrict__ k, int8_t* __restrict__ codes,
     float* __restrict__ scale, float* __restrict__ zero, int S, int HD,
-    int G) {
-  constexpr int F = 8 / BITS;
+    int G, int vec_ok) {
+  constexpr int VEC = 16 / (int)sizeof(T);   // channels a 16-byte load
+  constexpr int F = 8 / BITS;                // channels a packed byte
+  constexpr int NB = VEC / F;                // packed bytes a chunk
+  constexpr int TX = KQ_CW / VEC, TY = KQ_NT / TX, NW = KQ_NT / 32;
   constexpr int LEVELS = (1 << BITS) - 1;
-  __shared__ float s_lo[KQ_TY][F][KQ_TX], s_hi[KQ_TY][F][KQ_TX];
-  const int HDp = HD / F;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int j = blockIdx.x * KQ_TX + tx;                   // packed byte
-  const bool live = j < HDp;        // the tail slice: no early return,
-                                    // every thread reaches the barriers
+  __shared__ float s_lo[NW][TX][VEC], s_hi[NW][TX][VEC];
+  const int t = threadIdx.x, tx = t % TX, ty = t / TX;
+  const int warp = t / 32, lane = t % 32;
+  const int c0 = blockIdx.x * KQ_CW + tx * VEC;   // first channel
+  const int nc = max(0, min(VEC, HD - c0));       // a tail chunk has fewer
+  const bool vec = vec_ok && nc == VEC;
   const int g = blockIdx.y, b = blockIdx.z;
   const size_t row0 = (size_t)b * S + (size_t)g * G;
-  const T* src = k + row0 * HD + (size_t)j * F;
-  float lo[F], hi[F];
+  const T* src = k + row0 * HD + c0;
+
+  // pass 1: one 16-byte load a row, min / max per channel
+  float lo[VEC], hi[VEC], f[VEC];
 #pragma unroll
-  for (int i = 0; i < F; ++i) { lo[i] = INFINITY; hi[i] = -INFINITY; }
-  if (live) {
-    for (int r = ty; r < G; r += KQ_TY) {
+  for (int e = 0; e < VEC; ++e) { lo[e] = INFINITY; hi[e] = -INFINITY; }
+  uint4 held[KQ_RPT];
+  auto fold = [&](uint4 u) {
+    expand<T>(u, f);
 #pragma unroll
-      for (int i = 0; i < F; ++i) {
-        float x = ld(src + (size_t)r * HD + i);
-        lo[i] = fminf(lo[i], x);
-        hi[i] = fmaxf(hi[i], x);
+    for (int e = 0; e < VEC; ++e)
+      if (e < nc) {
+        lo[e] = fminf(lo[e], f[e]);
+        hi[e] = fmaxf(hi[e], f[e]);
       }
-    }
-  }
+  };
+  if (nc > 0) {
 #pragma unroll
-  for (int i = 0; i < F; ++i) {
-    s_lo[ty][i][tx] = lo[i];
-    s_hi[ty][i][tx] = hi[i];
+    for (int i = 0; i < KQ_RPT; ++i) {
+      const int r = ty + i * TY;
+      if (r < G) held[i] = load_chunk(src + (size_t)r * HD, nc, vec);
+    }
+#pragma unroll
+    for (int i = 0; i < KQ_RPT; ++i)
+      if (ty + i * TY < G) fold(held[i]);
+    for (int r = ty + KQ_RPT * TY; r < G; r += TY)   // G > KQ_RPT * TY
+      fold(load_chunk(src + (size_t)r * HD, nc, vec));
+  }
+  // fold the row lanes: the warp's lanes of one chunk by shuffles, then
+  // the warps through shared memory (min / max are exact: any order)
+#pragma unroll
+  for (int o = TX; o < 32; o <<= 1)
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      lo[e] = fminf(lo[e], __shfl_xor_sync(0xffffffffu, lo[e], o));
+      hi[e] = fmaxf(hi[e], __shfl_xor_sync(0xffffffffu, hi[e], o));
+    }
+  if (lane < TX) {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      s_lo[warp][tx][e] = lo[e];
+      s_hi[warp][tx][e] = hi[e];
+    }
   }
   __syncthreads();
-  // every thread folds the KQ_TY partials of its byte itself (min / max
-  // are exact, so the order does not matter)
-  float sc[F];
+  if (nc == 0) return;   // a chunk past the row's end
+  float sc[VEC];
 #pragma unroll
-  for (int i = 0; i < F; ++i) {
-    lo[i] = s_lo[0][i][tx];
-    hi[i] = s_hi[0][i][tx];
+  for (int e = 0; e < VEC; ++e) {
+    lo[e] = s_lo[0][tx][e];
+    hi[e] = s_hi[0][tx][e];
 #pragma unroll
-    for (int y = 1; y < KQ_TY; ++y) {
-      lo[i] = fminf(lo[i], s_lo[y][i][tx]);
-      hi[i] = fmaxf(hi[i], s_hi[y][i][tx]);
+    for (int w = 1; w < NW; ++w) {
+      lo[e] = fminf(lo[e], s_lo[w][tx][e]);
+      hi[e] = fmaxf(hi[e], s_hi[w][tx][e]);
     }
-    sc[i] = scale_of(lo[i], hi[i], LEVELS);
+    sc[e] = scale_of(lo[e], hi[e], LEVELS);
   }
-  if (!live) return;
-  if (ty == 0) {
-    const size_t sz = ((size_t)b * (S / G) + g) * HD + (size_t)j * F;
+  if (ty < 2) {   // row lane 0 writes the scales, row lane 1 the zeros
+    float* dst = (ty == 0 ? scale : zero)
+                 + ((size_t)b * (S / G) + g) * HD + c0;
+    const float* val = ty == 0 ? sc : lo;
+    if (vec) {
 #pragma unroll
-    for (int i = 0; i < F; ++i) {
-      scale[sz + i] = sc[i];
-      zero[sz + i] = lo[i];
+      for (int e = 0; e < VEC; e += 4)
+        *reinterpret_cast<float4*>(dst + e) =
+            make_float4(val[e], val[e + 1], val[e + 2], val[e + 3]);
+    } else {
+      for (int e = 0; e < nc; ++e) dst[e] = val[e];
     }
   }
-  int8_t* dst = codes + row0 * HDp + j;
-  for (int r = ty; r < G; r += KQ_TY) {
-    uint32_t packed = 0;
+  // pass 2: each row's NB packed bytes, one store
+  int8_t* dst = codes + row0 * (HD / F) + c0 / F;
+  auto put = [&](uint4 u, int r) {
+    expand<T>(u, f);
+    uint64_t word = 0;
 #pragma unroll
-    for (int i = 0; i < F; ++i)
-      packed |= code_of(ld(src + (size_t)r * HD + i), lo[i], sc[i], LEVELS)
-                << (i * BITS);
-    dst[(size_t)r * HDp] = (int8_t)((int)packed - 128);
+    for (int j = 0; j < NB; ++j) {
+      uint32_t packed = 0;
+#pragma unroll
+      for (int i = 0; i < F; ++i)
+        packed |= code_of(f[j * F + i], lo[j * F + i], sc[j * F + i],
+                          LEVELS) << (i * BITS);
+      word |= (uint64_t)(uint8_t)((int)packed - 128) << (8 * j);
+    }
+    int8_t* out = dst + (size_t)r * (HD / F);
+    if (vec) {
+      if constexpr (NB == 8) *reinterpret_cast<uint64_t*>(out) = word;
+      else if constexpr (NB == 4) *reinterpret_cast<uint32_t*>(out) =
+          (uint32_t)word;
+      else if constexpr (NB == 2) *reinterpret_cast<uint16_t*>(out) =
+          (uint16_t)word;
+      else *out = (int8_t)word;
+    } else {
+      for (int j = 0; j < nc / F; ++j) out[j] = (int8_t)(word >> (8 * j));
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < KQ_RPT; ++i) {
+    const int r = ty + i * TY;
+    if (r < G) put(held[i], r);
   }
+  for (int r = ty + KQ_RPT * TY; r < G; r += TY)
+    put(load_chunk(src + (size_t)r * HD, nc, vec), r);
 }
 
 // v [R, D] T (R = B*S*H rows) -> codes [R, D*BITS/8] int8, scale / zero
@@ -191,19 +289,21 @@ template <typename T>
 int kquant_dispatch(const void* k, void* codes, void* scale, void* zero,
                     int B, int S, int HD, int G, int bits,
                     cudaStream_t st) {
-  const int HDp = HD * bits / 8;
-  const dim3 grid((HDp + KQ_TX - 1) / KQ_TX, S / G, B);
-  const dim3 block(KQ_TX, KQ_TY);
+  const dim3 grid((HD + KQ_CW - 1) / KQ_CW, S / G, B);
   const T* x = (const T*)k;
   int8_t* c = (int8_t*)codes;
   float* s = (float*)scale;
   float* z = (float*)zero;
+  // 16-byte loads and stores need whole aligned chunks in every row
+  const auto a16 = [](const void* p) { return (uintptr_t)p % 16 == 0; };
+  const int v = HD % (16 / (int)sizeof(T)) == 0 && a16(k) && a16(codes)
+                && a16(scale) && a16(zero);
   if (bits == 2)
-    kquant_kernel<T, 2><<<grid, block, 0, st>>>(x, c, s, z, S, HD, G);
+    kquant_kernel<T, 2><<<grid, KQ_NT, 0, st>>>(x, c, s, z, S, HD, G, v);
   else if (bits == 4)
-    kquant_kernel<T, 4><<<grid, block, 0, st>>>(x, c, s, z, S, HD, G);
+    kquant_kernel<T, 4><<<grid, KQ_NT, 0, st>>>(x, c, s, z, S, HD, G, v);
   else if (bits == 8)
-    kquant_kernel<T, 8><<<grid, block, 0, st>>>(x, c, s, z, S, HD, G);
+    kquant_kernel<T, 8><<<grid, KQ_NT, 0, st>>>(x, c, s, z, S, HD, G, v);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

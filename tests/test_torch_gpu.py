@@ -436,6 +436,141 @@ def test_flash_verify_kernel_matches_plain(cuda, dt, Tk, W, window, L, D,
                                rtol=rtol)
 
 
+def _verify_edge_inputs(dev, dt, B, Tk, L, Hq, Hkv, D, split_len,
+                        n_split):
+    """Keys at positions 0.. with the segment after them, one row per
+    pattern of the split design: 0 sees every key; 1 sees none (q_pos
+    below every key: uniform over exactly Tk keys); 2 only the keys of
+    the last split; 3 only those of the first (the other splits masked
+    for every row); 4 every key invalid by the bias (uniform); 5.. as 0."""
+    g = torch.Generator(device=dev).manual_seed(Tk + L + Hkv)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(dt)
+
+    idx = torch.arange(Tk, device=dev)
+    far = 2 ** 30
+    last = (n_split - 1) * split_len
+    pats = [idx, idx, torch.where(idx >= last, idx, far),
+            torch.where(idx < split_len, idx, far), idx]
+    kv_pos = torch.stack([pats[min(b, 4)] if b < 5 else idx
+                          for b in range(B)]).to(torch.int32)
+    bias = torch.zeros(B, Tk, device=dev)
+    bias[4] = -1e30
+    q_pos = (Tk + torch.arange(L, device=dev))[None].repeat(B, 1)
+    q_pos[1] = -1 - torch.arange(L, device=dev)
+    return (rnd(B, L, Hq, D), rnd(B, Tk, Hkv, D), rnd(B, Tk, Hkv, D),
+            kv_pos.contiguous(), bias, q_pos.to(torch.int32).contiguous())
+
+
+# (B, Tk, L, Hq, Hkv, D): edges of the verify kernel's key split
+VERIFY_EDGES = {
+    "one-tile": (6, 32, 5, 32, 8, 128),
+    "below-one-tile": (6, 20, 5, 32, 8, 128),
+    "one-past-a-split": (6, None, 5, 32, 8, 128),   # Tk found below
+    "most-splits": (6, 2048, 5, 4, 1, 128),          # 64 splits at 132 SMs
+    "two-row-tiles": (6, 700, 16, 32, 8, 128),       # L 16 x Gq 4 = 64 rows
+    "d64": (6, 300, 7, 16, 2, 64),
+}
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(VERIFY_EDGES))
+def test_flash_verify_kernel_at_split_edges(cuda, dt, case):
+    """B5 at the edges of the split-KV design against its plain version:
+    a row that sees no key and a row of invalid keys average uniformly
+    over exactly Tk keys; a split masked for every row adds nothing where
+    another split is visible; the tail of the last split takes no part."""
+    from repro_torch.kernels.build import SPLIT_MAX, sm_count
+    B, Tk, L, Hq, Hkv, D = VERIFY_EDGES[case]
+    n_sm = sm_count(cuda)
+    if Tk is None:   # the smallest Tk >= 200 whose last split holds 1 key
+        Tk = 200
+        while True:
+            _, n, sl = fp_ops.verify_splits(B, Hkv, Hq // Hkv * L, Tk, n_sm)
+            if Tk - (n - 1) * sl == 1:
+                break
+            Tk += 1
+    n_rt, n_split, split_len = fp_ops.verify_splits(B, Hkv, Hq // Hkv * L,
+                                                    Tk, n_sm)
+    if case == "most-splits" and n_sm == 132:
+        assert n_split == SPLIT_MAX
+    if case == "two-row-tiles":
+        assert n_rt == 2
+    args = _verify_edge_inputs(cuda, dt, B, Tk, L, Hq, Hkv, D, split_len,
+                               n_split)
+    out = fp_ops.flash_verify_cuda(*args)
+    ref = flash_verify_ref(*args)
+    torch.cuda.synchronize()
+    atol, rtol = TOL[dt]
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol,
+                               rtol=rtol)
+    v = args[2].float()
+    uniform = v.mean(1).repeat_interleave(Hq // Hkv, 1)[:, None]
+    for b in (1, 4):
+        torch.testing.assert_close(out[b].float(),
+                                   uniform[b].expand(L, -1, -1),
+                                   atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_verify_kernel_is_deterministic(cuda, dt):
+    """Two launches on the same inputs (the `full` serve shape: 8 splits
+    merged by whichever CTA arrives last) are bit-equal, one launch
+    counted each."""
+    args = _verify_inputs(cuda, dt, 2112, 0, 5)
+    n0 = fp_ops.flash_verify_kernel.launches
+    a = fp_ops.flash_verify_cuda(*args)
+    b = fp_ops.flash_verify_cuda(*args)
+    torch.cuda.synchronize()
+    assert fp_ops.flash_verify_kernel.launches == n0 + 2
+    assert torch.equal(a, b)
+
+
+def test_split_kernels_interleaved_keep_their_tickets(cuda):
+    """B1, B3 and B5 launched in turn on one stream at shapes with
+    different ticket counts (B1 / B3 share one per-device buffer, 64 and
+    32 counters here; B5 keeps its own, 64 and 128): a counter left
+    nonzero would make a later launch merge early or never. Every launch
+    matches its plain version and the first launch of its case bit for
+    bit."""
+    bf = torch.bfloat16
+    dense = _decode_inputs(cuda, bf, 16, True)
+    edge = _edge_inputs(cuda, bf, *DECODE_EDGES["ragged-split"])
+    paged, _ = _paged_inputs(cuda, bf, 2, True)
+    ver = _verify_inputs(cuda, bf, 2112, 0, 5)
+    ver16 = _verify_inputs(cuda, bf, 200, 40, 16, D=64)
+    kw16 = dict(bits=16, group=1, compute_dtype=bf)
+    cases = {
+        "b1": (lambda: dq_ops.decode_attn_cuda(*dense, **kw16)[0],
+               lambda: decode_attn_ref(*dense, **kw16)[0]),
+        "b1-edge": (lambda: dq_ops.decode_attn_cuda(*edge, **kw16)[0],
+                    lambda: decode_attn_ref(*edge, **kw16)[0]),
+        "b3": (lambda: dq_ops.decode_attn_paged_cuda(
+                   *paged, bits=2, group=128, compute_dtype=bf)[0],
+               lambda: decode_attn_paged_ref(
+                   *paged, bits=2, group=128, compute_dtype=bf)[0]),
+        "b5": (lambda: fp_ops.flash_verify_cuda(*ver),
+               lambda: flash_verify_ref(*ver)),
+        "b5-l16": (lambda: fp_ops.flash_verify_cuda(*ver16),
+                   lambda: flash_verify_ref(*ver16)),
+    }
+    first = {}
+    atol, rtol = TOL[bf]
+    for name in ["b1", "b5", "b3", "b1-edge", "b5-l16", "b1", "b3", "b5",
+                 "b1-edge", "b5-l16", "b3", "b5"]:
+        kern, plain = cases[name]
+        out = kern()
+        torch.cuda.synchronize()
+        if name not in first:
+            first[name] = out
+            torch.testing.assert_close(out.float(), plain().float(),
+                                       atol=atol, rtol=rtol)
+        assert torch.equal(out, first[name]), name
+
+
 def test_quantized_wrapper_matches_plain(cuda):
     """B1w: the fused kernel on a quantized store, no ring, no mass, f32
     compute."""
@@ -597,11 +732,17 @@ KV_TIE = 1e-5
 @pytest.mark.parametrize("B,S,H,D,G", [(8, 128, 8, 128, 128),
                                        (1, 512, 8, 128, 128),
                                        (1, 1920, 8, 128, 128),
-                                       (2, 64, 2, 32, 16)])
+                                       (2, 64, 2, 32, 16),
+                                       (1, 64, 3, 40, 16),
+                                       (2, 32, 1, 20, 16),
+                                       (1, 1024, 2, 16, 512)])
 def test_kvquant_kernels_match_plain(cuda, dt, bits, B, S, H, D, G):
     """kquant / vquant at the serve path's shapes (the ring flush of 8
-    slots, kivi2's prompt compressions) and a small odd one; each call
-    adds one to its own launch count."""
+    slots, kivi2's prompt compressions) and small odd ones: H*D 120 and
+    20 end in part of kquant's 16-channel slice (20 bf16 channels: no
+    whole 16-byte chunks, element loads), G 512 holds more rows than a
+    thread keeps in registers; each call adds one to its own launch
+    count."""
     g = torch.Generator(device=cuda).manual_seed(S + bits)
     x = (torch.randn(B, S, H, D, generator=g, device=cuda) * 2).to(dt)
     for fn, kern, plain, group in (

@@ -28,6 +28,7 @@ from repro.kernels.flash_prefill import ops as jax_fp
 from repro.nn import attention as JA
 from repro_torch.bridge import layer_kv_from_numpy
 from repro_torch.core.cache import CacheSpec
+from repro_torch.kernels import build as kbuild
 from repro_torch.kernels.decode_qattn import ops as dq_ops
 from repro_torch.kernels.flash_prefill import ops as fp_ops
 from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
@@ -190,24 +191,24 @@ def test_decode_attention_quantized_wrapper(bits):
     (1, 1, 32768, 132)])
 def test_decode_splits_cover_the_keys(B, Hkv, n_keys, n_sm):
     """The splits cover [0, n_keys) exactly in whole tiles, none empty."""
-    n_split, split_len = dq_ops.decode_splits(B, Hkv, n_keys, n_sm)
-    assert 1 <= n_split <= dq_ops.SPLIT_MAX
-    assert split_len % dq_ops.SPLIT_TILE == 0
+    n_split, split_len = kbuild.decode_splits(B, Hkv, n_keys, n_sm)
+    assert 1 <= n_split <= kbuild.SPLIT_MAX
+    assert split_len % kbuild.SPLIT_TILE == 0
     starts = [s * split_len for s in range(n_split)]
     ends = [min(n_keys, s + split_len) for s in starts]
     assert starts[0] == 0 and ends[-1] == n_keys
     assert all(e > s for s, e in zip(starts, ends))          # none empty
     assert all(a == b for a, b in zip(ends, starts[1:]))     # contiguous
-    if n_keys <= dq_ops.SPLIT_TILE:
+    if n_keys <= kbuild.SPLIT_TILE:
         assert n_split == 1
     # within one wave of CTAS_PER_SM a SM, unless one split is all there is
-    assert n_split == 1 or B * Hkv * n_split <= dq_ops.CTAS_PER_SM * n_sm
+    assert n_split == 1 or B * Hkv * n_split <= kbuild.CTAS_PER_SM * n_sm
 
 
 def test_decode_splits_fill_the_card_at_the_serve_shape():
     """granite-8b, 8 slots, the `full` cache of 2112 rows on 132 SMs:
     at least two CTAs an SM, where one per (slot, kv head) gave 64."""
-    n_split, _ = dq_ops.decode_splits(8, 8, 2112, 132)
+    n_split, _ = kbuild.decode_splits(8, 8, 2112, 132)
     assert 8 * 8 * n_split >= 264
 
 
@@ -279,7 +280,7 @@ def test_split_combine_model_matches_plain(bits):
     bias = torch.where(valid, 0.0, -1e30).float()
     want, want_mass = decode_attn_ref(q, k, ks, kz, v, vs, vz, bias, None,
                                       None, None, bits=bits, group=G)
-    n_split, split_len = dq_ops.decode_splits(B, Hkv, S, 8)
+    n_split, split_len = kbuild.decode_splits(B, Hkv, S, 8)
     assert n_split == 4 and split_len == 64
     got, mass = _split_combine(q, kd, vd, bias, n_split, split_len)
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6,
@@ -287,3 +288,144 @@ def test_split_combine_model_matches_plain(bits):
     np.testing.assert_allclose(mass.numpy(), want_mass.numpy(), atol=1e-6,
                                rtol=1e-6)
     np.testing.assert_allclose(mass[2].numpy(), Hkv * Gq / S, rtol=1e-6)
+
+
+# ---- the split-KV verify kernel's key split and combine ----
+
+
+@pytest.mark.parametrize("B,Hkv,n_rows,Tk,n_sm", [
+    (8, 8, 20, 2112, 132), (8, 8, 20, 640, 132), (8, 8, 64, 2112, 132),
+    (8, 8, 20, 32, 132), (8, 8, 20, 257, 132), (6, 1, 20, 2048, 132),
+    (1, 8, 20, 77, 132), (3, 2, 256, 5000, 16), (2, 4, 5, 1, 132)])
+def test_verify_splits_cover_the_keys(B, Hkv, n_rows, Tk, n_sm):
+    """The verify kernel's grid: row tiles cover the packed rows, the
+    splits cover [0, Tk) in whole tiles with none empty, within one wave
+    of CTAS_PER_SM CTAs an SM unless one split is all there is."""
+    n_rt, n_split, split_len = fp_ops.verify_splits(B, Hkv, n_rows, Tk, n_sm)
+    assert (n_rt - 1) * fp_ops.VERIFY_ROWS < n_rows <= n_rt * fp_ops.VERIFY_ROWS
+    assert 1 <= n_split <= kbuild.SPLIT_MAX
+    assert split_len % kbuild.SPLIT_TILE == 0
+    starts = [s * split_len for s in range(n_split)]
+    ends = [min(Tk, s + split_len) for s in starts]
+    assert starts[0] == 0 and ends[-1] == Tk
+    assert all(e > s for s, e in zip(starts, ends))          # none empty
+    assert all(a == b for a, b in zip(ends, starts[1:]))     # contiguous
+    ctas = B * Hkv * n_rt * n_split
+    assert n_split == 1 or ctas <= kbuild.CTAS_PER_SM * n_sm
+
+
+def test_verify_splits_fill_one_wave_at_the_serve_shape():
+    """granite-8b, 8 slots, gamma 4 (Gq 4 x L 5 = 20 rows, one row tile),
+    the `full` view of 2112 keys on 132 SMs: 8 splits of 288 keys, 512
+    CTAs in one wave of 4 an SM, where one CTA per row tile gave 64."""
+    assert fp_ops.verify_splits(8, 8, 20, 2112, 132) == (1, 8, 288)
+    assert fp_ops.verify_splits(6, 1, 20, 2048, 132)[1] == kbuild.SPLIT_MAX
+
+
+def test_shape_plans_make_each_plan_once():
+    """A wrapper's per-shape plan is made (and its checks run) at the first
+    call with its key only; a refused shape raises every time and leaves
+    no plan behind."""
+    made = []
+
+    def make(n):
+        if n < 0:
+            raise ValueError(n)
+        made.append(n)
+        return (n, 2 * n)
+
+    plans = kbuild.ShapePlans(make)
+    assert plans(("a", 3), 3) == (3, 6)
+    assert plans(("a", 3), 3) is plans(("a", 3), 3)
+    assert plans(("b", 4), 4) == (4, 8)
+    assert made == [3, 4]
+    for _ in range(2):
+        with pytest.raises(ValueError):
+            plans(("c", -1), -1)
+    assert made == [3, 4]
+
+
+def _verify_split_combine(q, k, v, kv_pos, bias, q_pos, window, n_split,
+                          split_len, tile=32):
+    """The verify kernel's arithmetic in plain f32: per split and per
+    16-key half of each tile (one warp each), an online softmax from
+    m = -1e30 in which a masked key scores -1e30 and a key past the split
+    takes no part; the halves merged, then the splits in split order."""
+    B, L, Hq, D = q.shape
+    Tk, Hkv = k.shape[1], k.shape[2]
+    neg = -1e30
+    s = torch.einsum("bthgd,bshd->bhgts",
+                     q.reshape(B, L, Hkv, Hq // Hkv, D), k) / math.sqrt(D)
+    s = s + bias[:, None, None, None, :]
+    ok = kv_pos[:, None, :] <= q_pos[:, :, None]
+    if window > 0:
+        ok = ok & (kv_pos[:, None, :] > q_pos[:, :, None] - window)
+    s = s.masked_fill(~ok[:, None, None], neg)
+
+    def state(keys):
+        if not keys:
+            shape = s.shape[:-1] + (1,)
+            return (torch.full(shape, neg), torch.zeros(shape),
+                    torch.zeros(s.shape[:-1] + (D,)))
+        si = s[..., keys]
+        m = torch.clamp(si.amax(-1, keepdim=True), min=neg)
+        p = torch.exp(si - m)
+        return m, p.sum(-1, keepdim=True), torch.einsum(
+            "bhgts,bshd->bhgtd", p, v[:, keys])
+
+    def merge(parts):
+        M = parts[0][0]
+        for m, _, _ in parts[1:]:
+            M = torch.maximum(M, m)
+        Ls, O = torch.zeros_like(M), 0.0
+        for m, ls, acc in parts:
+            w = torch.exp(m - M)
+            Ls, O = Ls + ls * w, O + acc * w
+        return M, Ls, O
+
+    parts = []
+    for i in range(n_split):
+        lo, hi = i * split_len, min(Tk, (i + 1) * split_len)
+        halves = [[j for j in range(lo, hi) if (j - lo) % tile < 16],
+                  [j for j in range(lo, hi) if (j - lo) % tile >= 16]]
+        parts.append(merge([state(h) for h in halves]))
+    _, Ls, O = merge(parts)
+    return (O / Ls).permute(0, 3, 1, 2, 4).reshape(B, L, Hq, D)
+
+
+@pytest.mark.parametrize("Tk,window", [(33, 0), (257, 0), (200, 16)])
+def test_verify_split_combine_model_matches_plain(Tk, window):
+    """The split-and-combine arithmetic equals `flash_verify_ref` in f32
+    on rows that see every key, a row that sees none (uniform over exactly
+    Tk keys), rows whose visible keys lie in the last split or the first
+    (the other splits masked for every row) and a row whose keys are all
+    invalid by the bias; Tk = 33 and 257 leave one key in the last
+    split."""
+    from repro_torch.kernels.flash_prefill.ref import flash_verify_ref
+    rng = np.random.default_rng(Tk)
+    B, L, Hq, Hkv, D = 5, 3, 4, 2, 16
+    n_rt, n_split, split_len = fp_ops.verify_splits(B, Hkv, 2 * L, Tk, 132)
+    assert n_split > 1
+    q, k, v = (torch.tensor(rng.standard_normal(sh), dtype=torch.float32)
+               for sh in ((B, L, Hq, D), (B, Tk, Hkv, D), (B, Tk, Hkv, D)))
+    idx = torch.arange(Tk)
+    far = 2 ** 30
+    last = (n_split - 1) * split_len
+    kv_pos = torch.stack([idx, idx, torch.where(idx >= last, idx, far),
+                          torch.where(idx < split_len, idx, far),
+                          idx]).to(torch.int32)
+    bias = torch.zeros(B, Tk)
+    bias[4] = -1e30
+    q_pos = (Tk + torch.arange(L))[None].repeat(B, 1)
+    q_pos[1] = -1 - torch.arange(L)                 # sees no key
+    q_pos = q_pos.to(torch.int32)
+    want = flash_verify_ref(q, k, v, kv_pos, bias, q_pos, window=window)
+    got = _verify_split_combine(q, k, v, kv_pos, bias, q_pos, window,
+                                n_split, split_len)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5,
+                               rtol=1e-5)
+    uniform = v.mean(1).repeat_interleave(Hq // Hkv, 1)     # [B, Hq, D]
+    for b in (1, 4):
+        np.testing.assert_allclose(got[b].numpy(),
+                                   uniform[b][None].expand(L, -1, -1).numpy(),
+                                   atol=1e-5, rtol=1e-5)
