@@ -9,7 +9,8 @@ Phases, each printing its own lines; any failure exits non-zero:
   2. build    the three CUDA sources from the checkout (one nvcc per
               source, started together; the decode source holds two
               kernels, the flash source three, the KIVI quantize source
-              two), with nvcc's -Xptxas -v lines
+              three: K, V, and both of a flush in one launch), with
+              nvcc's -Xptxas -v lines
   3. parity   each kernel against its plain PyTorch version at the main
               path's shapes (granite-8b: Hq 32, Hkv 8, D 128), timed
               beside the plain version and a PyTorch library yardstick;
@@ -19,7 +20,8 @@ Phases, each printing its own lines; any failure exits non-zero:
               speculative-verify kernel over dense, quantized-ring and
               paged cache views (two launches bit-equal); the back-compat
               quantized decode wrapper; the fused KIVI quantize-and-pack
-              kernels at the flush and prompt shapes
+              kernels (K, V, and the one launch of both that the cache
+              makes) at the flush and prompt shapes
   4. serve    granite-8b at full width and depth, random bf16 weights from
               a seed, `Engine.generate_continuous` under full / h2o /
               kivi2 / h2o+kivi2 (dense cache, monolithic prefill), then
@@ -178,7 +180,7 @@ def phase_build(info: dict) -> None:
             for line in src.build_log.splitlines():
                 if "registers" in line or "spill" in line or "smem" in line:
                     print(f"[build] {src.path.name}: {line.strip()}")
-    print(f"[build] {len(sources)} sources (7 kernels) built in "
+    print(f"[build] {len(sources)} sources (8 kernels) built in "
           f"{time.perf_counter() - t0:.1f} s")
 
 
@@ -580,21 +582,49 @@ def _code_ties(torch, x, packed_k, packed_r, scale, zero, bits, group):
     return int((diff > 0).sum().item()), int((tie & (diff == 1)).sum().item()), bad
 
 
+def _b6_compare(torch, what, x, got, want, bits, group):
+    """Fail unless B6's (packed, scale, zero) `got` on `x` matches the
+    plain version's `want`: zeros bit-equal, scales within one f32 ulp,
+    codes equal but for tie-only differences (per channel over `group`
+    rows when `group`, else per row). Returns (codes differing, of them
+    at ties, scale max ulp, max|err| of the dequantized values)."""
+    from repro_torch.kernels.kvquant.ref import dequant_k_ref, dequant_v_ref
+    (pk, sk, zk), (pr, sr, zr) = got, want
+    torch.cuda.synchronize()
+    if not torch.equal(zk, zr):
+        fail(f"{what}: zeros differ from the plain version")
+    ulp = int((sk.view(torch.int32) - sr.view(torch.int32)).abs().max()
+              .item())
+    if ulp > 1:
+        fail(f"{what}: scales differ by {ulp} f32 ulp")
+    n_diff, n_tie, bad = _code_ties(torch, x, pk, pr, sr, zr, bits, group)
+    if bad:
+        fail(f"{what}: {bad} codes differ beyond a tie")
+    if group:
+        deq = [dequant_k_ref(p_, s_, z_, bits, group, torch.float32)
+               for p_, s_, z_ in (got, want)]
+    else:
+        deq = [dequant_v_ref(p_, s_, z_, bits, torch.float32)
+               for p_, s_, z_ in (got, want)]
+    return n_diff, n_tie, ulp, (deq[0] - deq[1]).abs().max().item()
+
+
 def _parity_kvquant(info: dict) -> None:
-    """B6 (kquant / vquant) against its plain version on the card, bf16
+    """B6 (kquant / vquant, and the fused kvquant launch that quantizes a
+    flush's K and V together) against its plain version on the card, bf16
     and f32, bits 2 / 4 / 8, at KVQUANT_CASES: zeros bit-equal, scales
     within one f32 ulp (the reading printed: both divide exactly, the
     plain version by a 0-d device tensor), codes equal but for tie-only
-    differences (counted and printed); each call adds one to its launch
-    count. The bf16 2-bit flush case is timed into the
+    differences (counted and printed); the fused launch also bit-equal to
+    the two standalone ones on the same K and V; each call adds one to
+    its own launch count. The bf16 2-bit flush case is timed into the
     kernels line (what every kivi2 flush runs): bytes read + codes and
-    scale / zero written, at the HBM rate; no single PyTorch call
-    quantizes and packs, so no library time."""
+    scale / zero written, at the HBM rate (the fused row: both); beside
+    the fused call, the two standalone calls it replaces. No single
+    PyTorch call quantizes and packs, so no library time."""
     import torch
     from repro_torch.kernels.kvquant import ops as kvq
-    from repro_torch.kernels.kvquant.ref import (dequant_k_ref,
-                                                 dequant_v_ref, kquant_ref,
-                                                 vquant_ref)
+    from repro_torch.kernels.kvquant.ref import kquant_ref, vquant_ref
     rows = info["kernel_rows"]
     G = 128
     for dt in (torch.bfloat16, torch.float32):
@@ -603,46 +633,31 @@ def _parity_kvquant(info: dict) -> None:
             g = torch.Generator(device="cuda").manual_seed(B * S)
             x = (torch.randn(B, S, 8, 128, generator=g, device="cuda")
                  * 2).to(dt)
+            y = (torch.randn(B, S, 8, 128, generator=g, device="cuda")
+                 * 2).to(dt)
             for bits in (2, 4, 8):
+                row = dt == torch.bfloat16 and (B, S) == (8, 128) \
+                    and bits == 2
+                timed = dt == torch.bfloat16 and bits == 2
                 for kind, fn, kern, plain in (
                         ("kquant", kvq.kquant_cuda, kvq.kquant_kernel,
                          lambda: kquant_ref(x, bits, G)),
                         ("vquant", kvq.vquant_cuda, kvq.vquant_kernel,
                          lambda: vquant_ref(x, bits))):
                     n0 = kern.launches
-                    pk, sk, zk = fn(x, bits=bits, group=G)
+                    got = fn(x, bits=bits, group=G)
                     if kern.launches != n0 + 1:
                         fail(f"{kind}: its launch was not counted")
-                    pr, sr, zr = plain()
-                    torch.cuda.synchronize()
                     what = (f"{kind} {name} [{B}, {S}, 8, 128] G {G} "
                             f"bits={bits}")
-                    if not torch.equal(zk, zr):
-                        fail(f"{what}: zeros differ from the plain version")
-                    ds = (sk.view(torch.int32) - sr.view(torch.int32)).abs()
-                    ulp = int(ds.max().item())
-                    if ulp > 1:
-                        fail(f"{what}: scales differ by {ulp} f32 ulp")
-                    n_diff, n_tie, bad = _code_ties(
-                        torch, x, pk, pr, sr, zr, bits,
+                    n_diff, n_tie, ulp, err = _b6_compare(
+                        torch, what, x, got, plain(), bits,
                         G if kind == "kquant" else 0)
-                    if bad:
-                        fail(f"{what}: {bad} codes differ beyond a tie")
-                    if kind == "kquant":
-                        deq = [dequant_k_ref(p_, s_, z_, bits, G,
-                                             torch.float32)
-                               for p_, s_, z_ in ((pk, sk, zk), (pr, sr, zr))]
-                    else:
-                        deq = [dequant_v_ref(p_, s_, z_, bits, torch.float32)
-                               for p_, s_, z_ in ((pk, sk, zk), (pr, sr, zr))]
-                    err = (deq[0] - deq[1]).abs().max().item()
                     ms = median_ms(lambda: fn(x, bits=bits, group=G))
                     plain_ms = median_ms(plain)
-                    bms, by = bound(nbytes(x, pk, sk, zk), 0.0, name)
-                    row = dt == torch.bfloat16 and (B, S) == (8, 128) \
-                        and bits == 2
+                    bms, by = bound(nbytes(x, *got), 0.0, name)
                     dev = (device_ms(lambda: fn(x, bits=bits, group=G))
-                           if dt == torch.bfloat16 and bits == 2 else None)
+                           if timed else None)
                     print(f"[parity] {what}: codes differing {n_diff} (at "
                           f"ties {n_tie}), max|err| dequantized {err:.3g}, "
                           f"scale max ulp {ulp}, zeros bit-equal; "
@@ -661,7 +676,60 @@ def _parity_kvquant(info: dict) -> None:
                             max_abs_err=err, ms=ms,
                             plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                             library_ms=None)
-            del x
+                # one flush's K (x) and V (y) in one launch
+                what = f"kvquant {name} [{B}, {S}, 8, 128] G {G} bits={bits}"
+                kw = dict(bits=bits, group=G)
+                n0 = kvq.kvquant_kernel.launches
+                kf, vf = kvq.kvquant_cuda(x, y, **kw)
+                if kvq.kvquant_kernel.launches != n0 + 1:
+                    fail("kvquant: its launch was not counted")
+                apart = kvq.kquant_cuda(x, **kw) + kvq.vquant_cuda(y, **kw)
+                torch.cuda.synchronize()
+                if not all(map(torch.equal, kf + vf, apart)):
+                    fail(f"{what}: differs from the two standalone launches")
+                rk = _b6_compare(torch, what + " K", x, kf,
+                                 kquant_ref(x, bits, G), bits, G)
+                rv = _b6_compare(torch, what + " V", y, vf,
+                                 vquant_ref(y, bits), bits, 0)
+                err = max(rk[3], rv[3])
+
+                def fused():
+                    return kvq.kvquant_cuda(x, y, **kw)
+
+                def two_calls():
+                    return kvq.kquant_cuda(x, **kw), kvq.vquant_cuda(y, **kw)
+
+                def plain_pair():
+                    return kquant_ref(x, bits, G), vquant_ref(y, bits)
+
+                ms, apart_ms = median_ms(fused), median_ms(two_calls)
+                plain_ms = median_ms(plain_pair)
+                bms, by = bound(nbytes(x, y, *kf, *vf), 0.0, name)
+                dev = ((device_ms(fused), device_ms(two_calls)) if timed
+                       else None)
+                print(f"[parity] {what}: K / V codes differing {rk[0]} / "
+                      f"{rv[0]} (at ties {rk[1]} / {rv[1]}), max|err| "
+                      f"dequantized {err:.3g}, scale max ulp "
+                      f"{max(rk[2], rv[2])}, zeros bit-equal, bit-equal to "
+                      f"kquant + vquant; {ms:.4f} ms"
+                      + ("" if dev is None else
+                         ", device %.4f ms" % dev[0])
+                      + f" (kquant + vquant apart {apart_ms:.4f} ms"
+                      + ("" if dev is None else
+                         ", device %.4f ms" % dev[1])
+                      + f"; plain {plain_ms:.4f} ms, library null, bound "
+                      f"{bms:.4f} ms by {by}, {bms / ms:.1%} of it)")
+                if row:
+                    rows["kvquant"] = dict(
+                        name="kvquant_cuda", route="cuda",
+                        source="src/repro_torch/kernels/kvquant/csrc/"
+                               "kvquant.cu",
+                        replaces="src/repro/kernels/kvquant/kernel.py:67",
+                        also_replaces="src/repro/kernels/kvquant/"
+                                      "kernel.py:96",
+                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        bound_ms=bms, bound_by=by, library_ms=None)
+            del x, y
 
 
 def _paged_case(torch, dt, bits, ring, B=8, S=512, W=128, Hq=32, Hkv=8,
@@ -929,7 +997,7 @@ SPEC_RUNS = (("full", "same", False), ("kivi2", "window:64", False),
              ("full", "same", True))
 KERNELS = ("decode_attn", "flash_prefill", "decode_attn_paged",
            "flash_prefill_chunk", "flash_verify", "decode_qattn", "kquant",
-           "vquant")
+           "vquant", "kvquant")
 
 
 def _kernel_objs():
@@ -942,7 +1010,8 @@ def _kernel_objs():
                 flash_prefill_chunk=fp.flash_prefill_chunk_kernel,
                 flash_verify=fp.flash_verify_kernel,
                 decode_qattn=dq.decode_qattn_count,
-                kquant=kvq.kquant_kernel, vquant=kvq.vquant_kernel)
+                kquant=kvq.kquant_kernel, vquant=kvq.vquant_kernel,
+                kvquant=kvq.kvquant_kernel)
 
 
 def _want_launches(eng, res, n_layers: int, n_req: int, segments: int):
@@ -951,8 +1020,9 @@ def _want_launches(eng, res, n_layers: int, n_req: int, segments: int):
     admission (B2) or prompt segment (B4) of a policy that reads no mass,
     and, speculative, verify round (B5) and drafter decode step and
     drafter admission (B1 / B2: the drafter's cache is dense); for a
-    quantized (KIVI) cache, B6 (kquant and vquant) once per layer for
-    every append step whose ring flushed (decided on the host: the run's
+    quantized (KIVI) cache, B6 once per layer (K and V in one fused
+    kvquant launch; no standalone kquant / vquant launch) for every
+    append step whose ring flushed (decided on the host: the run's
     `kv_flush_steps`) and every quantized admission (target, and drafter
     when its view is quantized)."""
     want = dict.fromkeys(KERNELS, 0)
@@ -969,8 +1039,7 @@ def _want_launches(eng, res, n_layers: int, n_req: int, segments: int):
             want["flash_prefill"] += n_req * n_layers
     n_quant = n_req * (int(eng.spec.quantized)
                        + int(bool(st) and eng.draft.spec.quantized))
-    want["kquant"] = want["vquant"] = (res.kv_flush_steps
-                                       + n_quant) * n_layers
+    want["kvquant"] = (res.kv_flush_steps + n_quant) * n_layers
     return want
 
 
@@ -1436,18 +1505,18 @@ E2E_PREFIX_REQUESTS, E2E_PREFIX_NEW, E2E_PREFIX_SLOTS = 6, 24, 4
 
 @contextlib.contextmanager
 def _plain_quantizer():
-    """Route the KIVI quantize-and-pack calls of the cache
-    (`kvquant.ops.quantize_k` / `quantize_v`) to their plain versions on
-    the card, so a run can be set beside the same run through B6."""
+    """Route the KIVI quantize-and-pack call of the cache
+    (`kvquant.ops.quantize_kv_pair`) to its plain versions on the card,
+    so a run can be set beside the same run through B6."""
     from repro_torch.kernels.kvquant import ops as kvq
     from repro_torch.kernels.kvquant import ref
-    saved = kvq.quantize_k, kvq.quantize_v
-    kvq.quantize_k = lambda k, *, bits, group: ref.kquant_ref(k, bits, group)
-    kvq.quantize_v = lambda v, *, bits, group: ref.vquant_ref(v, bits)
+    saved = kvq.quantize_kv_pair
+    kvq.quantize_kv_pair = lambda k, v, *, bits, group: (
+        ref.kquant_ref(k, bits, group), ref.vquant_ref(v, bits))
     try:
         yield
     finally:
-        kvq.quantize_k, kvq.quantize_v = saved
+        kvq.quantize_kv_pair = saved
 
 
 def _e2e_prefix() -> None:
@@ -1507,14 +1576,14 @@ def _e2e_prefix() -> None:
     if blend.prefix["near_hits"] == 0:
         fail("e2e prefix: no near-hit")
     # kivi2 through B6 vs through the plain quantizer on the card
-    kvq.kquant_kernel.launches = 0
+    kvq.kvquant_kernel.launches = 0
     eng, fused = serve("kivi2", exact, 1920, 128, prefix_sharing=True)
-    n_b6 = kvq.kquant_kernel.launches
+    n_b6 = kvq.kvquant_kernel.launches
     with _plain_quantizer():
         _, plain = serve("kivi2", exact, 1920, 128, prefix_sharing=True)
-    if n_b6 == 0 or kvq.kquant_kernel.launches != n_b6:
+    if n_b6 == 0 or kvq.kvquant_kernel.launches != n_b6:
         fail(f"e2e prefix: B6 launches {n_b6} with the kernel, "
-             f"{kvq.kquant_kernel.launches - n_b6} without")
+             f"{kvq.kvquant_kernel.launches - n_b6} without")
     toks = torch.as_tensor(exact[0][None], device="cuda")
     _, pc_k = M.prefill(params, cfg, {"tokens": toks}, eng.spec,
                         layer_budgets=eng.layer_budgets)
@@ -1651,7 +1720,7 @@ def phase_profile(info: dict) -> None:
             rows, n_aten, n_launch = _profile_rows(prof, 1)
             b6 = [r for r in rows if "quant_kernel" in r[0]]
             print(f"[profile] {label}: flushing step, device busy "
-                  f"{sum(r[1] for r in rows):.2f} ms; B6 (kquant + vquant) "
+                  f"{sum(r[1] for r in rows):.2f} ms; B6 (fused kvquant) "
                   f"{sum(r[1] for r in b6):.3f} ms x{sum(r[2] for r in b6)}"
                   f"; host: {n_aten} aten ops, {n_launch} kernel launches")
             for key, ms, cnt in sorted(b6, key=lambda r: -r[1]):
@@ -1765,9 +1834,14 @@ def main() -> int:
         print(f"[{name}] done at {time.perf_counter() - t0:.1f} s",
               flush=True)
     # launches: the serve phase's counts (set to 0 before each run, read
-    # right after it, summed over the runs)
+    # right after it, summed over the runs). The serving path runs B6k's
+    # and B6v's bodies only inside the fused kvquant launch: their rows
+    # carry its count as `fused_launches` beside their own (0).
     kernels = [dict(info["kernel_rows"][key], launches=info["launches"][key])
                for key in KERNELS]
+    for row in kernels:
+        if row["name"] in ("kquant_cuda", "vquant_cuda"):
+            row["fused_launches"] = info["launches"]["kvquant"]
     print(info["smi"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

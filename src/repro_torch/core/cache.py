@@ -315,13 +315,14 @@ def quantize_kv(k: torch.Tensor, v: torch.Tensor, spec: CacheSpec, *,
     packed codes [B, S, H, D*bits/8] and the layouts of
     `quantize_k_per_channel` / `quantize_v_per_token` (K scale / zero
     [B, S/G, 1, H, D], V [B, S, H, 1]). With `use_kernels` the fused
-    kernel (`kernels.kvquant`: CUDA on the card, its plain version on the
-    CPU), its outputs adapted by views; without, `core.quantization` +
-    `pack_codes`. Both compute the same function."""
+    kernel (`kernels.kvquant`: K and V in one CUDA launch on the card,
+    its plain versions on the CPU), its outputs adapted by views;
+    without, `core.quantization` + `pack_codes`. Both compute the same
+    function."""
     bits, G = spec.bits, spec.group
     if use_kernels:
-        kp, ks, kz = kvq_ops.quantize_k(k, bits=bits, group=G)
-        vp, vs, vz = kvq_ops.quantize_v(v, bits=bits, group=G)
+        (kp, ks, kz), (vp, vs, vz) = kvq_ops.quantize_kv_pair(
+            k, v, bits=bits, group=G)
         return (qz.Quantized(kp, ks[:, :, None], kz[:, :, None]),
                 qz.Quantized(vp, vs[..., None], vz[..., None]))
     kq = qz.quantize_k_per_channel(k, bits, G)

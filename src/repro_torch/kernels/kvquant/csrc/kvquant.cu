@@ -1,12 +1,14 @@
 // Fused KIVI quantize-and-pack: keys per channel over G-row groups
-// (`kquant_launch`), values per token over the head dim (`vquant_launch`).
+// (`kquant_launch`), values per token over the head dim (`vquant_launch`),
+// and both of one flush or admission in one launch (`kvquant_launch`).
 //
 // Replaces: src/repro/kernels/kvquant/kernel.py:kquant_pallas (body
 // `_kquant_kernel`) and :vquant_pallas (body `_vquant_kernel`), both
 // through `_pack_along_last`. On the serving path they quantize the
 // residual ring at each KIVI flush and the selected prompt rows at each
-// quantized admission (`core/cache.py:plan_group_flush`,
-// `compress_prompt`).
+// quantized admission (`core/cache.py:quantize_kv`, called from
+// `plan_group_flush` and `compress_prompt`), K and V together through
+// `kvquant_launch`.
 //
 // What it computes (the Pallas kernels' function, and the port's plain
 // `core/quantization.py` + `pack_codes`): lo / hi = min / max of the f32
@@ -24,7 +26,11 @@
 // What bounds it on an H100: bytes. A handful of flops per element read
 // (one subtract, one divide, one round, a shift) against 2-4 bytes read
 // and bits/8 written: far below the ~295 flops/byte at which the card's
-// arithmetic would be the limit.
+// arithmetic would be the limit. At the serve path's sizes (2.4 MB a
+// flush, a bound of ~0.7 us) a launch's fixed latency and each CTA's
+// dependent chain (a DRAM round trip, the min / max fold, the divisions)
+// take most of the time, so both bodies read each row once and fold
+// without a barrier where they can, and one launch runs both.
 //
 // Design. kquant (one pass over device memory): a CTA of 128 threads per
 // (16-channel slice, group, sequence), so the kivi2 ring flush of 8 slots
@@ -42,12 +48,33 @@
 // stores (the same arithmetic). (The previous design read each row
 // twice, the second time from L2, with 2-byte loads: 0.0119 ms of device
 // time at the flush shape on an H100.)
-// vquant: one warp per (b, s, h) row; each lane owns
-// packed bytes lane, lane+32, ... of the row, min / max reduce through
-// warp shuffles (exact, order-independent), lane 0 writes scale / zero.
+// vquant (one pass): a row of D channels takes TPR lanes of a warp, the
+// power of two that covers its 16-byte chunks (D 128: 16 lanes in bf16,
+// 32 in f32; at most 32, a lane then owning several chunks), so a CTA of
+// VQ_NT threads holds VQ_NT / TPR rows (the flush's 8192 bf16 rows: 1024
+// CTAs, ~1000 threads an SM, one wave). Lane l owns chunks l, l + TPR,
+// ...; it issues every load first (one 16-byte __ldg each, the first
+// VQ_HELD kept in registers), folds min / max, and the row's lanes fold
+// with __shfl_xor_sync over offsets below TPR: no shared memory, no
+// barrier. The row's one scale gives one reciprocal, so a code costs a
+// multiplication, with the IEEE division only within 1e-4 of a rounding
+// tie (`code_rcp`: bit-equal). Each lane then writes its chunk's packed
+// bytes in one 2-8 byte store (the row's lanes write neighbouring bytes:
+// one coalesced store a warp), and row lane 0 writes the row's scale and
+// zero. Row and lane come from shifts, not divisions. One lane a row,
+// not a gather through shared memory: the warp's rows sit side by side,
+// so its scale (and zero) stores already coalesce into one sector, and a
+// gather would put a barrier on the chain. Rows past the end still take
+// part in the shuffles and store nothing.
+// kvquant: one flat grid, kquant's CTAs first (block x -> slice, group,
+// sequence, by two 32-bit divisions: 64-bit ones are a software routine
+// ahead of every load), then vquant's, both bodies in 128-thread CTAs;
+// the block index picks the body. A flat grid has no 65535 limit on
+// groups or sequences. The value CTAs' short chains run beside the key
+// CTAs' longer one, so the launch takes about as long as its key part.
 // The TPU kernel's grid over (b, group) ran in order on one core; here
-// the channel slices and groups run in parallel, which the per-channel
-// (K) and per-row (V) reductions allow.
+// the channel slices, groups and rows run in parallel, which the
+// per-channel (K) and per-row (V) reductions allow.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -58,16 +85,11 @@ namespace {
 constexpr int KQ_CW = 16;            // kquant channels per CTA
 constexpr int KQ_NT = 128;           // kquant threads per CTA
 constexpr int KQ_RPT = 4;            // kquant rows a thread keeps in registers
-constexpr int VQ_WARPS = 8;          // vquant rows (warps) per CTA
-
-template <typename T> __device__ __forceinline__ float ld(const T* p);
-template <> __device__ __forceinline__ float ld<float>(const float* p) {
-  return __ldg(p);
-}
-template <> __device__ __forceinline__ float ld<__nv_bfloat16>(
-    const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
+constexpr int VQ_NT = KQ_NT;         // vquant threads per CTA (one launch
+                                     // runs both bodies)
+constexpr int VQ_LG_NT = 7;          // log2(VQ_NT)
+static_assert(VQ_NT == 1 << VQ_LG_NT, "VQ_LG_NT");
+constexpr int VQ_HELD = 2;           // vquant chunks a lane keeps in registers
 
 __device__ __forceinline__ float scale_of(float lo, float hi, int levels) {
   return __fdiv_rn(fmaxf(__fsub_rn(hi, lo), 1e-8f), (float)levels);
@@ -77,6 +99,22 @@ __device__ __forceinline__ uint32_t code_of(float x, float lo, float scale,
                                             int levels) {
   float c = rintf(__fdiv_rn(__fsub_rn(x, lo), scale));
   c = fminf(fmaxf(c, 0.0f), (float)levels);
+  return (uint32_t)c;
+}
+
+// code_of with one multiplication in place of the division, bit-equal
+// to it: with rs = 1 / scale rounded, q = (x - lo) * rs rounded lies
+// within 3 * 2^-24 * |q| of the IEEE quotient (x - lo) / scale, and
+// |q| <= levels (1 + 2^-23) <= 256 (x - lo <= hi - lo; below the 1e-8
+// floor too), so within 4.6e-5 of it. Their rints differ only if a .5
+// tie lies between them: q within 1e-4 of a tie takes the exact
+// division.
+__device__ __forceinline__ uint32_t code_rcp(float x, float lo, float scale,
+                                             float rs, int levels) {
+  const float d = __fsub_rn(x, lo);
+  float q = __fmul_rn(d, rs);
+  if (fabsf(fabsf(q - rintf(q)) - 0.5f) < 1e-4f) q = __fdiv_rn(d, scale);
+  const float c = fminf(fmaxf(rintf(q), 0.0f), (float)levels);
   return (uint32_t)c;
 }
 
@@ -113,16 +151,34 @@ __device__ __forceinline__ void expand(uint4 u, float* f) {
   }
 }
 
+// NB packed bytes (one little-endian word) at `out`: one store when
+// `vec`, else the first nb bytes one by one
+template <int NB>
+__device__ __forceinline__ void store_packed(int8_t* out, uint64_t word,
+                                             bool vec, int nb) {
+  if (vec) {
+    if constexpr (NB == 8) *reinterpret_cast<uint64_t*>(out) = word;
+    else if constexpr (NB == 4) *reinterpret_cast<uint32_t*>(out) =
+        (uint32_t)word;
+    else if constexpr (NB == 2) *reinterpret_cast<uint16_t*>(out) =
+        (uint16_t)word;
+    else *out = (int8_t)word;
+  } else {
+    for (int j = 0; j < nb; ++j) out[j] = (int8_t)(word >> (8 * j));
+  }
+}
+
 // k [B, S, H*D] T -> codes [B, S, H*D*BITS/8] int8, scale / zero
-// [B, S/G, H*D] f32. grid (ceil(HD / KQ_CW), S/G, B), KQ_NT threads:
-// thread t owns the VEC-channel chunk c0 = x*KQ_CW + (t % TX)*VEC (16
-// bytes of a row) of rows t / TX, t / TX + TY, ... of the group, and
-// keeps the first KQ_RPT of them in registers between the two passes.
+// [B, S/G, H*D] f32, for the CTA of (channel slice x, group g, sequence
+// b), KQ_NT threads: thread t owns the VEC-channel chunk c0 = x*KQ_CW +
+// (t % TX)*VEC (16 bytes of a row) of rows t / TX, t / TX + TY, ... of
+// the group, and keeps the first KQ_RPT of them in registers between the
+// two passes.
 template <typename T, int BITS>
-__global__ void __launch_bounds__(KQ_NT) kquant_kernel(
+__device__ __forceinline__ void kquant_body(
     const T* __restrict__ k, int8_t* __restrict__ codes,
     float* __restrict__ scale, float* __restrict__ zero, int S, int HD,
-    int G, int vec_ok) {
+    int G, int vec_ok, int x, int g, int b) {
   constexpr int VEC = 16 / (int)sizeof(T);   // channels a 16-byte load
   constexpr int F = 8 / BITS;                // channels a packed byte
   constexpr int NB = VEC / F;                // packed bytes a chunk
@@ -131,10 +187,9 @@ __global__ void __launch_bounds__(KQ_NT) kquant_kernel(
   __shared__ float s_lo[NW][TX][VEC], s_hi[NW][TX][VEC];
   const int t = threadIdx.x, tx = t % TX, ty = t / TX;
   const int warp = t / 32, lane = t % 32;
-  const int c0 = blockIdx.x * KQ_CW + tx * VEC;   // first channel
+  const int c0 = x * KQ_CW + tx * VEC;            // first channel
   const int nc = max(0, min(VEC, HD - c0));       // a tail chunk has fewer
   const bool vec = vec_ok && nc == VEC;
-  const int g = blockIdx.y, b = blockIdx.z;
   const size_t row0 = (size_t)b * S + (size_t)g * G;
   const T* src = k + row0 * HD + c0;
 
@@ -221,17 +276,7 @@ __global__ void __launch_bounds__(KQ_NT) kquant_kernel(
                           LEVELS) << (i * BITS);
       word |= (uint64_t)(uint8_t)((int)packed - 128) << (8 * j);
     }
-    int8_t* out = dst + (size_t)r * (HD / F);
-    if (vec) {
-      if constexpr (NB == 8) *reinterpret_cast<uint64_t*>(out) = word;
-      else if constexpr (NB == 4) *reinterpret_cast<uint32_t*>(out) =
-          (uint32_t)word;
-      else if constexpr (NB == 2) *reinterpret_cast<uint16_t*>(out) =
-          (uint16_t)word;
-      else *out = (int8_t)word;
-    } else {
-      for (int j = 0; j < nc / F; ++j) out[j] = (int8_t)(word >> (8 * j));
-    }
+    store_packed<NB>(dst + (size_t)r * (HD / F), word, vec, nc / F);
   };
 #pragma unroll
   for (int i = 0; i < KQ_RPT; ++i) {
@@ -243,47 +288,150 @@ __global__ void __launch_bounds__(KQ_NT) kquant_kernel(
 }
 
 // v [R, D] T (R = B*S*H rows) -> codes [R, D*BITS/8] int8, scale / zero
-// [R] f32. grid ceil(R / VQ_WARPS), VQ_WARPS warps per CTA.
+// [R] f32, for the rows of CTA `cta`: tpr = 2^lg lanes a row (at most
+// 32, covering the row's 16-byte chunks where it can), VQ_NT / tpr rows
+// a CTA (shifts: no integer division on the way to the loads). Lane lr
+// of a row owns its chunks lr, lr + tpr, ... and keeps the first
+// VQ_HELD of them in registers between the two passes.
+// `vec_ok`: D is whole chunks and v / codes are 16-byte aligned.
 template <typename T, int BITS>
-__global__ void __launch_bounds__(VQ_WARPS * 32) vquant_kernel(
+__device__ __forceinline__ void vquant_body(
     const T* __restrict__ v, int8_t* __restrict__ codes,
     float* __restrict__ scale, float* __restrict__ zero, long long R,
-    int D) {
-  constexpr int F = 8 / BITS;
+    int D, int lg, int vec_ok, unsigned cta) {
+  constexpr int VEC = 16 / (int)sizeof(T);   // channels a 16-byte load
+  constexpr int F = 8 / BITS;                // channels a packed byte
+  constexpr int NB = VEC / F;                // packed bytes a chunk
   constexpr int LEVELS = (1 << BITS) - 1;
-  const int lane = threadIdx.x & 31;
-  const long long row = (long long)blockIdx.x * VQ_WARPS + (threadIdx.x >> 5);
-  if (row >= R) return;                       // whole warp leaves together
-  const int Dp = D / F;
-  const T* src = v + row * D;
-  float lo = INFINITY, hi = -INFINITY;
-  for (int j = lane; j < Dp; j += 32) {
+  const int t = threadIdx.x, tpr = 1 << lg, lr = t & (tpr - 1);
+  const long long row = ((long long)cta << (VQ_LG_NT - lg)) + (t >> lg);
+  const bool live = row < R;       // a row past the end only shuffles
+  const int n_chunk = (D + VEC - 1) / VEC;
+  const T* src = v + (live ? row : 0) * D;
+  const auto nc_of = [&](int c) { return min(VEC, D - c * VEC); };
+
+  // pass 1: every load first, then min / max over the lane's channels
+  float lo = INFINITY, hi = -INFINITY, f[VEC];
+  uint4 held[VQ_HELD];
+  auto fold = [&](uint4 u, int nc) {
+    expand<T>(u, f);
 #pragma unroll
-    for (int i = 0; i < F; ++i) {
-      float x = ld(src + j * F + i);
-      lo = fminf(lo, x);
-      hi = fmaxf(hi, x);
+    for (int e = 0; e < VEC; ++e)
+      if (e < nc) {
+        lo = fminf(lo, f[e]);
+        hi = fmaxf(hi, f[e]);
+      }
+  };
+  if (live) {
+#pragma unroll
+    for (int i = 0; i < VQ_HELD; ++i) {
+      const int c = lr + i * tpr;
+      if (c < n_chunk) held[i] = load_chunk(src + c * VEC, nc_of(c), vec_ok);
     }
-  }
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
+    for (int i = 0; i < VQ_HELD; ++i) {
+      const int c = lr + i * tpr;
+      if (c < n_chunk) fold(held[i], nc_of(c));
+    }
+    for (int c = lr + VQ_HELD * tpr; c < n_chunk; c += tpr)
+      fold(load_chunk(src + c * VEC, nc_of(c), vec_ok), nc_of(c));
+  }
+  // the row's lanes (xor offsets below tpr stay inside the row)
+  for (int o = 1; o < tpr; o <<= 1) {
     lo = fminf(lo, __shfl_xor_sync(0xffffffffu, lo, o));
     hi = fmaxf(hi, __shfl_xor_sync(0xffffffffu, hi, o));
   }
-  const float sc = scale_of(lo, hi, LEVELS);
-  if (lane == 0) {
+  if (!live) return;
+  const float sc = scale_of(lo, hi, LEVELS), rs = __frcp_rn(sc);
+  if (lr == 0) {
     scale[row] = sc;
     zero[row] = lo;
   }
-  int8_t* dst = codes + row * Dp;
-  for (int j = lane; j < Dp; j += 32) {
-    uint32_t packed = 0;
+  // pass 2: each chunk's NB packed bytes, one store
+  int8_t* dst = codes + row * (D / F);
+  auto put = [&](uint4 u, int c) {
+    expand<T>(u, f);
+    uint64_t word = 0;
 #pragma unroll
-    for (int i = 0; i < F; ++i)
-      packed |= code_of(ld(src + j * F + i), lo, sc, LEVELS) << (i * BITS);
-    dst[j] = (int8_t)((int)packed - 128);
+    for (int j = 0; j < NB; ++j) {
+      uint32_t packed = 0;
+#pragma unroll
+      for (int i = 0; i < F; ++i)
+        packed |= code_rcp(f[j * F + i], lo, sc, rs, LEVELS) << (i * BITS);
+      word |= (uint64_t)(uint8_t)((int)packed - 128) << (8 * j);
+    }
+    store_packed<NB>(dst + c * NB, word, vec_ok, nc_of(c) / F);
+  };
+#pragma unroll
+  for (int i = 0; i < VQ_HELD; ++i) {
+    const int c = lr + i * tpr;
+    if (c < n_chunk) put(held[i], c);
+  }
+  for (int c = lr + VQ_HELD * tpr; c < n_chunk; c += tpr)
+    put(load_chunk(src + c * VEC, nc_of(c), vec_ok), c);
+}
+
+// grid (ceil(HD / KQ_CW), S/G, B)
+template <typename T, int BITS>
+__global__ void __launch_bounds__(KQ_NT) kquant_kernel(
+    const T* __restrict__ k, int8_t* __restrict__ codes,
+    float* __restrict__ scale, float* __restrict__ zero, int S, int HD,
+    int G, int vec_ok) {
+  kquant_body<T, BITS>(k, codes, scale, zero, S, HD, G, vec_ok, blockIdx.x,
+                       blockIdx.y, blockIdx.z);
+}
+
+// grid ceil(R / (VQ_NT >> lg))
+template <typename T, int BITS>
+__global__ void __launch_bounds__(VQ_NT) vquant_kernel(
+    const T* __restrict__ v, int8_t* __restrict__ codes,
+    float* __restrict__ scale, float* __restrict__ zero, long long R,
+    int D, int lg, int vec_ok) {
+  vquant_body<T, BITS>(v, codes, scale, zero, R, D, lg, vec_ok,
+                       blockIdx.x);
+}
+
+// one flat grid: n_kq = nx * ng * B kquant CTAs (nx channel slices, ng
+// groups; slice fastest), then vquant's. Block indices are 32-bit (the
+// launcher keeps the grid below 2^31): two unsigned divisions find a K
+// CTA's (slice, group, sequence).
+template <typename T, int BITS>
+__global__ void __launch_bounds__(KQ_NT) kvquant_kernel(
+    const T* __restrict__ k, const T* __restrict__ v,
+    int8_t* __restrict__ k_codes, float* __restrict__ k_scale,
+    float* __restrict__ k_zero, int8_t* __restrict__ v_codes,
+    float* __restrict__ v_scale, float* __restrict__ v_zero, int S, int HD,
+    int G, int k_vec, unsigned nx, unsigned ng, unsigned n_kq, long long R,
+    int D, int lg, int v_vec) {
+  const unsigned bid = blockIdx.x;
+  if (bid < n_kq) {
+    const unsigned r = bid / nx, b = r / ng;
+    kquant_body<T, BITS>(k, k_codes, k_scale, k_zero, S, HD, G, k_vec,
+                         bid - r * nx, r - b * ng, b);
+  } else {
+    vquant_body<T, BITS>(v, v_codes, v_scale, v_zero, R, D, lg, v_vec,
+                         bid - n_kq);
   }
 }
+
+bool a16(const void* p) { return (uintptr_t)p % 16 == 0; }
+
+// log2 of vquant's lanes a row: the power of two that covers the row's
+// 16-byte chunks at `per_lane` chunks a lane, at most 32
+int lanes_log2(int D, int elem_bytes, int per_lane) {
+  const int n_lane = ((D * elem_bytes + 15) / 16 + per_lane - 1) / per_lane;
+  int lg = 0;
+  while ((1 << lg) < n_lane && lg < 5) ++lg;
+  return lg;
+}
+
+// vquant's CTAs for R rows at 2^lg lanes a row
+long long vquant_ctas(long long R, int lg) {
+  const long long rows = VQ_NT >> lg;
+  return (R + rows - 1) / rows;
+}
+
+constexpr long long MAX_GRID = 0x7fffffffLL;
 
 template <typename T>
 int kquant_dispatch(const void* k, void* codes, void* scale, void* zero,
@@ -295,7 +443,6 @@ int kquant_dispatch(const void* k, void* codes, void* scale, void* zero,
   float* s = (float*)scale;
   float* z = (float*)zero;
   // 16-byte loads and stores need whole aligned chunks in every row
-  const auto a16 = [](const void* p) { return (uintptr_t)p % 16 == 0; };
   const int v = HD % (16 / (int)sizeof(T)) == 0 && a16(k) && a16(codes)
                 && a16(scale) && a16(zero);
   if (bits == 2)
@@ -312,17 +459,71 @@ int kquant_dispatch(const void* k, void* codes, void* scale, void* zero,
 template <typename T>
 int vquant_dispatch(const void* v, void* codes, void* scale, void* zero,
                     long long R, int D, int bits, cudaStream_t st) {
-  const unsigned grid = (unsigned)((R + VQ_WARPS - 1) / VQ_WARPS);
+  const int lg = lanes_log2(D, (int)sizeof(T), 1);
+  const long long grid = vquant_ctas(R, lg);
+  if (grid > MAX_GRID) return (int)cudaErrorInvalidValue;
   const T* x = (const T*)v;
   int8_t* c = (int8_t*)codes;
   float* s = (float*)scale;
   float* z = (float*)zero;
+  const int vec = D % (16 / (int)sizeof(T)) == 0 && a16(v) && a16(codes);
+  const unsigned g = (unsigned)grid;
   if (bits == 2)
-    vquant_kernel<T, 2><<<grid, VQ_WARPS * 32, 0, st>>>(x, c, s, z, R, D);
+    vquant_kernel<T, 2><<<g, VQ_NT, 0, st>>>(x, c, s, z, R, D, lg, vec);
   else if (bits == 4)
-    vquant_kernel<T, 4><<<grid, VQ_WARPS * 32, 0, st>>>(x, c, s, z, R, D);
+    vquant_kernel<T, 4><<<g, VQ_NT, 0, st>>>(x, c, s, z, R, D, lg, vec);
   else if (bits == 8)
-    vquant_kernel<T, 8><<<grid, VQ_WARPS * 32, 0, st>>>(x, c, s, z, R, D);
+    vquant_kernel<T, 8><<<g, VQ_NT, 0, st>>>(x, c, s, z, R, D, lg, vec);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+// the fused launch's arguments past the pointers
+struct KvArgs {
+  int S, HD, G, k_vec;
+  unsigned nx, ng, n_kq;
+  long long R;
+  int D, lg, v_vec;
+};
+
+template <typename T, int BITS>
+void kvquant_go(unsigned grid, cudaStream_t st, const void* k,
+                const void* v, void* kc, void* ks, void* kz, void* vc,
+                void* vs, void* vz, const KvArgs& a) {
+  kvquant_kernel<T, BITS><<<grid, KQ_NT, 0, st>>>(
+      (const T*)k, (const T*)v, (int8_t*)kc, (float*)ks, (float*)kz,
+      (int8_t*)vc, (float*)vs, (float*)vz, a.S, a.HD, a.G, a.k_vec, a.nx,
+      a.ng, a.n_kq, a.R, a.D, a.lg, a.v_vec);
+}
+
+template <typename T>
+int kvquant_dispatch(const void* k, const void* v, void* kc, void* ks,
+                     void* kz, void* vc, void* vs, void* vz, int B, int S,
+                     int H, int D, int G, int bits, cudaStream_t st) {
+  constexpr int VEC = 16 / (int)sizeof(T);
+  KvArgs a;
+  a.S = S;
+  a.HD = H * D;
+  a.G = G;
+  a.k_vec = a.HD % VEC == 0 && a16(k) && a16(kc) && a16(ks) && a16(kz);
+  a.nx = (unsigned)((a.HD + KQ_CW - 1) / KQ_CW);
+  a.ng = (unsigned)(S / G);
+  const long long n_kq = (long long)a.nx * a.ng * B;
+  a.R = (long long)B * S * H;
+  a.D = D;
+  a.lg = lanes_log2(D, (int)sizeof(T), 1);
+  a.v_vec = D % VEC == 0 && a16(v) && a16(vc);
+  const long long n_vq = vquant_ctas(a.R, a.lg);
+  if (n_kq + n_vq > MAX_GRID) return (int)cudaErrorInvalidValue;
+  a.n_kq = (unsigned)n_kq;
+  const unsigned grid = (unsigned)(n_kq + n_vq);
+  if (bits == 2)
+    kvquant_go<T, 2>(grid, st, k, v, kc, ks, kz, vc, vs, vz, a);
+  else if (bits == 4)
+    kvquant_go<T, 4>(grid, st, k, v, kc, ks, kz, vc, vs, vz, a);
+  else if (bits == 8)
+    kvquant_go<T, 8>(grid, st, k, v, kc, ks, kz, vc, vs, vz, a);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
@@ -363,5 +564,27 @@ extern "C" int vquant_launch(const void* v, void* codes, void* scale,
   if (dtype == 1)
     return vquant_dispatch<__nv_bfloat16>(v, codes, scale, zero, R, D, bits,
                                           st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// k, v: [B, S, H, D] contiguous, one dtype (0 = f32, 1 = bf16): kquant's
+// outputs (k_codes [B, S, H, D*bits/8] int8, k_scale / k_zero [B, S/G,
+// H, D] f32) and vquant's (v_codes [B, S, H, D*bits/8], v_scale / v_zero
+// [B, S, H] f32) in one launch. Needs S % G == 0 and D*bits % 8 == 0.
+extern "C" int kvquant_launch(const void* k, const void* v, void* k_codes,
+                              void* k_scale, void* k_zero, void* v_codes,
+                              void* v_scale, void* v_zero, int B, int S,
+                              int H, int D, int G, int bits, int dtype,
+                              void* stream) {
+  if (B < 1 || S < 1 || H < 1 || D < 1 || G < 1 || S % G || (D * bits) % 8)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0)
+    return kvquant_dispatch<float>(k, v, k_codes, k_scale, k_zero, v_codes,
+                                   v_scale, v_zero, B, S, H, D, G, bits, st);
+  if (dtype == 1)
+    return kvquant_dispatch<__nv_bfloat16>(k, v, k_codes, k_scale, k_zero,
+                                           v_codes, v_scale, v_zero, B, S,
+                                           H, D, G, bits, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -26,6 +26,10 @@ from repro_torch.serving.engine import Engine
 from repro_torch.serving.scheduler import Request
 
 POLICIES = ("full", "streaming", "h2o", "kivi2", "h2o+kivi2")
+# the other presets the port's engine takes (4- and 8-bit KIVI, the layer
+# allocators and their hybrid)
+MORE_POLICIES = ("kivi4", "int8", "pyramid", "squeeze", "zigzag",
+                 "pyramid+kivi4")
 BUDGET, WINDOW = 16, 8
 BUCKETS = (32, 48)
 MAX_NEW = 6
@@ -35,9 +39,9 @@ _j_decode = jax.jit(JM.decode_step, static_argnums=(1, 4))
 N_DECODE = 3
 
 
-def _model(arch):
-    jcfg = jax_reduced(jax_get_config(arch))
-    cfg = reduced(get_config(arch))
+def _model(arch, **over):
+    jcfg = jax_reduced(jax_get_config(arch), **over)
+    cfg = reduced(get_config(arch), **over)
     jp = JM.init_params(jax.random.key(0), jcfg)
     return jcfg, jp, cfg, params_from_numpy(jax.tree.map(np.asarray, jp),
                                             cfg)
@@ -119,14 +123,38 @@ def llama():
     return _model("paper-llama-7b")
 
 
+@pytest.fixture(scope="module")
+def llama6():
+    """paper-llama-7b reduced at 6 layers: the layer allocators give
+    each layer its own budget."""
+    return _model("paper-llama-7b", num_layers=6)
+
+
 @pytest.mark.parametrize("pname", POLICIES)
 def test_continuous_token_streams_equal_jax(llama, pname):
     """3 requests over 2 slots and two buckets; request 0 stops at an EOS
     taken from its own stream (its second token), so its slot is reused
     mid-decode by request 2. Streams equal the JAX engine's token for
     token (the port with its kernels' plain versions)."""
-    jcfg, jp, cfg, p = llama
-    jeng, teng = _engines(llama, pname)
+    _streams_equal_jax(llama, pname)
+
+
+@pytest.mark.parametrize("layers", [2, 6])
+@pytest.mark.parametrize("pname", MORE_POLICIES)
+def test_more_presets_token_streams_equal_jax(request, pname, layers):
+    """The stream test above for the presets off the main path, at 2
+    layers and at 6 (where pyramid / squeeze / zigzag give each layer
+    its own budget): streams, decode steps, cache bytes and the layer
+    budgets equal the JAX engine's."""
+    _streams_equal_jax(request.getfixturevalue(
+        "llama" if layers == 2 else "llama6"), pname)
+
+
+def _streams_equal_jax(model, pname):
+    jcfg, jp, cfg, p = model
+    jeng, teng = _engines(model, pname)
+    np.testing.assert_array_equal(np.asarray(teng.layer_budgets),
+                                  np.asarray(jeng.layer_budgets))
     free_run = teng.generate_continuous(_requests(Request, cfg.vocab_size))
     eos = int(free_run.results[0].tokens[1])
     want = jeng.generate_continuous(_requests(JaxRequest, cfg.vocab_size,

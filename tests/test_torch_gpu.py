@@ -726,6 +726,28 @@ def test_reduced_spec_engine_on_card_matches_cpu(cuda, pname, draft, paged):
 KV_TIE = 1e-5
 
 
+def _b6_matches_plain(x, got, want, bits, group):
+    """B6's (packed, scale, zero) against the plain version's on the same
+    `x`: per channel over `group` rows (K) when `group`, else per row
+    (V)."""
+    (pk, sk, zk), (pr, sr, zr) = got, want
+    torch.cuda.synchronize()
+    assert pk.shape == pr.shape and sk.shape == sr.shape
+    assert torch.equal(zk, zr)
+    assert (sk.view(torch.int32) - sr.view(torch.int32)).abs().max() <= 1
+    D = x.shape[-1]
+    a, b = unpack_ref(pk, bits, D), unpack_ref(pr, bits, D)
+    if group:
+        lo = zr.repeat_interleave(group, 1)
+        sc = sr.repeat_interleave(group, 1)
+    else:
+        lo, sc = zr[..., None], sr[..., None]
+    q = (x.float() - lo) / sc
+    tie = (q - q.floor() - 0.5).abs() <= KV_TIE
+    diff = (a - b).abs()
+    assert not ((diff > 1) | ((diff == 1) & ~tie)).any()
+
+
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("bits", [2, 4, 8])
@@ -751,33 +773,91 @@ def test_kvquant_kernels_match_plain(cuda, dt, bits, B, S, H, D, G):
             (kvq_ops.vquant_cuda, kvq_ops.vquant_kernel,
              lambda: vquant_ref(x, bits), 0)):
         n0 = kern.launches
-        pk, sk, zk = fn(x, bits=bits, group=G)
+        got = fn(x, bits=bits, group=G)
         assert kern.launches == n0 + 1
-        pr, sr, zr = plain()
-        torch.cuda.synchronize()
-        assert torch.equal(zk, zr)
-        assert (sk.view(torch.int32) - sr.view(torch.int32)).abs().max() <= 1
-        a, b = unpack_ref(pk, bits, D), unpack_ref(pr, bits, D)
-        if group:
-            lo = zr.repeat_interleave(group, 1)
-            sc = sr.repeat_interleave(group, 1)
-        else:
-            lo, sc = zr[..., None], sr[..., None]
-        q = (x.float() - lo) / sc
-        tie = (q - q.floor() - 0.5).abs() <= KV_TIE
-        diff = (a - b).abs()
-        assert not ((diff > 1) | ((diff == 1) & ~tie)).any()
+        _b6_matches_plain(x, got, plain(), bits, group)
+
+
+# vquant's edges, (B, S, H, D): D 64 / 128 (16 and 8 bf16 lanes a row,
+# 16 / 32 f32), D 20 (3 bf16 chunks, the last part-filled: element loads
+# and byte stores), 21 rows (not whole CTAs: 8 rows a CTA in bf16 at D
+# 128, 4 in f32), D 512 (f32: 4 chunks a lane, 2 held in registers and 2
+# read again)
+VQ_EDGES = {"D64": (2, 16, 4, 64), "D128": (8, 16, 8, 128),
+            "D20": (2, 16, 3, 20), "rows21": (1, 7, 3, 128),
+            "D512": (1, 4, 2, 512)}
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("case", list(VQ_EDGES))
+@pytest.mark.parametrize("offset", [False, True], ids=["aligned", "offset"])
+def test_vquant_kernel_at_edges(cuda, dt, bits, case, offset):
+    """vquant against `vquant_ref` at VQ_EDGES, on an aligned tensor and
+    on a view one element into its storage (no 16-byte loads), with one
+    constant row (the 1e-8 scale floor)."""
+    B, S, H, D = VQ_EDGES[case]
+    n = B * S * H * D
+    g = torch.Generator(device=cuda).manual_seed(n + bits)
+    flat = (torch.randn(n + 1, generator=g, device=cuda) * 3).to(dt)
+    x = (flat[1:] if offset else flat[:n]).view(B, S, H, D)
+    x[0, 0, 0] = 0.25
+    assert (x.data_ptr() % 16 != 0) == offset
+    n0 = kvq_ops.vquant_kernel.launches
+    got = kvq_ops.vquant_cuda(x, bits=bits, group=S)
+    assert kvq_ops.vquant_kernel.launches == n0 + 1
+    _b6_matches_plain(x, got, vquant_ref(x, bits), bits, 0)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("B,S,H,D,G,offset", [
+    (8, 128, 8, 128, 128, False), (1, 512, 8, 128, 128, False),
+    (2, 32, 1, 20, 16, False), (1, 64, 3, 40, 16, False),
+    (1, 1024, 2, 16, 512, False), (1, 21, 3, 64, 7, True)])
+def test_kvquant_fused_equals_separate(cuda, dt, bits, B, S, H, D, G,
+                                       offset):
+    """`kvquant_cuda` (one launch) bit-equal to `kquant_cuda` +
+    `vquant_cuda` on the same k and v, and within B6's bounds of the plain
+    versions; the last case reads both through views one element into
+    their storage. Only the fused counter moves."""
+    n = B * S * H * D
+    g = torch.Generator(device=cuda).manual_seed(n + bits)
+    flat = [(torch.randn(n + 1, generator=g, device=cuda) * 2).to(dt)
+            for _ in range(2)]
+    k, v = ((f[1:] if offset else f[:n]).view(B, S, H, D) for f in flat)
+    counts = [c.launches for c in (kvq_ops.kvquant_kernel,
+                                   kvq_ops.kquant_kernel,
+                                   kvq_ops.vquant_kernel)]
+    kf, vf = kvq_ops.kvquant_cuda(k, v, bits=bits, group=G)
+    assert [c.launches for c in (kvq_ops.kvquant_kernel,
+                                 kvq_ops.kquant_kernel,
+                                 kvq_ops.vquant_kernel)] == \
+        [counts[0] + 1, counts[1], counts[2]]
+    apart = (kvq_ops.kquant_cuda(k, bits=bits, group=G)
+             + kvq_ops.vquant_cuda(v, bits=bits, group=G))
+    for a, b in zip(kf + vf, apart):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert torch.equal(a, b)
+    _b6_matches_plain(k, kf, kquant_ref(k, bits, G), bits, G)
+    _b6_matches_plain(v, vf, vquant_ref(v, bits), bits, 0)
 
 
 def test_kvquant_refuses_what_it_does_not_take(cuda):
     x = torch.zeros(1, 64, 2, 32, device=cuda)
-    for fn in (kvq_ops.kquant_cuda, kvq_ops.vquant_cuda):
+    for fn in (kvq_ops.kquant_cuda, kvq_ops.vquant_cuda,
+               lambda x, **kw: kvq_ops.kvquant_cuda(x, x, **kw)):
         with pytest.raises(ValueError):
             fn(x, bits=3, group=16)                 # bits
         with pytest.raises(ValueError):
             fn(x, bits=2, group=48)                 # S % group
         with pytest.raises(ValueError):
             fn(x.half(), bits=2, group=16)          # dtype
+    for v in (x[:, :32], x.bfloat16(), x.cpu()):    # k and v differ
+        with pytest.raises(ValueError):
+            kvq_ops.kvquant_cuda(x, v, bits=2, group=16)
 
 
 @pytest.mark.parametrize("pname", ["full", "kivi2"])
@@ -785,7 +865,8 @@ def test_reduced_prefix_engine_on_card_matches_cpu(cuda, pname):
     """`Engine(prefix_sharing=True)` on templated prompts, reduced
     granite-8b in f32: the card's streams and prefix counters equal the
     CPU's, warm hits happen, and under kivi2 every flush and quantized
-    admission went through B6 (one kquant and one vquant per layer)."""
+    admission went through B6 in one launch a layer (the fused kvquant;
+    no standalone kquant / vquant launch)."""
     cfg = reduced(GRANITE)
     pol = presets(24, 8)[pname]
     gen = torch.Generator().manual_seed(3)
@@ -793,6 +874,8 @@ def test_reduced_prefix_engine_on_card_matches_cpu(cuda, pname):
     reqs = [torch.cat([shared, torch.randint(0, cfg.vocab_size, (8,),
                                              generator=gen)]).numpy()
             for _ in range(4)]
+    b6 = (kvq_ops.kvquant_kernel, kvq_ops.kquant_kernel,
+          kvq_ops.vquant_kernel)
     out = {}
     for dev in ("cpu", "cuda"):
         params = M.init_params(cfg, seed=0, device="cpu")
@@ -800,7 +883,7 @@ def test_reduced_prefix_engine_on_card_matches_cpu(cuda, pname):
         eng = Engine(cfg, params, pol, prompt_len=32, max_new=12, slots=2,
                      device=dev, paged=True, block_len=8,
                      prefix_sharing=True)
-        for k in (kvq_ops.kquant_kernel, kvq_ops.vquant_kernel):
+        for k in b6:
             k.launches = 0
         out[dev] = eng.generate_continuous(
             [Request(tokens=r, max_new=12) for r in reqs])
@@ -811,7 +894,32 @@ def test_reduced_prefix_engine_on_card_matches_cpu(cuda, pname):
         k: res.prefix[k] for k in ("warm_prefill_s", "cold_prefill_s")}
     want = ((res.kv_flush_steps + len(reqs)) * cfg.num_layers
             if pol.spec.quantized else 0)
-    assert kvq_ops.kquant_kernel.launches == want
-    assert kvq_ops.vquant_kernel.launches == want
+    assert [k.launches for k in b6] == [want, 0, 0]
+    for a, b in zip(out["cpu"].results, res.results):
+        assert a.tokens.tolist() == b.tokens.tolist()
+
+
+@pytest.mark.parametrize("pname", ["kivi4", "int8"])
+def test_reduced_quantized_presets_on_card_match_cpu(cuda, pname):
+    """The 4- and 8-bit KIVI presets, reduced granite-8b in f32: the
+    card's streams equal the CPU's, and every flush and quantized
+    admission went through the fused B6, once a layer."""
+    cfg = reduced(GRANITE)
+    pol = presets(16, 8)[pname]
+    reqs = [torch.randint(0, cfg.vocab_size, (n,), generator=torch.Generator()
+                          .manual_seed(n)).numpy() for n in (32, 48, 32)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = M.init_params(cfg, seed=0, device="cpu")
+        params = {k: _to(v, dev) for k, v in params.items()}
+        eng = Engine(cfg, params, pol, prompt_len=48, max_new=12, slots=2,
+                     buckets=(32, 48), device=dev)
+        kvq_ops.kvquant_kernel.launches = 0
+        out[dev] = eng.generate_continuous(
+            [Request(tokens=r, max_new=12) for r in reqs])
+    res = out["cuda"]
+    assert res.kv_flush_steps > 0
+    assert kvq_ops.kvquant_kernel.launches == \
+        (res.kv_flush_steps + len(reqs)) * cfg.num_layers
     for a, b in zip(out["cpu"].results, res.results):
         assert a.tokens.tolist() == b.tokens.tolist()

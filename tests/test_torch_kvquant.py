@@ -1,8 +1,9 @@
 """The port's fused KIVI quantize-and-pack (B6) against the JAX package on
 the CPU: `kquant_ref` / `vquant_ref` and the `ops.quantize_k` /
-`quantize_v` dispatch (CPU tensors: the plain versions) against
-`kquant_pallas` / `vquant_pallas` in interpret mode and against
-`repro.kernels.kvquant.ref`, over the cases of tests/test_kernels.py.
+`quantize_v` / `quantize_kv_pair` dispatch (CPU tensors: the plain
+versions) against `kquant_pallas` / `vquant_pallas` in interpret mode
+and against `repro.kernels.kvquant.ref`, over the cases of
+tests/test_kernels.py (and, for the pair, D 20).
 
 Against the jnp reference (which divides exactly, as the port does):
 codes and zeros exact, scales within rtol 1e-6 (the convention of
@@ -38,6 +39,7 @@ from repro_torch.kernels.kvquant import ref as kref
 SCALE_RTOL = 1e-6
 K_CASES = [(1, 64, 2, 32, 16), (2, 128, 4, 64, 32), (1, 32, 1, 128, 32)]
 V_CASES = [(2, 64, 2, 32, 16), (1, 128, 8, 64, 64)]
+PAIR_CASES = [(1, 64, 2, 32, 16), (2, 32, 3, 20, 16), (1, 128, 4, 64, 32)]
 DTYPES = {"f32": (torch.float32, jnp.float32),
           "bf16": (torch.bfloat16, jnp.bfloat16)}
 
@@ -113,6 +115,28 @@ def test_vquant_matches_pallas(bits, dt, B, S, H, D, G):
           "quantize_v vs jnp ref")
 
 
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("B,S,H,D,G", PAIR_CASES)
+def test_kv_pair_matches_pallas(bits, dt, B, S, H, D, G):
+    """`quantize_kv_pair` (the cache's one call per flush or admission)
+    against `kquant_pallas` on k and `vquant_pallas` on v, with the
+    bounds of the two tests above, and equal to the two standalone
+    dispatchers exactly."""
+    tk, jk = _x((B, S, H, D), 2, 2.0, dt)
+    tv, jv = _x((B, S, H, D), 3, 3.0, dt)
+    got_k, got_v = kvq.quantize_kv_pair(tk, tv, bits=bits, group=G)
+    _same(got_k, jkq.kquant_pallas(jk, bits=bits, group=G, interpret=True),
+          "pair K vs pallas", x=tk, bits=bits, per_channel=True)
+    _same(got_v, jkq.vquant_pallas(jv, bits=bits, group=G, interpret=True),
+          "pair V vs pallas", x=tv, bits=bits, per_channel=False)
+    apart = (kvq.quantize_k(tk, bits=bits, group=G)
+             + kvq.quantize_v(tv, bits=bits, group=G))
+    for a, b in zip(got_k + got_v, apart):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("bits", [2, 4, 8])
 def test_pack_unpack_round_trip(bits):
     q = np.random.default_rng(bits).integers(0, 1 << bits, (3, 4, 16))
@@ -133,9 +157,11 @@ def test_pack_unpack_round_trip(bits):
 
 @pytest.mark.parametrize("bits", [2, 4, 8])
 def test_fused_equals_quantization_module(bits):
-    """`quantize_kv` with the kernel (its plain version here) and with
-    `core.quantization` + `pack_codes`: the same packed codes, scales and
-    zeros, in the same layouts, bit for bit."""
+    """`quantize_kv` with the kernel (its plain version here), with
+    `core.quantization` + `pack_codes`, and from the two standalone
+    dispatchers `quantize_k` + `quantize_v` on the same k and v: the
+    same packed codes, scales and zeros, in the same layouts, bit for
+    bit."""
     spec = TC.CacheSpec(budget=32, window=16, group=16, bits=bits,
                         policy="streaming")
     k, _ = _x((2, 32, 2, 8), 5, 2.0, "bf16")
@@ -143,11 +169,16 @@ def test_fused_equals_quantization_module(bits):
     k[0, :16, 1] = 0.25                          # a constant group: 1e-8 floor
     fused = TC.quantize_kv(k, v, spec, use_kernels=True)
     plain = TC.quantize_kv(k, v, spec, use_kernels=False)
-    for a, b in zip(fused, plain):
-        for f in TQ.Quantized._fields:
-            ta, tb = getattr(a, f), getattr(b, f)
-            assert ta.shape == tb.shape and ta.dtype == tb.dtype, f
-            assert torch.equal(ta, tb), f
+    kp, ks, kz = kvq.quantize_k(k, bits=bits, group=16)
+    vp, vs, vz = kvq.quantize_v(v, bits=bits, group=16)
+    apart = (TQ.Quantized(kp, ks[:, :, None], kz[:, :, None]),
+             TQ.Quantized(vp, vs[..., None], vz[..., None]))
+    for other in (plain, apart):
+        for a, b in zip(fused, other):
+            for f in TQ.Quantized._fields:
+                ta, tb = getattr(a, f), getattr(b, f)
+                assert ta.shape == tb.shape and ta.dtype == tb.dtype, f
+                assert torch.equal(ta, tb), f
 
 
 def _kivi_spec():
@@ -194,8 +225,10 @@ def test_flush_and_compress_same_store_either_quantizer(paged):
 
 def test_refuses_what_it_does_not_take():
     """The CUDA wrappers take CUDA tensors only (a CPU tensor goes
-    through `quantize_k` / `quantize_v` to the plain versions)."""
+    through `quantize_k` / `quantize_v` / `quantize_kv_pair` to the plain
+    versions)."""
     x = torch.zeros(1, 32, 2, 16)
-    for fn in (kvq.kquant_cuda, kvq.vquant_cuda):
+    for fn in (kvq.kquant_cuda, kvq.vquant_cuda,
+               lambda x, **kw: kvq.kvquant_cuda(x, x, **kw)):
         with pytest.raises(ValueError):
             fn(x, bits=2, group=16)
