@@ -28,19 +28,26 @@ Phases, each printing its own lines; any failure exits non-zero:
               full / kivi2 / h2o+kivi2 over a paged pool with chunked
               prefill, then self-speculative decoding (gamma 4): full with
               the `same` drafter, kivi2 with a `window:64` drafter, full
-              paged + chunked with `same`; then the prefix cache (paged +
-              chunked, templated prompts): full and kivi2 with sharing,
-              each beside the same requests without, and full near-hits
-              through CacheBlend at recompute 1.0 and 0.25; each run must
-              go through its kernels, and only its kernels, as many times
-              as its steps (flushes and quantized admissions for KIVI)
+              paged + chunked with `same`; then the overload ladder
+              (paged + chunked, 8 requests): full with lazy block growth
+              and preemption on a pool that starves mid-decode, kivi2 with
+              three forced preemptions, each held token for token to its
+              unpreempted run with clean periodic pool audits; then the
+              prefix cache (paged + chunked, templated prompts): full and
+              kivi2 with sharing, each beside the same requests without,
+              and full near-hits through CacheBlend at recompute 1.0 and
+              0.25; each run must go through its kernels, and only its
+              kernels, as many times as its steps (flushes and quantized
+              admissions for KIVI; re-admissions of preempted requests)
   5. e2e      4-layer granite-8b: prefill + decode logits with the kernels
               against an engine built with use_kernels=False, dense and
               paged + chunked; then in f32 the speculative streams against
               the plain ones, the sharing streams against the non-sharing
               ones (and a near-hit at recompute 1.0 against a cold
-              admission), and kivi2 with the fused quantizer against the
-              plain one, token for token
+              admission), kivi2 with the fused quantizer against the
+              plain one, and preempted runs (dense, kivi2 paged + chunked,
+              lazy growth on a starving pool, speculative) against their
+              unpreempted twins, token for token
   6. profile  one decode step at full depth, 8 slots, dense and paged, and
               one verify round: wall vs dispatch time, device-busy time
               and the top kernels (torch.profiler); for h2o+kivi2 also a
@@ -995,6 +1002,21 @@ PAGED_RUNS = (("full", 640), ("kivi2", None), ("h2o+kivi2", None))
 # speculative runs (gamma GAMMA): (policy, drafter, paged + chunked?)
 SPEC_RUNS = (("full", "same", False), ("kivi2", "window:64", False),
              ("full", "same", True))
+# overload runs (paged + chunked, the first N_SHORT prompts), each held
+# token for token to the unpreempted paged + chunked run of its policy
+# above: (policy, engine options, forced preemptions or None). `full`
+# with lazy growth and preemption on a pool sized for typical load:
+# lazy admission under preemption covers prompt + 1 rows, 65 / 129
+# 16-row blocks for a 1024 / 2048-token prompt (776 for the 8), growth
+# to 1088 / 2112 rows needs 68 / 132 (800), so the 784-block pool
+# starves mid-decode; kivi2 at parity with three forced preemptions at
+# (dispatch, slot) pairs whose slots are active then (re-admissions run
+# B4 and B6 again; replay crosses ring flushes). Both audit the pool,
+# device block table included, every OVERLOAD_AUDIT dispatches.
+OVERLOAD_RUNS = (("full", dict(pool_blocks=784, block_growth="lazy",
+                               preemption=True), None),
+                 ("kivi2", dict(preempt_at=((8, 0), (20, 3), (40, 5))), 3))
+OVERLOAD_AUDIT = 16
 KERNELS = ("decode_attn", "flash_prefill", "decode_attn_paged",
            "flash_prefill_chunk", "flash_verify", "decode_qattn", "kquant",
            "vquant", "kvquant")
@@ -1162,10 +1184,128 @@ def phase_serve(info: dict) -> None:
                  f"{res.pool_peak_blocks} of {res.pool_blocks} blocks")
         del eng, res
         torch.cuda.empty_cache()
+    _serve_overload(info, params, kernels, prompts, plain)
     del plain
     _serve_prefix(info, params, kernels)
     del params
     torch.cuda.empty_cache()
+
+
+def _counted_audits(eng):
+    """Count the engine's audits that read the device block table (the
+    periodic ones); returns the one-element counter list."""
+    n = [0]
+    audit = eng._run_audit
+
+    def counted(sched, cache=None):
+        n[0] += cache is not None
+        return audit(sched, cache)
+
+    eng._run_audit = counted
+    return n
+
+
+def _serve_overload(info: dict, params, kernels, prompts, plain) -> None:
+    """The overload ladder at full width and depth (OVERLOAD_RUNS): every
+    request completes, preemptions happen (exactly the forced count where
+    forced), every audit is clean (the periodic ones with the device
+    block-table check), the pool peak stays within the pool, the bf16
+    streams equal the unpreempted run's for the same requests token for
+    token (replay repeats the same row operations at the same shapes),
+    and launches are exact: replay steps are decode steps, and each
+    preemption adds one re-admission (its prompt's B4 segments, and B6
+    once a layer under kivi2). Prints preemptions, retries, replayed
+    tokens, re-admission prefill seconds, tok/s and TTFT beside the
+    unpreempted run's, and the pool peak."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.granite_8b import CONFIG as cfg
+    from repro_torch.core.policy import presets
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.scheduler import Request
+    launches = info["launches"]
+    n_layers, C = cfg.num_layers, CHUNK_LEN
+    reqs_p = prompts[:N_SHORT]
+    for pname, opts, forced in OVERLOAD_RUNS:
+        pol = presets(budget=BUDGET, window=WINDOW)[pname]
+        eng = Engine(cfg, params, pol, prompt_len=max(BUCKETS),
+                     max_new=MAX_NEW, slots=SLOTS, buckets=BUCKETS,
+                     paged=True, chunked_prefill=True, chunk_len=C,
+                     audit_every=OVERLOAD_AUDIT, **opts)
+        n_audit = _counted_audits(eng)
+        label = (f"{pname} paged+chunked overload "
+                 + ("lazy+preemption" if forced is None
+                    else f"preempt_at {eng.preempt_at}")
+                 + f" pool {eng.pool_blocks}")
+        torch.cuda.synchronize()
+        for k in kernels.values():
+            k.launches = 0
+        t1 = time.perf_counter()
+        res = eng.generate_continuous([Request(tokens=p, max_new=MAX_NEW)
+                                       for p in reqs_p])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        n = {name: k.launches for name, k in kernels.items()}
+        for name in KERNELS:
+            launches[name] += n[name]
+        base = plain[(pname, True)]
+        # the same requests' mean TTFT in the unpreempted run
+        base_ttft = float(np.mean([r.ttft_s
+                                   for r in base.results[:N_SHORT]]))
+        n_pre = sum(r.n_preemptions for r in res.results)
+        n_ret = sum(r.n_retries for r in res.results)
+        done = [r for r in res.results if r.finish_reason == "length"
+                and r.n_tokens == MAX_NEW]
+        same = sum(a.tokens.tolist() == b.tokens.tolist()
+                   for a, b in zip(res.results, base.results[:N_SHORT]))
+        print(f"[serve] {label}: {len(done)}/{N_SHORT} requests completed "
+              f"(reasons {sorted({r.finish_reason for r in res.results})}); "
+              f"{n_pre} preemptions ({[r.n_preemptions for r in res.results]}"
+              f" per request), {n_ret} admission retries, "
+              f"{res.replayed_tokens} tokens replayed, re-admission prefill "
+              f"{res.readmit_prefill_s:.3f} of {res.prefill_seconds:.3f} s; "
+              f"decode {res.decode_tokens_per_s:.1f} tok/s over "
+              f"{res.decode_steps} steps vs unpreempted "
+              f"{base.decode_tokens_per_s:.1f} over {base.decode_steps}, "
+              f"ttft mean {res.ttft_mean_s:.3f} vs {base_ttft:.3f} s (the "
+              f"same requests; unpreempted run: {len(base.results)} "
+              f"requests); pool peak "
+              f"{res.pool_peak_blocks}/{res.pool_blocks} blocks (unpreempted "
+              f"{base.pool_peak_blocks}/{base.pool_blocks}); {n_audit[0]} "
+              f"device-table audits, all clean; bf16 streams equal to the "
+              f"unpreempted run: {same}/{N_SHORT}; wall {wall:.2f} s; "
+              f"launches " + " ".join(f"{k} {v}" for k, v in n.items()))
+        info.setdefault("overload_serve", []).append(dict(
+            label=label, preemptions=n_pre, retries=n_ret,
+            replayed=res.replayed_tokens,
+            readmit_prefill_s=res.readmit_prefill_s,
+            prefill_s=res.prefill_seconds, tok_s=res.decode_tokens_per_s,
+            base_tok_s=base.decode_tokens_per_s, ttft=res.ttft_mean_s,
+            base_ttft=base_ttft, peak=res.pool_peak_blocks,
+            pool=res.pool_blocks, wall=wall))
+        if len(done) != N_SHORT:
+            fail(f"{label}: only {len(done)} of {N_SHORT} requests "
+                 "completed")
+        if (n_pre < 1) if forced is None else (n_pre != forced):
+            fail(f"{label}: {n_pre} preemptions, want "
+                 + ("at least 1" if forced is None else f"exactly {forced}"))
+        if not (n_audit[0] >= 1 and eng.last_audit["clean"]
+                and res.pool_peak_blocks <= res.pool_blocks):
+            fail(f"{label}: {n_audit[0]} device-table audits, last "
+                 f"{eng.last_audit}, peak {res.pool_peak_blocks} of "
+                 f"{res.pool_blocks} blocks")
+        if same != N_SHORT:
+            fail(f"{label}: {N_SHORT - same} bf16 streams differ from the "
+                 "unpreempted run's")
+        segments = sum(-(-len(p) // C) * (1 + r.n_preemptions)
+                       for p, r in zip(reqs_p, res.results))
+        want = _want_launches(eng, res, n_layers, N_SHORT + n_pre, segments)
+        if n != want:
+            fail(f"{label}: kernel launches {n}, want {want} "
+                 f"({res.decode_steps} decode steps, {res.kv_flush_steps} "
+                 f"flush steps, {n_pre} re-admissions, {n_layers} layers)")
+        del eng, res
+        torch.cuda.empty_cache()
 
 
 # prefix-cache runs: paged + chunked (CHUNK_LEN), SLOTS slots, MAX_NEW new
@@ -1412,6 +1552,7 @@ def phase_e2e(info: dict) -> None:
     torch.cuda.empty_cache()
     _e2e_spec()
     _e2e_prefix()
+    _e2e_preempt()
 
 
 # speculative e2e, 4-layer granite-8b in f32 with the kernels: requests,
@@ -1599,6 +1740,74 @@ def _e2e_prefix() -> None:
         fail(f"e2e prefix: B6 and the plain quantizer store {diff} "
              "differing entries (f32 inputs: no ties expected)")
     del params, eng
+    torch.cuda.empty_cache()
+
+
+# preemption e2e, 4-layer granite-8b in f32 with the kernels: the
+# speculative e2e's requests, new tokens and slots; (label, engine
+# options, ladder options, forced preemptions or None: at least one).
+# The forced (dispatch or round, slot) pairs name slots active then; the
+# lazy pool (392 blocks of 16 rows) is under the 4 slots' growth (2 x 66
+# + 2 x 130 blocks), so it starves.
+_CHUNKED = dict(paged=True, chunked_prefill=True, chunk_len=CHUNK_LEN)
+E2E_PREEMPT_RUNS = (
+    ("full dense", {}, dict(preempt_at=((4, 0), (9, 2), (15, 1))), 3),
+    ("kivi2 paged+chunked", _CHUNKED,
+     dict(preempt_at=((6, 0), (14, 1), (30, 2))), 3),
+    ("full paged+chunked lazy", _CHUNKED,
+     dict(pool_blocks=392, block_growth="lazy", preemption=True,
+          audit_every=8), None),
+    ("full paged+chunked spec[same]",
+     dict(_CHUNKED, speculative=True, gamma=GAMMA, draft_policy="same"),
+     dict(preempt_at=((3, 0), (12, 1), (20, 2))), 3),
+)
+
+
+def _e2e_preempt() -> None:
+    """Recompute-on-resume in f32 with the kernels, token for token and
+    with no margin: each run of E2E_PREEMPT_RUNS against its unpreempted
+    twin (`full` dense: B2 re-prefill, B1 replay; kivi2: B4 / B6 again at
+    re-admission, B3 replay across ring flushes; lazy growth starving the
+    pool; the speculative loop's replay through plain rounds)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.granite_8b import CONFIG
+    from repro_torch.core.policy import presets
+    from repro_torch.nn import model as M
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.scheduler import Request
+    cfg = CONFIG.replace(num_layers=E2E_LAYERS, dtype=torch.float32)
+    params = M.init_params(cfg, seed=7, device="cuda")
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab_size, size=BUCKETS[i % 2])
+               for i in range(E2E_SPEC_REQUESTS)]
+    for label, opts, ladder, forced in E2E_PREEMPT_RUNS:
+        pname = label.split()[0]
+        out = []
+        for kw in ({}, ladder):
+            eng = Engine(cfg, params,
+                         presets(budget=BUDGET, window=WINDOW)[pname],
+                         prompt_len=max(BUCKETS), max_new=E2E_SPEC_NEW,
+                         slots=E2E_SPEC_SLOTS, buckets=BUCKETS, **opts, **kw)
+            out.append(eng.generate_continuous(
+                [Request(tokens=p, max_new=E2E_SPEC_NEW) for p in prompts]))
+            if eng.paged and not eng.last_audit["clean"]:
+                fail(f"e2e preempt {label}: pool audit {eng.last_audit}")
+        twin, res = out
+        n_pre = sum(r.n_preemptions for r in res.results)
+        same = sum(a.tokens.tolist() == b.tokens.tolist()
+                   and a.finish_reason == b.finish_reason == "length"
+                   for a, b in zip(res.results, twin.results))
+        print(f"[e2e] preempt f32 {label} {ladder}: {n_pre} preemptions, "
+              f"{res.replayed_tokens} tokens replayed; {same}/"
+              f"{len(prompts)} streams token-equal to the unpreempted run")
+        if (n_pre < 1) if forced is None else (n_pre != forced):
+            fail(f"e2e preempt {label}: {n_pre} preemptions, want "
+                 + ("at least 1" if forced is None else f"exactly {forced}"))
+        if same != len(prompts):
+            fail(f"e2e preempt {label}: {len(prompts) - same} streams "
+                 "differ from the unpreempted run's")
+    del params
     torch.cuda.empty_cache()
 
 

@@ -34,14 +34,21 @@ allocator refcounts every holder (slots and the prefix index), an insert
 skips the adopted leading blocks (`n_skip`), and copy-on-write clones
 shared blocks into fresh ones (`copy_pool_blocks`).
 
-Not ported yet: `FaultPlan`, `HostTier`, `degrade_slot_groups`, the
-pool-block gather / scatter of tiering, and lazy block growth.
+Lazy block growth grants a slot further blocks as it decodes
+(`write_block_table` into its row) and a speculative rollback returns
+them (`clear_block_table_from`); `FaultPlan` injects deterministic
+allocator refusals and refcount skew, which `audit_pool` must catch.
+
+Not ported yet: `HostTier`, `degrade_slot_groups` and the pool-block
+gather / scatter of tiering.
 """
 from __future__ import annotations
 
+import random
 import warnings
+from dataclasses import dataclass
 from typing import (Dict, Iterable, List, Mapping, NamedTuple, Optional,
-                    Sequence)
+                    Sequence, Tuple)
 
 import torch
 
@@ -402,6 +409,34 @@ def clear_block_table_from(stacked: PagedLayerKV, slot_idx: int, start: int,
 # ---------------------------------------------------------------------------
 
 
+@dataclass(frozen=True)
+class FaultPlan:
+    """Deterministic fault injection for `BlockAllocator` (as
+    `repro.core.paging.FaultPlan`), the test harness of the overload
+    ladder. Faults are keyed by alloc-call index (0-based count of `alloc`
+    calls), so a plan replays identically against the same workload:
+
+      * `fail_allocs` — call indices refused although the free list
+        could cover them (a transient exhaustion);
+      * `fail_rate` — extra refusals drawn from `random.Random(seed)`,
+        one draw per would-succeed call; `max_failures` bounds the total;
+      * `skew_alloc` / `skew_delta` — silently corrupt the refcount of
+        the first id handed out by call `skew_alloc` (positive leaks the
+        block, negative under-counts it); `audit_pool` must catch either.
+
+    The reference's fetch faults (`fail_fetches`, `fetch_fail_rate`,
+    `max_fetch_failures`, `delay_fetches`, `fetch_delay_s`) drive the host
+    tier's swap path, which is not ported: they come with it. A plan that
+    names one is refused here (TypeError) rather than silently ignored."""
+
+    seed: int = 0
+    fail_allocs: Tuple[int, ...] = ()
+    fail_rate: float = 0.0
+    max_failures: Optional[int] = None
+    skew_alloc: Optional[int] = None
+    skew_delta: int = 1
+
+
 class PoolAuditError(AssertionError):
     """A pool invariant audit failed; the message lists every violation."""
 
@@ -413,15 +448,24 @@ class BlockAllocator:
     untouched (admission refusal). `incref` adds a holder (the prefix
     index, a slot adopting a shared block); `free` drops one reference
     and recycles the block with its last. Freeing or increfing a block
-    that is not allocated raises."""
+    that is not allocated raises. `fault_plan` (a `FaultPlan`) injects
+    deterministic refusals and refcount skew; without one the allocator
+    never refuses a call it can cover."""
 
-    def __init__(self, n_blocks: int):
+    def __init__(self, n_blocks: int, *,
+                 fault_plan: Optional[FaultPlan] = None):
         if n_blocks < 1:
             raise ValueError(f"need >= 1 block, got {n_blocks}")
         self.n_blocks = n_blocks
         self._free: List[int] = list(range(n_blocks - 1, -1, -1))
         self._refs: Dict[int, int] = {}
         self.peak_used = 0
+        self.fault_plan = fault_plan
+        self.alloc_calls = 0
+        self.faults_injected = 0
+        self.skews_injected = 0
+        self._fault_rng = (random.Random(fault_plan.seed)
+                           if fault_plan is not None else None)
 
     @property
     def available(self) -> int:
@@ -437,14 +481,36 @@ class BlockAllocator:
     def refcounts(self) -> Dict[int, int]:
         return dict(self._refs)
 
+    def _inject_failure(self, call_idx: int, n: int) -> bool:
+        """True when the fault plan refuses this (would-succeed) call."""
+        plan = self.fault_plan
+        if plan is None or n == 0 or n > len(self._free):
+            return False
+        if (plan.max_failures is not None
+                and self.faults_injected >= plan.max_failures):
+            return False
+        # draw before the explicit-index check, so the stream depends only
+        # on the sequence of would-succeed calls (replayable)
+        r = self._fault_rng.random() if plan.fail_rate > 0.0 else 1.0
+        return call_idx in plan.fail_allocs or r < plan.fail_rate
+
     def alloc(self, n: int) -> Optional[List[int]]:
         if n < 0:
             raise ValueError(f"negative block count {n}")
+        call_idx = self.alloc_calls
+        self.alloc_calls += 1
+        if self._inject_failure(call_idx, n):
+            self.faults_injected += 1
+            return None
         if n > len(self._free):
             return None
         ids = [self._free.pop() for _ in range(n)]
         for i in ids:
             self._refs[i] = 1
+        plan = self.fault_plan
+        if plan is not None and plan.skew_alloc == call_idx and ids:
+            self._refs[ids[0]] += plan.skew_delta
+            self.skews_injected += 1
         self.peak_used = max(self.peak_used, self.used)
         return ids
 
@@ -524,6 +590,10 @@ def audit_pool(allocator: BlockAllocator,
             skewed.append(i)
             problems.append(f"block {i} refcount skew: allocator="
                             f"{refs.get(i, 0)} holders={n_hold}")
+    for i, r in sorted(refs.items()):
+        if r <= 0:
+            skewed.append(i)
+            problems.append(f"block {i} has nonpositive refcount {r}")
 
     if block_tbl is not None:
         import numpy as np

@@ -25,6 +25,12 @@ seed, on the card unless ``--device cpu``.
     python -m repro_torch.launch.serve --arch granite-8b --reduced \\
         --policy full --continuous --buckets 128 --paged \\
         --prefix-sharing --shared-prefix 96
+
+    # overload ladder: lazy block growth on a small pool; a starved slot
+    # preempts the least-progressed one, which later resumes by replay
+    python -m repro_torch.launch.serve --arch granite-8b --reduced \\
+        --policy full --continuous --paged --block-growth lazy \\
+        --preemption --pool-blocks 70 --audit-every 4
 """
 from __future__ import annotations
 
@@ -111,6 +117,28 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                          "exact prefix recomputes only this fraction of "
                          "its tokens instead of a full prefill "
                          "(approximate below 1; 0 disables)")
+    ap.add_argument("--block-growth", choices=("eager", "lazy"),
+                    default="eager",
+                    help="paged block reservation: eager reserves a "
+                         "request's whole budgeted length at admission; "
+                         "lazy grants blocks as it decodes (a starved slot "
+                         "preempts with --preemption, else retires 'oom')")
+    ap.add_argument("--admission-order", choices=("fifo", "shortest-prompt"),
+                    default="fifo",
+                    help="queue order of admissions: shortest-prompt lets "
+                         "short prompts jump long ones")
+    ap.add_argument("--preemption", action="store_true",
+                    help="overload ladder (--continuous only): a pool-"
+                         "starved admission or decode step preempts the "
+                         "least-progressed resident slot, which requeues "
+                         "and resumes with an equal stream by prompt "
+                         "re-prefill + token replay; requests fail only "
+                         "when they cannot fit an empty pool")
+    ap.add_argument("--audit-every", type=int, default=0,
+                    help="audit the pool (allocator refcounts vs slot "
+                         "grants vs device block tables vs prefix index) "
+                         "every N decode steps (--paged only; 0 = only at "
+                         "the end of the run)")
     ap.add_argument("--shared-prefix", type=int, default=0,
                     help="give every synthetic request the same leading N "
                          "tokens (exercises --prefix-sharing warm hits)")
@@ -130,6 +158,13 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         ap.error("--prefix-sharing and --speculative are mutually "
                  "exclusive (the draft cache holds no block tables to "
                  "share)")
+    if args.block_growth == "lazy" and not args.paged:
+        ap.error("--block-growth lazy requires --paged")
+    if args.preemption and not args.continuous:
+        ap.error("--preemption requires --continuous (wave requests "
+                 "never contend for a shared pool)")
+    if args.audit_every and not args.paged:
+        ap.error("--audit-every requires --paged (it audits the pool)")
 
     device = resolve_device(args.device)
     use_kernels = args.use_kernels == "on"
@@ -152,7 +187,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                      chunk_len=args.chunk_len, speculative=args.speculative,
                      gamma=args.gamma, draft_policy=args.draft_policy,
                      prefix_sharing=args.prefix_sharing,
-                     near_hit=args.near_hit)
+                     near_hit=args.near_hit, block_growth=args.block_growth,
+                     admission_order=args.admission_order,
+                     preemption=args.preemption,
+                     audit_every=args.audit_every)
         eos = args.eos_id if args.eos_id >= 0 else None
         shared = (rng.integers(0, cfg.vocab_size, size=args.shared_prefix)
                   if args.shared_prefix > 0 else np.zeros(0, np.int64))
@@ -180,10 +218,18 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
               f"(logical {res.cache_logical_bytes / 2**20:.1f} MiB vs "
               f"full {res.full_cache_bytes / 2**20:.1f} MiB; resident "
               f"{res.cache_physical_bytes / 2**20:.1f} MiB)")
+        n_pre = sum(r.n_preemptions for r in res.results)
+        n_ret = sum(r.n_retries for r in res.results)
+        if args.preemption or n_pre or n_ret:
+            print(f"overload: {n_pre} preemptions, {n_ret} admission "
+                  f"retries across {len(res.results)} requests")
         if args.paged:
+            a = eng.last_audit
             print(f"paged: pool {res.pool_blocks} blocks, peak "
                   f"{res.pool_peak_blocks}, failed {len(res.failed())}, "
-                  f"audit clean={eng.last_audit['clean']}")
+                  f"oom {sum(r.finish_reason == 'oom' for r in res.results)}"
+                  f"; pool audit clean={a['clean']} ({a['allocated']} "
+                  f"allocated / {a['free']} free of {a['n_blocks']} blocks)")
         if res.spec is not None:
             print(res.spec.describe())
         if res.prefix is not None:

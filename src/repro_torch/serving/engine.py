@@ -40,16 +40,29 @@ prompts through CacheBlend's selective recompute
 (`serving.cacheblend`). Every sharing admission goes through the chunked
 machinery, so streams equal those of a run without sharing.
 
-Not ported yet (the constructor raises NotImplementedError): lazy block
-growth, the overload ladder (preemption, degradation) and tiering;
-samplers other than greedy; tracing and metrics.
+**The overload ladder** (paged). With ``block_growth="lazy"`` an
+admission reserves only its prompt's blocks and a slot is granted more as
+it decodes (a host mirror of its row counts decides each grant, no device
+read). With ``preemption=True`` a starved grant or admission preempts the
+least-progressed resident slot: its request requeues at the front as a
+continuation, and on re-admission re-prefills its prompt and *replays*
+its emitted tokens through ordinary decode steps (outputs discarded), so
+its stream equals an unpreempted one. Without preemption a starved slot
+retires "oom". ``preempt_at`` forces preemptions at given (dispatch,
+slot) pairs, ``fault_plan`` injects allocator refusals and refcount skew,
+and ``audit_every`` audits the pool, its device block table included,
+every N dispatches. ``admission_order="shortest-prompt"`` admits the
+shortest queued prompt first.
+
+Not ported yet (the constructor raises NotImplementedError):
+degradation, tiering, samplers other than greedy; tracing and metrics.
 """
 from __future__ import annotations
 
 import math
 import time
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Union
+from typing import Callable, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -108,6 +121,11 @@ class ContinuousGenerationResult:
     # append steps whose quantized ring flushed (host-decided; one per
     # decode step, verify sub-step or drafter step that flushed any row)
     kv_flush_steps: int = 0
+    # recompute-on-resume: tokens re-fed through the decode path (the
+    # continuation prefixes at re-admission) and the seconds spent
+    # re-prefilling the preempted prompts (part of prefill_seconds)
+    replayed_tokens: int = 0
+    readmit_prefill_s: float = 0.0
 
     def failed(self) -> List[RequestResult]:
         """Requests retired without being served (a paged pool too small
@@ -140,6 +158,8 @@ class _ChunkedAdmission:
     n_adopt: int = 0               # leading blocks adopted read-only
     blend: bool = False            # near-hit CacheBlend admission
     secs: float = 0.0              # accumulated prefill seconds
+    stalls: int = 0                # consecutive refused grants (the
+                                   # preemption ladder's trigger)
 
 
 class RingMirror:
@@ -209,8 +229,11 @@ class Engine:
     `chunked_prefill` (with `chunk_len`), `speculative` (with `gamma`
     and `draft_policy`) and `prefix_sharing` (with `near_hit`, the
     CacheBlend recompute fraction; 0 turns near-hits off) apply to
-    `generate_continuous`, as in the JAX engine. `sampler` must be greedy
-    (the only one ported)."""
+    `generate_continuous`, as in the JAX engine, and so do the overload
+    ladder's `block_growth`, `admission_order`, `preemption` (with
+    `preempt_patience`, `fail_patience`), `preempt_at`, `fault_plan` and
+    `audit_every` (module docstring). `sampler` must be greedy (the only
+    one ported)."""
 
     def __init__(self, cfg, params, policy: CompressionPolicy, *,
                  prompt_len: Optional[int] = None, max_new: int,
@@ -219,19 +242,24 @@ class Engine:
                  paged: bool = False, block_len: int = 16,
                  pool_blocks: Optional[int] = None,
                  chunked_prefill: bool = False, chunk_len: int = 64,
-                 block_growth: str = "eager", speculative: bool = False,
+                 block_growth: str = "eager",
+                 admission_order: str = "fifo", speculative: bool = False,
                  gamma: int = 4, draft_policy: str = "window:64",
                  sampler=sampler_lib.greedy,
                  prefix_sharing: bool = False, near_hit: float = 0.0,
-                 preemption: bool = False, degrade: bool = False,
-                 tiering: bool = False):
-        for flag, on in (("block_growth='lazy'", block_growth == "lazy"),
-                         ("preemption", preemption), ("degrade", degrade),
-                         ("tiering", tiering)):
+                 preemption: bool = False, preempt_patience: int = 2,
+                 fail_patience: int = 3, degrade: bool = False,
+                 tiering: bool = False,
+                 fault_plan: Optional[paging.FaultPlan] = None,
+                 audit_every: int = 0,
+                 preempt_at: Sequence[Sequence[int]] = ()):
+        for flag, on in (("degrade", degrade), ("tiering", tiering)):
             if on:
                 raise NotImplementedError(f"{flag}: not yet ported")
         if block_growth not in ("eager", "lazy"):
             raise ValueError(f"unknown block_growth {block_growth!r}")
+        if admission_order not in ("fifo", "shortest-prompt"):
+            raise ValueError(f"unknown admission_order {admission_order!r}")
         if sampler is not sampler_lib.greedy:
             if speculative:
                 raise ValueError(
@@ -283,6 +311,33 @@ class Engine:
         self.block_allocator: Optional[paging.BlockAllocator] = None
         self.last_audit: Optional[dict] = None
 
+        # lazy decode-block growth (paged): an admission reserves only its
+        # prompt's blocks, decode blocks are granted as `pos` crosses block
+        # boundaries (a speculative rollback returns them)
+        if block_growth == "lazy" and not paged:
+            raise ValueError("block_growth='lazy' requires paged=True")
+        self.lazy_blocks = block_growth == "lazy"
+        self.admission_order = admission_order
+
+        # the overload ladder: a starved grant or admission preempts the
+        # least-progressed resident slot, which requeues as a continuation
+        # and replays its emitted tokens on re-admission. `preempt_at`
+        # ((dispatch, slot) pairs) forces preemptions; `fault_plan` and
+        # `audit_every` are the proof harness (injected allocator faults,
+        # pool audits during the run)
+        self.preempt_at = tuple((int(k), int(s)) for k, s in preempt_at)
+        self.preemption = bool(preemption) or bool(self.preempt_at)
+        self.preempt_patience = int(preempt_patience)
+        self.fail_patience = max(int(fail_patience), 1)
+        self.fault_plan = fault_plan
+        self.audit_every = int(audit_every)
+        if fault_plan is not None and not self.paged:
+            raise ValueError("fault_plan injects BlockAllocator faults; "
+                             "it requires paged=True")
+        if self.audit_every and not self.paged:
+            raise ValueError("audit_every audits the paged pool; it "
+                             "requires paged=True")
+
         # cross-request prefix sharing (paged + continuous only): a radix
         # index over the pool lets admissions sharing a prompt prefix map
         # the same blocks read-only and prefill only their suffix. Every
@@ -305,6 +360,8 @@ class Engine:
                                  f"(0, 1], got {self.near_hit}")
         self._share_state: Optional[dict] = None   # live during a sharing run
         self.flush_steps = 0
+        self.replayed_tokens = 0
+        self.readmit_prefill_s = 0.0
 
         # chunked prefill (continuous batching only): chunk_len snaps to
         # the mass group, so chunked and monolithic admissions fold the
@@ -407,12 +464,130 @@ class Engine:
             torch.cuda.synchronize(self.device)
 
     def _request_blocks(self, req: Request) -> int:
-        """Pool blocks an admission reserves (eager growth): the request's
-        whole budgeted length — prompt, decode headroom, quantization
-        slack."""
+        """Pool blocks an admission reserves. Eager growth: the request's
+        whole budgeted length (prompt, decode headroom, quantization
+        slack). Lazy growth: the prompt only, decode blocks come as `pos`
+        advances; under preemption also a continuation's replay rows and
+        the first new append, so a resumed slot never starves mid-replay
+        (two continuations could otherwise trade the pool forever) and
+        commits >= 1 new token before it can be preempted again."""
+        if self.lazy_blocks:
+            rows = len(req.tokens) + len(req.emitted_prefix)
+            if self.preemption:
+                rows += 1
+            return paging.request_blocks_prefix(self.spec, self._S_phys,
+                                                rows, self.block_len)
         return paging.request_blocks(self.spec, self._S_phys,
                                      len(req.tokens), req.max_new,
                                      self.block_len)
+
+    def _run_audit(self, sched: Scheduler, cache=None) -> dict:
+        """Pool invariant audit (`paging.audit_pool`): allocator refcounts
+        against every occupied slot's grant list and the prefix index;
+        with `cache`, also each active slot's device block table (read to
+        the host: a sync). Raises `PoolAuditError` on any violation; the
+        report lands on `self.last_audit`."""
+        index_blocks = ()
+        if self._share_state is not None:
+            index_blocks = self._share_state["index"].block_ids()
+        tbl = (cache.attn.block_tbl.cpu().numpy() if cache is not None
+               else None)
+        self.last_audit = paging.audit_pool(
+            self.block_allocator, sched.occupied_blocks(), index_blocks,
+            block_tbl=tbl, tbl_slots=sched.active_slots())
+        return self.last_audit
+
+    def _grow_blocks(self, sched: Scheduler, cache: M.ModelCache,
+                     slot: int, rows: int) -> bool:
+        """Lazy growth: grant the slot the blocks its first `rows`
+        main-store rows need and map them in its table row (on the stream,
+        behind every earlier write). False: the pool cannot cover them."""
+        need = paging.request_blocks_prefix(self.spec, self._S_phys, rows,
+                                            self.block_len)
+        have = len(sched.slot_blocks(slot))
+        if need <= have:
+            return True
+        if not sched.grant_blocks(slot, need - have):
+            return False
+        paging.write_block_table(
+            cache.attn, slot, have,
+            self._h2d_ids(sched.slot_blocks(slot)[have:], np.int32),
+            batch_axis=2)
+        return True
+
+    def _climb_ladder(self, sched: Scheduler, slot: int,
+                      grow: Callable[[], bool],
+                      preempt: Callable[[int], None],
+                      exclude: Sequence[int]) -> str:
+        """A lazy grant for `slot` was refused: retry it (each attempt a
+        fresh alloc call, so transient injected refusals pass), then, with
+        preemption on, preempt victims (never `slot` or `exclude`) until
+        it fits, and requeue `slot` itself if other work still holds
+        blocks that will free. Returns "granted", "preempted" (the slot
+        went back to the queue) or "oom" (the caller retires it: nothing
+        else will ever free blocks). `grow` retries the grant and
+        `preempt` evicts a slot, both in the calling loop's terms."""
+        if any(grow() for _ in range(self.fail_patience)):
+            return "granted"
+        if not self.preemption:
+            return "oom"
+        while (v := sched.preempt_victim(exclude=(slot, *exclude))
+               ) is not None:
+            preempt(v)
+            if grow():
+                return "granted"
+        if len(sched.active_slots()) > 1 or sched.prefilling_slots():
+            preempt(slot)
+            return "preempted"
+        return "oom"
+
+    def _retry_refused_admission(self, sched: Scheduler, ladder: bool,
+                                 preempt: Callable[[int], None],
+                                 exclude: Sequence[int]) -> bool:
+        """The pool refused the queue head's admission. With `ladder` and
+        preemption on, past `preempt_patience` refusals a victim (never
+        one in `exclude`) is preempted for its blocks. With nothing
+        running, nothing will ever free blocks: an injected refusal is
+        transient, so the head gets `fail_patience` more tries before it
+        is failed as unservable. True: try the head again."""
+        tries = sched.note_retry()
+        if ladder and self.preemption and tries > self.preempt_patience:
+            v = sched.preempt_victim(exclude=exclude)
+            if v is not None:
+                preempt(v)
+                return True
+        if not sched.active_slots() and not sched.prefilling_slots():
+            if tries > self.fail_patience:
+                sched.fail_head()
+            return True
+        return False
+
+    def _escalate_stall(self, sched: Scheduler,
+                        adm: Optional[_ChunkedAdmission],
+                        preempt: Callable[[int], None],
+                        exclude: Sequence[int]) -> None:
+        """A chunked admission whose grant has stalled past
+        `preempt_patience` claims a victim's blocks (never the
+        admission's own slot or one in `exclude`)."""
+        if (self.preemption and adm is not None
+                and adm.stalls > self.preempt_patience):
+            v = sched.preempt_victim(exclude=(adm.slot, *exclude))
+            if v is not None:
+                preempt(v)
+                adm.stalls = 0
+
+    def _new_scheduler(self, buckets) -> Scheduler:
+        """A fresh scheduler for one continuous run (paged: over a fresh
+        free list with the fault plan, kept for post-run inspection)."""
+        if not self.paged:
+            return Scheduler(buckets or self.buckets, self.slots,
+                             admission_order=self.admission_order)
+        self.block_allocator = paging.BlockAllocator(
+            self.pool_blocks, fault_plan=self.fault_plan)
+        return Scheduler(buckets or self.buckets, self.slots,
+                         allocator=self.block_allocator,
+                         block_need=self._request_blocks,
+                         admission_order=self.admission_order)
 
     def _verbatim_ok(self, bucket: int) -> bool:
         """True when prefill keeps every prompt row verbatim (no selection,
@@ -649,21 +824,37 @@ class Engine:
         elif not adm.blend:
             share["stats"]["cold"] += 1
 
-    def _grant(self, adm: _ChunkedAdmission, sched: Scheduler,
+    @staticmethod
+    def _grant(adm: _ChunkedAdmission, sched: Scheduler,
                target: int) -> bool:
         """Top the admission's grant up to `target` blocks. False: the pool
-        cannot cover it yet and the admission stalls until a retire. With
-        nothing decoding nothing will retire — impossible while every
-        admission fits the pool and only one is in flight."""
+        cannot cover it yet (`_note_adm_stall` decides what follows)."""
         if target <= adm.granted:
             return True
-        if sched.grant_blocks(adm.slot, target - adm.granted):
-            adm.granted = target
-            return True
+        if not sched.grant_blocks(adm.slot, target - adm.granted):
+            return False
+        adm.granted = target
+        adm.stalls = 0
+        return True
+
+    def _note_adm_stall(self, adm: _ChunkedAdmission, sched: Scheduler
+                        ) -> Optional[_ChunkedAdmission]:
+        """A grant for the in-flight admission was refused. With resident
+        work the admission just stalls (the loop's ladder may preempt a
+        victim once `stalls` passes the patience). With nothing active it
+        cannot happen unless faults are injected or preemption is on
+        (every admission fits the pool, only one is in flight); under
+        either a lone admission can starve, and is retired "failed" after
+        a bounded retry window instead of spinning forever."""
+        adm.stalls += 1
         if not sched.active_slots():
-            raise RuntimeError("chunked admission stalled with no active "
-                               "slots (allocator invariant violated)")
-        return False
+            if self.fault_plan is None and not self.preemption:
+                raise RuntimeError("chunked admission stalled with no active "
+                                   "slots (allocator invariant violated)")
+            if adm.stalls > self.preempt_patience + self.fail_patience + 8:
+                sched.retire(adm.slot, "failed")
+                return None
+        return adm
 
     def _advance_chunked_admission(self, adm: Optional[_ChunkedAdmission],
                                    sched: Scheduler, cache: M.ModelCache, *,
@@ -693,6 +884,7 @@ class Engine:
                 # in place before the insert scatters
                 if self.paged and not self._grant(adm, sched,
                                                   adm.total_blocks):
+                    adm = self._note_adm_stall(adm, sched)
                     break
                 self._insert(cache, sched, adm.slot, adm.pc,
                              pool_write=not adm.direct, n_skip=adm.n_adopt)
@@ -710,7 +902,9 @@ class Engine:
                                         paging.request_blocks_prefix(
                                             self.spec, self._S_phys, c1,
                                             self.block_len))):
-                    break                           # chunk-wise grants
+                    # chunk-wise grants: stall until blocks free up
+                    adm = self._note_adm_stall(adm, sched)
+                    break
                 adm.last_logits, _ = M.prefill_chunk(
                     self.params, self.cfg, adm.st,
                     self._h2d(adm.segs[i][None].astype(np.int64)), c0,
@@ -731,12 +925,20 @@ class Engine:
                 break
         dt = time.perf_counter() - t0
         cur.secs += dt
+        if first is not None and sched.slot_request(cur.slot).emitted_prefix:
+            self._note_readmit(sched.slot_request(cur.slot), cur.secs)
         if first is not None and self._share_state is not None:
             warm = cur.restore_m > 0 or cur.blend
             self._share_state["stats"][
                 "warm_prefill_s" if warm else "cold_prefill_s"].append(
                     cur.secs)
         return adm, first, dt
+
+    def _note_readmit(self, req: Request, secs: float) -> None:
+        """Account a continuation's re-admission: its prompt's prefill
+        seconds and the committed tokens it will replay."""
+        self.readmit_prefill_s += secs
+        self.replayed_tokens += len(req.emitted_prefix)
 
     def _logical_bytes_per_seq(self) -> float:
         """Per-sequence logical cache bytes under the layer budgets."""
@@ -828,20 +1030,15 @@ class Engine:
         if buckets and (self.chunked_prefill or self.prefix_sharing):
             self._check_aligned(buckets)
         self.flush_steps = 0
+        self.replayed_tokens = 0
+        self.readmit_prefill_s = 0.0
         self._share_state = None
         if self.speculative:
             # draft / verify loop: synchronous rounds, since drafting needs
             # each round's committed tokens
             return spec_lib.generate_continuous_spec(self, requests,
                                                      buckets=buckets)
-        if self.paged:
-            # a fresh free list per run, kept for post-run inspection
-            self.block_allocator = paging.BlockAllocator(self.pool_blocks)
-            sched = Scheduler(buckets or self.buckets, self.slots,
-                              allocator=self.block_allocator,
-                              block_need=self._request_blocks)
-        else:
-            sched = Scheduler(buckets or self.buckets, self.slots)
+        sched = self._new_scheduler(buckets)
         for r in requests:
             if not isinstance(r, Request):
                 r = Request(tokens=r, max_new=self.max_new)
@@ -891,6 +1088,20 @@ class Engine:
         fetch = _TokenFetch(self.device, self.slots)
         first_fetch = _TokenFetch(self.device, 1)
 
+        # lazy growth: a host mirror of each slot's row usage (append and
+        # flush timing depend only on counts, so no device read decides a
+        # grant)
+        lazy_mirror = (spec_lib.CacheMirror(self.spec, self.layer_budgets,
+                                            self._S_phys, self.slots)
+                       if self.lazy_blocks else None)
+        # pipeline and preemption state (admissions may preempt, and
+        # `preempt_slot` reads the in-flight token reads)
+        pending = None                          # (fetch handle, valid slots)
+        first_pending = None                    # (slot, fetch handle)
+        replay: dict = {}     # slot -> committed tokens still to re-feed
+        step_idx = 0                            # dispatches so far
+        preempt_due = list(self.preempt_at)     # forced (step, slot) pairs
+
         def reset(slot_idx: int) -> None:
             """Clear the slot so stale KV never leaks into a later
             occupant or the accounting — paged, so a stale table never
@@ -899,29 +1110,74 @@ class Engine:
             self._reset(cache, slot_idx)
             ring.clear(slot_idx)
             clean_slots.add(slot_idx)
+            if lazy_mirror is not None:
+                lazy_mirror.reset(slot_idx)
             if share is not None:
                 share["upto"].pop(slot_idx, None)
                 share["mirror"].reset(slot_idx)
 
-        def admit_into(slot_idx: int) -> bool:
+        def fold_pending(s: int) -> Optional[str]:
+            """Record slot `s`'s committed-but-unread token before the slot
+            is cleared: a decode token riding `pending`, or a chunk-admitted
+            first token riding `first_pending`. Returns the finish reason
+            that token gave (None: none, or nothing was in flight)."""
+            nonlocal first_pending, decode_tokens
+            if pending is not None and s in pending[1]:
+                decode_tokens += 1
+                pending[1].remove(s)
+                # kvlint: ok(host-sync: a preemption or starved retire is a rare pressure event — read the pending token before the slot is cleared)
+                return sched.record_token(s, fetch.get(pending[0])[s])
+            if first_pending is not None and first_pending[0] == s:
+                handle = first_pending[1]
+                first_pending = None
+                # kvlint: ok(host-sync: a preemption or starved retire is a rare pressure event — read the pending first token before the slot is cleared)
+                return sched.record_token(s, int(first_fetch.get(handle)[0]))
+            return None
+
+        def preempt_slot(s: int) -> bool:
+            """Preempt slot `s`: fold its in-flight token into the record,
+            then requeue prompt + emitted tokens as a continuation and clear
+            the slot (its blocks return to the pool). If the folded token
+            finished the request it retires instead. The slot's stale
+            append of the step in flight precedes the reset on the stream.
+            True when the slot was preempted (not retired)."""
+            reason = fold_pending(s)
+            if reason is not None:
+                sched.retire(s, reason)
+            else:
+                sched.preempt(s)
+            reset(s)
+            replay.pop(s, None)
+            return reason is None
+
+        def set_tokens(feed: dict) -> None:
+            """Overwrite `tok_in` at the given slots with host tokens: one
+            indexed write, no sync."""
+            nonlocal tok_in
+            idx = self._h2d_ids(list(feed))
+            vals = self._h2d(np.array(list(feed.values()), np.int32))
+            tok_in = tok_in.index_put((idx,), vals)
+
+        def admit_into(slot_idx: int, ladder: bool = False) -> bool:
             """Fill a free slot from the queue: batch-1 prefill, copy into
             the live cache, record the first token. Loops in case a
             request finishes on its first token. True when a request now
-            occupies the slot (its first token in `next_tok`). Paged,
+            occupies the slot (its next feed in `next_tok`). Paged,
             `admit_next` refuses while the pool cannot cover the head;
-            the slot then idles until a retire frees blocks."""
+            the slot then idles until a retire frees blocks. `ladder`
+            (only at the loop top, never mid-record) lets a refused
+            admission preempt a victim for its blocks."""
             nonlocal prefill_s
             while True:
                 req = sched.admit_next(slot_idx)
                 if req is None:
-                    if self.paged and sched.pending:
-                        sched.note_retry()
-                        if (not sched.active_slots()
-                                and not sched.prefilling_slots()):
-                            # nothing running will ever free blocks: the
-                            # head does not fit this pool at all
-                            sched.fail_head()
-                            continue
+                    # replaying slots are never victims: a victim's
+                    # progress must have grown since its last preemption
+                    # (convergence)
+                    if (self.paged and sched.pending
+                            and self._retry_refused_admission(
+                                sched, ladder, preempt_slot, tuple(replay))):
+                        continue
                     if slot_idx not in clean_slots:
                         reset(slot_idx)
                     return False
@@ -930,9 +1186,21 @@ class Engine:
                 self._insert(cache, sched, slot_idx, pc)
                 ring.fill(slot_idx)
                 clean_slots.discard(slot_idx)
+                if lazy_mirror is not None:
+                    lazy_mirror.admit(slot_idx, len(req.tokens))
                 # kvlint: ok(host-sync: admission prefill's first token — once per admitted request, not per decode step)
                 tok_i = int(sampler_lib.greedy(logits).item())
                 prefill_s += time.perf_counter() - t0
+                if req.emitted_prefix:
+                    self._note_readmit(req, time.perf_counter() - t0)
+                    # recompute-on-resume: the prefill covered the prompt;
+                    # the committed tokens now replay through ordinary
+                    # decode steps (outputs discarded), each the decode step
+                    # it repeats. Nothing is recorded: the prefix holds
+                    # this prefill's first token already.
+                    next_tok[slot_idx] = req.emitted_prefix[0]
+                    replay[slot_idx] = list(req.emitted_prefix[1:])
+                    return True
                 next_tok[slot_idx] = tok_i
                 reason = sched.record_token(slot_idx, tok_i)
                 if reason is None:
@@ -946,15 +1214,14 @@ class Engine:
 
         # Double-buffered decode: step N+1 is dispatched from step N's
         # device-side tokens before the host reads step N's tokens. A
-        # slot that retires at step N already has a stale step N+1 in
-        # flight: its output is dropped from the valid set, and the
-        # admission's insert (or the reset) overwrites the slot, wiping
-        # the stale append, before the next dispatch. A chunked admission
+        # slot that retires (or is preempted) at step N already has a
+        # stale step N+1 in flight: its output is dropped from the valid
+        # set, and the admission's insert (or the reset) overwrites the
+        # slot, wiping the stale append, before the next dispatch; every
+        # write runs on one stream in that order. A chunked admission
         # joins the dispatch after its insert with its first token
         # device-side; the host reads that token one iteration later.
         tok_in = torch.as_tensor(next_tok, device=self.device)
-        pending = None                          # (fetch handle, valid slots)
-        first_pending = None                    # (slot, fetch handle)
         adm: Optional[_ChunkedAdmission] = None
         loop_t0 = time.perf_counter()
         prefill_at_loop = prefill_s
@@ -963,7 +1230,58 @@ class Engine:
                 t0 = time.perf_counter()
                 adm = self._start_chunked_admission(sched)
                 prefill_s += time.perf_counter() - t0
+            if preempt_due:
+                # forced preemptions: the deterministic preempt-at-step-k
+                # hook (dispatch count, as the JAX engine's)
+                for k_s in [x for x in preempt_due if x[0] == step_idx]:
+                    preempt_due.remove(k_s)
+                    if k_s[1] in sched.active_slots():
+                        preempt_slot(k_s[1])
+            self._escalate_stall(sched, adm, preempt_slot, tuple(replay))
+            if self.preemption and not use_adm and sched.pending:
+                # admission retry sweep: a head refused earlier may fit
+                # now, or may claim a victim through the ladder
+                for i in sched.free_slots():
+                    if not sched.pending or not admit_into(i, ladder=True):
+                        break
+                    set_tokens({i: int(next_tok[i])})
             active = sched.active_slots()
+            if (self.audit_every and step_idx
+                    and step_idx % self.audit_every == 0):
+                # kvlint: ok(host-sync: periodic pool audit reads the device block table — every audit_every dispatches, off by default)
+                self._run_audit(sched, cache)
+            if lazy_mirror is not None and active:
+                # lazy growth: every slot joining this dispatch needs table
+                # coverage for the row it appends. A slot the pool cannot
+                # grow climbs the ladder, or without it retires "oom" (its
+                # in-flight token recorded first). Refilled slots join the
+                # worklist, so their first append is covered too.
+                worklist = list(active)
+
+                def evict(v: int) -> None:
+                    preempt_slot(v)
+                    for q in (active, worklist):
+                        if v in q:
+                            q.remove(v)
+
+                while worklist:
+                    s = worklist.pop(0)
+                    rows = lazy_mirror.rows_after_feeds(s, 1)
+                    if self._climb_ladder(
+                            sched, s,
+                            lambda: self._grow_blocks(sched, cache, s, rows),
+                            evict, tuple(replay)) != "oom":
+                        continue
+                    sched.retire(s, fold_pending(s) or "oom")
+                    reset(s)
+                    active.remove(s)
+                    if sched.pending and not use_adm:
+                        for i in sched.free_slots():
+                            if not sched.pending or not admit_into(i):
+                                break
+                            set_tokens({i: int(next_tok[i])})
+                            active.append(i)
+                            worklist.append(i)
             if share is not None and active:
                 # copy-on-write: a slot whose next append could flush an
                 # eviction into its shared prefix blocks un-shares them
@@ -1006,27 +1324,35 @@ class Engine:
                         continue
                     # the pool cannot cover the un-share: retire the slot
                     # "oom", its committed-but-unread token recorded first
-                    reason = None
-                    if pending is not None and s in pending[1]:
-                        decode_tokens += 1
-                        # kvlint: ok(host-sync: un-share OOM retire is a rare pressure event — read the pending token before the slot dies)
-                        reason = sched.record_token(
-                            s, fetch.get(pending[0])[s])
-                        pending[1].remove(s)
-                    elif first_pending is not None and first_pending[0] == s:
-                        # kvlint: ok(host-sync: un-share OOM retire is a rare pressure event — read the pending first token before the slot dies)
-                        reason = sched.record_token(
-                            s, int(first_fetch.get(first_pending[1])[0]))
-                        first_pending = None
-                    sched.retire(s, reason or "oom")
+                    sched.retire(s, fold_pending(s) or "oom")
                     reset(s)
                     active.remove(s)
             new_pending = None
             if active:
                 tok_dev = self._decode(cache, tok_in[:, None], ring.advance())
                 sched.note_decode_step()
+                step_idx += 1
                 new_pending = (fetch.start(tok_dev), list(active))
                 tok_in = tok_dev                # feed N+1 from N, no sync
+                if replay:
+                    # recompute-on-resume: while a slot replays, a
+                    # dispatch's output recomputes an already-committed
+                    # token: drop it from the valid set and feed the next
+                    # committed token instead. With the queue empty the
+                    # dispatch just fed the last committed token, so its
+                    # output is the first new one and stays valid.
+                    feed = {}
+                    for s in [s for s in list(replay) if s in active]:
+                        if replay[s]:
+                            new_pending[1].remove(s)
+                            feed[s] = replay[s].pop(0)
+                        else:
+                            del replay[s]
+                    if feed:
+                        set_tokens(feed)
+                if lazy_mirror is not None:
+                    for s in active:
+                        lazy_mirror.append(s, 1)
                 if share is not None:
                     for s in active:
                         share["mirror"].append(s, 1)
@@ -1052,8 +1378,17 @@ class Engine:
                     slot0, ftok = first
                     ring.fill(slot0)
                     clean_slots.discard(slot0)
-                    tok_in[slot0:slot0 + 1] = ftok   # device to device
-                    first_pending = (slot0, first_fetch.start(ftok))
+                    creq = sched.slot_request(slot0)
+                    if lazy_mirror is not None:
+                        lazy_mirror.admit(slot0, len(creq.tokens))
+                    if creq.emitted_prefix:
+                        # chunk-admitted continuation: its recomputed first
+                        # token is in the prefix already; seed the replay
+                        set_tokens({slot0: int(creq.emitted_prefix[0])})
+                        replay[slot0] = list(creq.emitted_prefix[1:])
+                    else:
+                        tok_in[slot0:slot0 + 1] = ftok   # device to device
+                        first_pending = (slot0, first_fetch.start(ftok))
             if share is not None:
                 # distinct blocks the occupied slots map (the allocator's
                 # peak also counts the lingering prompt cache)
@@ -1094,19 +1429,14 @@ class Engine:
                             break
                         admitted.append(i)
                 if admitted:
-                    idx = torch.as_tensor(admitted, device=self.device)
-                    tok_in = tok_in.index_put(
-                        (idx,), torch.as_tensor(next_tok[admitted],
-                                                device=self.device))
+                    set_tokens({i: int(next_tok[i]) for i in admitted})
             pending = new_pending
         decode_s = ((time.perf_counter() - loop_t0)
                     - (prefill_s - prefill_at_loop))
         if self.paged:
             # every run ends with a host-side audit: all slots retired, so
             # every block still allocated must be the prefix index's
-            self.last_audit = paging.audit_pool(
-                self.block_allocator, sched.occupied_blocks(),
-                share["index"].block_ids() if share is not None else ())
+            self._run_audit(sched)
         return self._continuous_result(sched, cache, prefill_s=prefill_s,
                                        decode_s=decode_s,
                                        decode_tokens=decode_tokens)
@@ -1152,4 +1482,6 @@ class Engine:
             compression_ratio=float(full / max(logical, 1.0)),
             policy_name=self.policy.name, spec=spec_stats,
             prefix=prefix_stats, kv_flush_steps=self.flush_steps,
+            replayed_tokens=self.replayed_tokens,
+            readmit_prefill_s=self.readmit_prefill_s,
             **pool_stats)

@@ -16,8 +16,12 @@ slots-wide cache, per-bucket prefill, the decode step) and drives this
 class — which makes the lifecycle unit-testable with a fake clock.
 Prefix sharing adds the `reclaim` hook (one retry of a refused
 allocation after the prefix index drops lingering blocks),
-`adopt_blocks` and `cow_swap`. Preemption and tiering (the tier-aware
-second reclaim pass) come with the slices that port those paths.
+`adopt_blocks` and `cow_swap`. The overload ladder adds `preempt` /
+`preempt_victim` (a preempted request requeues at the front as a
+continuation that carries its emitted tokens), `release_blocks` (lazy
+growth's rollback) and the shortest-prompt admission order. Tiering (the
+host-tier accounting and the tier-aware second reclaim pass) and
+degradation's `replace_blocks` come with the slices that port them.
 """
 from __future__ import annotations
 
@@ -44,7 +48,16 @@ class Request:
     max_new: int
     eos_id: Optional[int] = None
     uid: int = field(default_factory=lambda: next(_uid_counter))
-
+    # continuation state (preemption with recompute-on-resume): tokens
+    # emitted before a preemption ride the requeue; on re-admission the
+    # engine re-prefills the prompt and replays them through the decode
+    # path (outputs discarded), so the resumed stream equals an
+    # unpreempted one. Their timestamps and the true first-token time
+    # ride along for TTFT and per-token accounting.
+    emitted_prefix: List[int] = field(default_factory=list)
+    token_times_prefix: List[float] = field(default_factory=list)
+    t_first_prefix: float = 0.0
+    n_preemptions: int = 0
     n_retries: int = 0            # admission attempts refused by the pool
 
     def __post_init__(self):
@@ -53,6 +66,11 @@ class Request:
             raise ValueError(f"prompt must be 1-D, got {self.tokens.shape}")
         if self.max_new < 1:
             raise ValueError(f"max_new must be >= 1, got {self.max_new}")
+
+    @property
+    def remaining_new(self) -> int:
+        """Decode tokens still owed (max_new minus the carried prefix)."""
+        return self.max_new - len(self.emitted_prefix)
 
 
 @dataclass
@@ -68,6 +86,7 @@ class RequestResult:
     decode_s: float               # first token -> retirement
     token_times: np.ndarray = field(  # [n_emitted] clock at each token —
         default_factory=lambda: np.zeros(0))  # inter-token stall analysis
+    n_preemptions: int = 0        # times the request was preempted / resumed
     n_retries: int = 0            # admission attempts refused by the pool
 
     @property
@@ -87,6 +106,7 @@ class _SlotState:
     blocks: List[int] = field(default_factory=list)   # paged-pool block ids
     prefilling: bool = False      # chunked admission in flight: occupied,
                                   # not yet decoding (no tokens yet)
+    seq: int = -1                 # admission order (victim tie-break)
 
 
 class Scheduler:
@@ -115,12 +135,19 @@ class Scheduler:
     set by the engine under prefix sharing) is called with the shortfall
     when an allocation fails, to drop lingering prefix-index references
     before one retry: resident requests outrank the prompt cache.
+
+    **Preemption** (the overload ladder): `preempt` evicts an ACTIVE
+    slot's request back to the queue front as a continuation; the engine
+    picks the victim with `preempt_victim`. `admission_order=
+    "shortest-prompt"` admits the shortest queued prompt first (ties
+    FIFO) instead of the queue front.
     """
 
     def __init__(self, buckets: Sequence[int], n_slots: int, *,
                  clock: Callable[[], float] = time.perf_counter,
                  allocator=None,
                  block_need: Optional[Callable[[Request], int]] = None,
+                 admission_order: str = "fifo",
                  tracer=None):
         buckets = tuple(sorted({int(b) for b in buckets}))
         if not buckets or buckets[0] <= 0:
@@ -129,11 +156,14 @@ class Scheduler:
             raise ValueError(f"need >= 1 slot, got {n_slots}")
         if (allocator is None) != (block_need is None):
             raise ValueError("allocator and block_need come together")
+        if admission_order not in ("fifo", "shortest-prompt"):
+            raise ValueError(f"unknown admission_order {admission_order!r}")
         self.buckets = buckets
         self.n_slots = n_slots
         self.allocator = allocator
         self._block_need = block_need
         self._clock = clock
+        self.admission_order = admission_order
         # lifecycle tracing: the scheduler owns every request timestamp,
         # so it emits the request spans — submit / admit / first-token
         # instants, the queued + request complete events at retire.
@@ -145,6 +175,25 @@ class Scheduler:
         self.results: List[RequestResult] = []
         self._decode_steps = 0
         self._active_slot_steps = 0
+        self._admit_seq = itertools.count()
+        self.n_preemptions = 0        # fleet totals (per-request counts
+        self.n_retries = 0            # land on RequestResult)
+
+    def _head_idx(self) -> int:
+        """Queue index the next admission takes. FIFO: the front.
+        shortest-prompt: the shortest queued prompt (ties FIFO), so a
+        short request can jump a long one; long prompts still drain, since
+        every admission re-evaluates."""
+        if self.admission_order == "fifo" or len(self._queue) <= 1:
+            return 0
+        return min(range(len(self._queue)),
+                   key=lambda i: (len(self._queue[i][0].tokens), i))
+
+    def _pop_head(self) -> Tuple[Request, float]:
+        i = self._head_idx()
+        item = self._queue[i]
+        del self._queue[i]
+        return item
 
     # ---- queue -----------------------------------------------------------
     def bucket_for(self, prompt_len: int) -> int:
@@ -166,8 +215,9 @@ class Scheduler:
 
     def head_request(self) -> Optional[Request]:
         """The request admission takes next (None when the queue is
-        empty)."""
-        return self._queue[0][0] if self._queue else None
+        empty): the front, or under shortest-prompt the shortest queued
+        prompt."""
+        return self._queue[self._head_idx()][0] if self._queue else None
 
     # ---- slots -----------------------------------------------------------
     def free_slots(self) -> List[int]:
@@ -188,6 +238,9 @@ class Scheduler:
         st = self._slots[slot_idx]
         return st.req if st is not None else None
 
+    def all_done(self) -> bool:
+        return not self._queue and all(s is None for s in self._slots)
+
     def admit_next(self, slot_idx: int) -> Optional[Request]:
         """Pop the next queued request into a free slot (FIFO). Returns
         None when the queue is empty or (block-aware mode) the allocator
@@ -198,14 +251,14 @@ class Scheduler:
             return None
         blocks: List[int] = []
         if self.allocator is not None:
-            got = self._alloc(self._block_need(self._queue[0][0]))
+            got = self._alloc(self._block_need(self.head_request()))
             if got is None:
                 return None            # pool exhausted: wait for a retire
             blocks = got
-        req, t_submit = self._queue.popleft()
+        req, t_submit = self._pop_head()
         self._slots[slot_idx] = _SlotState(
             req, self.bucket_for(len(req.tokens)), t_submit, self._clock(),
-            blocks=blocks)
+            blocks=blocks, seq=next(self._admit_seq))
         if self.trace:
             self.trace.instant("admit", tid=slot_idx + 1,
                                args=dict(uid=req.uid, slot=slot_idx,
@@ -220,6 +273,14 @@ class Scheduler:
             raise ValueError(f"slot {slot_idx} is empty")
         return list(st.blocks)
 
+    def emitted_total(self, slot_idx: int) -> int:
+        """Tokens the slot's request has emitted across all residencies
+        (the continuation prefix plus this stint)."""
+        st = self._slots[slot_idx]
+        if st is None:
+            raise ValueError(f"slot {slot_idx} is empty")
+        return len(st.req.emitted_prefix) + len(st.emitted)
+
     # ---- chunked-prefill lifecycle (QUEUED -> PREFILLING -> ACTIVE) ------
     def begin_prefill(self, slot_idx: int) -> Optional[Request]:
         """Pop the head request into a free slot in the PREFILLING state:
@@ -231,10 +292,10 @@ class Scheduler:
             raise ValueError(f"slot {slot_idx} is occupied")
         if not self._queue:
             return None
-        req, t_submit = self._queue.popleft()
+        req, t_submit = self._pop_head()
         self._slots[slot_idx] = _SlotState(
             req, self.bucket_for(len(req.tokens)), t_submit, self._clock(),
-            prefilling=True)
+            prefilling=True, seq=next(self._admit_seq))
         if self.trace:
             self.trace.instant("admit", tid=slot_idx + 1,
                                args=dict(uid=req.uid, slot=slot_idx,
@@ -242,9 +303,10 @@ class Scheduler:
         return req
 
     def grant_blocks(self, slot_idx: int, n: int) -> bool:
-        """Grant `n` more pool blocks to an occupied slot (chunk-wise
-        pacing of a PREFILLING slot). False when the allocator cannot
-        cover them yet: the admission stalls until a retire."""
+        """Grant `n` more pool blocks to an occupied slot: chunk-wise
+        pacing of a PREFILLING slot, or lazy growth of an ACTIVE one. False
+        when the allocator cannot cover them yet (the admission stalls,
+        or the engine handles the starved decode)."""
         st = self._slots[slot_idx]
         if st is None:
             raise ValueError(f"slot {slot_idx} is empty")
@@ -311,6 +373,26 @@ class Scheduler:
             return
         self.allocator.free(ids)
 
+    def release_blocks(self, slot_idx: int, n: int) -> List[int]:
+        """Return the slot's `n` most recently granted blocks to the free
+        list (a speculative rollback dropped below a block boundary).
+        Grant order is table order, so popping from the tail releases
+        exactly the table entries no longer covered; the engine unmaps
+        them on the device (`paging.clear_block_table_from`) before the
+        ids can be granted again. Returns the freed ids."""
+        st = self._slots[slot_idx]
+        if st is None:
+            raise ValueError(f"slot {slot_idx} is empty")
+        if self.allocator is None or n <= 0:
+            return []
+        if n > len(st.blocks):
+            raise ValueError(f"release of {n} blocks, slot holds "
+                             f"{len(st.blocks)}")
+        freed = st.blocks[len(st.blocks) - n:]
+        del st.blocks[len(st.blocks) - n:]
+        self.release(slot_idx, freed)
+        return freed
+
     def finish_prefill(self, slot_idx: int) -> None:
         """PREFILLING -> ACTIVE: the admission's cache is inserted and
         the request starts decoding (TTFT clocks at the first
@@ -333,14 +415,14 @@ class Scheduler:
         now = self._clock()
         if not st.emitted:
             st.t_first = now
-            if self.trace:
+            if self.trace and not st.req.emitted_prefix:
                 self.trace.instant("first_token", tid=slot_idx + 1,
                                    args=dict(uid=st.req.uid))
         st.emitted.append(token)
         st.token_times.append(now)
         if st.req.eos_id is not None and token == st.req.eos_id:
             return "eos"
-        if len(st.emitted) >= st.req.max_new:
+        if len(st.req.emitted_prefix) + len(st.emitted) >= st.req.max_new:
             return "length"
         return None
 
@@ -352,18 +434,25 @@ class Scheduler:
         self.release(slot_idx, st.blocks)      # freed capacity is reusable
         now = self._clock()
         req = st.req
+        # a resumed request carries its pre-preemption tokens, their
+        # timestamps and the true first-token time: the result merges
+        # them with this stint's stream
+        tokens = req.emitted_prefix + st.emitted
+        times = req.token_times_prefix + st.token_times
+        t_first = req.t_first_prefix if req.emitted_prefix else st.t_first
         res = RequestResult(
             uid=req.uid,
-            tokens=np.asarray(st.emitted, np.int32),
+            tokens=np.asarray(tokens, np.int32),
             prompt_len=len(req.tokens),
             bucket=st.bucket,
             slot=slot_idx,
             finish_reason=reason,
             # a slot retired before its first token has no t_first
-            ttft_s=(st.t_first - st.t_submit) if st.emitted else 0.0,
+            ttft_s=(t_first - st.t_submit) if tokens else 0.0,
             total_s=now - st.t_submit,
-            decode_s=(now - st.t_first) if st.emitted else 0.0,
-            token_times=np.asarray(st.token_times, np.float64),
+            decode_s=(now - t_first) if tokens else 0.0,
+            token_times=np.asarray(times, np.float64),
+            n_preemptions=req.n_preemptions,
             n_retries=req.n_retries,
         )
         self.results.append(res)
@@ -377,8 +466,55 @@ class Scheduler:
             self.trace.complete(
                 "request", st.t_admit, now, tid=slot_idx + 1,
                 args=dict(uid=req.uid, reason=reason,
-                          tokens=len(st.emitted)))
+                          tokens=len(tokens),
+                          preemptions=req.n_preemptions))
         return res
+
+    # ---- preemption (the overload ladder: preempt -> fail) ---------------
+    def preempt(self, slot_idx: int) -> Request:
+        """Evict an ACTIVE slot's request and requeue it at the queue
+        front as a continuation: its blocks go back through `release`,
+        its emitted tokens (with their timestamps and the first-token
+        time) fold into the request's continuation prefix, and the
+        original submit time rides along. On re-admission the engine
+        re-prefills the prompt and replays the prefix through the decode
+        path."""
+        st = self._slots[slot_idx]
+        if st is None:
+            raise ValueError(f"slot {slot_idx} is empty")
+        if st.prefilling:
+            raise ValueError(f"slot {slot_idx} is prefilling; cancel the "
+                             "admission instead of preempting it")
+        self._slots[slot_idx] = None
+        self.release(slot_idx, st.blocks)
+        req = st.req
+        if st.emitted and not req.emitted_prefix:
+            req.t_first_prefix = st.t_first
+        req.emitted_prefix.extend(st.emitted)
+        req.token_times_prefix.extend(st.token_times)
+        req.n_preemptions += 1
+        self.n_preemptions += 1
+        self._queue.appendleft((req, st.t_submit))
+        if self.trace:
+            self.trace.instant("preempt", tid=slot_idx + 1,
+                               args=dict(uid=req.uid, slot=slot_idx,
+                                         emitted=len(req.emitted_prefix)))
+        return req
+
+    def preempt_victim(self, exclude: Sequence[int] = ()) -> Optional[int]:
+        """Victim policy: the ACTIVE slot with the lowest progress fraction
+        (emitted / max_new, continuation prefix included), the least sunk
+        recompute, ties broken youngest-admitted first so an old request
+        under repeated pressure still converges."""
+        best = None
+        for i, st in enumerate(self._slots):
+            if st is None or st.prefilling or i in exclude:
+                continue
+            done = len(st.req.emitted_prefix) + len(st.emitted)
+            key = (done / max(st.req.max_new, 1), -st.seq, i)
+            if best is None or key < best[0]:
+                best = (key, i)
+        return best[1] if best is not None else None
 
     def note_retry(self) -> int:
         """An admission attempt for the head request was refused by the
@@ -388,6 +524,7 @@ class Scheduler:
         if req is None:
             return 0
         req.n_retries += 1
+        self.n_retries += 1
         return req.n_retries
 
     def occupied_blocks(self) -> dict:
@@ -401,14 +538,22 @@ class Scheduler:
         Earlier completions keep their results."""
         if not self._queue:
             raise ValueError("queue is empty")
-        req, t_submit = self._queue.popleft()
+        req, t_submit = self._pop_head()
+        now = self._clock()
+        # a preempted continuation that proves unservable still surfaces
+        # the tokens it emitted
         res = RequestResult(
-            uid=req.uid, tokens=np.zeros(0, np.int32),
+            uid=req.uid, tokens=np.asarray(req.emitted_prefix, np.int32),
             prompt_len=len(req.tokens),
             bucket=self.bucket_for(len(req.tokens)), slot=-1,
-            finish_reason=reason, ttft_s=0.0,
-            total_s=self._clock() - t_submit, decode_s=0.0,
-            n_retries=req.n_retries)
+            finish_reason=reason,
+            ttft_s=((req.t_first_prefix - t_submit)
+                    if req.emitted_prefix else 0.0),
+            total_s=now - t_submit,
+            decode_s=((now - req.t_first_prefix)
+                      if req.emitted_prefix else 0.0),
+            token_times=np.asarray(req.token_times_prefix, np.float64),
+            n_preemptions=req.n_preemptions, n_retries=req.n_retries)
         self.results.append(res)
         if self.trace:
             self.trace.instant("request_failed",

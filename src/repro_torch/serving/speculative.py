@@ -31,8 +31,14 @@ Appends are row-masked: a slot that is not decoding (free, or mid chunked
 admission) never appends, so the mirrors of the active slots are the
 whole flush state.
 
-Not ported: preemption / replay, lazy block growth, `audit_every`,
-tracing and metrics (the engine refuses those options).
+**The overload ladder.** Under lazy block growth each round grants the
+blocks its verify appends need (a starved slot drops to a plain step,
+then climbs the ladder or retires "oom") and a rollback returns the
+blocks it no longer covers. A preempted slot drops its target and
+drafter state; on re-admission it replays its committed tokens through
+plain rounds (no drafts), then one more plain round, and drafts again.
+
+Not ported: tracing and metrics.
 """
 from __future__ import annotations
 
@@ -49,7 +55,7 @@ from repro_torch.core import paging
 from repro_torch.core.cache import CacheSpec
 from repro_torch.nn import model as M
 from repro_torch.serving import sampler as sampler_lib
-from repro_torch.serving.scheduler import Request, Scheduler
+from repro_torch.serving.scheduler import Request
 
 
 # ---------------------------------------------------------------------------
@@ -188,6 +194,13 @@ class CacheMirror:
             return int(self.spec.window - rl)
         return int(np.min(self.cap_rows - ln))
 
+    def rows_after_feeds(self, slot: int, n: int) -> int:
+        """Most main-store rows any layer uses after `n` more appends: the
+        paged block-coverage target (one table serves every layer, so
+        coverage follows the widest layer)."""
+        ln, _ = self._sim(slot, n)
+        return int(ln.max())
+
 
 # ---------------------------------------------------------------------------
 # Acceptance accounting
@@ -239,6 +252,15 @@ class _SlotSpecState:
     """Per-slot host state of the speculative lifecycle."""
     stream: List[int] = field(default_factory=list)   # prompt + committed
     fed: int = 0            # stream tokens whose KV the draft cache holds
+    # recompute-on-resume: committed tokens still to re-feed through the
+    # target cache (outputs discarded); while nonempty the slot drafts
+    # nothing (plain replay rounds)
+    replay: List[int] = field(default_factory=list)
+    # True from a continuation's admission until its first round past the
+    # replay: that round is plain too, so its one append stays inside the
+    # admission's resume reserve and always commits a new token (what
+    # makes preemption converge)
+    resumed: bool = False
 
 
 def generate_continuous_spec(eng, requests: Sequence[Union[Request,
@@ -251,13 +273,7 @@ def generate_continuous_spec(eng, requests: Sequence[Union[Request,
     gamma = eng.gamma
     dspec = eng.draft.spec
     stats = SpecStats(draft_policy=eng.draft.name, gamma=gamma)
-    if eng.paged:
-        eng.block_allocator = paging.BlockAllocator(eng.pool_blocks)
-        sched = Scheduler(buckets or eng.buckets, eng.slots,
-                          allocator=eng.block_allocator,
-                          block_need=eng._request_blocks)
-    else:
-        sched = Scheduler(buckets or eng.buckets, eng.slots)
+    sched = eng._new_scheduler(buckets)
     for r in requests:
         if not isinstance(r, Request):
             r = Request(tokens=r, max_new=eng.max_new)
@@ -291,6 +307,37 @@ def generate_continuous_spec(eng, requests: Sequence[Union[Request,
         slot_state[i] = _SlotSpecState()
         clean.add(i)
 
+    def replaying() -> List[int]:
+        """Slots mid-resume: never preemption victims (a victim must have
+        recorded progress since its last preemption). A continuation
+        stays exempt past its replay until its first new token commits
+        (`resumed`): the JAX loop exempts only a nonempty replay, so a
+        slot preempted between its last replay round and its first new
+        token resumes with nothing gained, and on a small pool two
+        admissions can trade it forever."""
+        return [i for i, st in enumerate(slot_state)
+                if st.replay or st.resumed]
+
+    def spec_preempt(i: int) -> None:
+        """Preempt slot `i`: requeue prompt + committed tokens as a
+        continuation and drop its target and drafter state (the drafter
+        re-prefills at re-admission). Every committed token was recorded
+        synchronously, so none is in flight."""
+        sched.preempt(i)
+        reset_slot(i)
+
+    def resume(slot: int, req: Request) -> None:
+        """A re-admitted continuation: the prompt's KV was just
+        prefilled (its sample is discarded, the first emitted token is in
+        the prefix); the recorded tokens re-enter through plain replay
+        rounds, all but the last with their outputs discarded; the last
+        one's output is the first new token."""
+        st = slot_state[slot]
+        st.stream = (list(map(int, req.tokens))
+                     + [int(t) for t in req.emitted_prefix])
+        st.replay = [int(t) for t in req.emitted_prefix[:-1]]
+        st.resumed = True
+
     def admit_draft(slot: int, req: Request) -> None:
         """Prefill + insert the drafter's cache for a just-admitted
         request (the drafter sees the same prompt under its own spec)."""
@@ -317,20 +364,21 @@ def generate_continuous_spec(eng, requests: Sequence[Union[Request,
             return True
         return False
 
-    def admit_into(slot: int) -> bool:
+    def admit_into(slot: int, ladder: bool = False) -> bool:
         """Monolithic admission of target and drafter caches, as the plain
-        loop's; True when a request now decodes in the slot."""
+        loop's; True when a request now decodes in the slot. `ladder`
+        (round-top sweep only: a victim reset mid-round would corrupt
+        the round's per-slot state) lets a refused admission preempt a
+        victim for its blocks."""
         nonlocal prefill_s
         while True:
             req = sched.admit_next(slot)
             if req is None:
-                if eng.paged and sched.pending:
-                    sched.note_retry()
-                    if (not sched.active_slots()
-                            and not sched.prefilling_slots()):
-                        # nothing running will ever free blocks
-                        sched.fail_head()
-                        continue
+                if (eng.paged and sched.pending
+                        and eng._retry_refused_admission(
+                            sched, ladder, spec_preempt,
+                            (slot, *replaying()))):
+                    continue
                 if slot not in clean:
                     reset_slot(slot)
                 return False
@@ -343,9 +391,35 @@ def generate_continuous_spec(eng, requests: Sequence[Union[Request,
             tok = int(sampler_lib.greedy(logits).item())
             prefill_s += time.perf_counter() - t0
             admit_draft(slot, req)
+            if req.emitted_prefix:
+                # the target's and the drafter's prefill
+                eng._note_readmit(req, time.perf_counter() - t0)
+                resume(slot, req)
+                return True
             if not record(slot, tok, count=False):
                 return True
             # 1-token request: retired at once, refill the slot
+
+    def grow_blocks_for(slot: int, n_appends: int) -> bool:
+        """Lazy growth: make the slot's table cover the rows its next
+        `n_appends` appends can touch. False: the pool is starved."""
+        return not eng.lazy_blocks or eng._grow_blocks(
+            sched, cache, slot, tmirror.rows_after_feeds(slot, n_appends))
+
+    def shrink_blocks_for(slot: int) -> None:
+        """Rollback's return to the free list: release the table entries
+        past the post-truncate row coverage, unmapped before they can be
+        granted again."""
+        if not eng.lazy_blocks:
+            return
+        need = paging.request_blocks_prefix(
+            eng.spec, eng._S_phys, tmirror.rows_after_feeds(slot, 0),
+            eng.block_len)
+        have = len(sched.slot_blocks(slot))
+        if have > need:
+            sched.release_blocks(slot, have - need)
+            paging.clear_block_table_from(cache.attn, slot, need,
+                                          batch_axis=2)
 
     def refill() -> None:
         for i in sched.free_slots():
@@ -358,6 +432,7 @@ def generate_continuous_spec(eng, requests: Sequence[Union[Request,
         return eng._h2d(m)
 
     adm = None                          # the in-flight chunked admission
+    preempt_due = list(eng.preempt_at)  # forced (round, slot) pairs
     if not eng.chunked_prefill:
         for i in range(eng.slots):
             admit_into(i)
@@ -380,19 +455,55 @@ def generate_continuous_spec(eng, requests: Sequence[Union[Request,
                 req0 = sched.slot_request(slot0)
                 tmirror.admit(slot0, len(req0.tokens))
                 admit_draft(slot0, req0)
-                # kvlint: ok(host-sync: chunk-admitted first token — once per admission, not per round)
-                record(slot0, int(ftok[0].item()), count=False)
+                if req0.emitted_prefix:
+                    # chunk-admitted continuation: replay, record nothing
+                    resume(slot0, req0)
+                else:
+                    # kvlint: ok(host-sync: chunk-admitted first token — once per admission, not per round)
+                    record(slot0, int(ftok[0].item()), count=False)
                 active = sched.active_slots()
+        if preempt_due:
+            # forced preemptions: fire at the given dispatch round
+            due = [p for p in preempt_due if p[0] == stats.rounds]
+            if due:
+                preempt_due = [p for p in preempt_due
+                               if p[0] != stats.rounds]
+                for _, s in due:
+                    if s in sched.active_slots():
+                        spec_preempt(s)
+                active = sched.active_slots()
+        eng._escalate_stall(sched, adm, spec_preempt, replaying())
+        if eng.preemption and not eng.chunked_prefill and sched.pending:
+            # admission retry sweep: a refused head may fit now, or may
+            # claim a victim through the ladder
+            for i in sched.free_slots():
+                if not sched.pending or not admit_into(i, ladder=True):
+                    break
+            active = sched.active_slots()
+        if (eng.audit_every and stats.rounds
+                and stats.rounds % eng.audit_every == 0):
+            # kvlint: ok(host-sync: periodic pool audit reads the device block table — every audit_every rounds, off by default)
+            eng._run_audit(sched, cache)
         if not active:
             if sched.pending or adm is not None:
                 if not eng.chunked_prefill:
-                    refill()
+                    for i in sched.free_slots():
+                        admit_into(i)
                 continue
             break
 
         # --- per-slot speculation depth (host mirrors, no device read) --
         gam: Dict[int, int] = {}
         for s in active:
+            if slot_state[s].replay:
+                gam[s] = 0      # mid-resume: plain replay rounds only
+                continue
+            if slot_state[s].resumed:
+                # the first round past the replay: plain, inside the
+                # admission's resume reserve
+                slot_state[s].resumed = False
+                gam[s] = 0
+                continue
             st, req = slot_state[s], sched.slot_request(s)
             remaining = req.max_new - len(st.stream) + len(req.tokens)
             g = min(gamma, tmirror.headroom_after_feeds(s, 1),
@@ -435,6 +546,33 @@ def generate_continuous_spec(eng, requests: Sequence[Union[Request,
                 if s in want_out and len(drafts[s]) < gam[s]:
                     drafts[s].append(int(toks[s]))
 
+        # --- lazy growth: cover the verify appends; a starved slot drops
+        # to a plain step, then climbs the ladder or retires "oom" -------
+        def evict(v: int) -> None:
+            spec_preempt(v)
+            if v in active:
+                active.remove(v)
+            gam.pop(v, None)
+
+        for s in list(active):
+            if s not in active:     # preempted as an earlier slot's victim
+                continue
+            if grow_blocks_for(s, 1 + gam[s]):
+                continue
+            if gam[s] > 0 and grow_blocks_for(s, 1):
+                gam[s] = 0
+                continue
+            gam[s] = 0
+            if eng._climb_ladder(sched, s, lambda: grow_blocks_for(s, 1),
+                                 evict, replaying()) != "oom":
+                continue
+            sched.retire(s, "oom")
+            reset_slot(s)
+            active.remove(s)
+            gam.pop(s, None)
+        if not active:
+            continue
+
         if all(gam[s] == 0 for s in active):
             # --- all-plain round (every depth cap is 0, e.g. a dense
             # compressed store at budget): one decode step is the same
@@ -448,7 +586,11 @@ def generate_continuous_spec(eng, requests: Sequence[Union[Request,
                 kvcache.truncate_rows(dcache.attn, dspec, eng._h2d(m_vec))
             feed = np.zeros(eng.slots, np.int64)
             for s in active:
-                feed[s] = slot_state[s].stream[-1]
+                st = slot_state[s]
+                # mid-resume: re-feed the next recorded token (its output
+                # recomputes a committed one); past the replay the last
+                # stream token's output is the first new token
+                feed[s] = st.replay[0] if st.replay else st.stream[-1]
             ring_full = any(tmirror.flushes(s, 0) for s in active)
             tok_dev = eng._decode(cache, eng._h2d(feed)[:, None], ring_full,
                                   append_mask=mask_of(active))
@@ -458,6 +600,9 @@ def generate_continuous_spec(eng, requests: Sequence[Union[Request,
             toks = tok_dev.cpu().numpy()
             for s in active:
                 tmirror.append(s, 1)
+                if slot_state[s].replay:
+                    slot_state[s].replay.pop(0)   # replayed; output unused
+                    continue
                 stats.plain_steps += 1
                 if record(s, int(toks[s])) and sched.pending \
                         and not eng.chunked_prefill:
@@ -468,7 +613,8 @@ def generate_continuous_spec(eng, requests: Sequence[Union[Request,
         tokens = np.zeros((eng.slots, gamma + 1), np.int64)
         valid = np.zeros(eng.slots, np.int32)
         for s in active:
-            tokens[s, 0] = slot_state[s].stream[-1]
+            st = slot_state[s]
+            tokens[s, 0] = st.replay[0] if st.replay else st.stream[-1]
             for i, d in enumerate(drafts[s][:gam[s]]):
                 tokens[s, 1 + i] = d
             valid[s] = 1 + min(gam[s], len(drafts[s]))
@@ -503,13 +649,16 @@ def generate_continuous_spec(eng, requests: Sequence[Union[Request,
                 stats.verify_steps += 1
                 stats.drafted += g
                 stats.accepted += a
-            else:
+            elif not slot_state[s].replay:
                 stats.plain_steps += 1
         if m_vec.any():
             kvcache.truncate_rows(dcache.attn, dspec, eng._h2d(m_vec))
 
         for s in active:
             g, a = int(valid[s]) - 1, int(acc[s])
+            if slot_state[s].replay:
+                slot_state[s].replay.pop(0)   # replayed (valid 1); unused
+                continue
             retired = False
             for i in range(a + 1):
                 if g >= 1:
@@ -517,6 +666,8 @@ def generate_continuous_spec(eng, requests: Sequence[Union[Request,
                 if record(s, int(y[s, i])):
                     retired = True
                     break
+            if not retired:
+                shrink_blocks_for(s)
             # as the reference loop: a slot still decoding refills the
             # free ones (a retire alone does not)
             if not retired and sched.pending and not eng.chunked_prefill:
@@ -524,9 +675,7 @@ def generate_continuous_spec(eng, requests: Sequence[Union[Request,
 
     decode_s = (time.perf_counter() - loop_t0) - (prefill_s - prefill_at_loop)
     if eng.paged:
-        # every pool block accounted for
-        eng.last_audit = paging.audit_pool(eng.block_allocator,
-                                           sched.occupied_blocks())
+        eng._run_audit(sched)     # every pool block accounted for, or raise
     return eng._continuous_result(sched, cache, prefill_s=prefill_s,
                                   decode_s=decode_s,
                                   decode_tokens=decode_tokens,

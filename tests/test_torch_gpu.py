@@ -923,3 +923,69 @@ def test_reduced_quantized_presets_on_card_match_cpu(cuda, pname):
         (res.kv_flush_steps + len(reqs)) * cfg.num_layers
     for a, b in zip(out["cpu"].results, res.results):
         assert a.tokens.tolist() == b.tokens.tolist()
+
+
+# (policy, engine options, ladder options): forced preemptions on the
+# dense and the paged + chunked paths, lazy growth starving the pool
+# (the CPU tests' cases, tests/test_torch_preempt.py)
+OVERLOAD_CASES = {
+    "full-dense-preempt_at": ("full", {}, dict(preempt_at=((3, 0), (5, 1)))),
+    "kivi2-paged-chunked-preempt_at": (
+        "kivi2", dict(paged=True, block_len=8, chunked_prefill=True,
+                      chunk_len=16),
+        dict(preempt_at=((3, 0), (5, 1)), audit_every=2)),
+    "full-lazy-starved": (
+        "full", dict(paged=True, block_len=8),
+        dict(block_growth="lazy", preemption=True, pool_blocks=10,
+             audit_every=2)),
+}
+
+
+@pytest.mark.parametrize("case", list(OVERLOAD_CASES))
+def test_reduced_overload_engine_on_card_matches_cpu(cuda, case):
+    """The overload ladder, reduced granite-8b: in f32 the card's streams,
+    finish reasons and preemptions equal the CPU's; in bf16 the card's
+    ladder run equals its unpreempted run token for token (replay repeats
+    the same row operations at the same shapes). Paged, the periodic
+    audits (device block table included, after lazy grants) are clean."""
+    pname, opts, ladder = OVERLOAD_CASES[case]
+    cfg = reduced(GRANITE)
+    prompts = [torch.randint(0, cfg.vocab_size, (32,), generator=torch
+                             .Generator().manual_seed(s)).numpy()
+               for s in range(4)]
+
+    def serve(c, dev, kw):
+        params = M.init_params(c, seed=0, device="cpu")
+        params = {k: _to(v, dev) for k, v in params.items()}
+        eng = Engine(c, params, presets(32, 8)[pname], prompt_len=32,
+                     max_new=10, slots=3 if "lazy" in case else 2,
+                     device=dev, **opts, **kw)
+        n_tbl = [0]
+        audit = eng._run_audit
+
+        def counted(sched, cache=None):
+            n_tbl[0] += cache is not None
+            return audit(sched, cache)
+
+        eng._run_audit = counted
+        res = eng.generate_continuous([Request(tokens=p, max_new=10)
+                                       for p in prompts])
+        if eng.paged:
+            assert eng.last_audit["clean"]
+            assert n_tbl[0] >= 1 or not eng.audit_every
+        return res
+
+    def streams(res):
+        return [(r.tokens.tolist(), r.finish_reason, r.n_preemptions)
+                for r in res.results]
+
+    cpu, card = (serve(cfg, dev, ladder) for dev in ("cpu", "cuda"))
+    assert streams(card) == streams(cpu)
+    assert sum(r.n_preemptions for r in card.results) >= 1
+    assert all(r.finish_reason == "length" for r in card.results)
+    bf16 = cfg.replace(dtype=torch.bfloat16)
+    twin = serve(bf16, "cuda", {})
+    res = serve(bf16, "cuda", ladder)
+    assert sum(r.n_preemptions for r in res.results) >= 1
+    assert [r.tokens.tolist() for r in res.results] == \
+        [r.tokens.tolist() for r in twin.results]

@@ -362,12 +362,14 @@ def _templated_prompts(cfg, n, L, seed=1, shared_frac=0.5):
 
 def _run(model, pname, *, share, jax_side=False, chunked=False, near=0.0,
          L=64, new=16, slots=2, prompts=None, use_kernels=None,
-         pool_blocks=None):
+         pool_blocks=None, **ladder):
+    """One sharing run; `ladder` passes the overload options
+    (`block_growth`, `preemption`, `preempt_at`) through."""
     jcfg, jp, cfg, p = model
     kw = dict(prompt_len=L, max_new=new, slots=slots, paged=True,
               block_len=8, chunked_prefill=chunked, chunk_len=16,
               prefix_sharing=share, near_hit=near if share else 0.0,
-              use_kernels=use_kernels, pool_blocks=pool_blocks)
+              use_kernels=use_kernels, pool_blocks=pool_blocks, **ladder)
     if jax_side:
         eng = JaxEngine(jcfg, jp, jax_presets(budget=64, window=8)[pname],
                         **kw)
@@ -464,13 +466,50 @@ def test_sharing_under_pool_pressure(small_model):
 
 
 def test_sharing_with_lazy_growth_is_refused(small_model):
-    """Lazy block growth is not ported (ROADMAP A10): asking for it with
-    sharing raises, as it does without."""
-    cfg, p = small_model[2], small_model[3]
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        Engine(cfg, p, presets(budget=64, window=8)["full"], prompt_len=64,
-               max_new=4, paged=True, prefix_sharing=True,
-               block_growth="lazy", device="cpu")
+    """Lazy block growth with sharing, no longer refused (the case of
+    tests/test_prefix.py::test_sharing_with_lazy_growth): streams equal
+    sharing off and the JAX engine's, with its prefix counters."""
+    prompts = _templated_prompts(small_model[2], 5, 64)
+    kw = dict(prompts=prompts, block_growth="lazy")
+    off = _run(small_model, "full", share=False, **kw)
+    on = _run(small_model, "full", share=True, **kw)
+    want = _run(small_model, "full", share=True, jax_side=True, **kw)
+    _assert_equal(on, off, "lazy growth")
+    _assert_equal(on, want, "lazy growth vs JAX")
+    _assert_counters(on, want)
+    assert on.prefix["warm_hits"] >= 1
+
+
+@pytest.mark.parametrize("pname,chunked,slots,pool,forced", [
+    ("full", False, 2, 12, ()),
+    ("full", True, 3, 14, ()),
+    ("kivi2", True, 3, 14, ()),
+    ("kivi2", True, 2, None, ((3, 0), (9, 1))),
+], ids=["full-mono-starved", "full-chunked-starved", "kivi2-chunked-starved",
+        "kivi2-chunked-forced"])
+def test_sharing_with_lazy_growth_ladder_equals_jax(small_model, pname,
+                                                    chunked, slots, pool,
+                                                    forced):
+    """Lazy growth, sharing and the preemption ladder together, on pools
+    that starve mid-decode or with forced preemptions: a preempted slot
+    drops its shared prefix blocks and its re-admission may adopt them
+    again. Streams, finish reasons, preemptions, decode steps, the prefix
+    counters and the pool peak equal the JAX engine's; the teardown audit
+    is clean."""
+    prompts = _templated_prompts(small_model[2], 5, 64)
+    kw = dict(prompts=prompts, chunked=chunked, slots=slots,
+              pool_blocks=pool, block_growth="lazy", preemption=True,
+              preempt_at=forced)
+    on = _run(small_model, pname, share=True, **kw)
+    want = _run(small_model, pname, share=True, jax_side=True, **kw)
+    _assert_equal(on, want, f"{pname} lazy ladder vs JAX")
+    _assert_counters(on, want)
+    assert [r.n_preemptions for r in on.results] == \
+        [r.n_preemptions for r in want.results]
+    assert on.decode_steps == want.decode_steps
+    assert on.pool_peak_blocks == want.pool_peak_blocks
+    assert sum(r.n_preemptions for r in on.results) >= 2
+    assert on.prefix["warm_hits"] >= 1
 
 
 def test_score_policy_refuses_sharing(small_model):
