@@ -32,7 +32,13 @@ Phases, each printing its own lines; any failure exits non-zero:
               (paged + chunked, 8 requests): full with lazy block growth
               and preemption on a pool that starves mid-decode, kivi2 with
               three forced preemptions, each held token for token to its
-              unpreempted run with clean periodic pool audits; then the
+              unpreempted run with clean periodic pool audits; the same
+              starving full run with the host-RAM tier (every preemption
+              spills to pinned host memory on a side stream and restores,
+              no re-prefill, no replay; the same streams), and kivi2 with
+              pressure-driven degradation at a pool whose usage crosses
+              the high-water mark (resident slots drop groups; B6 goes on
+              flushing into the regrown ones); then the
               prefix cache (paged + chunked, templated prompts): full and
               kivi2 with sharing, each beside the same requests without,
               and full near-hits through CacheBlend at recompute 1.0 and
@@ -47,7 +53,10 @@ Phases, each printing its own lines; any failure exits non-zero:
               admission), kivi2 with the fused quantizer against the
               plain one, and preempted runs (dense, kivi2 paged + chunked,
               lazy growth on a starving pool, speculative) against their
-              unpreempted twins, token for token
+              unpreempted twins, token for token, and with the host tier
+              (full and kivi2, every preemption restored); kivi2 with
+              degradation through the kernels against the same run with
+              use_kernels=False (degrades, blocks dropped, streams)
   6. profile  one decode step at full depth, 8 slots, dense and paged, and
               one verify round: wall vs dispatch time, device-busy time
               and the top kernels (torch.profiler); for h2o+kivi2 also a
@@ -1011,11 +1020,28 @@ SPEC_RUNS = (("full", "same", False), ("kivi2", "window:64", False),
 # to 1088 / 2112 rows needs 68 / 132 (800), so the 784-block pool
 # starves mid-decode; kivi2 at parity with three forced preemptions at
 # (dispatch, slot) pairs whose slots are active then (re-admissions run
-# B4 and B6 again; replay crosses ring flushes). Both audit the pool,
-# device block table included, every OVERLOAD_AUDIT dispatches.
+# B4 and B6 again; replay crosses ring flushes). Then the rest of the
+# ladder: the same starving `full` run with the host-RAM tier (each
+# preemption spills the slot to pinned host memory and its re-admission
+# restores it: no B4 segment, no replay), and kivi2 with lazy growth,
+# preemption and degradation at the parity pool (8 x 4 blocks of 128
+# rows: budget 512 keeps 4 groups a slot, and lazy admission of a 1024-
+# or 2048-token prompt takes all 4, so the pool fills to 1.0 >= the 0.85
+# high-water mark as the eighth request is admitted; the controller
+# drops 2 groups of a slot down to 0.60, and a degraded slot's first
+# flush regrows a group through lazy growth). Each audits the pool,
+# device block table and host census included, every OVERLOAD_AUDIT
+# dispatches. Per run: (policy, engine options, preemptions: an int is
+# exact, None at least one, "any" not gated; streams gated against the
+# unpreempted run?)
 OVERLOAD_RUNS = (("full", dict(pool_blocks=784, block_growth="lazy",
-                               preemption=True), None),
-                 ("kivi2", dict(preempt_at=((8, 0), (20, 3), (40, 5))), 3))
+                               preemption=True), None, True),
+                 ("kivi2", dict(preempt_at=((8, 0), (20, 3), (40, 5))), 3,
+                  True),
+                 ("full", dict(pool_blocks=784, block_growth="lazy",
+                               preemption=True, tiering=True), None, True),
+                 ("kivi2", dict(block_growth="lazy", preemption=True,
+                                degrade=True), "any", False))
 OVERLOAD_AUDIT = 16
 KERNELS = ("decode_attn", "flash_prefill", "decode_attn_paged",
            "flash_prefill_chunk", "flash_verify", "decode_qattn", "kquant",
@@ -1209,14 +1235,20 @@ def _serve_overload(info: dict, params, kernels, prompts, plain) -> None:
     """The overload ladder at full width and depth (OVERLOAD_RUNS): every
     request completes, preemptions happen (exactly the forced count where
     forced), every audit is clean (the periodic ones with the device
-    block-table check), the pool peak stays within the pool, the bf16
-    streams equal the unpreempted run's for the same requests token for
-    token (replay repeats the same row operations at the same shapes),
-    and launches are exact: replay steps are decode steps, and each
-    preemption adds one re-admission (its prompt's B4 segments, and B6
-    once a layer under kivi2). Prints preemptions, retries, replayed
-    tokens, re-admission prefill seconds, tok/s and TTFT beside the
-    unpreempted run's, and the pool peak."""
+    block-table check and the host census), the pool peak stays within
+    the pool, the bf16 streams equal the unpreempted run's for the same
+    requests token for token (replay repeats the same row operations at
+    the same shapes, a restore puts back the same bytes; not gated under
+    degradation, which is lossy), and launches are exact: replay steps
+    are decode steps, each re-admission that recomputes adds its prompt's
+    B4 segments (and B6 once a layer under kivi2), a restore from the
+    host tier and a degrade add nothing. With the tier every preemption
+    spills and restores (fetches = spills - refusals, nothing replayed);
+    with degradation at least one degrade drops at least one block.
+    Prints preemptions, retries, replayed tokens, re-admission prefill
+    seconds, tok/s and TTFT beside the unpreempted run's, the pool peak,
+    the tier's bytes, copy rates and fetch stall (beside the run without
+    the tier), and the degrade counts."""
     import numpy as np
     import torch
     from repro_torch.configs.granite_8b import CONFIG as cfg
@@ -1226,7 +1258,8 @@ def _serve_overload(info: dict, params, kernels, prompts, plain) -> None:
     launches = info["launches"]
     n_layers, C = cfg.num_layers, CHUNK_LEN
     reqs_p = prompts[:N_SHORT]
-    for pname, opts, forced in OVERLOAD_RUNS:
+    no_tier = {}
+    for pname, opts, forced, gate_streams in OVERLOAD_RUNS:
         pol = presets(budget=BUDGET, window=WINDOW)[pname]
         eng = Engine(cfg, params, pol, prompt_len=max(BUCKETS),
                      max_new=MAX_NEW, slots=SLOTS, buckets=BUCKETS,
@@ -1234,15 +1267,17 @@ def _serve_overload(info: dict, params, kernels, prompts, plain) -> None:
                      audit_every=OVERLOAD_AUDIT, **opts)
         n_audit = _counted_audits(eng)
         label = (f"{pname} paged+chunked overload "
-                 + ("lazy+preemption" if forced is None
+                 + ("lazy+preemption" if eng.preemption and not eng.preempt_at
                     else f"preempt_at {eng.preempt_at}")
+                 + ("+tier" if eng.tiering else "")
+                 + ("+degrade" if eng.pressure is not None else "")
                  + f" pool {eng.pool_blocks}")
+        reqs = [Request(tokens=p, max_new=MAX_NEW) for p in reqs_p]
         torch.cuda.synchronize()
         for k in kernels.values():
             k.launches = 0
         t1 = time.perf_counter()
-        res = eng.generate_continuous([Request(tokens=p, max_new=MAX_NEW)
-                                       for p in reqs_p])
+        res = eng.generate_continuous(reqs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t1
         n = {name: k.launches for name, k in kernels.items()}
@@ -1262,6 +1297,7 @@ def _serve_overload(info: dict, params, kernels, prompts, plain) -> None:
               f"(reasons {sorted({r.finish_reason for r in res.results})}); "
               f"{n_pre} preemptions ({[r.n_preemptions for r in res.results]}"
               f" per request), {n_ret} admission retries, "
+              f"{len(res.recomputed_uids)} re-admissions recomputed, "
               f"{res.replayed_tokens} tokens replayed, re-admission prefill "
               f"{res.readmit_prefill_s:.3f} of {res.prefill_seconds:.3f} s; "
               f"decode {res.decode_tokens_per_s:.1f} tok/s over "
@@ -1273,20 +1309,24 @@ def _serve_overload(info: dict, params, kernels, prompts, plain) -> None:
               f"{res.pool_peak_blocks}/{res.pool_blocks} blocks (unpreempted "
               f"{base.pool_peak_blocks}/{base.pool_blocks}); {n_audit[0]} "
               f"device-table audits, all clean; bf16 streams equal to the "
-              f"unpreempted run: {same}/{N_SHORT}; wall {wall:.2f} s; "
-              f"launches " + " ".join(f"{k} {v}" for k, v in n.items()))
-        info.setdefault("overload_serve", []).append(dict(
+              f"unpreempted run: {same}/{N_SHORT}"
+              f"{'' if gate_streams else ' (reported, not gated: lossy)'}; "
+              f"wall {wall:.2f} s; launches "
+              + " ".join(f"{k} {v}" for k, v in n.items()))
+        row = dict(
             label=label, preemptions=n_pre, retries=n_ret,
+            recomputed=len(res.recomputed_uids),
             replayed=res.replayed_tokens,
             readmit_prefill_s=res.readmit_prefill_s,
             prefill_s=res.prefill_seconds, tok_s=res.decode_tokens_per_s,
             base_tok_s=base.decode_tokens_per_s, ttft=res.ttft_mean_s,
             base_ttft=base_ttft, peak=res.pool_peak_blocks,
-            pool=res.pool_blocks, wall=wall))
+            pool=res.pool_blocks, wall=wall, streams_equal=same)
         if len(done) != N_SHORT:
             fail(f"{label}: only {len(done)} of {N_SHORT} requests "
                  "completed")
-        if (n_pre < 1) if forced is None else (n_pre != forced):
+        if (forced != "any"
+                and ((n_pre < 1) if forced is None else (n_pre != forced))):
             fail(f"{label}: {n_pre} preemptions, want "
                  + ("at least 1" if forced is None else f"exactly {forced}"))
         if not (n_audit[0] >= 1 and eng.last_audit["clean"]
@@ -1294,18 +1334,83 @@ def _serve_overload(info: dict, params, kernels, prompts, plain) -> None:
             fail(f"{label}: {n_audit[0]} device-table audits, last "
                  f"{eng.last_audit}, peak {res.pool_peak_blocks} of "
                  f"{res.pool_blocks} blocks")
-        if same != N_SHORT:
+        if gate_streams and same != N_SHORT:
             fail(f"{label}: {N_SHORT - same} bf16 streams differ from the "
                  "unpreempted run's")
-        segments = sum(-(-len(p) // C) * (1 + r.n_preemptions)
-                       for p, r in zip(reqs_p, res.results))
-        want = _want_launches(eng, res, n_layers, N_SHORT + n_pre, segments)
+        # B4 segments: every first admission, and every re-admission that
+        # recomputes (a restore from the tier streams no segment)
+        seg = {r.uid: -(-len(r.tokens) // C) for r in reqs}
+        segments = (sum(seg.values())
+                    + sum(seg[u] for u in res.recomputed_uids))
+        want = _want_launches(eng, res, n_layers,
+                              N_SHORT + len(res.recomputed_uids), segments)
         if n != want:
             fail(f"{label}: kernel launches {n}, want {want} "
                  f"({res.decode_steps} decode steps, {res.kv_flush_steps} "
-                 f"flush steps, {n_pre} re-admissions, {n_layers} layers)")
+                 f"flush steps, {len(res.recomputed_uids)} recomputed "
+                 f"re-admissions, {n_layers} layers)")
+        if eng.tiering:
+            _check_tier_run(info, label, eng, res, n_pre, row, no_tier)
+        elif eng.pressure is None and eng.lazy_blocks:
+            no_tier.update(tok_s=res.decode_tokens_per_s,
+                           ttft=res.ttft_mean_s, wall=wall)
+            if len(res.recomputed_uids) != n_pre:
+                fail(f"{label}: {len(res.recomputed_uids)} recomputed "
+                     f"re-admissions for {n_pre} preemptions")
+        if eng.pressure is not None:
+            st = eng.pressure.stats
+            print(f"[serve]   degrade: {st['degrades']} degrades dropped "
+                  f"{st['blocks_dropped']} blocks ({st['ticks_pressed']} "
+                  f"pressed ticks, peak pool usage "
+                  f"{st['peak_used_frac']:.3f}); {res.kv_flush_steps} flush "
+                  f"steps through B6 ({n['kvquant']} launches)")
+            row.update(degrades=st["degrades"],
+                       blocks_dropped=st["blocks_dropped"],
+                       peak_used_frac=st["peak_used_frac"])
+            if st["degrades"] < 1 or st["blocks_dropped"] < 1:
+                fail(f"{label}: no degrade under pressure ({st})")
+        info.setdefault("overload_serve", []).append(row)
         del eng, res
         torch.cuda.empty_cache()
+
+
+def _check_tier_run(info, label, eng, res, n_pre, row, no_tier) -> None:
+    """The host tier's gates and readings: every preemption spilled and
+    was restored (no prefix cache here, so every spill and fetch is a
+    slot's), nothing recomputed or replayed, the census drained; prints
+    the bytes each way, the device-to-host and host-to-device copy rates
+    (their CUDA-event times), the fetch stall and what the tier pins,
+    tok/s and TTFT beside the same run without the tier."""
+    tier, t = eng.host_tier, res.tier
+    d2h, h2d = tier.d2h_seconds, tier.h2d_seconds
+    print(f"[serve]   tier: {t['spills']} spills / {t['fetches']} fetches "
+          f"({t['refused_fetches']} refused), {t['bytes_spilled'] / 1e9:.3f}"
+          f" GB spilled at {t['bytes_spilled'] / max(d2h, 1e-12) / 1e9:.1f} "
+          f"GB/s ({d2h * 1e3:.2f} ms of side-stream copies), "
+          f"{t['bytes_fetched'] / 1e9:.3f} GB fetched at "
+          f"{t['bytes_fetched'] / max(h2d, 1e-12) / 1e9:.1f} GB/s "
+          f"({h2d * 1e3:.2f} ms of main-stream copies), fetch stall "
+          f"{t['fetch_stall_s'] * 1e3:.3f} ms, {tier.pinned_bytes / 1e9:.3f}"
+          f" GB pinned; tok/s {res.decode_tokens_per_s:.1f} vs "
+          f"{no_tier.get('tok_s', float('nan')):.1f} without the tier, ttft "
+          f"mean {res.ttft_mean_s:.3f} vs {no_tier.get('ttft', float('nan')):.3f}"
+          f" s; {info['smi']}")
+    row.update(spills=t["spills"], fetches=t["fetches"],
+               refused_fetches=t["refused_fetches"],
+               bytes_spilled=t["bytes_spilled"],
+               bytes_fetched=t["bytes_fetched"], d2h_s=d2h, h2d_s=h2d,
+               fetch_stall_s=t["fetch_stall_s"],
+               pinned_bytes=tier.pinned_bytes,
+               no_tier_tok_s=no_tier.get("tok_s"),
+               no_tier_ttft=no_tier.get("ttft"))
+    if not (t["spills"] == n_pre and t["refused_fetches"] == 0
+            and t["fetches"] == t["spills"] - t["refused_fetches"]
+            and not res.recomputed_uids and res.replayed_tokens == 0
+            and t["host_entries"] == 0
+            and t["bytes_fetched"] == t["bytes_spilled"] > 0):
+        fail(f"{label}: tier {t} with {n_pre} preemptions, "
+             f"{len(res.recomputed_uids)} recomputed re-admissions, "
+             f"{res.replayed_tokens} tokens replayed")
 
 
 # prefix-cache runs: paged + chunked (CHUNK_LEN), SLOTS slots, MAX_NEW new
@@ -1760,6 +1865,10 @@ E2E_PREEMPT_RUNS = (
     ("full paged+chunked spec[same]",
      dict(_CHUNKED, speculative=True, gamma=GAMMA, draft_policy="same"),
      dict(preempt_at=((3, 0), (12, 1), (20, 2))), 3),
+    ("full paged+chunked tier", _CHUNKED,
+     dict(preempt_at=((6, 0), (14, 1), (30, 2)), tiering=True), 3),
+    ("kivi2 paged+chunked tier", _CHUNKED,
+     dict(preempt_at=((6, 0), (14, 1), (30, 2)), tiering=True), 3),
 )
 
 
@@ -1807,8 +1916,59 @@ def _e2e_preempt() -> None:
         if same != len(prompts):
             fail(f"e2e preempt {label}: {len(prompts) - same} streams "
                  "differ from the unpreempted run's")
+        if ladder.get("tiering") and not (
+                res.tier["fetches"] == res.tier["spills"] == n_pre
+                and res.replayed_tokens == 0):
+            fail(f"e2e preempt {label}: tier {res.tier}, "
+                 f"{res.replayed_tokens} tokens replayed")
+    _e2e_degrade(cfg, params, prompts)
     del params
     torch.cuda.empty_cache()
+
+
+def _e2e_degrade(cfg, params, prompts) -> None:
+    """kivi2 with lazy growth, preemption and degradation at the parity
+    pool (E2E_SPEC_SLOTS x 4 blocks: full as the slots fill, past the
+    0.85 high-water mark) in f32: through the kernels (B3, B4, B6)
+    against the same run with use_kernels=False on the card. The degrade
+    count, the blocks dropped, the preemptions and the streams must be
+    equal, token for token."""
+    from repro_torch.core.policy import presets
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.scheduler import Request
+    out = []
+    for uk in (True, False):
+        eng = Engine(cfg, params, presets(budget=BUDGET, window=WINDOW)[
+                         "kivi2"], prompt_len=max(BUCKETS),
+                     max_new=E2E_SPEC_NEW, slots=E2E_SPEC_SLOTS,
+                     buckets=BUCKETS, use_kernels=uk, block_growth="lazy",
+                     preemption=True, degrade=True, audit_every=8,
+                     **_CHUNKED)
+        res = eng.generate_continuous(
+            [Request(tokens=p, max_new=E2E_SPEC_NEW) for p in prompts])
+        if not eng.last_audit["clean"]:
+            fail(f"e2e degrade: pool audit {eng.last_audit}")
+        out.append((eng.pressure.stats, res))
+    (st_k, res_k), (st_r, res_r) = out
+    same = sum(a.tokens.tolist() == b.tokens.tolist()
+               and a.finish_reason == b.finish_reason == "length"
+               for a, b in zip(res_k.results, res_r.results))
+    pre = [sum(r.n_preemptions for r in x.results) for x in (res_k, res_r)]
+    print(f"[e2e] degrade f32 kivi2 lazy+preemption+degrade pool "
+          f"{res_k.pool_blocks}: kernels {st_k['degrades']} degrades / "
+          f"{st_k['blocks_dropped']} blocks dropped / {pre[0]} preemptions,"
+          f" use_kernels=False {st_r['degrades']} / "
+          f"{st_r['blocks_dropped']} / {pre[1]}; {same}/{len(prompts)} "
+          "streams token-equal")
+    if st_k["degrades"] < 1 or st_k["blocks_dropped"] < 1:
+        fail(f"e2e degrade: no degrade under pressure ({st_k})")
+    if (st_k["degrades"], st_k["blocks_dropped"], pre[0]) != \
+            (st_r["degrades"], st_r["blocks_dropped"], pre[1]):
+        fail(f"e2e degrade: kernels {st_k} / {pre[0]} preemptions, "
+             f"reference {st_r} / {pre[1]}")
+    if same != len(prompts):
+        fail(f"e2e degrade: {len(prompts) - same} streams differ between "
+             "the kernels and use_kernels=False")
 
 
 def _admit_paged_chunked(eng, prompts):

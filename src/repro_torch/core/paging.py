@@ -1,5 +1,5 @@
 """Paged block-table KV cache: one physical pool per layer shared across
-slots (counterpart of `repro.core.paging`, eager block growth).
+slots (counterpart of `repro.core.paging`).
 
   * **block pool** — per attention layer, ``[n_blocks, block_len, H, Dp]``
     codes (+ matching scale/zero pools for quantized stores). One id
@@ -37,17 +37,32 @@ shared blocks into fresh ones (`copy_pool_blocks`).
 Lazy block growth grants a slot further blocks as it decodes
 (`write_block_table` into its row) and a speculative rollback returns
 them (`clear_block_table_from`); `FaultPlan` injects deterministic
-allocator refusals and refcount skew, which `audit_pool` must catch.
+allocator refusals, refcount skew and host-tier fetch faults, which
+`audit_pool` must catch or the engine must ride out.
 
-Not ported yet: `HostTier`, `degrade_slot_groups` and the pool-block
-gather / scatter of tiering.
+The rest of the overload ladder:
+
+  * **degradation** — `degrade_slot_groups` drops a resident quantized
+    slot's oldest flushed groups by permuting its table row in place (no
+    pool data moves);
+  * **the host tier** — `HostTier` keeps spilled block payloads
+    (`gather_pool_blocks` / `gather_slot_meta`) in pinned host memory.
+    The gather is a fresh device copy enqueued on the main stream, in
+    order behind the step in flight; the device-to-host copy runs on one
+    side stream per device, which carries copies only, never a kernel.
+    A fetch hands back the pinned payload; `HostTier.upload` copies it
+    to the device on the main stream before `scatter_pool_blocks` /
+    `scatter_slot_meta` land it in freshly granted rows.
 """
 from __future__ import annotations
 
+import itertools
 import random
+import time
 import warnings
+import zlib
 from dataclasses import dataclass
-from typing import (Dict, Iterable, List, Mapping, NamedTuple, Optional,
+from typing import (Any, Dict, Iterable, List, Mapping, NamedTuple, Optional,
                     Sequence, Tuple)
 
 import torch
@@ -359,6 +374,59 @@ def copy_pool_blocks(stacked: PagedLayerKV, src_ids: torch.Tensor,
     return stacked
 
 
+def gather_pool_blocks(stacked: PagedLayerKV, ids: torch.Tensor, *,
+                       batch_axis: int = 1) -> Dict[str, torch.Tensor]:
+    """Read whole pool blocks `ids` ([k] int64 on the cache's device) out
+    of every layer's pools: the device half of a spill to the host tier.
+    A dict keyed by `POOL_FIELDS` name (the zero-width quantization
+    leaves of a dense store omitted), each value the pool with its block
+    axis replaced by `k`. Each value is a fresh tensor (`index_select`),
+    never a view: the pools are written in place, and the caller frees
+    and re-grants the ids at once, so the copy must be taken here, in
+    stream order behind the step in flight."""
+    out: Dict[str, torch.Tensor] = {}
+    for f in POOL_FIELDS:
+        pool = getattr(stacked, f)
+        if pool.shape[batch_axis + 1] == 0:
+            continue
+        out[f] = pool.index_select(batch_axis, ids)
+    return out
+
+
+def scatter_pool_blocks(stacked: PagedLayerKV, ids: torch.Tensor,
+                        payload: Mapping[str, torch.Tensor], *,
+                        batch_axis: int = 1) -> PagedLayerKV:
+    """Write spilled block bytes back into pool blocks `ids` ([k] int64 on
+    the cache's device), in place: the device half of a fetch. `payload`
+    is a `gather_pool_blocks` result already on the device
+    (`HostTier.upload`); the ids are freshly granted and generally not
+    the ones the blocks were spilled from — block identity lives with
+    the holder's table row or index node, not the row number."""
+    for f, val in payload.items():
+        pool = getattr(stacked, f)
+        pool.index_copy_(batch_axis, ids, val.to(pool.dtype))
+    return stacked
+
+
+def gather_slot_meta(stacked: PagedLayerKV, slot_idx: int, *,
+                     batch_axis: int = 1) -> Dict[str, torch.Tensor]:
+    """Slot `slot_idx`'s dense metadata row (scores, slot positions,
+    lengths, the residual ring), batch dim kept at 1, as fresh tensors:
+    the non-pool half of a slot snapshot, so a spilled slot resumes with
+    exactly the eviction and flush state it was preempted with."""
+    return {f: getattr(stacked, f).narrow(batch_axis, slot_idx, 1).clone()
+            for f in META_FIELDS}
+
+
+def scatter_slot_meta(stacked: PagedLayerKV, slot_idx: int,
+                      payload: Mapping[str, torch.Tensor], *,
+                      batch_axis: int = 1) -> PagedLayerKV:
+    """Write a `gather_slot_meta` snapshot back into slot `slot_idx`."""
+    for f, val in payload.items():
+        getattr(stacked, f).narrow(batch_axis, slot_idx, 1).copy_(val)
+    return stacked
+
+
 def write_prefill_rows(stacked: PagedLayerKV, rows: torch.Tensor,
                        k_seg: torch.Tensor, v_seg: torch.Tensor, *,
                        batch_axis: int = 1) -> PagedLayerKV:
@@ -424,10 +492,17 @@ class FaultPlan:
         the first id handed out by call `skew_alloc` (positive leaks the
         block, negative under-counts it); `audit_pool` must catch either.
 
-    The reference's fetch faults (`fail_fetches`, `fetch_fail_rate`,
-    `max_fetch_failures`, `delay_fetches`, `fetch_delay_s`) drive the host
-    tier's swap path, which is not ported: they come with it. A plan that
-    names one is refused here (TypeError) rather than silently ignored."""
+    The same plan drives the host tier's swap path (`HostTier` takes it
+    too), keyed by fetch-call index with its own rng stream
+    (``random.Random(seed + 1)``), so alloc and fetch faults compose
+    without perturbing each other:
+
+      * `fail_fetches` / `fetch_fail_rate` / `max_fetch_failures` — the
+        fetch is refused as if the host copy were unreadable: the entry
+        is dropped and the engine falls down the ladder to
+        recompute-on-resume;
+      * `delay_fetches` / `fetch_delay_s` — the fetch completes but is
+        charged `fetch_delay_s` of stall."""
 
     seed: int = 0
     fail_allocs: Tuple[int, ...] = ()
@@ -435,6 +510,11 @@ class FaultPlan:
     max_failures: Optional[int] = None
     skew_alloc: Optional[int] = None
     skew_delta: int = 1
+    fail_fetches: Tuple[int, ...] = ()
+    fetch_fail_rate: float = 0.0
+    max_fetch_failures: Optional[int] = None
+    delay_fetches: Tuple[int, ...] = ()
+    fetch_delay_s: float = 0.005
 
 
 class PoolAuditError(AssertionError):
@@ -533,10 +613,355 @@ class BlockAllocator:
                 self._free.append(i)
 
 
+# ---------------------------------------------------------------------------
+# Host tier: spilled block payloads in pinned host memory
+# ---------------------------------------------------------------------------
+
+
+def _leaves(tree) -> List[torch.Tensor]:
+    """The tensors of a payload tree (nested dicts), dict keys sorted at
+    every level — the order `jax.tree.leaves` gives a dict."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [t for k in sorted(tree) for t in _leaves(tree[k])]
+
+
+def _rebuild(tree, leaves: Iterable[torch.Tensor]):
+    """`tree` with its leaves replaced, in `_leaves` order."""
+    it = iter(leaves)
+
+    def go(node):
+        if isinstance(node, torch.Tensor):
+            return next(it)
+        return {k: go(node[k]) for k in sorted(node)}
+
+    return go(tree)
+
+
+def _crc(tree) -> int:
+    """crc32 over the raw bytes of every leaf (bf16 viewed as bytes), in
+    `_leaves` order."""
+    crc = 0
+    for t in _leaves(tree):
+        crc = zlib.crc32(t.contiguous().reshape(-1).view(torch.uint8)
+                         .numpy(), crc)
+    return crc
+
+
+_SIDE_STREAMS: Dict[int, "torch.cuda.Stream"] = {}
+
+
+def _side_stream(device: torch.device) -> "torch.cuda.Stream":
+    """The one side stream of a card, for the tier's device-to-host
+    copies (never a kernel: the split-KV kernels' ticket buffers assume
+    one stream)."""
+    i = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if i not in _SIDE_STREAMS:
+        _SIDE_STREAMS[i] = torch.cuda.Stream(device=i)
+    return _SIDE_STREAMS[i]
+
+
+class _PinnedArena:
+    """Pinned host buffers, reused across spills: pinning is slow (a
+    cudaHostAlloc per buffer), so a buffer whose payload was fetched or
+    dropped goes back on a free list, guarded by the event after which
+    the last copy out of it is done. `take` picks the smallest free buffer
+    that fits and pins a new one only when none does; `pinned_bytes` is
+    what the tier holds pinned."""
+
+    def __init__(self) -> None:
+        self._free: List[Tuple[torch.Tensor, Any]] = []
+        self.pinned_bytes = 0
+
+    def take(self, nbytes: int) -> torch.Tensor:
+        fits = [i for i, (b, _) in enumerate(self._free)
+                if b.numel() >= nbytes]
+        if fits:
+            i = min(fits, key=lambda j: self._free[j][0].numel())
+            buf, ready = self._free.pop(i)
+            if ready is not None:
+                ready.synchronize()
+            return buf
+        self.pinned_bytes += nbytes
+        return torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+
+    def give(self, buf: torch.Tensor, ready=None) -> None:
+        self._free.append((buf, ready))
+
+
+class _HostEntry(NamedTuple):
+    payload: Any            # host tree once resident; device tree in flight
+    n_blocks: int
+    nbytes: int
+    resident: bool
+    checksum: int           # crc32 over the leaves (0 in flight)
+    buf: Any = None         # the pinned buffer the host tree views (card)
+    copy: Any = None        # in flight on the card: (host tree, start, landed)
+
+
+class HostTier:
+    """Host-RAM block tier under the device pool (as
+    `repro.core.paging.HostTier`: the same census, capacity refusal,
+    handles, fault injection and `stats` keys). Entries are whole payload
+    trees (a `gather_pool_blocks` dict, or a slot snapshot wrapping one)
+    keyed by a monotonic handle, never the device block id, which is
+    freed at spill time and re-granted.
+
+    The spill is asynchronous. On the card `begin_spill` takes the fresh
+    device gather (enqueued on the main stream behind the step in
+    flight), records an event after it on the current stream, and on the
+    card's side stream waits for that event and copies every leaf into a
+    pinned host buffer (`non_blocking`), recording a "landed" event; the
+    entry holds the gathered tensors until then. `drain()`, one engine
+    iteration later, waits on each landed event (not on the device) and
+    checksums the host bytes. `fetch` of an entry still in flight drains
+    on demand (the stall is timed). A fetched payload is the pinned host
+    tree: `upload` copies it to the device on the main stream and only
+    then returns its buffer to the arena. On the CPU the payload is a
+    host copy already, and `drain` just checksums a clone of it.
+
+    `capacity_blocks` bounds the tier in device-block units (a snapshot's
+    metadata rides along free). `fault_plan` takes `FaultPlan`'s fetch
+    fields. `d2h_seconds` / `h2d_seconds` sum the copies' device times
+    (card events), `pinned_bytes` what the arena pins."""
+
+    def __init__(self, capacity_blocks: int, *,
+                 fault_plan: Optional[FaultPlan] = None):
+        if capacity_blocks < 1:
+            raise ValueError(f"need >= 1 host block, got {capacity_blocks}")
+        self.capacity_blocks = capacity_blocks
+        self.fault_plan = fault_plan
+        self._entries: Dict[int, _HostEntry] = {}
+        self._pending: List[int] = []
+        self._next = itertools.count()
+        self._arena = _PinnedArena()
+        self._lent: Dict[int, torch.Tensor] = {}   # id(payload) -> buffer
+        self._uploads: List[Tuple[Any, Any]] = []  # (start, end) events
+        self.d2h_seconds = 0.0
+        self.fetch_calls = 0
+        self._fetch_rng = (random.Random(fault_plan.seed + 1)
+                           if fault_plan is not None else None)
+        self.stats: Dict[str, Any] = dict(
+            spills=0, fetches=0, drops=0,
+            bytes_spilled=0, bytes_fetched=0, fetch_stall_s=0.0,
+            refused_spills=0, refused_fetches=0, delayed_fetches=0)
+
+    # -- census ----------------------------------------------------------
+    @property
+    def used_blocks(self) -> int:
+        return sum(e.n_blocks for e in self._entries.values())
+
+    @property
+    def resident_blocks(self) -> int:
+        return sum(e.n_blocks for e in self._entries.values() if e.resident)
+
+    @property
+    def in_flight_blocks(self) -> int:
+        return sum(e.n_blocks for e in self._entries.values()
+                   if not e.resident)
+
+    @property
+    def free_blocks(self) -> int:
+        return self.capacity_blocks - self.used_blocks
+
+    @property
+    def pinned_bytes(self) -> int:
+        return self._arena.pinned_bytes
+
+    def handles(self) -> List[int]:
+        return list(self._entries)
+
+    def nbytes_of(self, handle: int) -> int:
+        return self._entries[handle].nbytes
+
+    # -- spill -----------------------------------------------------------
+    def _start_copy(self, payload):
+        """Queue the device-to-host copy of a device payload on the side
+        stream, behind an event recorded on the current stream. Returns
+        (pinned buffer, (host tree, start event, landed event))."""
+        leaves = _leaves(payload)
+        dev = leaves[0].device
+        offs, total = [], 0
+        for t in leaves:
+            offs.append(total)
+            total += -(-t.numel() * t.element_size() // 64) * 64
+        buf = self._arena.take(total)
+        host = [buf.narrow(0, o, t.numel() * t.element_size())
+                .view(t.dtype).view(t.shape) for o, t in zip(offs, leaves)]
+        gathered = torch.cuda.Event()
+        gathered.record(torch.cuda.current_stream(dev))
+        side = _side_stream(dev)
+        start = torch.cuda.Event(enable_timing=True)
+        landed = torch.cuda.Event(enable_timing=True)
+        side.wait_event(gathered)
+        with torch.cuda.stream(side):
+            start.record(side)
+            for h, t in zip(host, leaves):
+                h.copy_(t, non_blocking=True)
+                # an entry dropped in flight frees the gather early: the
+                # allocator must not hand its memory out before this copy
+                t.record_stream(side)
+            landed.record(side)
+        return buf, (_rebuild(payload, host), start, landed)
+
+    def begin_spill(self, payload: Any, n_blocks: int) -> Optional[int]:
+        """Adopt a device gather; returns the handle, or None when the
+        tier is full (the caller falls down the ladder). No host sync:
+        sizes come from the tensors' metadata."""
+        if n_blocks > self.free_blocks:
+            self.stats["refused_spills"] += 1
+            return None
+        nbytes = sum(t.numel() * t.element_size() for t in _leaves(payload))
+        h = next(self._next)
+        buf = copy = None
+        if any(t.is_cuda for t in _leaves(payload)):
+            buf, copy = self._start_copy(payload)
+        self._entries[h] = _HostEntry(payload, n_blocks, nbytes, False, 0,
+                                      buf, copy)
+        self._pending.append(h)
+        self.stats["spills"] += 1
+        self.stats["bytes_spilled"] += nbytes
+        return h
+
+    def drain(self) -> int:
+        """Complete pending spills: wait for each landed event (card) and
+        checksum the host bytes. Called one engine iteration after
+        `begin_spill` and once at teardown. Returns the entries landed."""
+        landed = 0
+        for h in self._pending:
+            e = self._entries.get(h)
+            if e is None or e.resident:      # dropped or already fetched
+                continue
+            if e.copy is not None:
+                host, start, end = e.copy
+                end.synchronize()
+                self.d2h_seconds += start.elapsed_time(end) / 1e3
+            else:
+                host = _rebuild(e.payload, [t.detach().clone()
+                                            for t in _leaves(e.payload)])
+            self._entries[h] = e._replace(payload=host, resident=True,
+                                          checksum=_crc(host), copy=None)
+            landed += 1
+        self._pending = []
+        return landed
+
+    def prefetch(self, handle: int) -> None:
+        """Make `handle` resident ahead of its fetch, so the fetch-time
+        stall is zero (the queue head's ticket is the one caller)."""
+        if handle in self._entries and not self._entries[handle].resident:
+            self.drain()
+
+    # -- fetch -----------------------------------------------------------
+    def _inject_fetch_fault(self, call_idx: int) -> Tuple[bool, bool]:
+        """(refused, delayed) for this fetch call."""
+        plan = self.fault_plan
+        if plan is None:
+            return False, False
+        delayed = call_idx in plan.delay_fetches
+        if (plan.max_fetch_failures is not None
+                and self.stats["refused_fetches"] >= plan.max_fetch_failures):
+            return False, delayed
+        r = (self._fetch_rng.random()
+             if plan.fetch_fail_rate > 0.0 else 1.0)
+        refused = (call_idx in plan.fail_fetches
+                   or r < plan.fetch_fail_rate)
+        return refused, delayed
+
+    def _recycle(self, e: _HostEntry) -> None:
+        """Return a discarded entry's pinned buffer; one still in flight
+        is reused only after its copy has landed."""
+        if e.buf is not None:
+            self._arena.give(e.buf, e.copy[2] if e.copy is not None
+                             else None)
+
+    def fetch(self, handle: int) -> Optional[Tuple[Any, int, float]]:
+        """Pop entry `handle` and return ``(payload, nbytes, stall_s)``:
+        the host tree, for `upload`. None on an injected fetch refusal
+        (the entry is dropped: the bytes are gone, the caller
+        recomputes). Verifies the entry's checksum against spill time."""
+        call_idx = self.fetch_calls
+        self.fetch_calls += 1
+        e = self._entries.get(handle)
+        if e is None:
+            raise KeyError(f"host tier has no entry {handle}")
+        refused, delayed = self._inject_fetch_fault(call_idx)
+        if refused:
+            del self._entries[handle]
+            self._recycle(e)
+            self.stats["refused_fetches"] += 1
+            return None
+        stall = 0.0
+        if not e.resident:
+            t0 = time.perf_counter()
+            self.drain()
+            stall = time.perf_counter() - t0
+            e = self._entries[handle]
+        if delayed:
+            stall += self.fault_plan.fetch_delay_s
+            self.stats["delayed_fetches"] += 1
+        crc = _crc(e.payload)
+        if crc != e.checksum:
+            raise PoolAuditError(
+                f"host tier entry {handle} corrupted: checksum "
+                f"{crc:#x} != spill-time {e.checksum:#x}")
+        del self._entries[handle]
+        if e.buf is not None:
+            self._lent[id(e.payload)] = e.buf
+        self.stats["fetches"] += 1
+        self.stats["bytes_fetched"] += e.nbytes
+        self.stats["fetch_stall_s"] += stall
+        return e.payload, e.nbytes, stall
+
+    def upload(self, payload, device: torch.device):
+        """A fetched payload on `device`: on the card, non-blocking copies
+        from pinned memory on the current (main) stream; the pinned buffer
+        returns to the arena behind an event recorded after them, so it
+        is never rewritten before they complete. On the CPU the payload
+        itself."""
+        buf = self._lent.pop(id(payload), None)
+        if torch.device(device).type != "cuda":
+            return payload
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = _rebuild(payload, [t.to(device, non_blocking=True)
+                                 for t in _leaves(payload)])
+        end.record()
+        if buf is not None:
+            self._arena.give(buf, end)
+        self._uploads.append((start, end))
+        return out
+
+    @property
+    def h2d_seconds(self) -> float:
+        """Device time of every `upload` so far (waits for the last)."""
+        total = 0.0
+        for start, end in self._uploads:
+            end.synchronize()
+            total += start.elapsed_time(end) / 1e3
+        return total
+
+    def drop(self, handle: int) -> None:
+        """Discard entry `handle` without fetching (its holder is gone)."""
+        e = self._entries.pop(handle, None)
+        if e is not None:
+            self._recycle(e)
+            self.stats["drops"] += 1
+
+    def verify(self) -> List[int]:
+        """Re-checksum every resident entry; the mismatched handles (audit
+        hook — consumes nothing)."""
+        return [h for h, e in sorted(self._entries.items())
+                if e.resident and _crc(e.payload) != e.checksum]
+
+
 def audit_pool(allocator: BlockAllocator,
                slot_blocks: Mapping[int, Sequence[int]],
                index_blocks: Iterable[int] = (), *,
-               block_tbl=None, tbl_slots=None) -> Dict[str, object]:
+               block_tbl=None, tbl_slots=None,
+               host_tier: Optional[HostTier] = None,
+               tier_holders: Iterable[int] = ()) -> Dict[str, object]:
     """Cross-check the allocator against every holder (`slot_blocks`:
     slot -> table-order grant list; `index_blocks`: the prefix index's
     resident ids, one reference each): each block is free or held by
@@ -544,8 +969,14 @@ def audit_pool(allocator: BlockAllocator,
 
     `block_tbl` (host array ``[..., B, n_max]``, layer dims leading) adds
     the table check: each slot of `tbl_slots` (default all holders) maps
-    exactly its grant list, identically in every layer copy. Returns a
-    report dict; raises `PoolAuditError` listing every violation."""
+    exactly its grant list, identically in every layer copy.
+
+    `host_tier` / `tier_holders` add the host census: every holder handle
+    (the index's host nodes, queued continuations' tickets) names a live
+    entry, every entry is named by exactly one holder (an unnamed one is
+    a host leak), the tier is within capacity, and every resident entry
+    still matches its spill-time checksum. Returns a report dict; raises
+    `PoolAuditError` listing every violation."""
     problems: List[str] = []
     free = allocator.free_ids()
     refs = allocator.refcounts()
@@ -609,11 +1040,38 @@ def audit_pool(allocator: BlockAllocator,
                 problems.append(f"slot {slot} device table {mapped} != "
                                 f"grant list {list(slot_blocks[slot])}")
 
+    host_resident = host_in_flight = host_entries = 0
+    if host_tier is not None:
+        held: Dict[int, int] = {}
+        for h in tier_holders:
+            held[h] = held.get(h, 0) + 1
+        live = set(host_tier.handles())
+        for h, n in sorted(held.items()):
+            if h not in live:
+                problems.append(f"tier holder names dead entry {h}")
+            elif n > 1:
+                problems.append(f"tier entry {h} claimed by {n} holders")
+        for h in sorted(live - set(held)):
+            problems.append(f"host entry {h} held by no index node and "
+                            "no queued ticket (host leak)")
+        if host_tier.used_blocks > host_tier.capacity_blocks:
+            problems.append(
+                f"host tier over capacity: {host_tier.used_blocks} > "
+                f"{host_tier.capacity_blocks}")
+        for h in host_tier.verify():
+            problems.append(f"host entry {h} bytes differ from spill "
+                            "time (checksum mismatch)")
+        host_resident = host_tier.resident_blocks
+        host_in_flight = host_tier.in_flight_blocks
+        host_entries = len(live)
+
     report: Dict[str, object] = dict(
         n_blocks=allocator.n_blocks, free=len(free), allocated=len(refs),
         holders=sum(holders.values()), leaked=leaked,
         double_mapped=sorted(set(double_mapped)), skewed=sorted(set(skewed)),
-        lost=lost, clean=not problems)
+        lost=lost, host_resident=host_resident,
+        host_in_flight=host_in_flight, host_entries=host_entries,
+        clean=not problems)
     if problems:
         raise PoolAuditError("pool audit failed:\n  "
                              + "\n  ".join(problems))
@@ -656,6 +1114,76 @@ def request_blocks(spec: CacheSpec, S: int, prompt_len: int, max_new: int,
 
 
 # ---------------------------------------------------------------------------
+# Pressure-driven budget degradation (quantized streaming slots)
+# ---------------------------------------------------------------------------
+
+
+def degrade_slot_groups(stacked: PagedLayerKV, spec: CacheSpec,
+                        slot_idx: int, n_drop, *,
+                        batch_axis: int = 1) -> PagedLayerKV:
+    """Quality-reversible pressure eviction of one resident quantized
+    streaming slot, in place (as `repro.core.paging.degrade_slot_groups`):
+    drop its `n_drop` oldest fully flushed non-sink groups and compact
+    its table row, scores, slot positions and length. Block == group in
+    a quantized pool, so a drop is a table permutation and no pool data
+    moves; the slot regrows one group per window of appends once
+    pressure clears.
+
+    Storage group 0 (the sinks) is kept, ages come from `slot_pos`, and
+    the partial tail group and rows past `length` are never touched.
+    Needs uniform per-layer lengths (the engine checks its host mirror):
+    the layer-replicated table row takes one permutation. The dropped ids
+    fall off the row's tail, and the drop block is never mapped by a
+    kept entry. Every step runs on the device (no host sync); the engine
+    reads the new row to release the dropped ids. Both sorts are stable,
+    as JAX's `argsort` is."""
+    G = spec.group
+    if not (spec.quantized and G > 0):
+        raise ValueError("degradation needs a grouped ring store")
+    tbl = stacked.block_tbl
+    n_max = tbl.shape[-1]
+    row_v = tbl.select(batch_axis, slot_idx)                  # [..., n_max]
+    sp_v = stacked.slot_pos.select(batch_axis, slot_idx)      # [..., S]
+    sc_v = stacked.scores.select(batch_axis, slot_idx)
+    ln_v = stacked.length.select(batch_axis, slot_idx)        # [...]
+    S = sp_v.shape[-1]
+    row = row_v.reshape(-1, n_max)                            # [L, n_max]
+    sp = sp_v.reshape(-1, S)
+    sc = sc_v.reshape(-1, S)
+    ln = ln_v.reshape(-1)
+    L, dev = sp.shape[0], sp.device
+    length = ln.min()                        # uniform across layers (gated)
+    full_groups = length // G                # fully flushed prefix groups
+    n_drop = torch.clamp(torch.as_tensor(n_drop, device=dev), min=0)
+    n_drop = torch.minimum(n_drop, torch.clamp(full_groups - 1, min=0))
+
+    ages = sp.reshape(L, n_max, G).amax(dim=(0, 2))           # [n_max]
+    idx = torch.arange(n_max, device=dev)
+    cand = (idx >= 1) & (idx < full_groups)  # non-sink, fully flushed
+    key = torch.where(cand, ages, torch.iinfo(torch.int32).max)
+    rank = torch.argsort(torch.argsort(key, stable=True), stable=True)
+    drop = cand & (rank < n_drop)
+    # stable compaction: kept entries keep their order, dropped go last
+    perm = torch.argsort(torch.where(drop, n_max, 0) + idx, stable=True)
+    kept = idx < n_max - n_drop
+
+    new_row = torch.where(kept, row[:, perm], -1)
+
+    def compact(rows, fill):                  # [L, S] -> [L, S]
+        x = rows.reshape(L, n_max, G)[:, perm]
+        x = torch.where(kept[None, :, None], x, fill)
+        return x.reshape(L, n_max * G)
+
+    new_sc, new_sp = compact(sc, 0.0), compact(sp, -1)
+    new_ln = ln - n_drop * G
+    row_v.copy_(new_row.reshape(row_v.shape))
+    sc_v.copy_(new_sc.reshape(sc_v.shape))
+    sp_v.copy_(new_sp.reshape(sp_v.shape))
+    ln_v.copy_(new_ln.reshape(ln_v.shape))
+    return stacked
+
+
+# ---------------------------------------------------------------------------
 # Bytes accounting
 # ---------------------------------------------------------------------------
 
@@ -679,6 +1207,15 @@ def mapped_blocks(p: PagedLayerKV) -> int:
     sync). Tables are replicated per layer; count one copy."""
     tbl = p.block_tbl.reshape(-1, *p.block_tbl.shape[-2:])[0]
     return int(torch.unique(tbl[tbl >= 0]).numel())
+
+
+def block_fp16_bytes(p: PagedLayerKV, spec: CacheSpec) -> int:
+    """Bytes one block would cost to move as fp16 across every layer: the
+    uncompressed-offload baseline of the tier's bytes moved. A quantized
+    pool packs `8 // bits` codes per int8 lane. Per grantable block, as
+    the JAX package counts it (its pools have no drop block)."""
+    factor = 8 // spec.bits if spec.quantized else 1
+    return (p.pk.numel() + p.pv.numel()) * factor // p.pk.shape[-4] * 2
 
 
 def paged_physical_bytes(p: PagedLayerKV) -> int:

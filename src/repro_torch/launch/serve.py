@@ -31,6 +31,16 @@ seed, on the card unless ``--device cpu``.
     python -m repro_torch.launch.serve --arch granite-8b --reduced \\
         --policy full --continuous --paged --block-growth lazy \\
         --preemption --pool-blocks 70 --audit-every 4
+
+    # ... with the host-RAM tier: preempted slots spill and restore
+    python -m repro_torch.launch.serve --arch granite-8b --reduced \
+        --policy full --continuous --paged --block-growth lazy \
+        --preemption --pool-blocks 70 --tiering
+
+    # pressure-driven degradation of resident kivi2 slots
+    python -m repro_torch.launch.serve --arch granite-8b --reduced \
+        --policy kivi2 --budget 32 --window 8 --continuous --paged \
+        --block-growth lazy --preemption --degrade
 """
 from __future__ import annotations
 
@@ -134,6 +144,24 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                          "and resumes with an equal stream by prompt "
                          "re-prefill + token replay; requests fail only "
                          "when they cannot fit an empty pool")
+    ap.add_argument("--degrade", action="store_true",
+                    help="pressure-driven budget degradation (--paged "
+                         "--block-growth lazy, quantized policy): above a "
+                         "high-water mark of pool usage, resident slots "
+                         "drop their oldest flushed groups until usage "
+                         "falls to the low-water mark — the reversible "
+                         "rung below preemption")
+    ap.add_argument("--tiering", action="store_true",
+                    help="KV tiering (--continuous --paged only): a "
+                         "host-RAM block tier under the pool — preempted "
+                         "slots spill their blocks and restore on "
+                         "re-admission instead of recomputing, cold "
+                         "prefix-cache blocks demote instead of being "
+                         "freed, and the overload ladder gains a spill "
+                         "rung ahead of degrade / preempt / fail")
+    ap.add_argument("--host-blocks", type=int, default=0,
+                    help="host tier capacity in blocks for --tiering "
+                         "(0 = same as the device pool)")
     ap.add_argument("--audit-every", type=int, default=0,
                     help="audit the pool (allocator refcounts vs slot "
                          "grants vs device block tables vs prefix index) "
@@ -163,6 +191,16 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     if args.preemption and not args.continuous:
         ap.error("--preemption requires --continuous (wave requests "
                  "never contend for a shared pool)")
+    if args.degrade and not (args.paged and args.block_growth == "lazy"):
+        ap.error("--degrade requires --paged --block-growth lazy")
+    if args.tiering and not (args.continuous and args.paged):
+        ap.error("--tiering requires --continuous --paged (the host tier "
+                 "spills pool blocks)")
+    if args.tiering and args.speculative:
+        ap.error("--tiering and --speculative are mutually exclusive "
+                 "(the draft cache holds no block tables to spill)")
+    if args.host_blocks and not args.tiering:
+        ap.error("--host-blocks requires --tiering")
     if args.audit_every and not args.paged:
         ap.error("--audit-every requires --paged (it audits the pool)")
 
@@ -189,7 +227,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                      prefix_sharing=args.prefix_sharing,
                      near_hit=args.near_hit, block_growth=args.block_growth,
                      admission_order=args.admission_order,
-                     preemption=args.preemption,
+                     preemption=args.preemption, degrade=args.degrade,
+                     tiering=args.tiering,
+                     host_blocks=args.host_blocks or None,
                      audit_every=args.audit_every)
         eos = args.eos_id if args.eos_id >= 0 else None
         shared = (rng.integers(0, cfg.vocab_size, size=args.shared_prefix)
@@ -223,6 +263,23 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         if args.preemption or n_pre or n_ret:
             print(f"overload: {n_pre} preemptions, {n_ret} admission "
                   f"retries across {len(res.results)} requests")
+        if args.degrade and eng.pressure is not None:
+            st = eng.pressure.stats
+            print(f"pressure: {st['degrades']} degrades dropped "
+                  f"{st['blocks_dropped']} blocks, peak pool usage "
+                  f"{st['peak_used_frac']:.2f}")
+        if args.tiering and res.tier is not None:
+            t = res.tier
+            ratio = t["fp16_block_bytes"] / max(t["block_bytes"], 1)
+            print(f"tier: {t['n_spills']} spills / {t['n_fetches']} "
+                  f"fetches moved {t['bytes_moved'] / 2**20:.1f} MiB "
+                  f"(fp16 transport would be {ratio:.1f}x), "
+                  f"fetch stalls {t['fetch_stall_s'] * 1e3:.1f} ms, "
+                  f"{t['host_entries']} entries / "
+                  f"{t['host_resident']} blocks host-resident of "
+                  f"{t['host_blocks']} (refused "
+                  f"{t['refused_fetches']} fetches, stripped "
+                  f"{t['grants_stripped']} grants)")
         if args.paged:
             a = eng.last_audit
             print(f"paged: pool {res.pool_blocks} blocks, peak "

@@ -40,28 +40,48 @@ prompts through CacheBlend's selective recompute
 (`serving.cacheblend`). Every sharing admission goes through the chunked
 machinery, so streams equal those of a run without sharing.
 
-**The overload ladder** (paged). With ``block_growth="lazy"`` an
-admission reserves only its prompt's blocks and a slot is granted more as
-it decodes (a host mirror of its row counts decides each grant, no device
-read). With ``preemption=True`` a starved grant or admission preempts the
-least-progressed resident slot: its request requeues at the front as a
-continuation, and on re-admission re-prefills its prompt and *replays*
-its emitted tokens through ordinary decode steps (outputs discarded), so
-its stream equals an unpreempted one. Without preemption a starved slot
-retires "oom". ``preempt_at`` forces preemptions at given (dispatch,
-slot) pairs, ``fault_plan`` injects allocator refusals and refcount skew,
-and ``audit_every`` audits the pool, its device block table included,
-every N dispatches. ``admission_order="shortest-prompt"`` admits the
-shortest queued prompt first.
+**The overload ladder** (paged, the plain loop), rung by rung:
 
-Not ported yet (the constructor raises NotImplementedError):
-degradation, tiering, samplers other than greedy; tracing and metrics.
+  1. **spill** (``tiering=True``): above the tier controller's high-water
+     mark cold prefix-index blocks demote to a host-RAM tier
+     (`paging.HostTier`, ``host_blocks`` big) instead of being freed, and
+     a stalled admission's granted-but-unwritten blocks are stripped;
+     the bytes come back bit for bit, and a warm hit pages them back;
+  2. **degrade** (``degrade=True``, lazy growth, a quantized streaming
+     store): above ``degrade_high`` of the pool in use, resident slots
+     drop their oldest flushed groups (`paging.degrade_slot_groups`)
+     down to ``degrade_low``, keeping ``degrade_keep_groups``; lossy, but
+     the slots regrow one group per window of appends;
+  3. **preempt** (``preemption=True``): a starved grant or admission
+     preempts the least-progressed resident slot, which requeues at the
+     front as a continuation. With the tier on and room in it the slot's
+     blocks and metadata spill to host and its re-admission restores
+     them (no re-prefill, no replay); otherwise the re-admission
+     re-prefills the prompt and *replays* the emitted tokens through
+     ordinary decode steps (outputs discarded), so its stream equals an
+     unpreempted one;
+  4. **fail**: without preemption a starved slot retires "oom", and a
+     request that cannot fit the empty pool "failed".
+
+With ``block_growth="lazy"`` an admission reserves only its prompt's
+blocks and a slot is granted more as it decodes (a host mirror of its
+row counts decides each grant, no device read). ``preempt_at`` forces
+preemptions at given (dispatch, slot) pairs, ``fault_plan`` injects
+allocator refusals, refcount skew and fetch refusals and delays, and
+``audit_every`` audits the pool, its device block table and the host
+census included, every N dispatches.
+``admission_order="shortest-prompt"`` admits the shortest queued prompt
+first. Neither rung 1 nor rung 2 runs with ``speculative=True`` (the
+constructor refuses, as the JAX engine does).
+
+Not ported yet (the constructor raises NotImplementedError): samplers
+other than greedy; tracing and metrics.
 """
 from __future__ import annotations
 
 import math
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, List, Optional, Sequence, Union
 
 import numpy as np
@@ -121,11 +141,17 @@ class ContinuousGenerationResult:
     # append steps whose quantized ring flushed (host-decided; one per
     # decode step, verify sub-step or drafter step that flushed any row)
     kv_flush_steps: int = 0
+    tier: Optional[dict] = None    # tiering runs only: spill / fetch counts,
+                                   # bytes moved, fetch stalls, host-tier
+                                   # capacity + pressure-controller stats
     # recompute-on-resume: tokens re-fed through the decode path (the
-    # continuation prefixes at re-admission) and the seconds spent
-    # re-prefilling the preempted prompts (part of prefill_seconds)
+    # continuation prefixes at re-admission), the seconds spent
+    # re-prefilling the preempted prompts (part of prefill_seconds), and
+    # the uid of each such re-admission (a restore from the host tier is
+    # none of these)
     replayed_tokens: int = 0
     readmit_prefill_s: float = 0.0
+    recomputed_uids: List[int] = field(default_factory=list)
 
     def failed(self) -> List[RequestResult]:
         """Requests retired without being served (a paged pool too small
@@ -231,9 +257,11 @@ class Engine:
     CacheBlend recompute fraction; 0 turns near-hits off) apply to
     `generate_continuous`, as in the JAX engine, and so do the overload
     ladder's `block_growth`, `admission_order`, `preemption` (with
-    `preempt_patience`, `fail_patience`), `preempt_at`, `fault_plan` and
-    `audit_every` (module docstring). `sampler` must be greedy (the only
-    one ported)."""
+    `preempt_patience`, `fail_patience`), `preempt_at`, `fault_plan`,
+    `audit_every`, `degrade` (with `degrade_high`, `degrade_low`,
+    `degrade_keep_groups`) and `tiering` (with `host_blocks`: None is
+    the pool's size) (module docstring). `sampler` must be greedy (the
+    only one ported)."""
 
     def __init__(self, cfg, params, policy: CompressionPolicy, *,
                  prompt_len: Optional[int] = None, max_new: int,
@@ -249,13 +277,12 @@ class Engine:
                  prefix_sharing: bool = False, near_hit: float = 0.0,
                  preemption: bool = False, preempt_patience: int = 2,
                  fail_patience: int = 3, degrade: bool = False,
-                 tiering: bool = False,
+                 degrade_high: float = 0.85, degrade_low: float = 0.60,
+                 degrade_keep_groups: int = 2, tiering: bool = False,
+                 host_blocks: Optional[int] = None,
                  fault_plan: Optional[paging.FaultPlan] = None,
                  audit_every: int = 0,
                  preempt_at: Sequence[Sequence[int]] = ()):
-        for flag, on in (("degrade", degrade), ("tiering", tiering)):
-            if on:
-                raise NotImplementedError(f"{flag}: not yet ported")
         if block_growth not in ("eager", "lazy"):
             raise ValueError(f"unknown block_growth {block_growth!r}")
         if admission_order not in ("fifo", "shortest-prompt"):
@@ -319,6 +346,26 @@ class Engine:
         self.lazy_blocks = block_growth == "lazy"
         self.admission_order = admission_order
 
+        # the host-RAM tier under the pool (`paging.HostTier`): cold
+        # prefix-index blocks demote to it instead of being freed, a
+        # stalled admission's unwritten grant is stripped, and a preempted
+        # slot snapshots to it and restores on re-admission
+        self.tiering = bool(tiering)
+        if self.tiering and not self.paged:
+            raise ValueError("tiering spills paged pool blocks; it "
+                             "requires paged=True")
+        if self.tiering and speculative:
+            raise ValueError("tiering + speculative is unsupported (the "
+                             "draft cache holds no block tables to spill)")
+        if host_blocks is not None and not self.tiering:
+            raise ValueError("host_blocks requires tiering=True")
+        self.host_blocks = (int(host_blocks) if host_blocks
+                            else self.pool_blocks if self.tiering else 0)
+        self.host_tier: Optional[paging.HostTier] = None
+        self.tier_pressure = None
+        self._tier_aux: dict = {}     # tier handle -> host mirror snapshots
+        self._tier_stripped = 0       # stalled admissions' grants reclaimed
+
         # the overload ladder: a starved grant or admission preempts the
         # least-progressed resident slot, which requeues as a continuation
         # and replays its emitted tokens on re-admission. `preempt_at`
@@ -362,6 +409,7 @@ class Engine:
         self.flush_steps = 0
         self.replayed_tokens = 0
         self.readmit_prefill_s = 0.0
+        self.recomputed_uids = []
 
         # chunked prefill (continuous batching only): chunk_len snaps to
         # the mass group, so chunked and monolithic admissions fold the
@@ -405,6 +453,34 @@ class Engine:
                     multiple=(self.draft.spec.group
                               if self.draft.spec.quantized else 1)),
                 dS)
+
+        # pressure-driven degradation (the rung between spill and
+        # preempt): above the high-water mark resident quantized slots
+        # drop their oldest flushed groups
+        self.pressure = None
+        if degrade:
+            if not (self.paged and self.lazy_blocks):
+                raise ValueError(
+                    "degrade requires paged=True with block_growth="
+                    "'lazy': lazy growth grants a block before every "
+                    "dispatch, which is what guarantees a post-degrade "
+                    "ring flush always lands in a mapped table entry")
+            if not self.spec.quantized or self.spec.track_scores():
+                raise ValueError(
+                    "degrade drops whole flushed groups of a quantized "
+                    "streaming store (kivi*); score-carrying or "
+                    "unquantized policies have no group structure to "
+                    "evict down")
+            if self.speculative:
+                raise ValueError(
+                    "degrade + speculative is unsupported (the drafter's "
+                    "host mirror cannot track pressure evictions)")
+            # adaptive.py imports Engine at module level; import the
+            # controller here to keep the cycle one-directional
+            from repro_torch.serving.adaptive import PressureController
+            self.pressure = PressureController(
+                high_water=degrade_high, low_water=degrade_low,
+                keep_groups=degrade_keep_groups)
 
     # ------------------------------------------------------------------
     def _check_aligned(self, buckets) -> None:
@@ -475,11 +551,27 @@ class Engine:
             rows = len(req.tokens) + len(req.emitted_prefix)
             if self.preemption:
                 rows += 1
-            return paging.request_blocks_prefix(self.spec, self._S_phys,
+            base = paging.request_blocks_prefix(self.spec, self._S_phys,
                                                 rows, self.block_len)
-        return paging.request_blocks(self.spec, self._S_phys,
-                                     len(req.tokens), req.max_new,
-                                     self.block_len)
+        else:
+            base = paging.request_blocks(self.spec, self._S_phys,
+                                         len(req.tokens), req.max_new,
+                                         self.block_len)
+        if req.tier_ticket is not None:
+            # a spill-preempted continuation restores its snapshot into
+            # fresh ids: the grant covers the snapshot and the recompute
+            # path (a refused fetch falls back to replay)
+            return max(req.tier_blocks, base)
+        return base
+
+    def _drop_ticket(self, req: Request) -> None:
+        """Abandon a queued continuation's host snapshot; it resumes by
+        recompute-on-resume replay instead."""
+        if req.tier_ticket is not None and self.host_tier is not None:
+            self.host_tier.drop(req.tier_ticket)
+            self._tier_aux.pop(req.tier_ticket, None)
+            req.tier_ticket = None
+            req.tier_blocks = 0
 
     def _run_audit(self, sched: Scheduler, cache=None) -> dict:
         """Pool invariant audit (`paging.audit_pool`): allocator refcounts
@@ -490,11 +582,17 @@ class Engine:
         index_blocks = ()
         if self._share_state is not None:
             index_blocks = self._share_state["index"].block_ids()
+        tier_holders: List[int] = []
+        if self.host_tier is not None:
+            if self._share_state is not None:
+                tier_holders += self._share_state["index"].host_handles()
+            tier_holders += sched.queued_tickets()
         tbl = (cache.attn.block_tbl.cpu().numpy() if cache is not None
                else None)
         self.last_audit = paging.audit_pool(
             self.block_allocator, sched.occupied_blocks(), index_blocks,
-            block_tbl=tbl, tbl_slots=sched.active_slots())
+            block_tbl=tbl, tbl_slots=sched.active_slots(),
+            host_tier=self.host_tier, tier_holders=tier_holders)
         return self.last_audit
 
     def _grow_blocks(self, sched: Scheduler, cache: M.ModelCache,
@@ -558,7 +656,14 @@ class Engine:
                 return True
         if not sched.active_slots() and not sched.prefilling_slots():
             if tries > self.fail_patience:
-                sched.fail_head()
+                head = sched.head_request()
+                if head is not None and head.tier_ticket is not None:
+                    # a ticket-sized grant the pool can never cover: drop
+                    # the snapshot, retry as a plain (smaller) recompute
+                    # continuation
+                    self._drop_ticket(head)
+                else:
+                    sched.fail_head()
             return True
         return False
 
@@ -681,6 +786,11 @@ class Engine:
             if not free:
                 return None
             req = sched.head_request()
+            if self.host_tier is not None and req.tier_ticket is not None:
+                # a spill-preempted continuation is restored by the
+                # loop-top ticket path, never streamed through a chunked
+                # admission; later requests wait behind it
+                return None
             total = self._request_blocks(req) if self.paged else 0
             if self.paged and total > self.pool_blocks:
                 sched.fail_head()
@@ -939,6 +1049,7 @@ class Engine:
         seconds and the committed tokens it will replay."""
         self.readmit_prefill_s += secs
         self.replayed_tokens += len(req.emitted_prefix)
+        self.recomputed_uids.append(req.uid)
 
     def _logical_bytes_per_seq(self) -> float:
         """Per-sequence logical cache bytes under the layer budgets."""
@@ -1032,6 +1143,7 @@ class Engine:
         self.flush_steps = 0
         self.replayed_tokens = 0
         self.readmit_prefill_s = 0.0
+        self.recomputed_uids = []
         self._share_state = None
         if self.speculative:
             # draft / verify loop: synchronous rounds, since drafting needs
@@ -1046,6 +1158,21 @@ class Engine:
                 raise ValueError(f"request max_new {r.max_new} exceeds "
                                  f"engine headroom {self.max_new}")
             sched.submit(r)
+
+        # KV tiering: a fresh host tier and its own pressure controller per
+        # run (the degrade watermarks: the spill rung engages at the same
+        # pressure, one rung earlier in the ladder)
+        tier: Optional[paging.HostTier] = None
+        tier_ctrl = None
+        self._tier_aux = {}
+        self._tier_stripped = 0
+        if self.tiering:
+            from repro_torch.serving.adaptive import PressureController
+            tier = paging.HostTier(self.host_blocks,
+                                   fault_plan=self.fault_plan)
+            tier_ctrl = PressureController(high_water=0.85, low_water=0.60)
+        self.host_tier = tier
+        self.tier_pressure = tier_ctrl
 
         share = None
         if self.prefix_sharing:
@@ -1064,13 +1191,24 @@ class Engine:
                            cold_prefill_s=[]))
 
             def reclaim(shortfall: int) -> None:
-                # resident requests outrank the prompt cache: lingering
-                # index blocks go, LRU leaf first
+                # resident requests outrank the prompt cache: with the
+                # tier, cold index blocks demote to host first (warm hits
+                # survive the churn); what it cannot absorb goes, LRU
+                # leaf first
+                if tier is not None:
+                    shortfall -= demote_index_blocks(shortfall)
+                if shortfall <= 0:
+                    return
                 freed = index.evict(shortfall, self.block_allocator)
                 share["stats"]["evicted_blocks"] += len(freed)
                 sched.release(-1, freed)
 
             sched.reclaim = reclaim
+            if tier is not None:
+                # tier-aware admission: free + spillable-cold coverage
+                # (the scheduler's second reclaim pass converts it)
+                sched.spillable = lambda: min(
+                    index.spillable(self.block_allocator), tier.free_blocks)
 
         cache = M.init_cache(self.cfg, self.spec, self.slots,
                              self.prompt_len + self.max_new,
@@ -1145,10 +1283,240 @@ class Engine:
             if reason is not None:
                 sched.retire(s, reason)
             else:
-                sched.preempt(s)
+                # preempt to host: snapshot the blocks, the metadata row
+                # and the host mirrors before `preempt` releases the ids;
+                # the ticketed continuation restores instead of
+                # recomputing (tier off or full, or nothing emitted yet:
+                # recompute-on-resume)
+                h = spill_slot(s)
+                req = sched.preempt(s)
+                if h is not None:
+                    req.tier_ticket = h
+                    req.tier_blocks = self._tier_aux[h]["n"]
             reset(s)
             replay.pop(s, None)
             return reason is None
+
+        def degrade_tick() -> None:
+            """The degrade rung: above the controller's high-water mark,
+            resident quantized slots drop their oldest flushed non-sink
+            groups until the shortfall is freed — reversible quality loss
+            instead of preemption. Mid-replay and sharing slots are kept
+            exact; a slot with uneven layer lengths is skipped (one table
+            permutation serves every layer)."""
+            ctrl = self.pressure
+            shortfall = ctrl.shortfall(self.block_allocator)
+            if shortfall <= 0:
+                return
+            G = self.spec.group
+            for s in sched.active_slots():
+                if shortfall <= 0:
+                    break
+                if s in replay:
+                    continue
+                if share is not None and share["upto"].get(s):
+                    continue
+                lens = lazy_mirror.length[s]
+                if int(lens.min()) != int(lens.max()):
+                    continue
+                n = min(int(lens[0]) // G - ctrl.keep_groups, shortfall)
+                if n <= 0:
+                    continue
+                paging.degrade_slot_groups(cache.attn, self.spec, s, n,
+                                           batch_axis=2)
+                tbl = cache.attn.block_tbl
+                # kvlint: ok(host-sync: pressure-driven degrade is a rare event — the table read is off the steady-state step)
+                row = tbl.reshape(-1, *tbl.shape[-2:])[0, s].cpu().numpy()
+                dropped = sched.replace_blocks(
+                    s, [int(b) for b in row if b >= 0])
+                lazy_mirror.drop_rows(s, len(dropped) * G)
+                if share is not None:
+                    share["mirror"].drop_rows(s, len(dropped) * G)
+                ctrl.note_degrade(len(dropped))
+                shortfall -= len(dropped)
+
+        # --- the tier's closures (no-ops with tiering off). The pools are
+        # written in place and every gather is enqueued on the main
+        # stream, so a demotion fired from inside a chunked admission's
+        # grant reads the pool as it stands there.
+        def demote_index_blocks(shortfall: int) -> int:
+            """Cold source (a): prefix blocks past their last adopter
+            (refcount 1) demote to host, LRU first, instead of being freed;
+            a later warm hit pages them back (`promote_for_head`). Returns
+            the device blocks freed."""
+            if tier is None or share is None:
+                return 0
+            index = share["index"]
+            freed = 0
+            while freed < shortfall:
+                node = index.demote_candidate(self.block_allocator)
+                if node is None:
+                    break
+                h = tier.begin_spill(paging.gather_pool_blocks(
+                    cache.attn, self._h2d_ids([node.block_id]),
+                    batch_axis=2), 1)
+                if h is None:
+                    break                       # host tier full
+                bid = node.block_id
+                index.mark_host(node, h)
+                sched.release(-1, [bid])
+                sched.note_swap(-1, spills=1, bytes_moved=tier.nbytes_of(h))
+                freed += 1
+            if freed and tier_ctrl is not None:
+                tier_ctrl.note_spill(freed)
+            return freed
+
+        def spill_tick() -> None:
+            """The spill rung, ahead of degradation: above the tier
+            controller's high-water mark, demote cold index blocks, then
+            strip the granted-but-unwritten blocks of a stalled chunked
+            admission (its scratch holds the rows, so its blocks carry no
+            data yet; the grant loop asks for them again)."""
+            shortfall = tier_ctrl.shortfall(self.block_allocator)
+            if shortfall <= 0:
+                return
+            shortfall -= demote_index_blocks(shortfall)
+            if (shortfall > 0 and adm is not None and not adm.direct
+                    and not adm.blend and adm.stalls > 0
+                    and adm.granted > adm.n_adopt):
+                n_strip = min(shortfall, adm.granted - adm.n_adopt)
+                freed = sched.release_blocks(adm.slot, n_strip)
+                adm.granted -= len(freed)
+                self._tier_stripped += len(freed)
+
+        def spill_slot(s: int) -> Optional[int]:
+            """Snapshot slot `s`'s pool blocks and metadata row (and its
+            host mirrors: the ring, the lazy-growth and sharing rows) into
+            the tier. The gather is enqueued now, behind the step in
+            flight; the caller frees the ids at once; the host copy lands
+            on the side stream and drains next iteration. The ticket, or
+            None when the slot cannot restore exactly (mid-replay, nothing
+            emitted yet) or the tier is full."""
+            if tier is None or s in replay or sched.emitted_total(s) == 0:
+                return None
+            ids = sched.slot_blocks(s)
+            if not ids:
+                return None
+            payload = dict(
+                blocks=paging.gather_pool_blocks(
+                    cache.attn, self._h2d_ids(ids), batch_axis=2),
+                meta=paging.gather_slot_meta(cache.attn, s, batch_axis=2))
+            h = tier.begin_spill(payload, len(ids))
+            if h is None:
+                return None         # host full: recompute-on-resume
+            aux: dict = dict(n=len(ids), ring=int(ring.rlen[s]))
+            if lazy_mirror is not None:
+                aux["lazy"] = lazy_mirror.snapshot(s)
+            if share is not None:
+                aux["share"] = share["mirror"].snapshot(s)
+            self._tier_aux[h] = aux
+            sched.note_swap(s, spills=len(ids),
+                            bytes_moved=tier.nbytes_of(h))
+            return h
+
+        def try_restore(slot_idx: int, req: Request) -> bool:
+            """Land a ticketed continuation's saved blocks in its fresh
+            grant and resume from its last emitted token: no re-prefill,
+            no replay (the bytes are checksum-verified). A refused fetch
+            (injected fault) consumes the ticket and returns False: the
+            caller falls back to recompute-on-resume."""
+            h = req.tier_ticket
+            req.tier_ticket = None
+            req.tier_blocks = 0
+            aux = self._tier_aux.pop(h, None)
+            got = tier.fetch(h)
+            if got is None:                 # refused: the bytes are gone
+                return False
+            payload, nbytes, stall = got
+            dev = tier.upload(payload, self.device)
+            k = aux["n"]
+            ids = sched.slot_blocks(slot_idx)
+            paging.scatter_pool_blocks(cache.attn, self._h2d_ids(ids[:k]),
+                                       dev["blocks"], batch_axis=2)
+            paging.scatter_slot_meta(cache.attn, slot_idx, dev["meta"],
+                                     batch_axis=2)
+            # map the whole grant: the k saved blocks plus any headroom
+            # the re-admission granted past them
+            row = np.full(self.n_max_blocks, -1, np.int32)
+            row[:len(ids)] = ids
+            paging.write_block_table(cache.attn, slot_idx, 0,
+                                     self._h2d(row), batch_axis=2)
+            clean_slots.discard(slot_idx)
+            ring.rlen[slot_idx] = aux["ring"]
+            if lazy_mirror is not None:
+                lazy_mirror.restore(slot_idx, aux["lazy"])
+            if share is not None:
+                # the row mirror only: the restored slot owns fresh
+                # exclusive ids, so no copy-on-write watch set comes back
+                share["mirror"].restore(slot_idx, aux["share"])
+            sched.note_swap(slot_idx, fetches=k, bytes_moved=nbytes,
+                            stall_s=stall)
+            next_tok[slot_idx] = req.emitted_prefix[-1]
+            return True
+
+        def admit_ticket_head() -> None:
+            """Loop-top admission of a ticketed (spill-preempted)
+            continuation under chunked admission: `admit_next` sizes the
+            grant through `_request_blocks` (at least the saved blocks),
+            then the fetch lands the snapshot in the granted ids. Outside
+            the chunked machinery: there is no prompt left to stream."""
+            nonlocal prefill_s
+            free = sched.free_slots()
+            if not free:
+                return
+            i = free[0]
+            req = sched.admit_next(i)
+            if req is None:
+                # refused: a victim past the patience, or with nothing
+                # running the ticket is dropped (the head retries as a
+                # plain recompute continuation)
+                self._retry_refused_admission(sched, True, preempt_slot,
+                                              tuple(replay))
+                return
+            t0 = time.perf_counter()
+            ok = try_restore(i, req)
+            prefill_s += time.perf_counter() - t0
+            if ok:
+                set_tokens({i: int(next_tok[i])})
+            else:
+                # refused before anything ran in the slot: requeue at the
+                # front as an ordinary recompute-on-resume continuation
+                sched.preempt(i)
+
+        def promote_for_head() -> None:
+            """Pre-admission paging of a warm hit on demoted prefix
+            blocks: fetch the head prompt's host-resident nodes into
+            freshly allocated blocks, so `match` hands the admission the
+            whole read-only hit. A refused fetch drops the node's subtree
+            (its bytes are gone); an empty free list leaves the admission
+            the partial (device-resident) hit."""
+            if tier is None or share is None or not sched.pending:
+                return
+            req = sched.head_request()
+            if req is None or not self._share_retained(len(req.tokens)):
+                return
+            index = share["index"]
+            for node in index.match_nodes(req.tokens):
+                if node.host is None:
+                    continue
+                got_ids = self.block_allocator.alloc(1)
+                if got_ids is None:
+                    break
+                got = tier.fetch(node.host)
+                if got is None:
+                    dev_ids, handles = index.drop_node(node)
+                    sched.release(-1, dev_ids)
+                    for hh in handles:
+                        tier.drop(hh)
+                    sched.release(-1, got_ids)
+                    break
+                payload, nbytes, stall = got
+                paging.scatter_pool_blocks(
+                    cache.attn, self._h2d_ids(got_ids),
+                    tier.upload(payload, self.device), batch_axis=2)
+                index.promote(node, got_ids[0])
+                sched.note_swap(-1, fetches=1, bytes_moved=nbytes,
+                                stall_s=stall)
 
         def set_tokens(feed: dict) -> None:
             """Overwrite `tok_in` at the given slots with host tokens: one
@@ -1181,6 +1549,15 @@ class Engine:
                     if slot_idx not in clean_slots:
                         reset(slot_idx)
                     return False
+                if tier is not None and req.tier_ticket is not None:
+                    # ticketed continuation: land the snapshot in the grant
+                    # instead of re-prefilling; a refused fetch falls
+                    # through to recompute-on-resume below
+                    t0 = time.perf_counter()
+                    ok = try_restore(slot_idx, req)
+                    prefill_s += time.perf_counter() - t0
+                    if ok:
+                        return True
                 t0 = time.perf_counter()
                 logits, pc = self._prefill(req.tokens[None])
                 self._insert(cache, sched, slot_idx, pc)
@@ -1226,7 +1603,18 @@ class Engine:
         loop_t0 = time.perf_counter()
         prefill_at_loop = prefill_s
         while True:
+            if tier is not None:
+                # land last iteration's spill copies: each waits on its
+                # own copy event (the step in flight keeps running)
+                tier.drain()
             if use_adm and adm is None:
+                if tier is not None and sched.pending:
+                    head = sched.head_request()
+                    if head is not None and head.tier_ticket is not None:
+                        tier.prefetch(head.tier_ticket)
+                        admit_ticket_head()
+                    else:
+                        promote_for_head()
                 t0 = time.perf_counter()
                 adm = self._start_chunked_admission(sched)
                 prefill_s += time.perf_counter() - t0
@@ -1245,6 +1633,10 @@ class Engine:
                     if not sched.pending or not admit_into(i, ladder=True):
                         break
                     set_tokens({i: int(next_tok[i])})
+            if tier_ctrl is not None:
+                spill_tick()
+            if self.pressure is not None:
+                degrade_tick()
             active = sched.active_slots()
             if (self.audit_every and step_idx
                     and step_idx % self.audit_every == 0):
@@ -1308,6 +1700,11 @@ class Engine:
                         dropped = share["index"].disown(ids_w[n_copy:])
                         share["stats"]["evicted_blocks"] += len(dropped)
                         sched.release(-1, dropped)
+                        if tier is not None:
+                            # demoted descendants the cascade unrooted:
+                            # their bytes die with the trie
+                            for hh in share["index"].take_orphaned_handles():
+                                tier.drop(hh)
                         res = (([], []) if n_copy == 0
                                else sched.cow_swap(s, n_copy))
                     if res is not None:
@@ -1436,6 +1833,8 @@ class Engine:
         if self.paged:
             # every run ends with a host-side audit: all slots retired, so
             # every block still allocated must be the prefix index's
+            if tier is not None:
+                tier.drain()
             self._run_audit(sched)
         return self._continuous_result(sched, cache, prefill_s=prefill_s,
                                        decode_s=decode_s,
@@ -1466,6 +1865,24 @@ class Engine:
         if self._share_state is not None:
             prefix_stats = dict(self._share_state["stats"],
                                 index_blocks=len(self._share_state["index"]))
+        tier_stats = None
+        if self.host_tier is not None:
+            tier_stats = dict(self.host_tier.stats)
+            tier_stats.update(
+                host_blocks=self.host_tier.capacity_blocks,
+                host_entries=len(self.host_tier.handles()),
+                host_resident=self.host_tier.resident_blocks,
+                n_spills=sched.n_spills, n_fetches=sched.n_fetches,
+                bytes_moved=sched.bytes_moved,
+                fetch_stall_s=sched.fetch_stall_s,
+                grants_stripped=self._tier_stripped,
+                # transport compression: what one block costs to move
+                # against fp16 (the uncompressed-offload baseline)
+                block_bytes=paging.bytes_per_block(cache.attn),
+                fp16_block_bytes=paging.block_fp16_bytes(cache.attn,
+                                                         self.spec))
+            if self.tier_pressure is not None:
+                tier_stats["pressure"] = dict(self.tier_pressure.stats)
         logical = self._logical_bytes_per_seq() * self.slots
         full = (self.cfg.kv_bytes_per_token()
                 * (self.prompt_len + self.max_new) * self.slots)
@@ -1484,4 +1901,5 @@ class Engine:
             prefix=prefix_stats, kv_flush_steps=self.flush_steps,
             replayed_tokens=self.replayed_tokens,
             readmit_prefill_s=self.readmit_prefill_s,
+            recomputed_uids=list(self.recomputed_uids), tier=tier_stats,
             **pool_stats)

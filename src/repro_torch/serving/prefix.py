@@ -1,5 +1,5 @@
 """Host-side radix index over the paged pool: cross-request prefix reuse
-(counterpart of `repro.serving.prefix`, without the host tier).
+(counterpart of `repro.serving.prefix`).
 
 A trie keyed on token ids at **block granularity** (full blocks only: a
 partial block's rows cannot be mapped read-only without tearing), where
@@ -29,10 +29,11 @@ The index also keeps the last few full prompts, so the engine can spot
 near-hits (same template, edited middle) and route them through
 CacheBlend's selective recompute (`serving.cacheblend`).
 
-Not ported yet (with tiering): demoting nodes to a host tier instead of
-evicting them, and promoting them back (`mark_host`, `promote`,
-`demote_candidate`, `spillable`, `host_handles`,
-`take_orphaned_handles`).
+With tiering, a cold node (refcount 1) can be *demoted* instead of
+evicted: its block bytes move to the host tier under a handle
+(`mark_host`) and the node keeps its trie position, so a later warm hit
+pages it back (`promote`) rather than re-prefilling. `match` stops at the
+first demoted node (a host block cannot be mapped read-only).
 """
 from __future__ import annotations
 
@@ -45,9 +46,12 @@ from repro_torch.obs.trace import NULL_TRACER
 
 class _Node:
     """One full block of an indexed prefix: trie edge key = the block's
-    token ids, payload = pool block id + host scratch rows."""
+    token ids, payload = pool block id + host scratch rows. A demoted node
+    (`host` set, `block_id` None) keeps its place in the trie, its block
+    bytes in the host tier under that handle."""
 
-    __slots__ = ("key", "parent", "children", "block_id", "piece", "tick")
+    __slots__ = ("key", "parent", "children", "block_id", "piece", "tick",
+                 "host")
 
     def __init__(self, key: tuple, parent: Optional["_Node"], block_id: int,
                  piece, tick: int):
@@ -57,6 +61,7 @@ class _Node:
         self.block_id = block_id
         self.piece = piece
         self.tick = tick
+        self.host: Optional[int] = None       # HostTier handle when demoted
 
 
 class PrefixIndex:
@@ -74,11 +79,15 @@ class PrefixIndex:
         self.align = max(int(align), 1)
         self._children: Dict[tuple, _Node] = {}      # root's children
         self._nodes: Dict[int, _Node] = {}           # block id -> node
+        self._host: Dict[int, _Node] = {}            # tier handle -> node
+        self._orphaned: List[int] = []               # handles disown dropped
         self._tick = 0
         self._recent: List[np.ndarray] = []
         self.max_recent = max_recent
         self.ingested = 0
         self.evicted = 0
+        self.demoted = 0
+        self.promoted = 0
 
     def __len__(self) -> int:
         return len(self._nodes)
@@ -107,12 +116,24 @@ class PrefixIndex:
         """Longest indexed prefix of `tokens`, in full blocks: (pool block
         ids, scratch pieces) along the path, which is touched (LRU). The
         engine decides how much of the match it can use (alignment,
-        budget retention, >= 1 suffix token)."""
+        budget retention, >= 1 suffix token). The usable match stops at
+        the first demoted node; the engine promotes the path first
+        (`match_nodes` + `promote`) when it wants the whole hit."""
         path = self._walk(tokens)
         self._tick += 1
         for n in path:
             n.tick = self._tick
-        return [n.block_id for n in path], [n.piece for n in path]
+        usable = []
+        for n in path:
+            if n.host is not None:
+                break
+            usable.append(n)
+        return [n.block_id for n in usable], [n.piece for n in usable]
+
+    def match_nodes(self, tokens) -> List[_Node]:
+        """The raw matched path, demoted nodes included (no LRU touch):
+        the engine's pre-admission hook for paging host nodes back."""
+        return self._walk(tokens)
 
     def ingest(self, tokens, block_ids: List[int], pieces: List,
                allocator) -> int:
@@ -172,6 +193,72 @@ class PrefixIndex:
             self.trace.instant("prefix_evict", args=dict(blocks=len(out)))
         return out
 
+    # ---- host tier (demote instead of evict) -----------------------------
+    def spillable(self, allocator) -> int:
+        """Blocks the engine could demote now: device-resident nodes only
+        the index references (refcount 1). The scheduler's tier-aware
+        admission counts them as coverable capacity."""
+        return sum(1 for nd in self._nodes.values()
+                   if allocator.refcount(nd.block_id) == 1)
+
+    def demote_candidate(self, allocator) -> Optional[_Node]:
+        """The LRU device node eligible for demotion (refcount 1: mapped by
+        no resident slot). Unlike `evict` it need not be a leaf: the node
+        keeps its trie position, so surviving paths stay whole."""
+        cands = [nd for nd in self._nodes.values()
+                 if allocator.refcount(nd.block_id) == 1]
+        return min(cands, key=lambda nd: nd.tick) if cands else None
+
+    def mark_host(self, node: _Node, handle: int) -> None:
+        """Device -> host: the node's block bytes were spilled under
+        `handle`; the caller releases the index's block reference. The
+        node stays in the trie, so a warm hit survives pool churn."""
+        if node.host is not None or node.block_id is None:
+            raise ValueError("mark_host of a node that is not on the device")
+        del self._nodes[node.block_id]
+        node.block_id = None
+        node.host = handle
+        self._host[handle] = node
+        self.demoted += 1
+
+    def promote(self, node: _Node, block_id: int) -> None:
+        """Host -> device: the node's bytes were fetched into the freshly
+        allocated `block_id` (the caller owns the fetch and hands the
+        index its reference)."""
+        if node.host is None:
+            raise ValueError("promote of a node that is not on the host")
+        del self._host[node.host]
+        node.host = None
+        node.block_id = int(block_id)
+        self._nodes[node.block_id] = node
+        self.promoted += 1
+
+    def host_handles(self) -> List[int]:
+        """Every host-tier handle the index holds (audit input)."""
+        return list(self._host)
+
+    def drop_node(self, node: _Node) -> Tuple[List[int], List[int]]:
+        """Remove `node` and its whole subtree from the trie (a fetch
+        refusal killed its bytes). Returns (device block ids, host
+        handles) of every removed node; the caller releases the ids and
+        drops the tier entries."""
+        self._unlink(node)
+        ids: List[int] = []
+        handles: List[int] = []
+        stack = [node]
+        while stack:
+            nd = stack.pop()
+            if nd.block_id is not None:
+                if nd.block_id in self._nodes:
+                    del self._nodes[nd.block_id]
+                    ids.append(nd.block_id)
+            elif nd.host is not None and nd.host in self._host:
+                del self._host[nd.host]
+                handles.append(nd.host)
+            stack.extend(nd.children.values())
+        self.evicted += len(ids) + len(handles)
+        return ids, handles
+
     def disown(self, ids) -> List[int]:
         """Remove these blocks' nodes from the trie, with every descendant
         left unreachable. Returns each removed node's block id; the caller
@@ -179,7 +266,9 @@ class PrefixIndex:
         slot still maps survive at their remaining refcount). The
         copy-on-write pressure fallback: a slot that must un-share but
         cannot afford the copies gives up the index's claim on its blocks
-        instead — legal exactly when no other resident slot maps them."""
+        instead — legal exactly when no other resident slot maps them.
+        Demoted descendants caught in the cascade surface their tier
+        handles through `take_orphaned_handles`, for the engine to drop."""
         dropped: List[int] = []
         for bid in ids:
             node = self._nodes.get(int(bid))
@@ -189,6 +278,12 @@ class PrefixIndex:
             stack = [node]
             while stack:
                 nd = stack.pop()
+                if nd.block_id is None:
+                    if nd.host in self._host:
+                        del self._host[nd.host]
+                        self._orphaned.append(nd.host)
+                    stack.extend(nd.children.values())
+                    continue
                 if nd.block_id not in self._nodes:
                     continue          # already removed through another id
                 del self._nodes[nd.block_id]
@@ -196,6 +291,11 @@ class PrefixIndex:
                 stack.extend(nd.children.values())
         self.evicted += len(dropped)
         return dropped
+
+    def take_orphaned_handles(self) -> List[int]:
+        """Drain the tier handles that `disown` cascades orphaned."""
+        out, self._orphaned = self._orphaned, []
+        return out
 
     # ---- near-hit detection (CacheBlend routing) -------------------------
     def note_prompt(self, tokens) -> None:

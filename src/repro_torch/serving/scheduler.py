@@ -19,9 +19,10 @@ allocation after the prefix index drops lingering blocks),
 `adopt_blocks` and `cow_swap`. The overload ladder adds `preempt` /
 `preempt_victim` (a preempted request requeues at the front as a
 continuation that carries its emitted tokens), `release_blocks` (lazy
-growth's rollback) and the shortest-prompt admission order. Tiering (the
-host-tier accounting and the tier-aware second reclaim pass) and
-degradation's `replace_blocks` come with the slices that port them.
+growth's rollback) and the shortest-prompt admission order. Tiering adds
+the host-tier accounting (`note_swap`, `queued_tickets`, a queued
+continuation's `tier_ticket`) and the tier-aware second reclaim pass
+(`spillable`); degradation adds `replace_blocks`.
 """
 from __future__ import annotations
 
@@ -59,6 +60,19 @@ class Request:
     t_first_prefix: float = 0.0
     n_preemptions: int = 0
     n_retries: int = 0            # admission attempts refused by the pool
+    # host-tier state (spill-to-host preemption): a preemption that
+    # spilled the slot's cache carries its `HostTier` handle here; on
+    # re-admission the engine fetches and restores instead of replaying.
+    # `tier_blocks` is the block count the snapshot covers. The ticket is
+    # attached only while the request is queued (the audit's holder
+    # census is queued tickets + the index's host nodes).
+    tier_ticket: Optional[int] = None
+    tier_blocks: int = 0
+    # swap accounting, accumulated across preempt / resume round trips
+    n_spills: int = 0
+    n_fetches: int = 0
+    bytes_moved: int = 0
+    fetch_stall_s: float = 0.0
 
     def __post_init__(self):
         self.tokens = np.asarray(self.tokens, np.int32)
@@ -88,6 +102,10 @@ class RequestResult:
         default_factory=lambda: np.zeros(0))  # inter-token stall analysis
     n_preemptions: int = 0        # times the request was preempted / resumed
     n_retries: int = 0            # admission attempts refused by the pool
+    n_spills: int = 0             # blocks spilled to the host tier
+    n_fetches: int = 0            # blocks fetched back to the device
+    bytes_moved: int = 0          # device <-> host transport, both ways
+    fetch_stall_s: float = 0.0    # decode-blocking fetch wait
 
     @property
     def n_tokens(self) -> int:
@@ -107,6 +125,10 @@ class _SlotState:
     prefilling: bool = False      # chunked admission in flight: occupied,
                                   # not yet decoding (no tokens yet)
     seq: int = -1                 # admission order (victim tie-break)
+    n_spills: int = 0             # swap accounting of this residency
+    n_fetches: int = 0
+    bytes_moved: int = 0
+    fetch_stall_s: float = 0.0
 
 
 class Scheduler:
@@ -170,6 +192,12 @@ class Scheduler:
         # Host values only.
         self.trace = tracer if tracer is not None else NULL_TRACER
         self.reclaim: Optional[Callable[[int], None]] = None
+        # tier-aware admission: blocks the engine could demote to the host
+        # tier right now (cold refcount-1 prefix nodes with host room).
+        # When the first reclaim retry still falls short, `_alloc` asks
+        # `reclaim` again: the engine's reclaim spills before it evicts,
+        # so the second pass turns cold-but-warm capacity into free blocks
+        self.spillable: Optional[Callable[[], int]] = None
         self._queue: Deque[Tuple[Request, float]] = deque()
         self._slots: List[Optional[_SlotState]] = [None] * n_slots
         self.results: List[RequestResult] = []
@@ -178,6 +206,10 @@ class Scheduler:
         self._admit_seq = itertools.count()
         self.n_preemptions = 0        # fleet totals (per-request counts
         self.n_retries = 0            # land on RequestResult)
+        self.n_spills = 0
+        self.n_fetches = 0
+        self.bytes_moved = 0
+        self.fetch_stall_s = 0.0
 
     def _head_idx(self) -> int:
         """Queue index the next admission takes. FIFO: the front.
@@ -320,9 +352,14 @@ class Scheduler:
 
     def _alloc(self, n: int) -> Optional[List[int]]:
         """Allocate with one reclaim retry: under pool pressure the
-        `reclaim` hook drops lingering prefix-index references first."""
+        `reclaim` hook drops lingering prefix-index references first (and,
+        with tiering, a second pass demotes what `spillable` counts)."""
         got = self.allocator.alloc(n)
         if got is None and self.reclaim is not None:
+            self.reclaim(n - self.allocator.available)
+            got = self.allocator.alloc(n)
+        if (got is None and self.reclaim is not None
+                and self.spillable is not None and self.spillable() > 0):
             self.reclaim(n - self.allocator.available)
             got = self.allocator.alloc(n)
         return got
@@ -454,6 +491,10 @@ class Scheduler:
             token_times=np.asarray(times, np.float64),
             n_preemptions=req.n_preemptions,
             n_retries=req.n_retries,
+            n_spills=req.n_spills + st.n_spills,
+            n_fetches=req.n_fetches + st.n_fetches,
+            bytes_moved=req.bytes_moved + st.bytes_moved,
+            fetch_stall_s=req.fetch_stall_s + st.fetch_stall_s,
         )
         self.results.append(res)
         if self.trace:
@@ -470,7 +511,8 @@ class Scheduler:
                           preemptions=req.n_preemptions))
         return res
 
-    # ---- preemption (the overload ladder: preempt -> fail) ---------------
+    # ---- preemption (the overload ladder: spill -> degrade -> preempt ->
+    # fail) -------------------------------------------------------------
     def preempt(self, slot_idx: int) -> Request:
         """Evict an ACTIVE slot's request and requeue it at the queue
         front as a continuation: its blocks go back through `release`,
@@ -494,6 +536,12 @@ class Scheduler:
         req.token_times_prefix.extend(st.token_times)
         req.n_preemptions += 1
         self.n_preemptions += 1
+        # swap accounting survives the requeue on the request, like the
+        # emitted prefix; the next residency starts its own slot counts
+        req.n_spills += st.n_spills
+        req.n_fetches += st.n_fetches
+        req.bytes_moved += st.bytes_moved
+        req.fetch_stall_s += st.fetch_stall_s
         self._queue.appendleft((req, st.t_submit))
         if self.trace:
             self.trace.instant("preempt", tid=slot_idx + 1,
@@ -516,6 +564,31 @@ class Scheduler:
                 best = (key, i)
         return best[1] if best is not None else None
 
+    def note_swap(self, slot_idx: int, *, spills: int = 0, fetches: int = 0,
+                  bytes_moved: int = 0, stall_s: float = 0.0) -> None:
+        """Account a spill or fetch against a slot's request and the fleet
+        totals. `slot_idx=-1` charges the fleet only (prefix-index
+        demotions and promotions move blocks no resident request owns)."""
+        self.n_spills += spills
+        self.n_fetches += fetches
+        self.bytes_moved += bytes_moved
+        self.fetch_stall_s += stall_s
+        if slot_idx < 0:
+            return
+        st = self._slots[slot_idx]
+        if st is None:
+            raise ValueError(f"slot {slot_idx} is empty")
+        st.n_spills += spills
+        st.n_fetches += fetches
+        st.bytes_moved += bytes_moved
+        st.fetch_stall_s += stall_s
+
+    def queued_tickets(self) -> List[int]:
+        """Host-tier handles held by queued continuations (audit input: a
+        ticket is attached only while its request waits in the queue)."""
+        return [req.tier_ticket for req, _ in self._queue
+                if req.tier_ticket is not None]
+
     def note_retry(self) -> int:
         """An admission attempt for the head request was refused by the
         pool: count it on the request. Returns its retries so far (0 when
@@ -526,6 +599,25 @@ class Scheduler:
         req.n_retries += 1
         self.n_retries += 1
         return req.n_retries
+
+    def replace_blocks(self, slot_idx: int, keep_ids: Sequence[int]
+                       ) -> List[int]:
+        """Pressure degradation dropped some of a slot's blocks on the
+        device: swap the grant list for the kept ids (in the new table
+        order) and release the dropped ones through the seam. Returns the
+        dropped ids."""
+        st = self._slots[slot_idx]
+        if st is None:
+            raise ValueError(f"slot {slot_idx} is empty")
+        keep = [int(i) for i in keep_ids]
+        ks = set(keep)
+        if len(ks) != len(keep) or not ks <= set(st.blocks):
+            raise ValueError(f"kept ids {keep} are not a subset of the "
+                             f"slot's grant {st.blocks}")
+        dropped = [b for b in st.blocks if b not in ks]
+        st.blocks = keep
+        self.release(slot_idx, dropped)
+        return dropped
 
     def occupied_blocks(self) -> dict:
         """slot -> grant list for every occupied slot (audit input)."""
@@ -553,7 +645,9 @@ class Scheduler:
             decode_s=((now - req.t_first_prefix)
                       if req.emitted_prefix else 0.0),
             token_times=np.asarray(req.token_times_prefix, np.float64),
-            n_preemptions=req.n_preemptions, n_retries=req.n_retries)
+            n_preemptions=req.n_preemptions, n_retries=req.n_retries,
+            n_spills=req.n_spills, n_fetches=req.n_fetches,
+            bytes_moved=req.bytes_moved, fetch_stall_s=req.fetch_stall_s)
         self.results.append(res)
         if self.trace:
             self.trace.instant("request_failed",

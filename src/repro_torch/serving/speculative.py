@@ -151,6 +151,27 @@ class CacheMirror:
         self.rlen[slot] = 0
         self.pos[slot] = 0
 
+    def snapshot(self, slot: int) -> dict:
+        """The slot's mirror row, detached: it rides a host-tier slot
+        snapshot, so a spill-preempted request resumes with the row
+        counts it left with."""
+        return dict(length=self.length[slot].copy(),
+                    rlen=int(self.rlen[slot]), pos=int(self.pos[slot]))
+
+    def restore(self, slot: int, snap: dict) -> None:
+        self.length[slot] = snap["length"]
+        self.rlen[slot] = snap["rlen"]
+        self.pos[slot] = snap["pos"]
+
+    def drop_rows(self, slot: int, n: int) -> None:
+        """Mirror of pressure degradation (`paging.degrade_slot_groups`):
+        the slot lost `n` of its oldest flushed main-store rows in every
+        layer. The ring and the absolute position stay: the drop rewrites
+        history, not the append cursor."""
+        if n <= 0:
+            return
+        self.length[slot] = np.maximum(self.length[slot] - n, 0)
+
     def _sim(self, slot: int, n: int):
         """(length, rlen) after n more appends."""
         ln = self.length[slot].copy()

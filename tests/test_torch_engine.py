@@ -185,11 +185,20 @@ def test_wave_generate_equals_jax(model):
 
 
 def test_unported_engine_options_raise(model):
+    """Degradation and tiering are ported: their engines construct (with
+    the paged, lazy options they need). The nacl noise draws and samplers
+    other than greedy are not, and stay refused."""
     jcfg, jp, cfg, p = model
-    for flag, value in (("degrade", True), ("tiering", True)):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            Engine(cfg, p, presets(BUDGET, WINDOW)["h2o"], prompt_len=32,
-                   max_new=4, device="cpu", **{flag: value})
+    paged = dict(paged=True, block_len=8, block_growth="lazy")
+    for pname, opts in (("kivi2", dict(paged, degrade=True)),
+                        ("h2o", dict(paged, tiering=True))):
+        eng = Engine(cfg, p, presets(BUDGET, WINDOW)[pname], prompt_len=32,
+                     max_new=4, device="cpu", **opts)
+        assert (eng.pressure is not None) == ("degrade" in opts)
+        assert eng.tiering == ("tiering" in opts)
     with pytest.raises(NotImplementedError):
         Engine(cfg, p, presets(BUDGET, WINDOW)["nacl"], prompt_len=32,
                max_new=4, device="cpu")
+    with pytest.raises(NotImplementedError, match="greedy"):
+        Engine(cfg, p, presets(BUDGET, WINDOW)["h2o"], prompt_len=32,
+               max_new=4, device="cpu", sampler=lambda logits: logits)

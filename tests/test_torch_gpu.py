@@ -12,6 +12,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs.base import reduced
 from repro_torch.configs.granite_8b import CONFIG as GRANITE
+from repro_torch.core import paging as TP
 from repro_torch.core.policy import presets
 from repro_torch.kernels.decode_qattn import ops as dq_ops
 from repro_torch.kernels.decode_qattn.ref import (decode_attn_paged_ref,
@@ -569,6 +570,73 @@ def test_split_kernels_interleaved_keep_their_tickets(cuda):
             torch.testing.assert_close(out.float(), plain().float(),
                                        atol=atol, rtol=rtol)
         assert torch.equal(out, first[name]), name
+
+
+def test_tier_side_stream_copy_beside_split_kernels(cuda):
+    """Two streams: host-tier spills (device-to-host copies of 0.15 GB
+    each on the tier's side stream) in flight while B1 and B3
+    launch on the main stream at shapes with different ticket counts.
+    Every launch equals its plain version and its first launch (taken
+    with no copy in flight) bit for bit, so the side stream never touches
+    the kernels' ticket buffers or partials scratch. The pool is
+    overwritten right after each spill, as a re-granted block would be:
+    the fetched bytes still equal the spilled ones, bit for bit."""
+    bf = torch.bfloat16
+    dense = _decode_inputs(cuda, bf, 16, True)
+    edge = _edge_inputs(cuda, bf, *DECODE_EDGES["ragged-split"])
+    paged, _ = _paged_inputs(cuda, bf, 2, True)
+    kw16 = dict(bits=16, group=1, compute_dtype=bf)
+    cases = {
+        "b1": (lambda: dq_ops.decode_attn_cuda(*dense, **kw16)[0],
+               lambda: decode_attn_ref(*dense, **kw16)[0]),
+        "b1-edge": (lambda: dq_ops.decode_attn_cuda(*edge, **kw16)[0],
+                    lambda: decode_attn_ref(*edge, **kw16)[0]),
+        "b3": (lambda: dq_ops.decode_attn_paged_cuda(
+                   *paged, bits=2, group=128, compute_dtype=bf)[0],
+               lambda: decode_attn_paged_ref(
+                   *paged, bits=2, group=128, compute_dtype=bf)[0]),
+    }
+    atol, rtol = TOL[bf]
+    first = {}
+    for name, (kern, plain) in cases.items():
+        first[name] = kern()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(first[name].float(), plain().float(),
+                                   atol=atol, rtol=rtol)
+    # a granite-8b-wide pool: [layers, blocks, 16 rows, 8 heads, 128] bf16
+    g = torch.Generator(device=cuda).manual_seed(3)
+    pool = torch.randn(36, 160, 16, 8, 128, generator=g, device=cuda).to(bf)
+    tier = TP.HostTier(1024)
+    order = ["b3", "b1", "b1-edge", "b3", "b3", "b1-edge", "b1"] * 3
+    spills = []
+    for k in range(3):
+        ids = torch.arange(k * 40, k * 40 + 128, device=cuda) % 160
+        payload = dict(blocks=dict(pk=pool.index_select(1, ids)),
+                       meta=dict(length=ids.to(torch.int32)[None]))
+        want = {f: v.clone() for f, v in payload["blocks"].items()}
+        h = tier.begin_spill(payload, 128)
+        pool.index_fill_(1, ids, float(k + 1))        # re-granted, rewritten
+        outs = [(name, cases[name][0]()) for name in order]
+        spills.append((h, want, ids))
+        torch.cuda.synchronize()
+        for name, out in outs:
+            assert torch.equal(out, first[name]), (k, name)
+    assert tier.drain() == 3 and tier.d2h_seconds > 0
+    for h, want, ids in spills:
+        host, nbytes, stall = tier.fetch(h)
+        assert host["blocks"]["pk"].is_pinned() and stall == 0.0
+        dev = tier.upload(host, cuda)
+        assert torch.equal(dev["blocks"]["pk"], want["pk"])
+        assert torch.equal(dev["meta"]["length"][0], ids.to(torch.int32))
+        assert nbytes == want["pk"].numel() * 2 + ids.numel() * 4
+    torch.cuda.synchronize()
+    assert tier.stats["fetches"] == 3 and tier.used_blocks == 0
+    # the arena reuses its pinned buffers: three spills, at most three
+    # buffers' worth pinned, and a fourth spill pins nothing new
+    pinned = tier.pinned_bytes
+    tier.begin_spill(dict(pk=pool.index_select(1, ids)), 128)
+    tier.drain()
+    assert tier.pinned_bytes == pinned
 
 
 def test_quantized_wrapper_matches_plain(cuda):

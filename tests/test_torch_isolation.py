@@ -24,14 +24,14 @@ from repro_torch.kernels.kvquant import ref as kvq_ref
 from repro_torch.launch import serve
 from repro_torch.nn import attention, blocks, layers, model, rope
 from repro_torch.obs import trace
-from repro_torch.serving import (cacheblend, engine, prefix, sampler,
-                                 scheduler, speculative)
+from repro_torch.serving import (adaptive, cacheblend, engine, prefix,
+                                 sampler, scheduler, speculative)
 
 MODULES = [repro_torch, bridge, base, granite_8b, paper_llama_7b, budgets,
            cache, paging, policy, quantization, build, dq_ops, dq_ref, fp_ops,
            fp_ref, kvq_ops, kvq_ref, serve, attention, blocks, layers, model,
-           rope, trace, cacheblend, engine, prefix, sampler, scheduler,
-           speculative]
+           rope, trace, adaptive, cacheblend, engine, prefix, sampler,
+           scheduler, speculative]
 
 _CHILD = textwrap.dedent("""
     import importlib, sys
@@ -62,6 +62,12 @@ _CHILD = textwrap.dedent("""
                 "--budget", "16", "--window", "8", "--requests", "2",
                 "--prompt-len", "32", "--max-new", "2", "--slots", "2",
                 "--device", "cpu"])
+    serve.main(["--arch", "granite-8b", "--reduced", "--policy", "kivi2",
+                "--budget", "24", "--window", "8", "--requests", "4",
+                "--prompt-len", "32", "--max-new", "12", "--slots", "2",
+                "--continuous", "--device", "cpu", "--paged",
+                "--block-growth", "lazy", "--preemption", "--degrade",
+                "--tiering", "--audit-every", "2"])
     bad = sorted(m for m in sys.modules
                  if m == "jax" or m.startswith("jax.")
                  or m == "repro" or m.startswith("repro."))
@@ -80,6 +86,8 @@ def test_port_imports_no_jax_and_no_repro():
     assert "audit clean=True" in r.stdout, r.stdout
     assert "spec[window:16 gamma=2]" in r.stdout, r.stdout
     assert re.search(r"prefix cache: [1-9]\d* warm", r.stdout), r.stdout
+    assert re.search(r"pressure: [1-9]\d* degrades", r.stdout), r.stdout
+    assert "tier: " in r.stdout, r.stdout
 
 
 def test_entry_points_default_to_cuda():

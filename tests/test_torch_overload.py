@@ -1,7 +1,7 @@
 """The port's overload-ladder units against the JAX package's own classes
 on the CPU, call sequence for call sequence: `FaultPlan` injection on
 `BlockAllocator` (explicit indices, the seeded rate, the failure cap,
-refcount skew), `audit_pool` on hand-built states (clean, leak, double
+refcount skew, the fetch fields), `audit_pool` on hand-built states (clean, leak, double
 and freed maps, orphaned increfs, nonpositive refcounts, the device
 block-table cross-check, also on the port's own paged table), and the
 scheduler's preemption, victim policy, retry accounting, tail release
@@ -64,17 +64,23 @@ def _drain(alloc, n_calls, n=1):
 
 
 def test_fault_plan_has_the_reference_alloc_fields():
-    """The port's plan carries the JAX plan's allocator fields with their
-    defaults; the reference's fetch faults (host tier, not ported) are
-    refused, not silently dropped."""
+    """The port's plan carries every field of the JAX plan with its
+    default, the five fetch fields included, and a fetch field drives the
+    port's `HostTier`: the refused fetch is counted as in the JAX tier."""
     fields = {f.name: f.default for f in dataclasses.fields(TP.FaultPlan)}
     ref = {f.name: f.default for f in dataclasses.fields(JP.FaultPlan)}
-    assert fields == {k: ref[k] for k in fields}
-    assert set(ref) - set(fields) == {
-        "fail_fetches", "fetch_fail_rate", "max_fetch_failures",
-        "delay_fetches", "fetch_delay_s"}
-    with pytest.raises(TypeError):
-        TP.FaultPlan(fail_fetches=(0,))
+    assert fields == ref
+
+    def run(pkg):
+        P = pkg[0]
+        tier = P.HostTier(4, fault_plan=P.FaultPlan(fail_fetches=(0,)))
+        pay = (np.zeros((2, 3), np.float32) if P is JP
+               else torch.zeros(2, 3))
+        h = tier.begin_spill({"pk": pay}, 1)
+        tier.drain()
+        return tier.fetch(h) is None, dict(tier.stats)
+    refused, stats = _both(run)
+    assert refused and stats["refused_fetches"] == 1
 
 
 def test_fault_plan_explicit_indices():
