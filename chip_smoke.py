@@ -24,9 +24,14 @@ Phases, each printing its own lines; any failure exits non-zero:
               makes) at the flush and prompt shapes
   4. serve    granite-8b at full width and depth, random bf16 weights from
               a seed, `Engine.generate_continuous` under full / h2o /
-              kivi2 / h2o+kivi2 (dense cache, monolithic prefill), then
+              kivi2 / h2o+kivi2 and the noisy nacl / keyformer (dense
+              cache, monolithic prefill; the last two beside h2o), then
               full / kivi2 / h2o+kivi2 over a paged pool with chunked
-              prefill, then self-speculative decoding (gamma 4): full with
+              prefill (`full` with the Tracer and Metrics on: the trace
+              reloads, its counters equal the result, the host seconds
+              of each span printed), then the temperature / top-k
+              sampler (top_k 1 equal to greedy, top_k 50 beside it),
+              then self-speculative decoding (gamma 4): full with
               the `same` drafter, kivi2 with a `window:64` drafter, full
               paged + chunked with `same`; then the overload ladder
               (paged + chunked, 8 requests): full with lazy block growth
@@ -35,16 +40,19 @@ Phases, each printing its own lines; any failure exits non-zero:
               unpreempted run with clean periodic pool audits; the same
               starving full run with the host-RAM tier (every preemption
               spills to pinned host memory on a side stream and restores,
-              no re-prefill, no replay; the same streams), and kivi2 with
+              no re-prefill, no replay; the same streams), twice:
+              untraced and traced (spill <= preempt <= restore <= fetch
+              in the trace; the two walls printed), and kivi2 with
               pressure-driven degradation at a pool whose usage crosses
               the high-water mark (resident slots drop groups; B6 goes on
               flushing into the regrown ones); then the
               prefix cache (paged + chunked, templated prompts): full and
               kivi2 with sharing, each beside the same requests without,
               and full near-hits through CacheBlend at recompute 1.0 and
-              0.25; each run must go through its kernels, and only its
-              kernels, as many times as its steps (flushes and quantized
-              admissions for KIVI; re-admissions of preempted requests)
+              0.25 (18 of the 36 layers); each run must go through its
+              kernels, and only its kernels, as many times as its steps
+              (flushes and quantized admissions for KIVI; re-admissions
+              of preempted requests)
   5. e2e      4-layer granite-8b: prefill + decode logits with the kernels
               against an engine built with use_kernels=False, dense and
               paged + chunked; then in f32 the speculative streams against
@@ -56,7 +64,11 @@ Phases, each printing its own lines; any failure exits non-zero:
               unpreempted twins, token for token, and with the host tier
               (full and kivi2, every preemption restored); kivi2 with
               degradation through the kernels against the same run with
-              use_kernels=False (degrades, blocks dropped, streams)
+              use_kernels=False (degrades, blocks dropped, streams);
+              nacl, keyformer (dense, paged + chunked) and the
+              temperature sampler through the kernels against
+              use_kernels=False under one seed (streams equal), the
+              sampler's seed 0 twice (equal) and seeds 0 / 1 (differ)
   6. profile  one decode step at full depth, 8 slots, dense and paged, and
               one verify round: wall vs dispatch time, device-busy time
               and the top kernels (torch.profiler); for h2o+kivi2 also a
@@ -1031,18 +1043,34 @@ SPEC_RUNS = (("full", "same", False), ("kivi2", "window:64", False),
 # drops 2 groups of a slot down to 0.60, and a degraded slot's first
 # flush regrows a group through lazy growth). Each audits the pool,
 # device block table and host census included, every OVERLOAD_AUDIT
-# dispatches. Per run: (policy, engine options, preemptions: an int is
-# exact, None at least one, "any" not gated; streams gated against the
-# unpreempted run?)
+# dispatches. The tier run goes twice, untraced and with the `Tracer` and
+# `Metrics` on (the wall time of each printed: tracing's cost). Per run:
+# (policy, engine options, preemptions: an int is exact, None at least
+# one, "any" not gated; streams gated against the unpreempted run?;
+# traced?)
 OVERLOAD_RUNS = (("full", dict(pool_blocks=784, block_growth="lazy",
-                               preemption=True), None, True),
+                               preemption=True), None, True, False),
                  ("kivi2", dict(preempt_at=((8, 0), (20, 3), (40, 5))), 3,
-                  True),
+                  True, False),
                  ("full", dict(pool_blocks=784, block_growth="lazy",
-                               preemption=True, tiering=True), None, True),
+                               preemption=True, tiering=True), None, True,
+                  False),
+                 ("full", dict(pool_blocks=784, block_growth="lazy",
+                               preemption=True, tiering=True), None, True,
+                  True),
                  ("kivi2", dict(block_growth="lazy", preemption=True,
-                                degrade=True), "any", False))
+                                degrade=True), "any", False, False))
 OVERLOAD_AUDIT = 16
+# the selective-token presets that draw Gumbel noise (dense, N_SHORT
+# requests, B1 with mass as h2o; printed beside h2o)
+NOISE_POLICIES = ("nacl", "keyformer")
+# temperature / top-k sampler runs (dense `full`, N_SHORT requests, seed
+# 0): top_k 1 must give the greedy streams bit for bit
+SAMPLER_TEMP, SAMPLER_TOP_K = 0.8, (1, 50)
+# telemetry: the traced runs report the host seconds of these spans
+# (and the count of `audit` instants); a span ends when the host has
+# enqueued its work, so these are host times
+SPAN_NAMES = ("step", "prefill_chunk", "restore", "prefill")
 KERNELS = ("decode_attn", "flash_prefill", "decode_attn_paged",
            "flash_prefill_chunk", "flash_verify", "decode_qattn", "kquant",
            "vquant", "kvquant")
@@ -1109,6 +1137,7 @@ def phase_serve(info: dict) -> None:
     from repro_torch.configs.granite_8b import CONFIG
     from repro_torch.core.policy import presets
     from repro_torch.nn import model as M
+    from repro_torch.obs import Metrics, Tracer
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.scheduler import Request
     cfg = CONFIG
@@ -1128,7 +1157,7 @@ def phase_serve(info: dict) -> None:
     launches = info.setdefault("launches", dict.fromkeys(KERNELS, 0))
     L = cfg.num_layers
     chunked = dict(paged=True, chunked_prefill=True, chunk_len=CHUNK_LEN)
-    runs = ([(p, {}, None) for p in SERVE_POLICIES]
+    runs = ([(p, {}, None) for p in SERVE_POLICIES + NOISE_POLICIES]
             + [(p, dict(chunked, pool_blocks=nb), None)
                for p, nb in PAGED_RUNS]
             + [(p, dict(chunked, pool_blocks=640) if pg else {}, d)
@@ -1142,9 +1171,12 @@ def phase_serve(info: dict) -> None:
         pol = presets(budget=BUDGET, window=WINDOW)[pname]
         spec_kw = (dict(speculative=True, gamma=GAMMA, draft_policy=draft)
                    if draft else {})
+        # telemetry on in the `full` paged + chunked run
+        traced = pname == "full" and bool(opts) and not draft
+        tr, mx = (Tracer(), Metrics()) if traced else (None, None)
         eng = Engine(cfg, params, pol, prompt_len=max(BUCKETS),
                      max_new=MAX_NEW, slots=SLOTS, buckets=BUCKETS, **opts,
-                     **spec_kw)
+                     **spec_kw, tracer=tr, metrics=mx)
         reqs = [Request(tokens=p, max_new=MAX_NEW) for p in prompts[:n_req]]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1161,7 +1193,8 @@ def phase_serve(info: dict) -> None:
                 and r.n_tokens == MAX_NEW]
         toks = np.concatenate([r.tokens for r in res.results])
         label = (pname + (" paged+chunked" if opts else "")
-                 + (f" spec[{draft}]" if draft else ""))
+                 + (f" spec[{draft}]" if draft else "")
+                 + (" +trace" if traced else ""))
         pool = ""
         if opts:
             pool = (f", pool peak {res.pool_peak_blocks}/{res.pool_blocks} "
@@ -1208,13 +1241,153 @@ def phase_serve(info: dict) -> None:
                          and res.pool_peak_blocks <= res.pool_blocks):
             fail(f"{label}: pool audit {eng.last_audit}, peak "
                  f"{res.pool_peak_blocks} of {res.pool_blocks} blocks")
+        if traced:
+            _check_telemetry(info, label, tr, mx, res, wall, causal=False)
         del eng, res
         torch.cuda.empty_cache()
+    h2o = plain[("h2o", False)]
+    for pname in NOISE_POLICIES:
+        r = plain[(pname, False)]
+        print(f"[serve] {pname} vs h2o (dense, {N_SHORT} requests, "
+              f"{L} B1 launches with mass per decode step in both): decode "
+              f"{r.decode_tokens_per_s:.1f} vs {h2o.decode_tokens_per_s:.1f}"
+              f" tok/s, ttft mean {r.ttft_mean_s:.3f} vs "
+              f"{h2o.ttft_mean_s:.3f} s, prefill {r.prefill_seconds:.3f} vs "
+              f"{h2o.prefill_seconds:.3f} s; {info['smi']}")
+        info.setdefault("noise_serve", []).append(dict(
+            policy=pname, tok_s=r.decode_tokens_per_s,
+            h2o_tok_s=h2o.decode_tokens_per_s, ttft=r.ttft_mean_s,
+            h2o_ttft=h2o.ttft_mean_s))
+    _serve_sampler(info, params, kernels, prompts, plain)
     _serve_overload(info, params, kernels, prompts, plain)
     del plain
     _serve_prefix(info, params, kernels)
     del params
     torch.cuda.empty_cache()
+
+
+def _serve_sampler(info: dict, params, kernels, prompts, plain) -> None:
+    """The temperature / top-k sampler at full width and depth (dense
+    `full`, the first N_SHORT prompts, seed 0): every request completes,
+    launches are exact (the sampler launches none of the counted
+    kernels), top_k 1 gives the greedy run's streams bit for bit (the
+    Gumbel draw cannot move a pick that the mask leaves alone), and
+    top_k 50's tok/s is printed beside top_k 1's."""
+    import torch
+    from repro_torch.configs.granite_8b import CONFIG as cfg
+    from repro_torch.core.policy import presets
+    from repro_torch.serving import sampler as sampler_lib
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.scheduler import Request
+    launches = info["launches"]
+    greedy = plain[("full", False)]
+    rows = {}
+    for top_k in SAMPLER_TOP_K:
+        eng = Engine(cfg, params, presets(budget=BUDGET, window=WINDOW)[
+                         "full"], prompt_len=max(BUCKETS), max_new=MAX_NEW,
+                     slots=SLOTS, buckets=BUCKETS, seed=0,
+                     sampler=sampler_lib.temperature(SAMPLER_TEMP, top_k))
+        reqs = [Request(tokens=p, max_new=MAX_NEW)
+                for p in prompts[:N_SHORT]]
+        torch.cuda.synchronize()
+        for k in kernels.values():
+            k.launches = 0
+        t1 = time.perf_counter()
+        res = eng.generate_continuous(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        n = {name: k.launches for name, k in kernels.items()}
+        for name in KERNELS:
+            launches[name] += n[name]
+        label = f"full temperature({SAMPLER_TEMP}, top_k={top_k})"
+        done = [r for r in res.results if r.finish_reason == "length"
+                and r.n_tokens == MAX_NEW]
+        same = sum(a.tokens.tolist() == b.tokens.tolist()
+                   for a, b in zip(res.results, greedy.results[:N_SHORT]))
+        rows[top_k] = res
+        print(f"[serve] {label}: {len(done)}/{N_SHORT} requests completed, "
+              f"decode {res.decode_tokens_per_s:.1f} tok/s over "
+              f"{res.decode_steps} steps (greedy, {N_REQUESTS} requests: "
+              f"{greedy.decode_tokens_per_s:.1f}), ttft mean "
+              f"{res.ttft_mean_s:.3f} s, wall {wall:.2f} s; streams equal "
+              f"to greedy's: {same}/{N_SHORT}"
+              f"{'' if top_k == 1 else ' (reported, not gated)'}; launches "
+              + " ".join(f"{k} {v}" for k, v in n.items()))
+        if len(done) != N_SHORT:
+            fail(f"{label}: only {len(done)} of {N_SHORT} requests "
+                 "completed")
+        want = _want_launches(eng, res, cfg.num_layers, N_SHORT, 0)
+        if n != want:
+            fail(f"{label}: kernel launches {n}, want {want}")
+        if top_k == 1 and same != N_SHORT:
+            fail(f"{label}: {N_SHORT - same} streams differ from greedy's")
+        info.setdefault("sampler_serve", []).append(dict(
+            top_k=top_k, tok_s=res.decode_tokens_per_s, wall=wall,
+            greedy_equal=same))
+        del eng
+        torch.cuda.empty_cache()
+    print(f"[serve]   temperature({SAMPLER_TEMP}): top_k 50 decode "
+          f"{rows[50].decode_tokens_per_s:.1f} tok/s vs top_k 1 (the greedy "
+          f"stream, same requests) {rows[1].decode_tokens_per_s:.1f}; "
+          f"{info['smi']}")
+
+
+def _check_telemetry(info: dict, label: str, tr, mx, res, wall: float, *,
+                     causal: bool) -> None:
+    """A traced run's telemetry: the exported Chrome trace reloads as
+    JSON with every recorded event and none dropped; the metrics
+    snapshot's counters equal the run's result; with `causal` (a tier
+    run) the first spill, preempt, restore and fetch come in that order
+    (the victim's blocks are snapshotted before its ids are released, the
+    continuation fetches them inside its restore span). Prints the host
+    seconds per span name beside the run's wall time."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        with open(tr.export(os.path.join(d, "trace.json"))) as f:
+            doc = json.load(f)
+    evs = [e for e in doc["traceEvents"] if e["ph"] != "M"]
+    if len(evs) != len(tr) or tr.dropped:
+        fail(f"{label}: trace reloaded {len(evs)} of {len(tr)} events, "
+             f"{tr.dropped} dropped")
+    snap = mx.snapshot()
+    want = {"engine.decode_steps": res.decode_steps,
+            "sched.preemptions": sum(r.n_preemptions for r in res.results),
+            "requests.completed": sum(r.finish_reason != "failed"
+                                      for r in res.results)}
+    if res.tier is not None:
+        want.update({"tier.spills": res.tier["n_spills"],
+                     "tier.fetches": res.tier["n_fetches"]})
+    got = {k: snap.get(k) for k in want}
+    if got != want:
+        fail(f"{label}: metrics counters {got}, the result's {want}")
+    if causal:
+        def first(name, ph):
+            hits = [e["ts"] for e in evs if e["name"] == name
+                    and e["ph"] == ph]
+            if not hits:
+                fail(f"{label}: no {name!r} ({ph}) event in the trace")
+            return min(hits)
+        chain = [first("spill", "i"), first("preempt", "i"),
+                 first("restore", "X"), first("fetch", "i")]
+        if chain != sorted(chain):
+            fail(f"{label}: spill / preempt / restore / fetch at {chain} "
+                 "(microseconds), not in causal order")
+    secs, counts = {}, {}
+    for e in evs:
+        if e["ph"] == "X":
+            secs[e["name"]] = secs.get(e["name"], 0.0) + e["dur"] / 1e6
+            counts[e["name"]] = counts.get(e["name"], 0) + 1
+    audits = sum(e["name"] == "audit" for e in evs)
+    print(f"[serve]   telemetry {label}: {len(evs)} events, 0 dropped; "
+          f"host seconds per span: "
+          + ", ".join(f"{n} {secs.get(n, 0.0):.3f} s ({counts.get(n, 0)})"
+                      for n in SPAN_NAMES)
+          + f", audit {audits} instants; wall {wall:.2f} s"
+          + ("; spill <= preempt <= restore <= fetch" if causal else "")
+          + f"; counters {got} equal the result's; {info['smi']}")
+    info.setdefault("telemetry", []).append(dict(
+        label=label, events=len(evs), span_s=secs, span_n=counts,
+        audits=audits, wall=wall))
 
 
 def _counted_audits(eng):
@@ -1253,24 +1426,29 @@ def _serve_overload(info: dict, params, kernels, prompts, plain) -> None:
     import torch
     from repro_torch.configs.granite_8b import CONFIG as cfg
     from repro_torch.core.policy import presets
+    from repro_torch.obs import Metrics, Tracer
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.scheduler import Request
     launches = info["launches"]
     n_layers, C = cfg.num_layers, CHUNK_LEN
     reqs_p = prompts[:N_SHORT]
     no_tier = {}
-    for pname, opts, forced, gate_streams in OVERLOAD_RUNS:
+    tier_wall = {}
+    for pname, opts, forced, gate_streams, traced in OVERLOAD_RUNS:
         pol = presets(budget=BUDGET, window=WINDOW)[pname]
+        tr, mx = (Tracer(), Metrics()) if traced else (None, None)
         eng = Engine(cfg, params, pol, prompt_len=max(BUCKETS),
                      max_new=MAX_NEW, slots=SLOTS, buckets=BUCKETS,
                      paged=True, chunked_prefill=True, chunk_len=C,
-                     audit_every=OVERLOAD_AUDIT, **opts)
+                     audit_every=OVERLOAD_AUDIT, tracer=tr, metrics=mx,
+                     **opts)
         n_audit = _counted_audits(eng)
         label = (f"{pname} paged+chunked overload "
                  + ("lazy+preemption" if eng.preemption and not eng.preempt_at
                     else f"preempt_at {eng.preempt_at}")
                  + ("+tier" if eng.tiering else "")
                  + ("+degrade" if eng.pressure is not None else "")
+                 + ("+trace" if traced else "")
                  + f" pool {eng.pool_blocks}")
         reqs = [Request(tokens=p, max_new=MAX_NEW) for p in reqs_p]
         torch.cuda.synchronize()
@@ -1351,12 +1529,24 @@ def _serve_overload(info: dict, params, kernels, prompts, plain) -> None:
                  f"re-admissions, {n_layers} layers)")
         if eng.tiering:
             _check_tier_run(info, label, eng, res, n_pre, row, no_tier)
+            tier_wall[traced] = wall
         elif eng.pressure is None and eng.lazy_blocks:
             no_tier.update(tok_s=res.decode_tokens_per_s,
                            ttft=res.ttft_mean_s, wall=wall)
             if len(res.recomputed_uids) != n_pre:
                 fail(f"{label}: {len(res.recomputed_uids)} recomputed "
                      f"re-admissions for {n_pre} preemptions")
+        if traced:
+            _check_telemetry(info, label, tr, mx, res, wall,
+                             causal=eng.tiering)
+            if False in tier_wall:
+                print(f"[serve]   tracing cost: the tier run's wall "
+                      f"{tier_wall[True]:.2f} s traced vs "
+                      f"{tier_wall[False]:.2f} s untraced, {len(tr)} "
+                      f"events (a reading, not gated); {info['smi']}")
+                info["trace_cost"] = dict(traced_wall=tier_wall[True],
+                                          untraced_wall=tier_wall[False],
+                                          events=len(tr))
         if eng.pressure is not None:
             st = eng.pressure.stats
             print(f"[serve]   degrade: {st['degrades']} degrades dropped "
@@ -1421,8 +1611,12 @@ def _check_tier_run(info, label, eng, res, n_pre, row, no_tier) -> None:
 # shareable) in 128-row blocks, its pool 192 blocks — 1.6x the 8 x 15
 # blocks of parity, so the index (template + 3 suffix blocks a request)
 # is never reclaimed and the counts below are exact. Each run with
-# sharing is set beside the same requests without it.
+# sharing is set beside the same requests without it. The runs use the
+# first PREFIX_LAYERS of the 36 layers (full width): cut in half to keep
+# the script near 700 s once the noise, sampler and traced runs joined
+# (the schedule, the counts and the pool sizes do not depend on depth).
 PREFIX_SHARED = 1536
+PREFIX_LAYERS = 18
 PREFIX_RUNS = (("full", dict(pool_blocks=640)),
                ("kivi2", dict(budget=1920, pool_blocks=192)))
 # near-hits: NEAR_REQUESTS copies of one template with tokens NEAR_EDIT
@@ -1449,7 +1643,8 @@ def _prefix_prompts(rng, vocab: int, n: int):
 
 
 def _serve_prefix(info: dict, params, kernels) -> None:
-    """The prefix-cache runs at full width and depth: completion, the
+    """The prefix-cache runs at full width, PREFIX_LAYERS deep (the
+    first layers of `params`): completion, the
     warm / cold / near-hit / copy-on-write counts the schedule implies
     (one admission at a time, so every request after the first finds the
     first one's blocks indexed; kivi2's first flush of every slot evicts
@@ -1459,10 +1654,11 @@ def _serve_prefix(info: dict, params, kernels) -> None:
     the pool peaks, prefill seconds and mean TTFT beside the twin run."""
     import numpy as np
     import torch
-    from repro_torch.configs.granite_8b import CONFIG as cfg
+    from repro_torch.configs.granite_8b import CONFIG
     from repro_torch.core.policy import presets
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.scheduler import Request
+    cfg = CONFIG.replace(num_layers=PREFIX_LAYERS)
     launches = info["launches"]
     L, C, n_layers = max(BUCKETS), CHUNK_LEN, cfg.num_layers
     exact, near = _prefix_prompts(np.random.default_rng(5), cfg.vocab_size,
@@ -1658,6 +1854,7 @@ def phase_e2e(info: dict) -> None:
     _e2e_spec()
     _e2e_prefix()
     _e2e_preempt()
+    _e2e_noise()
 
 
 # speculative e2e, 4-layer granite-8b in f32 with the kernels: requests,
@@ -1969,6 +2166,81 @@ def _e2e_degrade(cfg, params, prompts) -> None:
     if same != len(prompts):
         fail(f"e2e degrade: {len(prompts) - same} streams differ between "
              "the kernels and use_kernels=False")
+
+
+# noise e2e, 4-layer granite-8b in f32: (label, policy, top_k of the
+# temperature sampler or None for greedy, engine options), each served
+# with the kernels and with use_kernels=False under one seed on the card
+E2E_NOISE_RUNS = (
+    ("nacl dense", "nacl", None, {}),
+    ("keyformer dense", "keyformer", None, {}),
+    ("nacl paged+chunked", "nacl", None, _CHUNKED),
+    ("keyformer paged+chunked", "keyformer", None, _CHUNKED),
+    ("full temperature(0.8, top_k=50)", "full", 50, {}),
+)
+
+
+def _e2e_noise() -> None:
+    """The engine's generator on the card, in f32: nacl and keyformer
+    (their Gumbel draws after B1 / B3 return the mass) and the
+    temperature sampler, each through the kernels and with
+    use_kernels=False under seed 0, must give equal streams (both paths
+    draw the same shapes in the same order from one device generator).
+    Then the sampler run twice under seed 0 gives one stream, and under
+    seeds 0 and 1 streams that differ somewhere."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.granite_8b import CONFIG
+    from repro_torch.core.policy import presets
+    from repro_torch.nn import model as M
+    from repro_torch.serving import sampler as sampler_lib
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.scheduler import Request
+    cfg = CONFIG.replace(num_layers=E2E_LAYERS, dtype=torch.float32)
+    params = M.init_params(cfg, seed=5, device="cuda")
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, size=BUCKETS[i % 2])
+               for i in range(E2E_SPEC_REQUESTS)]
+
+    def serve(pname, top_k, opts, use_kernels, seed):
+        smp = (sampler_lib.greedy if top_k is None
+               else sampler_lib.temperature(SAMPLER_TEMP, top_k))
+        eng = Engine(cfg, params, presets(budget=BUDGET, window=WINDOW)[
+                         pname], prompt_len=max(BUCKETS),
+                     max_new=E2E_SPEC_NEW, slots=E2E_SPEC_SLOTS,
+                     buckets=BUCKETS, use_kernels=use_kernels, seed=seed,
+                     sampler=smp, **opts)
+        res = eng.generate_continuous(
+            [Request(tokens=p, max_new=E2E_SPEC_NEW) for p in prompts])
+        if eng.paged and not eng.last_audit["clean"]:
+            fail(f"e2e noise: pool audit {eng.last_audit}")
+        if not all(r.finish_reason == "length" for r in res.results):
+            fail(f"e2e noise {pname}: finish reasons "
+                 f"{[r.finish_reason for r in res.results]}")
+        return [r.tokens.tolist() for r in res.results]
+
+    n = len(prompts)
+    for label, pname, top_k, opts in E2E_NOISE_RUNS:
+        kern = serve(pname, top_k, opts, True, 0)
+        plain = serve(pname, top_k, opts, False, 0)
+        same = sum(a == b for a, b in zip(kern, plain))
+        print(f"[e2e] noise f32 {label} seed 0: {same}/{n} streams "
+              "token-equal, kernels vs use_kernels=False")
+        if same != n:
+            fail(f"e2e noise {label}: {n - same} streams differ between "
+                 "the kernels and use_kernels=False under one seed")
+        if top_k is not None:
+            again = serve(pname, top_k, opts, True, 0)
+            other = serve(pname, top_k, opts, True, 1)
+            n_again = sum(a == b for a, b in zip(kern, again))
+            n_other = sum(a == b for a, b in zip(kern, other))
+            print(f"[e2e] noise f32 {label}: seed 0 twice {n_again}/{n} "
+                  f"streams equal; seeds 0 and 1 {n_other}/{n} equal")
+            if n_again != n or n_other == n:
+                fail(f"e2e noise {label}: seed 0 twice {n_again}/{n} "
+                     f"equal, seeds 0 and 1 {n_other}/{n} equal")
+    del params
+    torch.cuda.empty_cache()
 
 
 def _admit_paged_chunked(eng, prompts):

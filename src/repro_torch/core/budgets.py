@@ -1,5 +1,5 @@
-"""(Counterpart of `repro.core.budgets`: the numpy allocators; the jax
-signal functions that feed squeeze / zigzag are not ported yet.)
+"""(Counterpart of `repro.core.budgets`: the numpy allocators, and the
+two signal functions that feed squeeze / zigzag on tensors.)
 
 Layer-wise KV budget allocation (the survey's "attention compression"
 family, §4): the global cache budget is split unevenly across layers.
@@ -17,7 +17,10 @@ aligned). Signals:
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
+import torch
 
 
 def _round_to(x: np.ndarray, multiple: int, lo: int, hi: int) -> np.ndarray:
@@ -73,3 +76,26 @@ ALLOCATORS = {
     "squeeze": squeeze,
     "zigzag": zigzag,
 }
+
+
+# ---------------------------------------------------------------------------
+# Signals (computed from a calibration / prefill pass)
+# ---------------------------------------------------------------------------
+
+
+def attention_entropy_signal(attn_mass: torch.Tensor) -> torch.Tensor:
+    """attn_mass: [L, B, S] accumulated attention mass per layer ->
+    normalized entropy per layer in [0, 1] (ZigZagKV uncertainty)."""
+    p = attn_mass / attn_mass.sum(-1, keepdim=True).clamp(min=1e-9)
+    ent = -torch.where(p > 0, p * torch.log(p), 0.0).sum(-1)
+    return (ent / math.log(attn_mass.shape[-1])).mean(dim=1)
+
+
+def layer_cosine_signal(x_in: torch.Tensor,
+                        x_out: torch.Tensor) -> torch.Tensor:
+    """x_in / x_out: [L, B, T, D] block inputs / outputs -> [L] mean
+    cosine similarity (SqueezeAttention signal)."""
+    num = (x_in * x_out).sum(-1)
+    den = (torch.linalg.vector_norm(x_in, dim=-1)
+           * torch.linalg.vector_norm(x_out, dim=-1))
+    return (num / den.clamp(min=1e-9)).mean(dim=(1, 2))

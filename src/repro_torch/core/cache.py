@@ -26,8 +26,18 @@ a row where it is False keeps its K/V, scores, `slot_pos`, `length`,
 `append_segment` is L such appends in order, and `truncate_rows`
 un-appends a row's newest tokens (speculative rollback).
 
-Not ported yet: `SSMState`, and the NACL / Keyformer noise (those
-policies raise at the engine).
+**Policy noise.** NACL perturbs the eviction score and Keyformer the
+accumulated mass with Gumbel noise. `gumbel` is the one draw function
+(the counterpart of `jax.random.gumbel`), from an explicit
+`torch.Generator` on the cache's device; `policy_noise` makes the one
+draw a layer call needs, or none. `select_victim` and
+`accumulate_scores` take that draw as ``noise`` (a decode step draws once
+per layer and hands both the same tensor, as the JAX step hands both the
+same key); `compress_prompt` and `append_segment` take the generator and
+draw where the JAX functions draw. Without a generator nothing is drawn
+and both policies rank by the plain mass.
+
+Not ported yet: `SSMState`.
 """
 from __future__ import annotations
 
@@ -208,6 +218,33 @@ def materialize_kv(lc, spec: CacheSpec, dtype=torch.bfloat16):
 
 
 # ---------------------------------------------------------------------------
+# Policy noise (NACL / Keyformer)
+# ---------------------------------------------------------------------------
+
+
+def gumbel(shape, generator: Optional[torch.Generator],
+           device) -> torch.Tensor:
+    """Standard Gumbel draws, f32, of `shape` on `device` from `generator`:
+    ``-log(-log(u))`` with u uniform in [tiny, 1), the construction of
+    `jax.random.gumbel` (the values differ: another bit generator)."""
+    u = torch.rand(shape, generator=generator, device=device,
+                   dtype=torch.float32)
+    return -torch.log(-torch.log(u.clamp_(min=torch.finfo(u.dtype).tiny)))
+
+
+def policy_noise(spec: CacheSpec, shape, generator: Optional[torch.Generator],
+                 device) -> Optional[torch.Tensor]:
+    """The Gumbel draw of one layer call: NACL with a positive
+    temperature or Keyformer with a positive tau, and a generator; else
+    None (nothing drawn)."""
+    if generator is None or not (
+            (spec.policy == "nacl" and spec.nacl_temperature > 0)
+            or (spec.policy == "keyformer" and spec.keyformer_tau > 0)):
+        return None
+    return gumbel(shape, generator, device)
+
+
+# ---------------------------------------------------------------------------
 # Victim selection
 # ---------------------------------------------------------------------------
 
@@ -219,14 +256,20 @@ def _evictable_mask(lc: LayerKV, spec: CacheSpec) -> torch.Tensor:
     return occupied & ~sink & ~recent
 
 
-def select_victim(lc: LayerKV, spec: CacheSpec) -> torch.Tensor:
+def select_victim(lc: LayerKV, spec: CacheSpec,
+                  noise: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[B] slot index to overwrite, per policy (argmin: first index on
-    ties, as jnp.argmin)."""
+    ties, as jnp.argmin). `noise` [B, S]: the layer's Gumbel draw
+    (`policy_noise`); NACL adds ``nacl_temperature * noise`` to the
+    scores, other policies ignore it."""
     evictable = _evictable_mask(lc, spec)
     if spec.policy in ("none", "streaming"):
         crit = torch.where(evictable, lc.slot_pos, _I32_MAX)
     else:
-        crit = torch.where(evictable, lc.scores, float("inf"))
+        score = lc.scores
+        if spec.policy == "nacl" and noise is not None:
+            score = score + spec.nacl_temperature * noise
+        crit = torch.where(evictable, score, float("inf"))
     victim = torch.argmin(crit, dim=-1)
     # nothing evictable (budget <= sinks + recent_protect): evict the
     # oldest non-sink slot; if every occupied slot is a sink, the last one
@@ -290,13 +333,15 @@ def _advance(counter: torch.Tensor, mask: Optional[torch.Tensor]) -> None:
 
 def append_token_dense(lc: LayerKV, spec: CacheSpec, k_new: torch.Tensor,
                        v_new: torch.Tensor, *,
-                       mask: Optional[torch.Tensor] = None) -> LayerKV:
+                       mask: Optional[torch.Tensor] = None,
+                       noise: Optional[torch.Tensor] = None) -> LayerKV:
     """k_new/v_new: [B, H, D] (post-RoPE). Fixed-budget eviction append;
-    rows where `mask` [B] is False are left untouched."""
+    rows where `mask` [B] is False are left untouched; `noise` as in
+    `select_victim`."""
     B, S = lc.scores.shape
     cap = torch.clamp(lc.budget, max=S)
     full = lc.length >= cap
-    slot = torch.where(full, select_victim(lc, spec), lc.length)
+    slot = torch.where(full, select_victim(lc, spec, noise), lc.length)
     _put_rows(lc.k, slot, k_new, mask)
     _put_rows(lc.v, slot, v_new, mask)
     _put_rows(lc.scores, slot, lc.scores.new_zeros(B), mask)
@@ -438,29 +483,34 @@ def append_token_quantized(lc: LayerKV, spec: CacheSpec,
 def append_token(lc, spec: CacheSpec, k_new: torch.Tensor,
                  v_new: torch.Tensor, *, ring_full: Optional[bool] = None,
                  mask: Optional[torch.Tensor] = None,
-                 use_kernels: bool = True):
+                 use_kernels: bool = True,
+                 noise: Optional[torch.Tensor] = None):
     """One token per row, in place; `mask` [B] bool (None: every row)
     gates the rows that append, `ring_full` and `use_kernels` as in
-    `append_token_quantized`."""
+    `append_token_quantized`, `noise` (an eviction's NACL draw) as in
+    `select_victim`."""
     if not isinstance(lc, LayerKV):
         # paged store: same eviction / flush semantics, K/V writes routed
         # through the block table
         from repro_torch.core import paging
         return paging.append_token_paged(lc, spec, k_new, v_new,
                                          ring_full=ring_full, mask=mask,
-                                         use_kernels=use_kernels)
+                                         use_kernels=use_kernels,
+                                         noise=noise)
     if spec.quantized:
         return append_token_quantized(lc, spec, k_new, v_new,
                                       ring_full=ring_full, mask=mask,
                                       use_kernels=use_kernels)
-    return append_token_dense(lc, spec, k_new, v_new, mask=mask)
+    return append_token_dense(lc, spec, k_new, v_new, mask=mask,
+                              noise=noise)
 
 
 def append_segment(lc, spec: CacheSpec, k_seg: torch.Tensor,
                    v_seg: torch.Tensor, *,
                    valid_len: Optional[torch.Tensor] = None,
                    ring_full: Optional[Sequence[bool]] = None,
-                   use_kernels: bool = True):
+                   use_kernels: bool = True,
+                   generator: Optional[torch.Generator] = None):
     """Append n tokens per row in order: k_seg/v_seg [B, n, H, D]
     (post-RoPE), in place. The body is n masked `append_token`s, so
     evictions and quantized flushes fire at exactly the positions a
@@ -468,12 +518,16 @@ def append_segment(lc, spec: CacheSpec, k_seg: torch.Tensor,
     either store. `valid_len` [B] int: row b appends only its first
     `valid_len[b]` tokens (0: none). `ring_full`: one host flag per
     sub-step (None asks the device); `use_kernels` picks the flushes'
-    quantizer."""
+    quantizer. Under NACL each sub-step's eviction draws its own noise
+    from `generator`, as the JAX function splits its key per token."""
     for t in range(k_seg.shape[1]):
+        noise = (policy_noise(spec, lc.scores.shape, generator,
+                              lc.scores.device)
+                 if spec.policy == "nacl" else None)
         append_token(lc, spec, k_seg[:, t], v_seg[:, t],
                      ring_full=None if ring_full is None else ring_full[t],
                      mask=None if valid_len is None else t < valid_len,
-                     use_kernels=use_kernels)
+                     use_kernels=use_kernels, noise=noise)
     return lc
 
 
@@ -511,21 +565,29 @@ def truncate_rows(lc, spec: CacheSpec, n_drop: torch.Tensor):
 
 
 # ---------------------------------------------------------------------------
-# Score accumulation (H2O statistics), in place
+# Score accumulation (H2O / NACL / Keyformer statistics), in place
 # ---------------------------------------------------------------------------
 
 
 def accumulate_scores(lc: LayerKV, spec: CacheSpec, attn_mass: torch.Tensor,
-                      *, gate: Optional[torch.Tensor] = None) -> LayerKV:
+                      *, gate: Optional[torch.Tensor] = None,
+                      noise: Optional[torch.Tensor] = None) -> LayerKV:
     """attn_mass: [B, S+W] this step's attention mass per slot, aligned
-    with `materialize_kv` ordering. `gate` [B] bool: rows where it is
-    False add an exact 0.0 (speculative verify applies only the accepted
-    rows' masses; the float association chain stays that of a row that
-    never saw the step)."""
+    with `materialize_kv` ordering (the decode kernel's f32 mass output
+    on the kernel path). `gate` [B] bool: rows where it is False add an
+    exact 0.0 (speculative verify applies only the accepted rows' masses;
+    the float association chain stays that of a row that never saw the
+    step), applied after the policy transform. `noise` [B, S]: the
+    layer's Gumbel draw; Keyformer adds the main store's
+    ``softmax((log(max(mass, 1e-9)) + noise) / tau)`` in place of the
+    mass, other policies ignore it."""
     if not spec.track_scores():
         return lc
     S = lc.scores.shape[1]
     main, resid = attn_mass[:, :S], attn_mass[:, S:]
+    if spec.policy == "keyformer" and noise is not None:
+        main = torch.softmax((torch.log(torch.clamp(main, min=1e-9))
+                              + noise) / spec.keyformer_tau, dim=-1)
     if gate is not None:
         main = torch.where(gate[:, None], main, 0.0)
         resid = torch.where(gate[:, None], resid, 0.0)
@@ -543,7 +605,8 @@ def accumulate_scores(lc: LayerKV, spec: CacheSpec, attn_mass: torch.Tensor,
 def compress_prompt(spec: CacheSpec, k: torch.Tensor, v: torch.Tensor,
                     attn_mass: torch.Tensor, *, dtype=torch.bfloat16,
                     logical_budget: Optional[int] = None,
-                    use_kernels: bool = True) -> LayerKV:
+                    use_kernels: bool = True,
+                    generator: Optional[torch.Generator] = None) -> LayerKV:
     """k, v: [B, S_p, H, D] post-RoPE prompt KV; attn_mass: [B, S_p]
     accumulated attention mass of the prefill pass. Returns a LayerKV at
     the physical budget (last `window` tokens -> residual ring, fp).
@@ -553,7 +616,9 @@ def compress_prompt(spec: CacheSpec, k: torch.Tensor, v: torch.Tensor,
     sinks score +inf, ring and headroom padding -inf, so ties are common,
     and a picked padding row feeds a quantized group's K min/max.
     `use_kernels` picks the quantizer of a quantized store
-    (`quantize_kv`)."""
+    (`quantize_kv`). NACL and Keyformer perturb the selection score with
+    one Gumbel draw [B, S_p] from `generator` (`policy_noise`), where
+    the JAX function draws: only when a selection is made."""
     B, S_p, H, D = k.shape
     S = spec.main_store_len(S_p)
     W = spec.window
@@ -575,10 +640,14 @@ def compress_prompt(spec: CacheSpec, k: torch.Tensor, v: torch.Tensor,
 
     if spec.policy in ("none", "streaming"):
         score = positions.float()                       # keep most recent
-    elif spec.policy == "h2o":
-        score = attn_mass.float()
     else:
-        raise NotImplementedError(f"policy {spec.policy!r} not yet ported")
+        score = attn_mass.float()
+        g = policy_noise(spec, score.shape, generator, dev)
+        if g is not None and spec.policy == "nacl":
+            score = score + spec.nacl_temperature * g
+        elif g is not None:
+            score = ((torch.log(torch.clamp(score, min=1e-9)) + g)
+                     / spec.keyformer_tau)
 
     in_resid = positions >= (S_p - W)
     sink = (positions >= 0) & (positions < spec.sinks)

@@ -70,6 +70,7 @@ import torch
 from repro_torch.core import cache as kvcache
 from repro_torch.core.cache import CacheSpec, LayerKV
 from repro_torch.kernels.decode_qattn.ref import gather_pool
+from repro_torch.obs.trace import NULL_TRACER
 
 # Leaves backed by the shared pool (no batch dim: leading dims are layer
 # stacking, then [n_blocks + 1, rows_per_block, ...]).
@@ -228,10 +229,11 @@ def append_token_paged(p: PagedLayerKV, spec: CacheSpec, k_new: torch.Tensor,
                        v_new: torch.Tensor, *,
                        ring_full: Optional[bool] = None,
                        mask: Optional[torch.Tensor] = None,
-                       use_kernels: bool = True) -> PagedLayerKV:
+                       use_kernels: bool = True,
+                       noise: Optional[torch.Tensor] = None) -> PagedLayerKV:
     """Paged twin of `cache.append_token`: the same eviction / ring-flush
     semantics (shared planning helpers), K/V writes routed through the
-    block table. `ring_full`, `mask` and `use_kernels` as in
+    block table. `ring_full`, `mask`, `use_kernels` and `noise` as in
     `cache.append_token`: a masked row's pool writes go to the drop
     block, its metadata stays."""
     if spec.quantized:
@@ -242,7 +244,8 @@ def append_token_paged(p: PagedLayerKV, spec: CacheSpec, k_new: torch.Tensor,
     bl = p.pk.shape[1]
     cap = torch.clamp(p.budget, max=S)
     full = p.length >= cap
-    slot = torch.where(full, kvcache.select_victim(p, spec), p.length)
+    slot = torch.where(full, kvcache.select_victim(p, spec, noise),
+                       p.length)
     phys = _phys_rows(p.block_tbl, slot, bl, n_blocks(p))
     if mask is not None:
         phys = torch.where(mask, phys, n_blocks(p) * bl)
@@ -530,13 +533,16 @@ class BlockAllocator:
     and recycles the block with its last. Freeing or increfing a block
     that is not allocated raises. `fault_plan` (a `FaultPlan`) injects
     deterministic refusals and refcount skew; without one the allocator
-    never refuses a call it can cover."""
+    never refuses a call it can cover. `tracer` sees only the refusals
+    (`alloc_refused`): an event per alloc / free would flood the ring;
+    the engine samples `available` once per loop iteration instead."""
 
     def __init__(self, n_blocks: int, *,
-                 fault_plan: Optional[FaultPlan] = None):
+                 fault_plan: Optional[FaultPlan] = None, tracer=None):
         if n_blocks < 1:
             raise ValueError(f"need >= 1 block, got {n_blocks}")
         self.n_blocks = n_blocks
+        self.trace = tracer if tracer is not None else NULL_TRACER
         self._free: List[int] = list(range(n_blocks - 1, -1, -1))
         self._refs: Dict[int, int] = {}
         self.peak_used = 0
@@ -581,8 +587,15 @@ class BlockAllocator:
         self.alloc_calls += 1
         if self._inject_failure(call_idx, n):
             self.faults_injected += 1
+            if self.trace:
+                self.trace.instant("alloc_refused",
+                                   args=dict(n=n, free=len(self._free),
+                                             injected=True))
             return None
         if n > len(self._free):
+            if self.trace:
+                self.trace.instant("alloc_refused",
+                                   args=dict(n=n, free=len(self._free)))
             return None
         ids = [self._free.pop() for _ in range(n)]
         for i in ids:
@@ -724,14 +737,19 @@ class HostTier:
     `capacity_blocks` bounds the tier in device-block units (a snapshot's
     metadata rides along free). `fault_plan` takes `FaultPlan`'s fetch
     fields. `d2h_seconds` / `h2d_seconds` sum the copies' device times
-    (card events), `pinned_bytes` what the arena pins."""
+    (card events), `pinned_bytes` what the arena pins. `tracer` gets the
+    instants `spill`, `spill_refused`, `spill_drain`, `fetch`,
+    `fetch_refused` and `tier_drop`, with host values only:
+    `spill_drain`'s `landed` counts the entries whose events the host
+    waited on, and no event or tensor is queried to fill an argument."""
 
     def __init__(self, capacity_blocks: int, *,
-                 fault_plan: Optional[FaultPlan] = None):
+                 fault_plan: Optional[FaultPlan] = None, tracer=None):
         if capacity_blocks < 1:
             raise ValueError(f"need >= 1 host block, got {capacity_blocks}")
         self.capacity_blocks = capacity_blocks
         self.fault_plan = fault_plan
+        self.trace = tracer if tracer is not None else NULL_TRACER
         self._entries: Dict[int, _HostEntry] = {}
         self._pending: List[int] = []
         self._next = itertools.count()
@@ -811,6 +829,10 @@ class HostTier:
         sizes come from the tensors' metadata."""
         if n_blocks > self.free_blocks:
             self.stats["refused_spills"] += 1
+            if self.trace:
+                self.trace.instant("spill_refused",
+                                   args=dict(blocks=n_blocks,
+                                             host_free=self.free_blocks))
             return None
         nbytes = sum(t.numel() * t.element_size() for t in _leaves(payload))
         h = next(self._next)
@@ -822,6 +844,9 @@ class HostTier:
         self._pending.append(h)
         self.stats["spills"] += 1
         self.stats["bytes_spilled"] += nbytes
+        if self.trace:
+            self.trace.instant("spill", args=dict(handle=h, blocks=n_blocks,
+                                                  bytes=nbytes))
         return h
 
     def drain(self) -> int:
@@ -844,6 +869,8 @@ class HostTier:
                                           checksum=_crc(host), copy=None)
             landed += 1
         self._pending = []
+        if landed and self.trace:
+            self.trace.instant("spill_drain", args=dict(landed=landed))
         return landed
 
     def prefetch(self, handle: int) -> None:
@@ -890,6 +917,8 @@ class HostTier:
             del self._entries[handle]
             self._recycle(e)
             self.stats["refused_fetches"] += 1
+            if self.trace:
+                self.trace.instant("fetch_refused", args=dict(handle=handle))
             return None
         stall = 0.0
         if not e.resident:
@@ -911,6 +940,11 @@ class HostTier:
         self.stats["fetches"] += 1
         self.stats["bytes_fetched"] += e.nbytes
         self.stats["fetch_stall_s"] += stall
+        if self.trace:
+            self.trace.instant("fetch",
+                               args=dict(handle=handle, blocks=e.n_blocks,
+                                         bytes=e.nbytes,
+                                         stall_ms=round(stall * 1e3, 3)))
         return e.payload, e.nbytes, stall
 
     def upload(self, payload, device: torch.device):
@@ -948,6 +982,8 @@ class HostTier:
         if e is not None:
             self._recycle(e)
             self.stats["drops"] += 1
+            if self.trace:
+                self.trace.instant("tier_drop", args=dict(handle=handle))
 
     def verify(self) -> List[int]:
         """Re-checksum every resident entry; the mismatched handles (audit

@@ -41,6 +41,12 @@ seed, on the card unless ``--device cpu``.
     python -m repro_torch.launch.serve --arch granite-8b --reduced \
         --policy kivi2 --budget 32 --window 8 --continuous --paged \
         --block-growth lazy --preemption --degrade
+
+    # telemetry: a Chrome trace (Perfetto / chrome://tracing) and the
+    # metrics snapshot (schema "repro.obs.metrics/1") of a run
+    python -m repro_torch.launch.serve --arch granite-8b --reduced \
+        --policy nacl --continuous --paged --trace trace.json \
+        --metrics-json metrics.json
 """
 from __future__ import annotations
 
@@ -52,6 +58,7 @@ import numpy as np
 from repro_torch.configs.base import get_config, reduced
 from repro_torch.core.policy import presets
 from repro_torch.nn import model as M
+from repro_torch.obs import Metrics, Tracer, write_metrics_json
 from repro_torch.serving.engine import Engine, resolve_device
 from repro_torch.serving.scheduler import Request
 
@@ -170,6 +177,21 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--shared-prefix", type=int, default=0,
                     help="give every synthetic request the same leading N "
                          "tokens (exercises --prefix-sharing warm hits)")
+    ap.add_argument("--trace", default="", metavar="PATH",
+                    help="record the run's event timeline (request spans, "
+                         "preempt / spill / degrade / CoW / prefix "
+                         "instants, per-iteration step spans) and export "
+                         "Chrome trace_event JSON to PATH (Perfetto, "
+                         "chrome://tracing); span times are host times")
+    ap.add_argument("--trace-capacity", type=int, default=65536,
+                    help="trace ring capacity in events; overflow drops "
+                         "the oldest (the exported tail is what a "
+                         "post-mortem wants)")
+    ap.add_argument("--metrics-json", default="", metavar="PATH",
+                    help="dump the run's metrics registry snapshot "
+                         "(tok/s, TTFT / inter-token histograms, pool / "
+                         "tier / preemption counters) as JSON to PATH, in "
+                         "the JAX package's schema")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; cpu runs the "
                          "kernels' plain versions)")
@@ -212,6 +234,19 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     params = M.init_params(cfg, seed=0, device=device)
     pol = presets(budget=args.budget, window=args.window)[args.policy]
     rng = np.random.default_rng(0)
+    tracer = Tracer(args.trace_capacity) if args.trace else None
+    metrics = Metrics() if args.metrics_json else None
+
+    def export_telemetry() -> None:
+        if tracer is not None:
+            tracer.export(args.trace)
+            print(f"trace: {len(tracer)} events -> {args.trace}"
+                  + (f" ({tracer.dropped} dropped)" if tracer.dropped
+                     else ""))
+        if metrics is not None:
+            write_metrics_json(metrics, args.metrics_json)
+            print(f"metrics: {len(metrics)} instruments -> "
+                  f"{args.metrics_json}")
 
     if args.continuous:
         buckets = sorted({int(b) for b in args.buckets.split(",") if b}
@@ -230,7 +265,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                      preemption=args.preemption, degrade=args.degrade,
                      tiering=args.tiering,
                      host_blocks=args.host_blocks or None,
-                     audit_every=args.audit_every)
+                     audit_every=args.audit_every, tracer=tracer,
+                     metrics=metrics)
         eos = args.eos_id if args.eos_id >= 0 else None
         shared = (rng.integers(0, cfg.vocab_size, size=args.shared_prefix)
                   if args.shared_prefix > 0 else np.zeros(0, np.int64))
@@ -297,13 +333,15 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                   f"{p['index_blocks']} resident, "
                   f"{p['evicted_blocks']} evicted, "
                   f"{p['cow_copies']} copy-on-write copies")
+        export_telemetry()
         return
 
     prompts = rng.integers(0, cfg.vocab_size,
                            size=(args.requests, args.prompt_len))
     eng = Engine(cfg, params, pol, prompt_len=args.prompt_len,
                  max_new=args.max_new, slots=args.slots,
-                 use_kernels=use_kernels, device=device)
+                 use_kernels=use_kernels, device=device, tracer=tracer,
+                 metrics=metrics)
     res = eng.generate(prompts)
     print(f"policy={res.policy_name}")
     print(f"prefill_s={res.prefill_seconds:.2f} "
@@ -311,6 +349,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     print(f"compression_ratio={res.compression_ratio:.1f}x "
           f"(logical {res.cache_logical_bytes / 2**20:.1f} MiB vs "
           f"full {res.full_cache_bytes / 2**20:.1f} MiB)")
+    export_telemetry()
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
 """Decoder blocks: attention mixer + dense SwiGLU FFN, pre-norm residual
 (counterpart of `repro.nn.blocks` for `attn` mixers with a dense FFN):
 monolithic prefill, one chunked-prefill segment, speculative verify, and
-decode."""
+decode. `generator` (a `torch.Generator` on the block's device, or None)
+feeds the NACL / Keyformer noise where the JAX blocks take `key`."""
 from __future__ import annotations
 
 from typing import Optional
@@ -20,7 +21,8 @@ def _ffn(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
 
 
 def block_prefill(p: dict, x: torch.Tensor, cfg, spec: CacheSpec, *,
-                  logical_budget: Optional[int] = None):
+                  logical_budget: Optional[int] = None,
+                  generator: Optional[torch.Generator] = None):
     """x: [B, T, d_model], positions 0..T-1. Returns (x, LayerKV)."""
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
     q, k, v = attn.qkv(p["attn"], h, cfg, None)
@@ -38,7 +40,8 @@ def block_prefill(p: dict, x: torch.Tensor, cfg, spec: CacheSpec, *,
     x = x + L.linear(p["attn"]["wo"], o.reshape(B, T, -1))
     lc = kvcache.compress_prompt(spec, k, v, mass, dtype=cfg.dtype,
                                  logical_budget=logical_budget,
-                                 use_kernels=cfg.use_kernels)
+                                 use_kernels=cfg.use_kernels,
+                                 generator=generator)
     return _ffn(p, x, cfg), lc
 
 
@@ -85,7 +88,8 @@ def _use_flash_prefill_chunk(cfg, spec: CacheSpec) -> bool:
 
 
 def block_verify(p: dict, x: torch.Tensor, cfg, spec: CacheSpec, lc,
-                 valid_len: torch.Tensor, *, ring_full=None):
+                 valid_len: torch.Tensor, *, ring_full=None,
+                 generator: Optional[torch.Generator] = None):
     """One attention layer's step of a speculative verify. x: [B, L,
     d_model], the segment (last committed token + drafts, row b ragged at
     `valid_len[b]`). The segment's K/V are appended first (in place,
@@ -100,7 +104,8 @@ def block_verify(p: dict, x: torch.Tensor, cfg, spec: CacheSpec, lc,
     positions = lc.pos[:, None] + torch.arange(Lseg, device=x.device)[None]
     q, k_new, v_new = attn.qkv(p["attn"], h, cfg, positions)
     kvcache.append_segment(lc, spec, k_new, v_new, valid_len=valid_len,
-                           ring_full=ring_full, use_kernels=cfg.use_kernels)
+                           ring_full=ring_full, use_kernels=cfg.use_kernels,
+                           generator=generator)
     o, row_mass = attn.verify_attention(
         q, lc, spec, q_pos=positions, window=cfg.sliding_window,
         dtype=cfg.dtype, use_kernels=cfg.use_kernels)
@@ -110,23 +115,28 @@ def block_verify(p: dict, x: torch.Tensor, cfg, spec: CacheSpec, lc,
 
 def block_decode(p: dict, x: torch.Tensor, cfg, spec: CacheSpec, lc, *,
                  ring_full: Optional[bool] = None,
-                 append_mask: Optional[torch.Tensor] = None):
+                 append_mask: Optional[torch.Tensor] = None,
+                 generator: Optional[torch.Generator] = None):
     """x: [B, 1, d_model]. Appends this token's K/V to `lc` (a dense or
     paged layer cache, in place), attends over the cache, accumulates
     the mass. `append_mask` [B] bool: rows where it is False leave the
     cache untouched (their output is computed and discarded by the
-    caller: the speculative drafter's ragged depths). Returns x."""
+    caller: the speculative drafter's ragged depths). One Gumbel draw
+    from `generator` serves the layer (NACL's eviction, Keyformer's
+    accumulation), as one key serves the JAX block; it is applied after
+    the attention returns the mass. Returns x."""
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
     pos = lc.pos[:, None].clone()   # [B, 1]; the append advances lc.pos
     q, k_new, v_new = attn.qkv(p["attn"], h, cfg, pos)
+    noise = kvcache.policy_noise(spec, lc.scores.shape, generator, x.device)
     # append-first: the new token attends to itself through the cache
     kvcache.append_token(lc, spec, k_new[:, 0], v_new[:, 0],
                          ring_full=ring_full, mask=append_mask,
-                         use_kernels=cfg.use_kernels)
+                         use_kernels=cfg.use_kernels, noise=noise)
     o, mass = attn.decode_attention(
         q, lc, spec, window=cfg.sliding_window, dtype=cfg.dtype,
         q_pos=pos[:, 0], use_kernels=cfg.use_kernels)
-    kvcache.accumulate_scores(lc, spec, mass, gate=append_mask)
+    kvcache.accumulate_scores(lc, spec, mass, gate=append_mask, noise=noise)
     B = x.shape[0]
     x = x + L.linear(p["attn"]["wo"], o.reshape(B, 1, -1))
     return _ffn(p, x, cfg)

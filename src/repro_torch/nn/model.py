@@ -10,6 +10,12 @@ paged `PagedLayerKV`) leaves carry leading ``[n_sb, nA]`` dims (nA = 1),
 also the JAX layout. A Python loop over layers takes the place of
 `lax.scan`; decode and the chunked-prefill segments update the cache and
 the prompt scratch in place.
+
+Where the JAX functions take ``key=`` (the NACL / Keyformer noise), these
+take ``generator=``, a `torch.Generator` on the model's device (None:
+no noise). Each layer draws from it in layer order where the JAX
+function hands that layer its split key: once per layer per call in
+`prefill`, `prefill_finalize` and `decode_step`.
 """
 from __future__ import annotations
 
@@ -105,7 +111,8 @@ def _logits(params, cfg, x: torch.Tensor) -> torch.Tensor:
 
 
 def prefill(params, cfg, batch: dict, spec: CacheSpec, *,
-            layer_budgets: Optional[Sequence[int]] = None):
+            layer_budgets: Optional[Sequence[int]] = None,
+            generator: Optional[torch.Generator] = None):
     """batch: {"tokens": [B, T] int}. Returns (last-token logits [B, V]
     f32, ModelCache of the compressed prompt)."""
     tokens = batch["tokens"]
@@ -116,7 +123,8 @@ def prefill(params, cfg, batch: dict, spec: CacheSpec, *,
     pieces = []
     for i in range(cfg.num_layers):
         x, lc = B.block_prefill(_layer(params["blocks"]["sub0"], i), x, cfg,
-                                spec, logical_budget=int(layer_budgets[i]))
+                                spec, logical_budget=int(layer_budgets[i]),
+                                generator=generator)
         pieces.append(lc)
     logits = _logits(params, cfg, x[:, -1:])[:, 0]
     return logits, _stack_layers(pieces)
@@ -186,7 +194,8 @@ def prefill_chunk(params, cfg, st: PrefillState, tokens: torch.Tensor,
 
 
 def prefill_finalize(cfg, st: PrefillState, spec: CacheSpec, *,
-                     layer_budgets: Optional[Sequence[int]] = None
+                     layer_budgets: Optional[Sequence[int]] = None,
+                     generator: Optional[torch.Generator] = None
                      ) -> ModelCache:
     """Compress the completed scratch into a batch-1 `ModelCache`: the
     monolithic `prefill`'s per-layer `compress_prompt` calls."""
@@ -197,7 +206,8 @@ def prefill_finalize(cfg, st: PrefillState, spec: CacheSpec, *,
         kvcache.compress_prompt(spec, st.k[i, 0], st.v[i, 0], st.mass[i, 0],
                                 dtype=cfg.dtype,
                                 logical_budget=int(layer_budgets[i]),
-                                use_kernels=cfg.use_kernels)
+                                use_kernels=cfg.use_kernels,
+                                generator=generator)
         for i in range(cfg.num_layers)])
 
 
@@ -246,7 +256,8 @@ def prefill_finalize_meta(cfg, st: PrefillState, spec: CacheSpec, *,
 
 def prefill_from_kv(cfg, spec: CacheSpec, ks: torch.Tensor,
                     vs: torch.Tensor, *,
-                    layer_budgets: Optional[Sequence[int]] = None
+                    layer_budgets: Optional[Sequence[int]] = None,
+                    generator: Optional[torch.Generator] = None
                     ) -> ModelCache:
     """An insert-ready prefill cache from externally computed per-layer
     K / V ``[L, B, S, Hkv, D]`` (CacheBlend's blended prompt KV): the
@@ -258,12 +269,14 @@ def prefill_from_kv(cfg, spec: CacheSpec, ks: torch.Tensor,
                       mass=torch.zeros((ks.shape[0], 1, *ks.shape[1:3]),
                                        dtype=torch.float32,
                                        device=ks.device))
-    return prefill_finalize(cfg, st, spec, layer_budgets=layer_budgets)
+    return prefill_finalize(cfg, st, spec, layer_budgets=layer_budgets,
+                            generator=generator)
 
 
 def decode_step(params, cfg, cache: ModelCache, token: torch.Tensor,
                 spec: CacheSpec, *, ring_full: Optional[bool] = None,
-                append_mask: Optional[torch.Tensor] = None):
+                append_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
     """token: [B, 1] int. Appends one token to every layer's cache (in
     place) and returns (logits [B, V] f32, the same ModelCache).
 
@@ -275,7 +288,8 @@ def decode_step(params, cfg, cache: ModelCache, token: torch.Tensor,
     for i in range(cfg.num_layers):
         x = B.block_decode(_layer(params["blocks"]["sub0"], i), x, cfg, spec,
                            kvcache.layer_view(cache.attn, i, 0),
-                           ring_full=ring_full, append_mask=append_mask)
+                           ring_full=ring_full, append_mask=append_mask,
+                           generator=generator)
     return _logits(params, cfg, x)[:, 0], cache
 
 
@@ -304,11 +318,14 @@ def _check_speculable(cfg) -> None:
 
 def verify_step(params, cfg, cache: ModelCache, tokens: torch.Tensor,
                 valid_len: torch.Tensor, spec: CacheSpec, *,
-                ring_full: Optional[Sequence[bool]] = None):
+                ring_full: Optional[Sequence[bool]] = None,
+                generator: Optional[torch.Generator] = None):
     """tokens: [B, L] int, per row [last committed token, draft_1 ..
     draft_g, padding]; valid_len: [B] int segment lengths (1 + g; 0 for
     a slot that must not step). ring_full: one host flag per sub-step
-    (`cache.append_segment`).
+    (`cache.append_segment`). `generator`: NACL draws once per sub-step's
+    eviction in each layer's append, Keyformer once per layer for every
+    accepted row's accumulation (one key serves the JAX layer's rows).
 
     Returns (y [B, L], accepted [B], the same ModelCache): y[b, t] is the
     greedy token after row b's tokens 0..t; accepted[b] counts the
@@ -322,7 +339,8 @@ def verify_step(params, cfg, cache: ModelCache, tokens: torch.Tensor,
     for i in range(cfg.num_layers):
         x, rm = B.block_verify(_layer(params["blocks"]["sub0"], i), x, cfg,
                                spec, kvcache.layer_view(cache.attn, i, 0),
-                               valid_len, ring_full=ring_full)
+                               valid_len, ring_full=ring_full,
+                               generator=generator)
         masses.append(rm)
     y = torch.argmax(_logits(params, cfg, x), dim=-1).to(torch.int32)
 
@@ -343,9 +361,13 @@ def verify_step(params, cfg, cache: ModelCache, tokens: torch.Tensor,
     for i, mi in enumerate(masses):
         lc = kvcache.layer_view(cache.attn, i, 0)
         if spec.track_scores():
+            noise = (kvcache.policy_noise(spec, lc.scores.shape, generator,
+                                          x.device)
+                     if spec.policy == "keyformer" else None)
             for t in range(Lseg):
                 gate = (t <= accepted) & (t < valid_len)
-                kvcache.accumulate_scores(lc, spec, mi[:, t], gate=gate)
+                kvcache.accumulate_scores(lc, spec, mi[:, t], gate=gate,
+                                          noise=noise)
         kvcache.truncate_rows(lc, spec, n_drop)
     return y, accepted, cache
 

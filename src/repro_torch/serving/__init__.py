@@ -1,1 +1,1 @@
-"""Serving: greedy sampler, request scheduler, continuous-batching engine."""
+"""Serving: samplers, request scheduler, continuous-batching engine."""

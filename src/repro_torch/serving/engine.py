@@ -74,8 +74,28 @@ census included, every N dispatches.
 first. Neither rung 1 nor rung 2 runs with ``speculative=True`` (the
 constructor refuses, as the JAX engine does).
 
-Not ported yet (the constructor raises NotImplementedError): samplers
-other than greedy; tracing and metrics.
+**Sampling and noise.** The engine owns one `torch.Generator` on its
+device, seeded from ``seed``: the sampler (``sampler=greedy``, or
+`sampler.temperature(temp, top_k)`) and the NACL / Keyformer noise of the
+model functions draw from it in dispatch order, so one seed gives one
+stream on one device and path. The JAX engine splits a key per dispatch
+instead, so under noise the two packages' streams differ.
+
+**Telemetry.** ``tracer=`` (an `obs.Tracer`) receives the request
+lifecycle from the scheduler, the spans ``wave_prefill``,
+``wave_decode``, ``prefill``, ``prefill_chunk``, ``blend_prefill``,
+``restore`` and ``draft_prefill``, one ``step`` (``round`` when
+speculative) per loop iteration, the ``pool`` counter track, and the
+instants of the allocator, the host tier, the prefix index and the
+ladder (``prefix_warm_hit``, ``prefix_cold``, ``prefix_near_hit``,
+``cow``, ``audit``, ``preempt``, ``spill``, ``fetch``, ...). ``metrics=``
+(an `obs.Metrics`) gets the loop's ``pool.free_frac`` / ``slots.active``
+/ ``engine.loop_iters`` and the end-of-run aggregates
+(`Engine._publish_metrics`). Every value handed to either is a host
+value: a span ends when the host has enqueued its work, so span times
+are host times, and tracing adds no device sync. Both default to falsy
+no-ops; the reported prefill / decode seconds come from the same `Span`
+stopwatch whether tracing is on or off.
 """
 from __future__ import annotations
 
@@ -95,6 +115,7 @@ from repro_torch.core.cache import CacheSpec, cache_logical_bytes_per_layer
 from repro_torch.core.policy import CompressionPolicy
 from repro_torch.nn import model as M
 from repro_torch.nn.attention import MASS_GROUP
+from repro_torch.obs import NULL_METRICS, NULL_TRACER
 from repro_torch.serving import cacheblend as cacheblend_lib
 from repro_torch.serving import prefix as prefix_lib
 from repro_torch.serving import sampler as sampler_lib
@@ -260,8 +281,12 @@ class Engine:
     `preempt_patience`, `fail_patience`), `preempt_at`, `fault_plan`,
     `audit_every`, `degrade` (with `degrade_high`, `degrade_low`,
     `degrade_keep_groups`) and `tiering` (with `host_blocks`: None is
-    the pool's size) (module docstring). `sampler` must be greedy (the
-    only one ported)."""
+    the pool's size) (module docstring). `sampler`, `seed`, `tracer` and
+    `metrics` as in the module docstring (speculative decoding needs the
+    greedy sampler); `allocator_signal` ({"cos_sim": [L]} for squeeze,
+    {"uncertainty": [L]} for zigzag, e.g. from `budgets.
+    layer_cosine_signal` / `attention_entropy_signal`) feeds the layer
+    budget allocator in place of its defaults."""
 
     def __init__(self, cfg, params, policy: CompressionPolicy, *,
                  prompt_len: Optional[int] = None, max_new: int,
@@ -273,7 +298,8 @@ class Engine:
                  block_growth: str = "eager",
                  admission_order: str = "fifo", speculative: bool = False,
                  gamma: int = 4, draft_policy: str = "window:64",
-                 sampler=sampler_lib.greedy,
+                 sampler: Callable = sampler_lib.greedy,
+                 allocator_signal: Optional[dict] = None, seed: int = 0,
                  prefix_sharing: bool = False, near_hit: float = 0.0,
                  preemption: bool = False, preempt_patience: int = 2,
                  fail_patience: int = 3, degrade: bool = False,
@@ -282,19 +308,24 @@ class Engine:
                  host_blocks: Optional[int] = None,
                  fault_plan: Optional[paging.FaultPlan] = None,
                  audit_every: int = 0,
-                 preempt_at: Sequence[Sequence[int]] = ()):
+                 preempt_at: Sequence[Sequence[int]] = (),
+                 tracer=None, metrics=None):
         if block_growth not in ("eager", "lazy"):
             raise ValueError(f"unknown block_growth {block_growth!r}")
         if admission_order not in ("fifo", "shortest-prompt"):
             raise ValueError(f"unknown admission_order {admission_order!r}")
-        if sampler is not sampler_lib.greedy:
-            if speculative:
-                raise ValueError(
-                    "speculative decoding requires the greedy sampler "
-                    "(acceptance is exact match-and-truncate under argmax)")
-            raise NotImplementedError("samplers other than greedy: not yet "
-                                      "ported")
+        if speculative and sampler is not sampler_lib.greedy:
+            raise ValueError(
+                "speculative decoding requires the greedy sampler "
+                "(acceptance is exact match-and-truncate under argmax)")
         self.device = resolve_device(device)
+        self.sampler = sampler
+        self.gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        # telemetry: both default to falsy no-ops, so every emit site is
+        # one truthiness check when it is off; only host values reach
+        # them (kvlint's host-sync rule checks the loops)
+        self.trace = tracer if tracer is not None else NULL_TRACER
+        self.metrics = metrics if metrics is not None else NULL_METRICS
         if prompt_len is None and not buckets:
             raise ValueError("need prompt_len and/or buckets")
         if use_kernels is not None:
@@ -314,9 +345,6 @@ class Engine:
         self.prompt_len, self.max_new, self.slots = prompt_len, max_new, slots
 
         spec = policy.spec
-        if spec.policy in ("nacl", "keyformer"):
-            raise NotImplementedError(f"policy {spec.policy!r}: its noise "
-                                      "draws are not yet ported")
         if not spec.compressed:
             # the uncompressed baseline still needs decode headroom (sized
             # for the largest bucket so every bucket shares one shape)
@@ -426,12 +454,12 @@ class Engine:
         alloc = budgets_lib.ALLOCATORS[policy.allocator]
         kw = dict(policy.allocator_kwargs)
         kw.setdefault("multiple", spec.group if spec.quantized else 1)
-        # the measured signals of squeeze / zigzag are not ported yet:
-        # their allocators take the JAX engine's defaults
         if policy.allocator == "squeeze":
-            kw.setdefault("cos_sim", np.linspace(0.6, 0.95, n_attn))
+            kw.setdefault("cos_sim", (allocator_signal or {}).get(
+                "cos_sim", np.linspace(0.6, 0.95, n_attn)))
         if policy.allocator == "zigzag":
-            kw.setdefault("uncertainty", np.ones(n_attn))
+            kw.setdefault("uncertainty", (allocator_signal or {}).get(
+                "uncertainty", np.ones(n_attn)))
         self.layer_budgets = np.minimum(alloc(n_attn, spec.budget, **kw),
                                         spec.main_store_len(prompt_len))
 
@@ -480,7 +508,7 @@ class Engine:
             from repro_torch.serving.adaptive import PressureController
             self.pressure = PressureController(
                 high_water=degrade_high, low_water=degrade_low,
-                keep_groups=degrade_keep_groups)
+                keep_groups=degrade_keep_groups, tracer=self.trace)
 
     # ------------------------------------------------------------------
     def _check_aligned(self, buckets) -> None:
@@ -514,7 +542,7 @@ class Engine:
         batch = {"tokens": torch.as_tensor(np.asarray(tokens, np.int64),
                                            device=self.device)}
         return M.prefill(self.params, cfg, batch, spec,
-                         layer_budgets=budgets)
+                         layer_budgets=budgets, generator=self.gen)
 
     def _decode(self, cache: M.ModelCache, tok: torch.Tensor,
                 ring_full: bool, *,
@@ -524,15 +552,17 @@ class Engine:
         self.flush_steps += bool(ring_full)
         logits, _ = M.decode_step(self.params, cfg, cache, tok, spec,
                                   ring_full=ring_full,
-                                  append_mask=append_mask)
-        return sampler_lib.greedy(logits)
+                                  append_mask=append_mask,
+                                  generator=self.gen)
+        return self.sampler(logits, self.gen)
 
     # the speculative loop's verify step (`serving.speculative`)
     def _verify(self, cache: M.ModelCache, tokens: torch.Tensor,
                 valid_len: torch.Tensor, ring_full):
         self.flush_steps += sum(map(bool, ring_full))
         y, acc, _ = M.verify_step(self.params, self.cfg, cache, tokens,
-                                  valid_len, self.spec, ring_full=ring_full)
+                                  valid_len, self.spec, ring_full=ring_full,
+                                  generator=self.gen)
         return y, acc
 
     def _sync(self) -> None:
@@ -686,13 +716,15 @@ class Engine:
         free list with the fault plan, kept for post-run inspection)."""
         if not self.paged:
             return Scheduler(buckets or self.buckets, self.slots,
-                             admission_order=self.admission_order)
+                             admission_order=self.admission_order,
+                             tracer=self.trace)
         self.block_allocator = paging.BlockAllocator(
-            self.pool_blocks, fault_plan=self.fault_plan)
+            self.pool_blocks, fault_plan=self.fault_plan, tracer=self.trace)
         return Scheduler(buckets or self.buckets, self.slots,
                          allocator=self.block_allocator,
                          block_need=self._request_blocks,
-                         admission_order=self.admission_order)
+                         admission_order=self.admission_order,
+                         tracer=self.trace)
 
     def _verbatim_ok(self, bucket: int) -> bool:
         """True when prefill keeps every prompt row verbatim (no selection,
@@ -844,20 +876,25 @@ class Engine:
         index. None when the exact prefix is too short to anchor it."""
         if m_exact < self.block_len:
             return None
-        t0 = time.perf_counter()
-        tokens = torch.as_tensor(req.tokens[None].astype(np.int64),
-                                 device=self.device)
-        logits, (ks, vs), _ = cacheblend_lib.blend_prefill(
-            self.params, self.cfg, tokens, [0, m_exact],
-            recompute_frac=self.near_hit)
-        pc = M.prefill_from_kv(self.cfg, self.spec, ks, vs,
-                               layer_budgets=self.layer_budgets)
-        sched.begin_prefill(slot)
+        with self.trace.span("blend_prefill", tid=slot + 1,
+                             args=dict(uid=req.uid, m=m_exact)) as sp:
+            tokens = torch.as_tensor(req.tokens[None].astype(np.int64),
+                                     device=self.device)
+            logits, (ks, vs), _ = cacheblend_lib.blend_prefill(
+                self.params, self.cfg, tokens, [0, m_exact],
+                recompute_frac=self.near_hit)
+            pc = M.prefill_from_kv(self.cfg, self.spec, ks, vs,
+                                   layer_budgets=self.layer_budgets,
+                                   generator=self.gen)
+            sched.begin_prefill(slot)
         self._share_state["stats"]["near_hits"] += 1
+        if self.trace:
+            self.trace.instant("prefix_near_hit", tid=slot + 1,
+                               args=dict(uid=req.uid))
         return _ChunkedAdmission(
             slot=slot, st=None, segs=[], starts=[], total_blocks=total,
             next_i=1, last_logits=logits, pc=pc, blend=True,
-            secs=time.perf_counter() - t0)
+            secs=sp.elapsed)
 
     def _restore_scratch(self, L: int, m: int, pieces) -> M.PrefillState:
         """A prefill scratch whose first `m` rows are the indexed prefix's
@@ -931,8 +968,15 @@ class Engine:
             share["upto"][slot] = n_watch
         if adm.n_adopt > 0:
             share["stats"]["warm_hits"] += 1
+            if self.trace:
+                self.trace.instant("prefix_warm_hit", tid=slot + 1,
+                                   args=dict(uid=req.uid,
+                                             blocks=adm.n_adopt))
         elif not adm.blend:
             share["stats"]["cold"] += 1
+            if self.trace:
+                self.trace.instant("prefix_cold", tid=slot + 1,
+                                   args=dict(uid=req.uid))
 
     @staticmethod
     def _grant(adm: _ChunkedAdmission, sched: Scheduler,
@@ -978,16 +1022,21 @@ class Engine:
         the device) once the slot goes ACTIVE."""
         if adm is None:
             return None, None, 0.0
-        t0 = time.perf_counter()
+        sp = self.trace.span("prefill_chunk", tid=adm.slot + 1)
+        sp.__enter__()
         first = None
         cur = adm
         while adm is not None:
             i = adm.next_i
             if i == len(adm.segs):                  # compress the scratch
-                fin = (M.prefill_finalize_meta if adm.direct
-                       else M.prefill_finalize)
-                adm.pc = fin(self.cfg, adm.st, self.spec,
-                             layer_budgets=self.layer_budgets)
+                if adm.direct:
+                    adm.pc = M.prefill_finalize_meta(
+                        self.cfg, adm.st, self.spec,
+                        layer_budgets=self.layer_budgets)
+                else:
+                    adm.pc = M.prefill_finalize(
+                        self.cfg, adm.st, self.spec,
+                        layer_budgets=self.layer_budgets, generator=self.gen)
                 adm.next_i += 1
             elif i == len(adm.segs) + 1:            # insert + first token
                 # the full grant (decode headroom, quantization slack) is
@@ -1001,7 +1050,7 @@ class Engine:
                 if self._share_state is not None:
                     self._note_inserted(sched, adm, self._share_state)
                 sched.finish_prefill(adm.slot)
-                first = (adm.slot, sampler_lib.greedy(adm.last_logits))
+                first = (adm.slot, self.sampler(adm.last_logits, self.gen))
                 adm = None
                 break
             else:                                   # one prompt segment
@@ -1033,7 +1082,8 @@ class Engine:
                 adm.next_i += 1
             if not run_all:
                 break
-        dt = time.perf_counter() - t0
+        sp.__exit__()
+        dt = sp.elapsed
         cur.secs += dt
         if first is not None and sched.slot_request(cur.slot).emitted_prefix:
             self._note_readmit(sched.slot_request(cur.slot), cur.secs)
@@ -1043,6 +1093,16 @@ class Engine:
                 "warm_prefill_s" if warm else "cold_prefill_s"].append(
                     cur.secs)
         return adm, first, dt
+
+    def _start_admission_timed(self, sched: Scheduler):
+        """Start a chunked admission under the prefill stopwatch. Both
+        continuous loops go through here: the start can do real prefill
+        work (a scratch restore, or a whole CacheBlend forward for a
+        near-hit), so its seconds belong to the prefill seconds. Returns
+        (admission or None, seconds)."""
+        t0 = time.perf_counter()
+        adm = self._start_chunked_admission(sched)
+        return adm, time.perf_counter() - t0
 
     def _note_readmit(self, req: Request, secs: float) -> None:
         """Account a continuation's re-admission: its prompt's prefill
@@ -1081,17 +1141,20 @@ class Engine:
             pad = self.slots - (w1 - w0)
             if pad:
                 wave = np.concatenate([wave, np.repeat(wave[-1:], pad, 0)], 0)
-            t0 = time.perf_counter()
-            logits, cache = self._prefill(wave)
-            tok = sampler_lib.greedy(logits)
-            # kvlint: ok(host-sync: prefill's first tokens — once per wave, before the decode loop)
-            first = tok.cpu().numpy()
-            prefill_s += time.perf_counter() - t0
+            with self.trace.span("wave_prefill",
+                                 args=dict(wave=w0 // self.slots)) as sp:
+                logits, cache = self._prefill(wave)
+                tok = self.sampler(logits, self.gen)
+                # kvlint: ok(host-sync: prefill's first tokens — once per wave, before the decode loop)
+                first = tok.cpu().numpy()
+            prefill_s += sp.elapsed
             outs[w0:w1, 0] = first[: w1 - w0]
             ring = RingMirror(self.spec, self.slots)
             ring.fill()
             tok = tok[:, None]
-            t0 = time.perf_counter()
+            sp = self.trace.span("wave_decode",
+                                 args=dict(wave=w0 // self.slots))
+            sp.__enter__()
             pend, pend_t = None, 0
             for t in range(1, self.max_new):
                 tok_dev = self._decode(cache, tok, ring.advance())
@@ -1105,7 +1168,8 @@ class Engine:
                 # kvlint: ok(host-sync: loop epilogue — the last pending tokens, once per wave)
                 outs[w0:w1, pend_t] = fetch.get(pend)[: w1 - w0]
             self._sync()
-            decode_s += time.perf_counter() - t0
+            sp.__exit__()
+            decode_s += sp.elapsed
             active = w1 - w0
             phys += (kvcache.cache_physical_bytes(cache.attn) * active
                      / self.slots)
@@ -1169,15 +1233,18 @@ class Engine:
         if self.tiering:
             from repro_torch.serving.adaptive import PressureController
             tier = paging.HostTier(self.host_blocks,
-                                   fault_plan=self.fault_plan)
-            tier_ctrl = PressureController(high_water=0.85, low_water=0.60)
+                                   fault_plan=self.fault_plan,
+                                   tracer=self.trace)
+            tier_ctrl = PressureController(high_water=0.85, low_water=0.60,
+                                           tracer=self.trace)
         self.host_tier = tier
         self.tier_pressure = tier_ctrl
 
         share = None
         if self.prefix_sharing:
             align = math.lcm(self.block_len, MASS_GROUP)
-            index = prefix_lib.PrefixIndex(self.block_len, align=align)
+            index = prefix_lib.PrefixIndex(self.block_len, align=align,
+                                           tracer=self.trace)
             share = self._share_state = dict(
                 index=index,
                 mirror=spec_lib.CacheMirror(self.spec, self.layer_budgets,
@@ -1473,9 +1540,10 @@ class Engine:
                 self._retry_refused_admission(sched, True, preempt_slot,
                                               tuple(replay))
                 return
-            t0 = time.perf_counter()
-            ok = try_restore(i, req)
-            prefill_s += time.perf_counter() - t0
+            with self.trace.span("restore", tid=i + 1,
+                                 args=dict(uid=req.uid)) as sp:
+                ok = try_restore(i, req)
+            prefill_s += sp.elapsed
             if ok:
                 set_tokens({i: int(next_tok[i])})
             else:
@@ -1553,23 +1621,26 @@ class Engine:
                     # ticketed continuation: land the snapshot in the grant
                     # instead of re-prefilling; a refused fetch falls
                     # through to recompute-on-resume below
-                    t0 = time.perf_counter()
-                    ok = try_restore(slot_idx, req)
-                    prefill_s += time.perf_counter() - t0
+                    with self.trace.span("restore", tid=slot_idx + 1,
+                                         args=dict(uid=req.uid)) as sp:
+                        ok = try_restore(slot_idx, req)
+                    prefill_s += sp.elapsed
                     if ok:
                         return True
-                t0 = time.perf_counter()
-                logits, pc = self._prefill(req.tokens[None])
-                self._insert(cache, sched, slot_idx, pc)
-                ring.fill(slot_idx)
-                clean_slots.discard(slot_idx)
-                if lazy_mirror is not None:
-                    lazy_mirror.admit(slot_idx, len(req.tokens))
-                # kvlint: ok(host-sync: admission prefill's first token — once per admitted request, not per decode step)
-                tok_i = int(sampler_lib.greedy(logits).item())
-                prefill_s += time.perf_counter() - t0
+                with self.trace.span("prefill", tid=slot_idx + 1,
+                                     args=dict(uid=req.uid)) as sp:
+                    logits, pc = self._prefill(req.tokens[None])
+                    tok = self.sampler(logits, self.gen)
+                    self._insert(cache, sched, slot_idx, pc)
+                    ring.fill(slot_idx)
+                    clean_slots.discard(slot_idx)
+                    if lazy_mirror is not None:
+                        lazy_mirror.admit(slot_idx, len(req.tokens))
+                    # kvlint: ok(host-sync: admission prefill's first token — once per admitted request, not per decode step)
+                    tok_i = int(tok.item())
+                prefill_s += sp.elapsed
                 if req.emitted_prefix:
-                    self._note_readmit(req, time.perf_counter() - t0)
+                    self._note_readmit(req, sp.elapsed)
                     # recompute-on-resume: the prefill covered the prompt;
                     # the committed tokens now replay through ordinary
                     # decode steps (outputs discarded), each the decode step
@@ -1600,9 +1671,17 @@ class Engine:
         # device-side; the host reads that token one iteration later.
         tok_in = torch.as_tensor(next_tok, device=self.device)
         adm: Optional[_ChunkedAdmission] = None
+        # per-iteration telemetry: pre-bound instruments, host mirrors only
+        # (the allocator's free list, the scheduler's active set)
+        trace = self.trace
+        mx = self.metrics
+        g_free = mx.gauge("pool.free_frac")
+        g_active = mx.gauge("slots.active")
+        c_iters = mx.counter("engine.loop_iters")
         loop_t0 = time.perf_counter()
         prefill_at_loop = prefill_s
         while True:
+            it_t0 = time.perf_counter()
             if tier is not None:
                 # land last iteration's spill copies: each waits on its
                 # own copy event (the step in flight keeps running)
@@ -1615,9 +1694,8 @@ class Engine:
                         admit_ticket_head()
                     else:
                         promote_for_head()
-                t0 = time.perf_counter()
-                adm = self._start_chunked_admission(sched)
-                prefill_s += time.perf_counter() - t0
+                adm, dt = self._start_admission_timed(sched)
+                prefill_s += dt
             if preempt_due:
                 # forced preemptions: the deterministic preempt-at-step-k
                 # hook (dispatch count, as the JAX engine's)
@@ -1642,6 +1720,8 @@ class Engine:
                     and step_idx % self.audit_every == 0):
                 # kvlint: ok(host-sync: periodic pool audit reads the device block table — every audit_every dispatches, off by default)
                 self._run_audit(sched, cache)
+                if trace:
+                    trace.instant("audit", args=dict(step=step_idx))
             if lazy_mirror is not None and active:
                 # lazy growth: every slot joining this dispatch needs table
                 # coverage for the row it appends. A slot the pool cannot
@@ -1717,6 +1797,9 @@ class Engine:
                                 cache.attn, s, 0,
                                 self._h2d_ids(new, np.int32), batch_axis=2)
                             share["stats"]["cow_copies"] += 1
+                            if trace:
+                                trace.instant("cow", tid=s + 1,
+                                              args=dict(blocks=len(new)))
                         share["upto"].pop(s)
                         continue
                     # the pool cannot cover the un-share: retire the slot
@@ -1794,6 +1877,19 @@ class Engine:
                 st = share["stats"]
                 st["peak_mapped_blocks"] = max(st["peak_mapped_blocks"],
                                                mapped)
+            n_active = len(active)
+            if mx:
+                g_active.set(n_active)
+                c_iters.inc()
+                if self.paged:
+                    g_free.set(self.block_allocator.available
+                               / max(self.pool_blocks, 1))
+            if trace:
+                trace.complete("step", it_t0, args=dict(active=n_active))
+                if self.paged:
+                    trace.counter("pool", dict(
+                        free=self.block_allocator.available,
+                        active=n_active))
             if (pending is None and new_pending is None and adm is None
                     and first_pending is None and not sched.pending):
                 break
@@ -1886,7 +1982,7 @@ class Engine:
         logical = self._logical_bytes_per_seq() * self.slots
         full = (self.cfg.kv_bytes_per_token()
                 * (self.prompt_len + self.max_new) * self.slots)
-        return ContinuousGenerationResult(
+        res = ContinuousGenerationResult(
             results=results, prefill_seconds=prefill_s,
             decode_seconds=decode_s, decode_steps=sched.decode_steps,
             decode_tokens=decode_tokens,
@@ -1903,3 +1999,58 @@ class Engine:
             readmit_prefill_s=self.readmit_prefill_s,
             recomputed_uids=list(self.recomputed_uids), tier=tier_stats,
             **pool_stats)
+        self._publish_metrics(sched, res)
+        return res
+
+    def _publish_metrics(self, sched: Scheduler,
+                         res: ContinuousGenerationResult) -> None:
+        """End-of-run aggregates into the metrics registry (nothing under
+        the default `NULL_METRICS`), named as the JAX engine names them:
+        gauges carry run-level rates, counters event totals, histograms
+        the per-request latency distributions (TTFT, inter-token gaps)."""
+        mx = self.metrics
+        if not mx:
+            return
+        mx.gauge("run.prefill_s").set(res.prefill_seconds)
+        mx.gauge("run.decode_s").set(res.decode_seconds)
+        mx.gauge("run.decode_tok_s").set(res.decode_tokens_per_s)
+        mx.gauge("run.occupancy").set(res.occupancy)
+        mx.gauge("run.ttft_mean_s").set(res.ttft_mean_s)
+        mx.gauge("run.compression_ratio").set(res.compression_ratio)
+        mx.gauge("cache.physical_bytes").set(res.cache_physical_bytes)
+        mx.gauge("cache.logical_bytes").set(res.cache_logical_bytes)
+        mx.counter("engine.decode_steps").inc(res.decode_steps)
+        mx.counter("engine.decode_tokens").inc(res.decode_tokens)
+        mx.counter("sched.preemptions").inc(sched.n_preemptions)
+        mx.counter("sched.retries").inc(sched.n_retries)
+        h_ttft = mx.histogram("request.ttft_s")
+        h_gap = mx.histogram("request.inter_token_s")
+        n_done = n_failed = 0
+        for r in res.results:
+            if r.finish_reason == "failed":
+                n_failed += 1
+                continue
+            n_done += 1
+            h_ttft.observe(r.ttft_s)
+            for gap in np.diff(r.token_times):
+                h_gap.observe(float(gap))
+        mx.counter("requests.completed").inc(n_done)
+        mx.counter("requests.failed").inc(n_failed)
+        if res.tier is not None:
+            mx.counter("tier.spills").inc(res.tier["n_spills"])
+            mx.counter("tier.fetches").inc(res.tier["n_fetches"])
+            mx.counter("tier.bytes_moved").inc(res.tier["bytes_moved"])
+            mx.gauge("tier.fetch_stall_s").set(res.tier["fetch_stall_s"])
+        if self.pressure is not None:
+            mx.counter("pressure.degrades").inc(
+                self.pressure.stats["degrades"])
+            mx.counter("pressure.blocks_dropped").inc(
+                self.pressure.stats["blocks_dropped"])
+        if res.prefix is not None:
+            mx.counter("prefix.warm_hits").inc(res.prefix["warm_hits"])
+            mx.counter("prefix.cold").inc(res.prefix["cold"])
+            mx.counter("prefix.near_hits").inc(res.prefix["near_hits"])
+            mx.counter("prefix.cow_copies").inc(res.prefix["cow_copies"])
+        if res.spec is not None:
+            mx.gauge("spec.accept_rate").set(res.spec.acceptance_rate)
+            mx.counter("spec.rounds").inc(res.spec.rounds)

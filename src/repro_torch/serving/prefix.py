@@ -220,6 +220,8 @@ class PrefixIndex:
         node.host = handle
         self._host[handle] = node
         self.demoted += 1
+        if self.trace:
+            self.trace.instant("prefix_demote", args=dict(handle=handle))
 
     def promote(self, node: _Node, block_id: int) -> None:
         """Host -> device: the node's bytes were fetched into the freshly
@@ -232,6 +234,9 @@ class PrefixIndex:
         node.block_id = int(block_id)
         self._nodes[node.block_id] = node
         self.promoted += 1
+        if self.trace:
+            self.trace.instant("prefix_promote",
+                               args=dict(block=node.block_id))
 
     def host_handles(self) -> List[int]:
         """Every host-tier handle the index holds (audit input)."""

@@ -111,6 +111,18 @@ class RequestResult:
     def n_tokens(self) -> int:
         return int(self.tokens.shape[0])
 
+    def max_inter_token_s(self, t0: float = -np.inf,
+                          t1: float = np.inf) -> float:
+        """Largest gap between consecutive token timestamps whose later
+        token lands in [t0, t1]: the per-request stall that chunked
+        admission exists to bound."""
+        tt = self.token_times
+        if tt.shape[0] < 2:
+            return 0.0
+        gaps = np.diff(tt)
+        sel = (tt[1:] >= t0) & (tt[1:] <= t1)
+        return float(gaps[sel].max()) if sel.any() else 0.0
+
 
 @dataclass
 class _SlotState:

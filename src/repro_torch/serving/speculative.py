@@ -54,7 +54,6 @@ from repro_torch.core import cache as kvcache
 from repro_torch.core import paging
 from repro_torch.core.cache import CacheSpec
 from repro_torch.nn import model as M
-from repro_torch.serving import sampler as sampler_lib
 from repro_torch.serving.scheduler import Request
 
 
@@ -363,10 +362,11 @@ def generate_continuous_spec(eng, requests: Sequence[Union[Request,
         """Prefill + insert the drafter's cache for a just-admitted
         request (the drafter sees the same prompt under its own spec)."""
         nonlocal prefill_s
-        t0 = time.perf_counter()
-        _, dpc = eng._prefill(req.tokens[None], draft=True)
-        kvcache.insert_request(dcache.attn, slot, dpc.attn, batch_axis=2)
-        prefill_s += time.perf_counter() - t0
+        with eng.trace.span("draft_prefill", tid=slot + 1,
+                            args=dict(uid=req.uid)) as sp:
+            _, dpc = eng._prefill(req.tokens[None], draft=True)
+            kvcache.insert_request(dcache.attn, slot, dpc.attn, batch_axis=2)
+        prefill_s += sp.elapsed
         dmirror.admit(slot, len(req.tokens))
         slot_state[slot] = _SlotSpecState(stream=list(map(int, req.tokens)),
                                           fed=len(req.tokens))
@@ -404,13 +404,16 @@ def generate_continuous_spec(eng, requests: Sequence[Union[Request,
                     reset_slot(slot)
                 return False
             t0 = time.perf_counter()
-            logits, pc = eng._prefill(req.tokens[None])
-            eng._insert(cache, sched, slot, pc)
-            clean.discard(slot)
-            tmirror.admit(slot, len(req.tokens))
-            # kvlint: ok(host-sync: admission prefill's first token — once per admitted request, not per round)
-            tok = int(sampler_lib.greedy(logits).item())
-            prefill_s += time.perf_counter() - t0
+            with eng.trace.span("prefill", tid=slot + 1,
+                                args=dict(uid=req.uid)) as sp:
+                logits, pc = eng._prefill(req.tokens[None])
+                tok_dev = eng.sampler(logits, eng.gen)
+                eng._insert(cache, sched, slot, pc)
+                clean.discard(slot)
+                tmirror.admit(slot, len(req.tokens))
+                # kvlint: ok(host-sync: admission prefill's first token — once per admitted request, not per round)
+                tok = int(tok_dev.item())
+            prefill_s += sp.elapsed
             admit_draft(slot, req)
             if req.emitted_prefix:
                 # the target's and the drafter's prefill
@@ -458,13 +461,25 @@ def generate_continuous_spec(eng, requests: Sequence[Union[Request,
         for i in range(eng.slots):
             admit_into(i)
 
+    # per-round telemetry: pre-bound instruments, host mirrors only
+    trace = eng.trace
+    mx = eng.metrics
+    g_free = mx.gauge("pool.free_frac")
+    g_active = mx.gauge("slots.active")
+    c_iters = mx.counter("engine.loop_iters")
     loop_t0 = time.perf_counter()
     prefill_at_loop = prefill_s
     while True:
+        it_t0 = time.perf_counter()
+        if mx:
+            g_active.set(len(sched.active_slots()))
+            c_iters.inc()
+            if eng.paged:
+                g_free.set(eng.block_allocator.available
+                           / max(eng.pool_blocks, 1))
         if eng.chunked_prefill and adm is None:
-            t0 = time.perf_counter()
-            adm = eng._start_chunked_admission(sched)
-            prefill_s += time.perf_counter() - t0
+            adm, dt0 = eng._start_admission_timed(sched)
+            prefill_s += dt0
         active = sched.active_slots()
         if eng.chunked_prefill and adm is not None:
             adm, first, dt = eng._advance_chunked_admission(
@@ -505,6 +520,8 @@ def generate_continuous_spec(eng, requests: Sequence[Union[Request,
                 and stats.rounds % eng.audit_every == 0):
             # kvlint: ok(host-sync: periodic pool audit reads the device block table — every audit_every rounds, off by default)
             eng._run_audit(sched, cache)
+            if trace:
+                trace.instant("audit", args=dict(round=stats.rounds))
         if not active:
             if sched.pending or adm is not None:
                 if not eng.chunked_prefill:
@@ -617,6 +634,9 @@ def generate_continuous_spec(eng, requests: Sequence[Union[Request,
                                   append_mask=mask_of(active))
             sched.note_decode_step()
             stats.rounds += 1
+            if trace:
+                trace.complete("round", it_t0,
+                               args=dict(kind="plain", active=len(active)))
             # kvlint: ok(host-sync: plain round — the token builds the next feed host-side)
             toks = tok_dev.cpu().numpy()
             for s in active:
@@ -647,6 +667,9 @@ def generate_continuous_spec(eng, requests: Sequence[Union[Request,
         sched.note_decode_step()
         stats.rounds += 1
         stats.verify_rounds += 1
+        if trace:
+            trace.complete("round", it_t0,
+                           args=dict(kind="verify", active=len(active)))
         # kvlint: ok(host-sync: verify results drive host-side acceptance mirroring — the round is synchronous by design)
         y = y_dev.cpu().numpy()
         # kvlint: ok(host-sync: verify results drive host-side acceptance mirroring — the round is synchronous by design)

@@ -18,10 +18,12 @@ from repro.core.policy import presets as jax_presets
 from repro.nn import model as JM
 from repro.serving import Engine as JaxEngine
 from repro.serving import Request as JaxRequest
+from repro.serving import sampler as jax_sampler
 from repro_torch.bridge import params_from_numpy
 from repro_torch.configs.base import get_config, reduced
 from repro_torch.core.policy import presets
 from repro_torch.nn import model as M
+from repro_torch.serving import sampler as sampler_lib
 from repro_torch.serving.engine import Engine
 from repro_torch.serving.scheduler import Request
 
@@ -185,9 +187,11 @@ def test_wave_generate_equals_jax(model):
 
 
 def test_unported_engine_options_raise(model):
-    """Degradation and tiering are ported: their engines construct (with
-    the paged, lazy options they need). The nacl noise draws and samplers
-    other than greedy are not, and stay refused."""
+    """Nothing the JAX engine takes is refused any more: degradation,
+    tiering, the nacl / keyformer presets and a non-greedy sampler all
+    construct. What the JAX engine refuses, the port refuses with the
+    same error type: speculative decoding under a non-greedy sampler
+    (ValueError in both)."""
     jcfg, jp, cfg, p = model
     paged = dict(paged=True, block_len=8, block_growth="lazy")
     for pname, opts in (("kivi2", dict(paged, degrade=True)),
@@ -196,9 +200,17 @@ def test_unported_engine_options_raise(model):
                      max_new=4, device="cpu", **opts)
         assert (eng.pressure is not None) == ("degrade" in opts)
         assert eng.tiering == ("tiering" in opts)
-    with pytest.raises(NotImplementedError):
-        Engine(cfg, p, presets(BUDGET, WINDOW)["nacl"], prompt_len=32,
-               max_new=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="greedy"):
-        Engine(cfg, p, presets(BUDGET, WINDOW)["h2o"], prompt_len=32,
-               max_new=4, device="cpu", sampler=lambda logits: logits)
+    sample = sampler_lib.temperature(0.8, top_k=4)
+    for pname in ("nacl", "keyformer"):
+        eng = Engine(cfg, p, presets(BUDGET, WINDOW)[pname], prompt_len=32,
+                     max_new=4, device="cpu", sampler=sample)
+        assert eng.spec.policy == pname and eng.sampler is sample
+    for make, pol, smp in (
+            (Engine, presets(BUDGET, WINDOW)["h2o"], sample),
+            (JaxEngine, jax_presets(BUDGET, WINDOW)["h2o"],
+             jax_sampler.temperature(0.8, top_k=4))):
+        kw = dict(device="cpu") if make is Engine else {}
+        with pytest.raises(ValueError, match="greedy"):
+            make(jcfg if make is JaxEngine else cfg,
+                 jp if make is JaxEngine else p, pol, prompt_len=32,
+                 max_new=4, speculative=True, sampler=smp, **kw)

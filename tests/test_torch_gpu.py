@@ -25,6 +25,7 @@ from repro_torch.kernels.kvquant import ops as kvq_ops
 from repro_torch.kernels.kvquant.ref import (kquant_ref, unpack_ref,
                                              vquant_ref)
 from repro_torch.nn import model as M
+from repro_torch.serving import sampler as sampler_lib
 from repro_torch.serving.engine import Engine
 from repro_torch.serving.scheduler import Request
 
@@ -1057,3 +1058,93 @@ def test_reduced_overload_engine_on_card_matches_cpu(cuda, case):
     assert sum(r.n_preemptions for r in res.results) >= 1
     assert [r.tokens.tolist() for r in res.results] == \
         [r.tokens.tolist() for r in twin.results]
+
+
+# (policy, top_k of the temperature sampler, or None for greedy)
+NOISE_SAMPLER_CASES = {"nacl": ("nacl", None),
+                       "keyformer": ("keyformer", None),
+                       "temperature": ("full", 50)}
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+@pytest.mark.parametrize("case", list(NOISE_SAMPLER_CASES))
+def test_noise_and_sampler_kernels_equal_plain_on_card(cuda, case, paged):
+    """Reduced granite-8b in f32 on the card, one seed: the kernel path and
+    use_kernels=False draw the same Gumbel noise (NACL's eviction,
+    Keyformer's accumulation, the sampler's pick) from the engine's
+    device generator in the same order, so their streams are equal; the
+    kernel path went through B1 / B3 once per layer per decode step."""
+    pname, top_k = NOISE_SAMPLER_CASES[case]
+    cfg = reduced(GRANITE)
+    params = M.init_params(cfg, seed=0, device="cuda")
+    smp = (sampler_lib.greedy if top_k is None
+           else sampler_lib.temperature(0.8, top_k))
+    opts = (dict(paged=True, block_len=8, chunked_prefill=True, chunk_len=16)
+            if paged else {})
+    dec = dq_ops.decode_attn_paged_kernel if paged else dq_ops.decode_attn_kernel
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=torch
+                             .Generator().manual_seed(n)).numpy()
+               for n in (32, 48, 32, 48)]
+    out = {}
+    for uk in (True, False):
+        dec.launches = 0
+        # max_new 16: the `full` store, 48 + 16 rows, takes 8-row blocks
+        eng = Engine(cfg, params, presets(16, 8)[pname], prompt_len=48,
+                     max_new=16, slots=2, buckets=(32, 48), device="cuda",
+                     use_kernels=uk, seed=3, sampler=smp, **opts)
+        res = eng.generate_continuous([Request(tokens=p, max_new=16)
+                                       for p in prompts])
+        out[uk] = [r.tokens.tolist() for r in res.results]
+        assert all(r.finish_reason == "length" for r in res.results)
+        if uk:
+            assert dec.launches == res.decode_steps * cfg.num_layers
+    assert out[True] == out[False]
+
+
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize")
+
+
+def test_tracing_adds_no_sync_on_card(cuda):
+    """A run with the Tracer and Metrics on streams what its untraced twin
+    streams and synchronizes with the card exactly as often: torch.profiler
+    counts the stream, device and event synchronizations of each run
+    (kivi2, paged + chunked, forced preemptions spilled to the host tier
+    and restored), trace on against trace off."""
+    from repro_torch.obs import Metrics, Tracer
+    cfg = reduced(GRANITE)
+    params = M.init_params(cfg, seed=0, device="cuda")
+    prompts = [torch.randint(0, cfg.vocab_size, (32,), generator=torch
+                             .Generator().manual_seed(s)).numpy()
+               for s in range(3)]
+    act = [torch.profiler.ProfilerActivity.CPU,
+           torch.profiler.ProfilerActivity.CUDA]
+
+    def run(tracer=None, metrics=None):
+        eng = Engine(cfg, params, presets(32, 8)["kivi2"], prompt_len=32,
+                     max_new=10, slots=2, buckets=(32,), device="cuda",
+                     paged=True, block_len=8, chunked_prefill=True,
+                     chunk_len=16, preempt_at=((3, 0), (5, 1)), tiering=True,
+                     tracer=tracer, metrics=metrics)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=act) as prof:
+            res = eng.generate_continuous([Request(tokens=p, max_new=10)
+                                           for p in prompts])
+        n = dict.fromkeys(SYNC_CALLS, 0)
+        for e in prof.key_averages():
+            if e.key in n:
+                n[e.key] += e.count
+        return res, n
+
+    run()                                   # builds the kernels
+    off, n_off = run()
+    tr, mx = Tracer(), Metrics()
+    on, n_on = run(tr, mx)
+    assert [r.tokens.tolist() for r in on.results] == \
+        [r.tokens.tolist() for r in off.results]
+    assert on.tier["n_spills"] >= 1 and on.tier["n_fetches"] >= 1
+    assert {"step", "restore", "spill", "fetch", "preempt"} <= {
+        e[1] for e in tr.events()}
+    assert mx.snapshot()["tier.spills"] == on.tier["n_spills"]
+    assert sum(n_off.values()) > 0, n_off   # the profiler sees the syncs
+    assert n_on == n_off

@@ -23,21 +23,35 @@ from repro_torch.kernels.kvquant import ops as kvq_ops
 from repro_torch.kernels.kvquant import ref as kvq_ref
 from repro_torch.launch import serve
 from repro_torch.nn import attention, blocks, layers, model, rope
-from repro_torch.obs import trace
+from repro_torch import obs
+from repro_torch.obs import metrics, trace
 from repro_torch.serving import (adaptive, cacheblend, engine, prefix,
                                  sampler, scheduler, speculative)
 
 MODULES = [repro_torch, bridge, base, granite_8b, paper_llama_7b, budgets,
            cache, paging, policy, quantization, build, dq_ops, dq_ref, fp_ops,
            fp_ref, kvq_ops, kvq_ref, serve, attention, blocks, layers, model,
-           rope, trace, adaptive, cacheblend, engine, prefix, sampler,
-           scheduler, speculative]
+           rope, obs, metrics, trace, adaptive, cacheblend, engine, prefix,
+           sampler, scheduler, speculative]
 
 _CHILD = textwrap.dedent("""
-    import importlib, sys
+    import importlib, json, os, sys, tempfile
     for name in {names!r}:
         importlib.import_module(name)
     from repro_torch.launch import serve
+    tmp = tempfile.mkdtemp()
+    t_path, m_path = os.path.join(tmp, "t.json"), os.path.join(tmp, "m.json")
+    serve.main(["--arch", "granite-8b", "--reduced", "--policy", "nacl",
+                "--budget", "16", "--window", "8", "--requests", "3",
+                "--prompt-len", "32", "--max-new", "3", "--slots", "2",
+                "--continuous", "--paged", "--device", "cpu",
+                "--trace", t_path, "--metrics-json", m_path])
+    print("TRACE", len(json.load(open(t_path))["traceEvents"]),
+          json.load(open(m_path))["schema"])
+    serve.main(["--arch", "granite-8b", "--reduced", "--policy", "keyformer",
+                "--budget", "16", "--window", "8", "--requests", "3",
+                "--prompt-len", "32", "--max-new", "3", "--slots", "2",
+                "--device", "cpu", "--trace", t_path])
     serve.main(["--arch", "granite-8b", "--reduced", "--policy", "h2o+kivi2",
                 "--budget", "16", "--window", "8", "--requests", "3",
                 "--prompt-len", "32", "--max-new", "3", "--slots", "2",
@@ -88,6 +102,10 @@ def test_port_imports_no_jax_and_no_repro():
     assert re.search(r"prefix cache: [1-9]\d* warm", r.stdout), r.stdout
     assert re.search(r"pressure: [1-9]\d* degrades", r.stdout), r.stdout
     assert "tier: " in r.stdout, r.stdout
+    assert "policy=nacl continuous" in r.stdout, r.stdout
+    assert "policy=keyformer" in r.stdout, r.stdout
+    assert re.search(r"TRACE [1-9]\d* repro.obs.metrics/1", r.stdout), \
+        r.stdout
 
 
 def test_entry_points_default_to_cuda():
