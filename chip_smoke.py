@@ -21,7 +21,10 @@ Phases, each printing its own lines; any failure exits non-zero:
               paged cache views (two launches bit-equal); the back-compat
               quantized decode wrapper; the fused KIVI quantize-and-pack
               kernels (K, V, and the one launch of both that the cache
-              makes) at the flush and prompt shapes
+              makes) at the flush and prompt shapes; then B1, B3, B2,
+              B4 and B5 at each head group of phase 7 (Gq 1 / D 64, Gq 5,
+              8 and 12), f32 and bf16, B5's 60 packed rows at Gq 12 in
+              two row tiles
   4. serve    granite-8b at full width and depth, random bf16 weights from
               a seed, `Engine.generate_continuous` under full / h2o /
               kivi2 / h2o+kivi2 and the noisy nacl / keyformer (dense
@@ -31,7 +34,8 @@ Phases, each printing its own lines; any failure exits non-zero:
               reloads, its counters equal the result, the host seconds
               of each span printed), then the temperature / top-k
               sampler (top_k 1 equal to greedy, top_k 50 beside it),
-              then self-speculative decoding (gamma 4): full with
+              then self-speculative decoding (gamma 4) on 18 of the 36
+              layers, each beside a plain twin of that depth: full with
               the `same` drafter, kivi2 with a `window:64` drafter, full
               paged + chunked with `same`; then the overload ladder
               (paged + chunked, 8 requests): full with lazy block growth
@@ -73,6 +77,22 @@ Phases, each printing its own lines; any failure exits non-zero:
               one verify round: wall vs dispatch time, device-busy time
               and the top kernels (torch.profiler); for h2o+kivi2 also a
               step whose ring flushes (the fused quantizer's share)
+  7. configs  the four further attention-only configs at full width, one
+              on the card at a time: minicpm-2b (Gq 1, D 64; full and h2o
+              dense), qwen2.5-32b (Gq 5, QKV bias; kivi2 paged + chunked
+              through the serving CLI, its metrics snapshot read, one
+              decode step profiled), chameleon-34b (Gq 8, the vlm config;
+              full paged + chunked) at full depth, command-r-plus-104b
+              (Gq 12; full dense and speculative with the `same` drafter)
+              on a 16-layer cut; launches exact, then each config at 4
+              layers with the kernels against use_kernels=False, dense
+              and paged + chunked, an f32 reference path beside them
+  8. kvsharer granite-8b through the layer-sharing runner: 9 of 36 layers
+              share a calibrated source's cache (27/36 of the model's
+              own prefill cache of the same prompts, B2
+              once per unshared layer, B1 once per layer a step), then at
+              4 layers against use_kernels=False and, with no sharing,
+              against the model's own prefill and decode
 
 Then one JSON line describing every ported kernel, and as the last line
 ``{"ok": true, "device": {...}}``. There is no CPU path: without a CUDA
@@ -92,7 +112,8 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-PHASES = ("device", "build", "parity", "serve", "e2e", "profile")
+PHASES = ("device", "build", "parity", "serve", "e2e", "profile", "configs",
+          "kvsharer")
 # kernel vs plain version, |kernel - plain| <= atol + rtol * |plain|.
 # Both sides compute in f32 on the same (bf16-rounded) inputs, so they
 # differ by f32 summation order (readings <= 1e-6) and, for bf16 outputs,
@@ -349,6 +370,7 @@ def phase_parity(info: dict) -> None:
     _parity_verify(info)
     _parity_quantized_wrapper(info)
     _parity_kvquant(info)
+    _parity_config_shapes(info)
 
 
 def _parity_decode_full_path(info: dict) -> None:
@@ -544,6 +566,132 @@ def _parity_verify(info: dict) -> None:
                     max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                     bound_by=by, library_ms=lib_ms)
             del args, out_k, out_2, out_r, mask
+
+
+# B5's tiles of 32 packed query rows at L 5, per Gq (5, 25, 40, 60 rows)
+VERIFY_ROW_TILES = {1: 1, 5: 1, 8: 2, 12: 2}
+
+
+def _config_shapes():
+    """The head groups the configs phase serves, beside granite's (32 / 8
+    / 128): (config, Hq, Hkv, D) from the port's own configs."""
+    from repro_torch.configs.base import get_config
+    return [(a, c.num_heads, c.num_kv_heads, c.head_dim)
+            for a, c in ((a, get_config(a)) for a, _ in CONFIG_RUNS)]
+
+
+def _parity_config_shapes(info: dict) -> None:
+    """Every kernel of the configs phase's path against its plain
+    version, at each config's head group and head dim, f32 and bf16, under
+    the per-kernel bounds above: B1 (16-bit with and without mass and
+    ring, 2-bit with both) and B3 on the same grid (also bit-equal to B1
+    on the gathered rows); B2 at T 2048 and B4's 512-row segments of it
+    (concatenated bit-equal to B2); B5 at L 5 over the dense and the paged
+    view, its Gq*L packed query rows in as many VERIFY_ROWS-row tiles as
+    the grid says (command-r's 60: two). Times the bf16 B5 at command-r's
+    Gq 12 (the speculative run's shape) beside its plain version."""
+    import torch
+    from repro_torch.kernels.build import sm_count
+    from repro_torch.kernels.decode_qattn import ops as dq
+    from repro_torch.kernels.decode_qattn.ref import (decode_attn_paged_ref,
+                                                      decode_attn_ref)
+    from repro_torch.kernels.flash_prefill import ops as fp
+    from repro_torch.kernels.flash_prefill.ref import (
+        flash_prefill_chunk_ref, flash_prefill_ref, flash_verify_ref)
+    for arch, Hq, Hkv, D in _config_shapes():
+        shape = dict(Hq=Hq, Hkv=Hkv, D=D)
+        gq = Hq // Hkv
+        errs = {}
+        for dt in (torch.float32, torch.bfloat16):
+            name = str(dt)[6:]
+            tol = OUT_TOL[name]
+            for bits, mass, ring in ((16, True, True), (16, False, False),
+                                     (2, True, True)):
+                what = (f"{arch} Gq {gq} D {D} {name} bits={bits} "
+                        f"mass={mass} ring={ring}")
+                kw = dict(bits=bits, group=128, return_mass=mass,
+                          compute_dtype=dt)
+                rkw = dict(bits=bits, group=128, compute_dtype=dt)
+                args = _decode_case(torch, dt, bits, ring, **shape)
+                out_k, m_k = dq.decode_attn_cuda(*args, **kw)
+                out_r, m_r = decode_attn_ref(*args, **rkw)
+                paged, dense = _paged_case(torch, dt, bits, ring, **shape)
+                out_p, m_p = dq.decode_attn_paged_cuda(*paged, **kw)
+                out_pr, m_pr = decode_attn_paged_ref(*paged, **rkw)
+                out_d, m_d = dq.decode_attn_cuda(*dense, **kw)
+                torch.cuda.synchronize()
+                e = [check_close("decode_attn " + what, out_k, out_r, *tol),
+                     check_close("decode_attn_paged " + what, out_p, out_pr,
+                                 *tol)]
+                if mass:
+                    e += [check_close("decode_attn mass " + what, m_k, m_r,
+                                      *MASS_TOL),
+                          check_close("decode_attn_paged mass " + what, m_p,
+                                      m_pr, *MASS_TOL)]
+                if not (torch.equal(out_p, out_d)
+                        and (not mass or torch.equal(m_p, m_d))):
+                    fail(f"decode_attn_paged {what}: differs from "
+                         "decode_attn on the same rows (want bit-equal)")
+                errs[f"B1/B3 {name} {bits}-bit"] = max(
+                    errs.get(f"B1/B3 {name} {bits}-bit", 0.0), *e)
+                del args, paged, dense
+            T = 2048
+            g = torch.Generator(device="cuda").manual_seed(T + Hq)
+            q, k, v = (torch.randn(1, T, h, D, generator=g, device="cuda")
+                       .to(dt) for h in (Hq, Hkv, Hkv))
+            whole = fp.flash_prefill_cuda(q, k, v)
+            e = [check_close(f"flash_prefill {arch} {name}", whole,
+                             flash_prefill_ref(q, k, v), *tol)]
+            outs = []
+            for c0 in range(0, T, CHUNK_LEN):
+                c1 = c0 + CHUNK_LEN
+                ks, vs = torch.zeros_like(k), torch.zeros_like(v)
+                ks[:, :c1], vs[:, :c1] = k[:, :c1], v[:, :c1]
+                qs = q[:, c0:c1].contiguous()
+                outs.append(fp.flash_prefill_chunk_cuda(qs, ks, vs,
+                                                        q_offset=c0))
+                e.append(check_close(
+                    f"flash_prefill_chunk {arch} {name} offset {c0}",
+                    outs[-1], flash_prefill_chunk_ref(qs, ks, vs,
+                                                      q_offset=c0), *tol))
+            torch.cuda.synchronize()
+            if not torch.equal(torch.cat(outs, 1), whole):
+                fail(f"flash_prefill_chunk {arch} {name}: segments differ "
+                     "from flash_prefill (want bit-equal)")
+            errs[f"B2/B4 {name}"] = max(e)
+            del q, k, v, ks, vs, outs, whole
+            for kind in ("full", "paged"):
+                args = _verify_case(torch, dt, kind=kind, **shape)
+                out_k = fp.flash_verify_cuda(*args, window=0)
+                out_r = flash_verify_ref(*args, window=0)
+                torch.cuda.synchronize()
+                what = f"flash_verify {arch} Gq {gq} {name} {kind}"
+                e = check_close(what, out_k, out_r, *tol)
+                errs[f"B5 {name}"] = max(errs.get(f"B5 {name}", 0.0), e)
+                B, L = args[0].shape[:2]
+                n_rt, n_split, _ = fp.verify_splits(
+                    B, Hkv, gq * L, args[1].shape[1], sm_count(args[0].device))
+                if n_rt != VERIFY_ROW_TILES[gq]:
+                    fail(f"{what}: {n_rt} row tiles for {gq * L} packed "
+                         f"rows, want {VERIFY_ROW_TILES[gq]}")
+                if dt == torch.bfloat16 and kind == "full":
+                    ms = median_ms(lambda: fp.flash_verify_cuda(*args,
+                                                                window=0))
+                    plain_ms = median_ms(lambda: flash_verify_ref(*args,
+                                                                  window=0))
+                    dev = device_ms(lambda: fp.flash_verify_cuda(*args,
+                                                                 window=0))
+                    print(f"[parity] {what} (B {B}, L {L}: {gq * L} packed "
+                          f"rows in {n_rt} row tiles, {n_split} splits): "
+                          f"{ms:.4f} ms, device {dev:.4f} ms (plain "
+                          f"{plain_ms:.4f} ms)")
+                del args, out_k, out_r
+        print(f"[parity] {arch} (Hq {Hq}, Hkv {Hkv}, Gq {gq}, D {D}): "
+              "max|err| " + ", ".join(f"{k} {v:.3g}" for k, v in
+                                      errs.items())
+              + f" (bounds f32 {OUT_TOL['float32']}, bf16 "
+                f"{OUT_TOL['bfloat16']}, mass {MASS_TOL})")
+    torch.cuda.empty_cache()
 
 
 def _parity_quantized_wrapper(info: dict) -> None:
@@ -1020,9 +1168,14 @@ N_SHORT = 8
 # layout). `full` keeps 2112 rows a slot in 16-row blocks: parity is
 # 8 x 132 = 1056 blocks, so at 640 admissions wait on retirements.
 PAGED_RUNS = (("full", 640), ("kivi2", None), ("h2o+kivi2", None))
-# speculative runs (gamma GAMMA): (policy, drafter, paged + chunked?)
+# speculative runs (gamma GAMMA): (policy, drafter, paged + chunked?).
+# They serve SPEC_LAYERS of the 36 layers, each beside a plain twin of
+# the same depth and requests (their launches follow from each run's own
+# counts at any depth; the host-bound verify rounds made them the
+# script's longest runs)
 SPEC_RUNS = (("full", "same", False), ("kivi2", "window:64", False),
              ("full", "same", True))
+SPEC_LAYERS = 18
 # overload runs (paged + chunked, the first N_SHORT prompts), each held
 # token for token to the unpreempted paged + chunked run of its policy
 # above: (policy, engine options, forced preemptions or None). `full`
@@ -1155,26 +1308,31 @@ def phase_serve(info: dict) -> None:
                for i in range(N_REQUESTS)]
     kernels = _kernel_objs()
     launches = info.setdefault("launches", dict.fromkeys(KERNELS, 0))
-    L = cfg.num_layers
     chunked = dict(paged=True, chunked_prefill=True, chunk_len=CHUNK_LEN)
-    runs = ([(p, {}, None) for p in SERVE_POLICIES + NOISE_POLICIES]
-            + [(p, dict(chunked, pool_blocks=nb), None)
+    # (policy, options, drafter, layers: None = all); a speculative run
+    # follows its plain twin
+    runs = ([(p, {}, None, None) for p in SERVE_POLICIES + NOISE_POLICIES]
+            + [(p, dict(chunked, pool_blocks=nb), None, None)
                for p, nb in PAGED_RUNS]
-            + [(p, dict(chunked, pool_blocks=640) if pg else {}, d)
-               for p, d, pg in SPEC_RUNS])
+            + [(p, dict(chunked, pool_blocks=640) if pg else {}, dr,
+                SPEC_LAYERS) for p, d, pg in SPEC_RUNS for dr in (None, d)])
     baselines = {(p, pg) for p, _, pg in SPEC_RUNS}
+    params_cut = _layers_view(params, SPEC_LAYERS)
     plain = {}
-    for pname, opts, draft in runs:
-        n_req = (N_REQUESTS if draft or (pname, bool(opts)) in baselines
+    for pname, opts, draft, depth in runs:
+        c, prm = ((cfg, params) if depth is None
+                  else (cfg.replace(num_layers=depth), params_cut))
+        L = c.num_layers
+        n_req = (N_REQUESTS if depth or (pname, bool(opts)) in baselines
                  else N_SHORT)
         segments = sum(-(-len(p) // CHUNK_LEN) for p in prompts[:n_req])
         pol = presets(budget=BUDGET, window=WINDOW)[pname]
         spec_kw = (dict(speculative=True, gamma=GAMMA, draft_policy=draft)
                    if draft else {})
         # telemetry on in the `full` paged + chunked run
-        traced = pname == "full" and bool(opts) and not draft
+        traced = pname == "full" and bool(opts) and depth is None
         tr, mx = (Tracer(), Metrics()) if traced else (None, None)
-        eng = Engine(cfg, params, pol, prompt_len=max(BUCKETS),
+        eng = Engine(c, prm, pol, prompt_len=max(BUCKETS),
                      max_new=MAX_NEW, slots=SLOTS, buckets=BUCKETS, **opts,
                      **spec_kw, tracer=tr, metrics=mx)
         reqs = [Request(tokens=p, max_new=MAX_NEW) for p in prompts[:n_req]]
@@ -1194,7 +1352,8 @@ def phase_serve(info: dict) -> None:
         toks = np.concatenate([r.tokens for r in res.results])
         label = (pname + (" paged+chunked" if opts else "")
                  + (f" spec[{draft}]" if draft else "")
-                 + (" +trace" if traced else ""))
+                 + (" +trace" if traced else "")
+                 + (f" ({depth} layers)" if depth else ""))
         pool = ""
         if opts:
             pool = (f", pool peak {res.pool_peak_blocks}/{res.pool_blocks} "
@@ -1209,10 +1368,11 @@ def phase_serve(info: dict) -> None:
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, cache "
               f"{res.cache_physical_bytes / 2**20:.1f} MiB physical{pool}; "
               f"launches " + " ".join(f"{k} {v}" for k, v in n.items()))
+        key = (pname, bool(opts)) + ((depth,) if depth else ())
         if draft is None:
-            plain[(pname, bool(opts))] = res
+            plain[key] = res
         else:
-            st, base = res.spec, plain[(pname, bool(opts))]
+            st, base = res.spec, plain[key]
             same, tok, ntok = _agreement(res, base)
             print(f"[serve]   {st.describe()}; {st.verify_rounds} verify + "
                   f"{st.plain_rounds} plain rounds, {st.draft_calls} drafter "
@@ -1249,7 +1409,8 @@ def phase_serve(info: dict) -> None:
     for pname in NOISE_POLICIES:
         r = plain[(pname, False)]
         print(f"[serve] {pname} vs h2o (dense, {N_SHORT} requests, "
-              f"{L} B1 launches with mass per decode step in both): decode "
+              f"{cfg.num_layers} B1 launches with mass per decode step in "
+              f"both): decode "
               f"{r.decode_tokens_per_s:.1f} vs {h2o.decode_tokens_per_s:.1f}"
               f" tok/s, ttft mean {r.ttft_mean_s:.3f} vs "
               f"{h2o.ttft_mean_s:.3f} s, prefill {r.prefill_seconds:.3f} vs "
@@ -1828,19 +1989,8 @@ def phase_e2e(info: dict) -> None:
         del runs, caches, logits
         # paged pool + chunked admission: B3 / B4 (and the gqa prefill of
         # the mass policies) against the gather + materialize reference
-        engs = [Engine(cfg, params, pol, prompt_len=max(BUCKETS),
-                       max_new=MAX_NEW, slots=SLOTS, buckets=BUCKETS,
-                       use_kernels=uk, paged=True, chunked_prefill=True,
-                       chunk_len=CHUNK_LEN) for uk in (True, False)]
-        admitted = [_admit_paged_chunked(e, toks.cpu().numpy())
-                    for e in engs]
-        logits = [[lg] for _, lg in admitted]
-        for _ in range(E2E_STEPS):
-            tok = torch.argmax(logits[1][-1], -1)[:, None]   # reference leads
-            for e, (c, _), lgs in zip(engs, admitted, logits):
-                lgs.append(M.decode_step(params, e.cfg, c, tok, e.spec)[0])
-        torch.cuda.synchronize()
-        d_pg = delta(logits[0], logits[1])
+        d_pg = _kernels_vs_reference(cfg, params, pol, toks,
+                                     paged=True)["kr"]
         print(f"[e2e] {pname} paged+chunked: max|dlogit| kernels vs "
               f"reference (bf16) prefill {d_pg[0]:.4f} decode "
               f"{max(d_pg[1:]):.4f} (tol {E2E_LOGIT_TOL}; dense path above: "
@@ -1848,7 +1998,6 @@ def phase_e2e(info: dict) -> None:
         if not all(math.isfinite(d) and d <= E2E_LOGIT_TOL for d in d_pg):
             fail(f"e2e {pname} paged+chunked: kernels vs reference logits "
                  f"differ by {max(d_pg):.4f} > {E2E_LOGIT_TOL}")
-        del engs, admitted, logits
     del params, params32
     torch.cuda.empty_cache()
     _e2e_spec()
@@ -2243,6 +2392,52 @@ def _e2e_noise() -> None:
     torch.cuda.empty_cache()
 
 
+def _kernels_vs_reference(cfg, params, pol, toks, *, paged: bool,
+                          witness=None):
+    """An engine with the kernels against one with use_kernels=False (the
+    model's dtype): the admission of `toks` (one prompt a slot; monolithic
+    prefill into the dense store, or chunked admission into a paged pool),
+    then E2E_STEPS decode steps fed the reference's greedy tokens. Returns
+    {"kr": max |logit delta| per call, "scale": the reference's max
+    |logit|}; with `witness` (an f32 (cfg, params) of the same weights),
+    also "k32" / "r32": each path's max |logit delta| per call against
+    the f32 reference path fed the same tokens."""
+    import torch
+    from repro_torch.nn import model as M
+    from repro_torch.serving.engine import Engine
+    runs = [(cfg, params, True), (cfg, params, False)]
+    if witness is not None:
+        runs.append((*witness, False))
+    engs = [Engine(c, p, pol, prompt_len=max(BUCKETS), max_new=MAX_NEW,
+                   slots=SLOTS, buckets=BUCKETS, use_kernels=uk,
+                   **(_CHUNKED if paged else {}))
+            for c, p, uk in runs]
+    if paged:
+        admitted = [_admit_paged_chunked(e, toks.cpu().numpy())
+                    for e in engs]
+    else:
+        admitted = [M.prefill(e.params, e.cfg, {"tokens": toks}, e.spec,
+                              layer_budgets=e.layer_budgets)[::-1]
+                    for e in engs]
+    logits = [[lg] for _, lg in admitted]
+    for _ in range(E2E_STEPS):
+        tok = torch.argmax(logits[1][-1], -1)[:, None]   # reference leads
+        for e, (c, _), lgs in zip(engs, admitted, logits):
+            lgs.append(M.decode_step(e.params, e.cfg, c, tok, e.spec)[0])
+    torch.cuda.synchronize()
+
+    def delta(a, b):
+        return [(x.float() - y.float()).abs().max().item()
+                for x, y in zip(a, b)]
+
+    out = dict(kr=delta(logits[0], logits[1]),
+               scale=max(x.abs().max().item() for x in logits[1]))
+    if witness is not None:
+        out.update(k32=delta(logits[0], logits[2]),
+                   r32=delta(logits[1], logits[2]))
+    return out
+
+
 def _admit_paged_chunked(eng, prompts):
     """Admit `prompts` (one per slot, in slot order) through the engine's
     own chunked admission into a fresh paged cache, as
@@ -2269,9 +2464,13 @@ def _admit_paged_chunked(eng, prompts):
     return cache, torch.cat(logits)
 
 
-def _cast(tree, dtype):
-    return {k: (_cast(v, dtype) if isinstance(v, dict) else v.to(dtype))
+def _tree(fn, tree):
+    return {k: (_tree(fn, v) if isinstance(v, dict) else fn(v))
             for k, v in tree.items()}
+
+
+def _cast(tree, dtype):
+    return _tree(lambda t: t.to(dtype), tree)
 
 
 # ---------------------------------------------------------------------------
@@ -2323,32 +2522,7 @@ def phase_profile(info: dict) -> None:
                                   ring_full=ring.advance())
             return lg
 
-        for _ in range(3):
-            step()
-        torch.cuda.synchronize()
-        n = 8
-        t0 = time.perf_counter()
-        for _ in range(n):
-            step()
-        host_ms = (time.perf_counter() - t0) * 1e3 / n   # dispatch only
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / n
-        # two profiled steps: the profiler takes seconds to fold each
-        # step's ~15 thousand host ops
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(2):
-                step()
-            torch.cuda.synchronize()
-        rows, n_aten, n_launch = _profile_rows(prof, 2)
-        busy = sum(r[1] for r in rows)
-        print(f"[profile] {label}: decode step {wall_ms:.2f} ms wall "
-              f"({host_ms:.2f} ms to dispatch), device busy "
-              f"{busy:.2f} ms/step, idle share {1 - busy / wall_ms:.3f}; "
-              f"host: {n_aten} aten ops, {n_launch} kernel launches per "
-              f"step")
-        for key, ms, cnt in sorted(rows, key=lambda r: -r[1])[:8]:
-            print(f"[profile]   {ms:8.3f} ms/step  x{cnt:<5d} {key[:90]}")
+        _profile_decode_step("[profile]", label, step)
         if eng.spec.quantized:
             # a step whose ring flushes: the loop computes the flush for
             # the whole batch whenever any row's ring is full (here no
@@ -2371,6 +2545,41 @@ def phase_profile(info: dict) -> None:
     _profile_verify(params)
     del params
     torch.cuda.empty_cache()
+
+
+def _profile_decode_step(tag: str, label: str, step, n: int = 8) -> dict:
+    """Time `step` (one decode step as the loop dispatches it): host time
+    to dispatch and wall over `n` steps after warm-up, then two steps
+    under torch.profiler for device-busy time, the idle share and the top
+    kernels. Prints them; returns the numbers."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step()
+    host_ms = (time.perf_counter() - t0) * 1e3 / n   # dispatch only
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    # two profiled steps: the profiler takes seconds to fold each step's
+    # ~15 thousand host ops
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+    rows, n_aten, n_launch = _profile_rows(prof, 2)
+    busy = sum(r[1] for r in rows)
+    print(f"{tag} {label}: decode step {wall_ms:.2f} ms wall "
+          f"({host_ms:.2f} ms to dispatch), device busy {busy:.2f} ms/step, "
+          f"idle share {1 - busy / wall_ms:.3f}; host: {n_aten} aten ops, "
+          f"{n_launch} kernel launches per step")
+    for key, ms, cnt in sorted(rows, key=lambda r: -r[1])[:8]:
+        print(f"{tag}   {ms:8.3f} ms/step  x{cnt:<5d} {key[:90]}")
+    return dict(wall_ms=wall_ms, host_ms=host_ms, busy_ms=busy,
+                aten=n_aten, launches=n_launch)
 
 
 def _profile_rows(prof, n: int):
@@ -2455,6 +2664,455 @@ def _profile_verify(params) -> None:
         print(f"[profile]   {ms:8.3f} ms/round  x{cnt:<5d} {key[:90]}")
     del eng, cache
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# 7. configs: the four further attention-only configs at full width
+# ---------------------------------------------------------------------------
+
+# layers served where the config's weights leave no room for a pool on
+# one card (command-r-plus-104b: 193.4 GiB at 64 layers, 52.7 GiB at 16);
+# every other config serves at its full depth
+CONFIG_DEPTH = {"command-r-plus-104b": 16}
+# per config, its runs over the serve phase's one-wave traffic (N_SHORT
+# requests, prompts alternating 1024 / 2048, MAX_NEW new, SLOTS slots,
+# budget 512, window 128, 512-token segments): (policy, paged + chunked?,
+# speculative drafter or None). Each new head group meets every kernel
+# that serves it: minicpm Gq 1 / D 64 (B2, B1 dense and with mass), qwen
+# Gq 5 (B4, B3 2-bit, B6; through the serve CLI), chameleon Gq 8 (B4, B3;
+# the vlm config through chunked admission), command-r Gq 12 (B2, B1, and
+# B5 whose 60 packed rows take two row tiles)
+CONFIG_RUNS = (
+    ("minicpm-2b", (("full", False, None), ("h2o", False, None))),
+    ("qwen2.5-32b", (("kivi2", True, None),)),
+    ("chameleon-34b", (("full", True, None),)),
+    ("command-r-plus-104b", (("full", False, None), ("full", False, "same"))),
+)
+# the qwen run goes through the serving CLI, as a user starts it
+QWEN_ARGV = ("--arch", "qwen2.5-32b", "--policy", "kivi2", "--budget",
+             str(BUDGET), "--window", str(WINDOW), "--requests",
+             str(N_SHORT), "--buckets", ",".join(map(str, BUCKETS)),
+             "--max-new", str(MAX_NEW), "--slots", str(SLOTS),
+             "--continuous", "--paged", "--chunked-prefill", "--chunk-len",
+             str(CHUNK_LEN))
+
+
+def _layers_view(params, n: int) -> dict:
+    """The first `n` layers of a parameter tree (views, no copy)."""
+    def head(tree):
+        return ({k: head(v) for k, v in tree.items()}
+                if isinstance(tree, dict) else tree[:n])
+    return dict(params, blocks={"sub0": head(params["blocks"]["sub0"])})
+
+
+def phase_configs(info: dict) -> None:
+    """minicpm-2b, qwen2.5-32b and chameleon-34b at full width and depth,
+    command-r-plus-104b at full width on the CONFIG_DEPTH cut, random bf16
+    weights from seed 0, one config on the card at a time: every run of
+    CONFIG_RUNS completes all its requests with launches exactly as its
+    own step counts predict (speculative: its stream agreement with the
+    plain run printed); qwen's decode step profiled (wall against
+    device-busy time); then each config at E2E_LAYERS depth, its logits
+    with the kernels against use_kernels=False for each of its policies,
+    dense and paged + chunked, within E2E_LOGIT_TOL."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_config
+    launches = info.setdefault("launches", dict.fromkeys(KERNELS, 0))
+    kernels = _kernel_objs()
+    for arch, runs in CONFIG_RUNS:
+        cfg = get_config(arch)
+        if arch in CONFIG_DEPTH:
+            cfg = cfg.replace(num_layers=CONFIG_DEPTH[arch])
+        w_gib = cfg.param_count() * 2 / 2**30
+        print(f"[configs] {arch}: {cfg.num_layers}"
+              f"{'' if arch not in CONFIG_DEPTH else ' (cut)'} layers "
+              f"d_model {cfg.d_model} heads {cfg.num_heads}/"
+              f"{cfg.num_kv_heads} (Gq {cfg.num_heads // cfg.num_kv_heads}) "
+              f"D {cfg.head_dim} d_ff {cfg.d_ff} vocab {cfg.vocab_size} "
+              f"qkv_bias {cfg.qkv_bias} tied {cfg.tie_embeddings} "
+              f"rope_theta {cfg.rope_theta:g} arch_type {cfg.arch_type}; "
+              f"{w_gib:.1f} GiB of bf16 weights")
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, cfg.vocab_size, size=BUCKETS[i % 2])
+                   for i in range(N_SHORT)]
+        params, plain = None, {}
+        for pname, paged, draft in runs:
+            params = _config_run(info, cfg, params, pname, paged, draft,
+                                 prompts, kernels, launches, plain, w_gib)
+        if arch == "qwen2.5-32b":
+            _profile_config_step(info, cfg, params)
+        # the e2e's first layers, copied so that the served weights go
+        # before its f32 witness is cast
+        params = _tree(torch.clone, _layers_view(params, E2E_LAYERS))
+        torch.cuda.empty_cache()
+        _config_e2e(info, cfg, params, sorted({p for p, _, _ in runs}))
+        del params, plain
+        torch.cuda.empty_cache()
+
+
+def _config_run(info, cfg, params, pname, paged, draft, prompts, kernels,
+                launches, plain, w_gib):
+    """One serve run of `cfg` (the qwen one through the serving CLI, which
+    draws its own weights and requests: its engine's parameters serve the
+    config's later steps). Returns the parameters."""
+    import json
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.core.policy import presets
+    from repro_torch.launch import serve
+    from repro_torch.nn import model as M
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.scheduler import Request
+    L = cfg.num_layers
+    cli = cfg.name == "qwen2.5-32b"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.values():
+        k.launches = 0
+    t1 = time.perf_counter()
+    if cli:
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "metrics.json")
+            eng, res = serve.main(list(QWEN_ARGV) + ["--metrics-json",
+                                                     path])
+            with open(path) as f:
+                snap = json.load(f)["metrics"]
+        params = eng.params
+    else:
+        if params is None:
+            params = M.init_params(cfg, seed=0, device="cuda")
+        spec_kw = (dict(speculative=True, gamma=GAMMA, draft_policy=draft)
+                   if draft else {})
+        eng = Engine(cfg, params, presets(budget=BUDGET, window=WINDOW)[
+                         pname], prompt_len=max(BUCKETS), max_new=MAX_NEW,
+                     slots=SLOTS, buckets=BUCKETS,
+                     **(_CHUNKED if paged else {}), **spec_kw)
+        t1 = time.perf_counter()
+        res = eng.generate_continuous([Request(tokens=p, max_new=MAX_NEW)
+                                       for p in prompts])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    n = {name: k.launches for name, k in kernels.items()}
+    for name in KERNELS:
+        launches[name] += n[name]
+    label = (f"{cfg.name} {pname}" + (" paged+chunked" if paged else "")
+             + (f" spec[{draft}]" if draft else "")
+             + (" (serve CLI)" if cli else ""))
+    done = [r for r in res.results if r.finish_reason == "length"]
+    toks = np.concatenate([r.tokens for r in res.results])
+    lens = ([r.prompt_len for r in res.results] if cli
+            else [len(p) for p in prompts])
+    segments = sum(-(-n_ // CHUNK_LEN) for n_ in lens)
+    print(f"[configs] {label}: {len(done)}/{N_SHORT} requests completed, "
+          f"prefill {res.prefill_seconds:.3f} s, decode "
+          f"{res.decode_tokens_per_s:.1f} tok/s over {res.decode_steps} "
+          f"steps, ttft mean {res.ttft_mean_s:.3f} s, wall {wall:.2f} s"
+          f"{' (the CLI draws its weights inside it)' if cli else ''}; "
+          f"peak allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB (weights {w_gib:.2f} GiB by param_count), cache "
+          f"{res.cache_physical_bytes / 2**20:.1f} MiB physical"
+          + (f", pool peak {res.pool_peak_blocks}/{res.pool_blocks} blocks "
+             f"of {eng.block_len} rows, audit clean="
+             f"{eng.last_audit['clean']}" if paged else "")
+          + "; launches " + " ".join(f"{k} {v}" for k, v in n.items())
+          + f"; {info['smi']}")
+    row = dict(label=label, layers=L, completed=len(done),
+               tok_s=res.decode_tokens_per_s, ttft=res.ttft_mean_s,
+               prefill_s=res.prefill_seconds, wall=wall,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               weights_gib=w_gib, cache_mib=res.cache_physical_bytes / 2**20,
+               launches=n)
+    if cli:
+        got = {k: snap.get(k) for k in ("requests.completed",
+                                        "engine.decode_steps")}
+        want = {"requests.completed": N_SHORT,
+                "engine.decode_steps": res.decode_steps}
+        print(f"[configs]   metrics snapshot: {got}, decode "
+              f"{snap.get('run.decode_tok_s', 0):.1f} tok/s, ttft mean "
+              f"{snap.get('run.ttft_mean_s', 0):.3f} s, cache "
+              f"{snap.get('cache.physical_bytes', 0) / 2**20:.1f} MiB")
+        if got != want:
+            fail(f"{label}: metrics snapshot {got}, want {want}")
+    elif any(r.n_tokens != MAX_NEW for r in done):
+        fail(f"{label}: a request stopped short of {MAX_NEW} tokens")
+    if len(done) != N_SHORT:
+        fail(f"{label}: only {len(done)} of {N_SHORT} requests completed")
+    if toks.min() < 0 or toks.max() >= cfg.vocab_size:
+        fail(f"{label}: token ids out of range")
+    if paged and not (eng.last_audit["clean"]
+                      and res.pool_peak_blocks <= res.pool_blocks):
+        fail(f"{label}: pool audit {eng.last_audit}")
+    want = _want_launches(eng, res, L, N_SHORT, segments)
+    if n != want:
+        fail(f"{label}: kernel launches {n}, want {want} "
+             f"({res.decode_steps} decode steps, {res.kv_flush_steps} flush "
+             f"steps, {L} layers"
+             f"{'; ' + res.spec.describe() if res.spec else ''})")
+    if draft is None:
+        plain[(pname, paged)] = res
+    else:
+        st, base = res.spec, plain[(pname, paged)]
+        same, tok, ntok = _agreement(res, base)
+        print(f"[configs]   {st.describe()}; {st.verify_rounds} verify + "
+              f"{st.plain_rounds} plain rounds; tok/s "
+              f"{res.decode_tokens_per_s:.1f} vs plain "
+              f"{base.decode_tokens_per_s:.1f}; bf16 streams equal to "
+              f"plain: {same}/{N_SHORT} requests, {tok}/{ntok} tokens "
+              "(reported, not gated)")
+        row.update(acceptance=st.acceptance_rate, streams_equal=same,
+                   tokens_equal=tok, tokens=ntok)
+        if st.verify_rounds == 0:
+            fail(f"{label}: no verify round ran")
+    info.setdefault("config_serve", []).append(row)
+    del eng, res
+    torch.cuda.empty_cache()
+    return params
+
+
+def _profile_config_step(info, cfg, params) -> None:
+    """One decode step of `cfg` at its served depth under kivi2 on the
+    paged pool, 8 slots after 8 chunked admissions of 1024 tokens: wall
+    against device-busy time."""
+    import numpy as np
+    import torch
+    from repro_torch.core.policy import presets
+    from repro_torch.nn import model as M
+    from repro_torch.serving.engine import Engine, RingMirror
+    eng = Engine(cfg, params, presets(budget=BUDGET, window=WINDOW)["kivi2"],
+                 prompt_len=max(BUCKETS), max_new=MAX_NEW, slots=SLOTS,
+                 buckets=BUCKETS, **_CHUNKED)
+    prompts = np.random.default_rng(2).integers(0, cfg.vocab_size,
+                                                (SLOTS, BUCKETS[0]))
+    cache, _ = _admit_paged_chunked(eng, prompts)
+    ring = RingMirror(eng.spec, SLOTS)
+    ring.fill()
+    tok = torch.zeros(SLOTS, 1, dtype=torch.long, device="cuda")
+
+    def step():
+        return M.decode_step(params, cfg, cache, tok, eng.spec,
+                             ring_full=ring.advance())[0]
+
+    row = _profile_decode_step("[configs]", f"{cfg.name} kivi2 paged "
+                               f"({cfg.num_layers} layers)", step)
+    info["config_profile"] = dict(row, label=cfg.name)
+    del eng, cache
+    torch.cuda.empty_cache()
+
+
+def _config_e2e(info, cfg, params4, pnames) -> None:
+    """`cfg` at E2E_LAYERS depth (`params4`: its served parameters' first
+    layers): kernels against use_kernels=False, dense and paged + chunked,
+    per policy, within E2E_LOGIT_TOL; the f32 reference path on the same
+    weights printed beside them with the logits' scale, as phase 5 does."""
+    import numpy as np
+    import torch
+    from repro_torch.core.policy import presets
+    cfg4 = cfg.replace(num_layers=E2E_LAYERS)
+    witness = (cfg4.replace(dtype=torch.float32),
+               _cast(params4, torch.float32))
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, size=(SLOTS, BUCKETS[0])), device="cuda")
+    for pname in pnames:
+        pol = presets(budget=BUDGET, window=WINDOW)[pname]
+        for paged in (False, True):
+            d = _kernels_vs_reference(cfg4, params4, pol, toks, paged=paged,
+                                      witness=witness)
+            kr = d["kr"]
+            label = f"{cfg.name} {pname}{' paged+chunked' if paged else ''}"
+            print(f"[configs] e2e {label} ({E2E_LAYERS} layers): "
+                  f"max|dlogit| kernels vs reference (bf16) prefill "
+                  f"{kr[0]:.4f} decode {max(kr[1:]):.4f} (tol "
+                  f"{E2E_LOGIT_TOL}); vs f32 reference: kernels "
+                  f"{max(d['k32']):.4f}, bf16 reference "
+                  f"{max(d['r32']):.4f}; max|logit| {d['scale']:.2f}")
+            info.setdefault("config_e2e", []).append(dict(
+                label=label, kr=max(kr), k32=max(d["k32"]),
+                r32=max(d["r32"]), scale=d["scale"]))
+            if not all(math.isfinite(x) and x <= E2E_LOGIT_TOL for x in kr):
+                fail(f"e2e {label}: kernels vs reference logits differ by "
+                     f"{max(kr):.4f} > {E2E_LOGIT_TOL}")
+            torch.cuda.empty_cache()
+    del witness
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# 8. kvsharer: the layer-sharing runner on granite-8b
+# ---------------------------------------------------------------------------
+
+# KVSharer at full width and depth: a quarter of the 36 layers share
+# (calibrated on one 1024-token prompt), then a shared prefill of SLOTS
+# prompts of 1024 tokens and KVS_STEPS decode steps over an uncompressed
+# store with room for them
+KVS_SHARE, KVS_STEPS = 9, 32
+
+
+def phase_kvsharer(info: dict) -> None:
+    """`serving/shared_runner.py` on granite-8b: the calibrated map shares
+    exactly KVS_SHARE layers, which hold no cache, so the cache is
+    (36 - 9) / 36 of `M.prefill`'s cache of the same prompts; B2 launches
+    once per unshared layer a prefill, B1 once per layer a decode step (a
+    shared layer's decode attention is B1 over its source's cache); logits
+    stay finite (read after the timed steps). Then at
+    E2E_LAYERS depth with one shared layer, the kernels against
+    use_kernels=False, and with an empty map the runner against
+    `M.prefill` / `M.decode_step`, within E2E_LOGIT_TOL."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.granite_8b import CONFIG as cfg
+    from repro_torch.core import cache as kvcache
+    from repro_torch.core import sharing
+    from repro_torch.core.cache import CacheSpec
+    from repro_torch.nn import model as M
+    from repro_torch.serving import shared_runner as SR
+    launches = info.setdefault("launches", dict.fromkeys(KERNELS, 0))
+    kernels = _kernel_objs()
+    params = M.init_params(cfg, seed=0, device="cuda")
+    rng = np.random.default_rng(3)
+    T = BUCKETS[0]
+    calib = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, T)),
+                            device="cuda")
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (SLOTS, T)),
+                           device="cuda")
+    spec = CacheSpec(budget=T + KVS_STEPS)
+    L = cfg.num_layers
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        for k in kernels.values():
+            k.launches = 0
+        t1 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        n = {name: k.launches for name, k in kernels.items()}
+        for name in KERNELS:
+            launches[name] += n[name]
+        return out, n, time.perf_counter() - t1
+
+    mapping, n_cal, t_cal = counted(
+        lambda: SR.calibrate_sharing(params, cfg, calib, KVS_SHARE))
+    torch.cuda.reset_peak_memory_stats()
+    (lg, caches), n_pre, t_pre = counted(
+        lambda: SR.shared_prefill(params, cfg, {"tokens": toks}, spec,
+                                  mapping))
+    logits = [lg]
+
+    def decode():
+        nonlocal lg, caches
+        for _ in range(KVS_STEPS):
+            tok = torch.argmax(lg, -1)[:, None]
+            lg, caches = SR.shared_decode_step(params, cfg, caches, tok,
+                                               spec, mapping)
+            logits.append(lg)
+
+    _, n_dec, t_dec = counted(decode)
+    finite = all(bool(torch.isfinite(x).all()) for x in logits)
+    per_layer = [kvcache.cache_physical_bytes(c) for c in caches
+                 if c is not None]
+    kept = sum(per_layer)
+    n_none = sum(c is None for c in caches)
+    del logits
+    # the unshared cache: the model's own prefill of the same prompts at
+    # the same spec (its launches are not the runner's: not counted)
+    _, ref_cache = M.prefill(params, cfg, {"tokens": toks}, spec)
+    unshared = kvcache.cache_physical_bytes(ref_cache.attn)
+    del ref_cache
+    print(f"[kvsharer] {cfg.name} ({L} layers, full width): map {mapping} "
+          f"from one {T}-token prompt ({t_cal:.2f} s, launches "
+          f"flash_prefill {n_cal['flash_prefill']}); shared prefill of "
+          f"{SLOTS} x {T} tokens {t_pre:.3f} s, {KVS_STEPS} decode steps "
+          f"{t_dec:.3f} s ({SLOTS * KVS_STEPS / t_dec:.1f} tok/s); {n_none} "
+          f"layers hold no cache, cache {kept / 2**20:.1f} of "
+          f"{unshared / 2**20:.1f} MiB in M.prefill's cache of the same "
+          f"prompts ({kept / unshared:.4f}; "
+          f"sharing.shared_bytes_fraction "
+          f"{sharing.shared_bytes_fraction(mapping, L):.4f}); peak "
+          f"allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"launches prefill {n_pre['flash_prefill']} B2, decode "
+          f"{n_dec['decode_attn']} B1; logits finite {finite} (read "
+          f"after the timed steps); "
+          f"{info['smi']}")
+    info["kvsharer"] = dict(mapping=mapping, kept=kept, unshared=unshared,
+                            prefill_s=t_pre, decode_s=t_dec,
+                            tok_s=SLOTS * KVS_STEPS / t_dec)
+    want_pre = dict.fromkeys(KERNELS, 0)
+    want_pre["flash_prefill"] = L - KVS_SHARE
+    want_dec = dict.fromkeys(KERNELS, 0)
+    want_dec["decode_attn"] = L * KVS_STEPS
+    want_cal = dict.fromkeys(KERNELS, 0)
+    want_cal["flash_prefill"] = L
+    if len(mapping) != KVS_SHARE or n_none != KVS_SHARE:
+        fail(f"kvsharer: {len(mapping)} shared layers in the map, "
+             f"{n_none} without a cache; want {KVS_SHARE}")
+    if kept * L != unshared * (L - KVS_SHARE) or len(set(per_layer)) != 1:
+        fail(f"kvsharer: cache {kept} bytes, want {L - KVS_SHARE}/{L} of "
+             f"{unshared}")
+    for what, got, want in (("calibration", n_cal, want_cal),
+                            ("prefill", n_pre, want_pre),
+                            ("decode", n_dec, want_dec)):
+        if got != want:
+            fail(f"kvsharer {what}: kernel launches {got}, want {want}")
+    if not finite:
+        fail("kvsharer: non-finite logits")
+    del caches, lg
+    torch.cuda.empty_cache()
+    _kvsharer_e2e(cfg, params, calib, toks)
+    del params
+    torch.cuda.empty_cache()
+
+
+def _kvsharer_e2e(cfg, params, calib, toks) -> None:
+    """The runner at E2E_LAYERS depth (granite's first layers): with one
+    shared layer, kernels against use_kernels=False; with an empty map,
+    the runner against `M.prefill` / `M.decode_step` (kernels on both);
+    prefill and E2E_STEPS decode steps fed the reference's greedy tokens,
+    within E2E_LOGIT_TOL."""
+    import torch
+    from repro_torch.core.cache import CacheSpec
+    from repro_torch.nn import model as M
+    from repro_torch.serving import shared_runner as SR
+    cfg4 = cfg.replace(num_layers=E2E_LAYERS)
+    params4 = _layers_view(params, E2E_LAYERS)
+    spec = CacheSpec(budget=toks.shape[1] + E2E_STEPS)
+    mapping = SR.calibrate_sharing(params4, cfg4, calib, 1)
+    cfg_ref = cfg4.replace(use_kernels=False)
+
+    def runner(c, m):
+        lg, caches = SR.shared_prefill(params4, c, {"tokens": toks}, spec, m)
+        state = [caches]
+
+        def step(tok):
+            out, state[0] = SR.shared_decode_step(params4, c, state[0], tok,
+                                                  spec, m)
+            return out
+        return lg, step
+
+    def model(c):
+        lg, cache = M.prefill(params4, c, {"tokens": toks}, spec)
+        return lg, lambda tok: M.decode_step(params4, c, cache, tok, spec)[0]
+
+    for label, a, b in (
+            (f"map {mapping}: kernels vs use_kernels=False",
+             runner(cfg4, mapping), runner(cfg_ref, mapping)),
+            ("empty map: runner vs M.prefill / M.decode_step",
+             runner(cfg4, {}), model(cfg4))):
+        logits = [[a[0]], [b[0]]]
+        for _ in range(E2E_STEPS):
+            tok = torch.argmax(logits[1][-1], -1)[:, None]
+            logits[0].append(a[1](tok))
+            logits[1].append(b[1](tok))
+        torch.cuda.synchronize()
+        d = [(x - y).abs().max().item() for x, y in zip(*logits)]
+        print(f"[kvsharer] e2e {E2E_LAYERS} layers, {label}: max|dlogit| "
+              f"prefill {d[0]:.4f} decode {max(d[1:]):.4f} (tol "
+              f"{E2E_LOGIT_TOL})")
+        if not all(math.isfinite(x) and x <= E2E_LOGIT_TOL for x in d):
+            fail(f"kvsharer e2e {label}: logits differ by {max(d):.4f} > "
+                 f"{E2E_LOGIT_TOL}")
+        del logits, a, b
+        torch.cuda.empty_cache()
 
 
 def main() -> int:

@@ -1,7 +1,9 @@
 """Model configuration (counterpart of `repro.configs.base`).
 
-The port serves attention-only dense decoders so far: `get_config`
-knows granite-8b and paper-llama-7b. `dtype` is a torch dtype;
+The port serves attention-only decoders over token ids so far
+(`arch_type` "dense", or "vlm": early fusion puts the image tokens in
+the vocabulary): `get_config` knows the six reference configs of that
+kind (`ARCH_IDS`). `dtype` is a torch dtype;
 `use_kernels` selects the CUDA kernels (on the card; their plain
 versions on the CPU) against the materialize / matmul reference path.
 """
@@ -18,7 +20,7 @@ import torch
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    arch_type: str                 # "dense" (the only kind ported so far)
+    arch_type: str                 # "dense" | "vlm" (the kinds ported so far)
     source: str                    # citation for the config
     num_layers: int
     d_model: int
@@ -43,7 +45,7 @@ class ModelConfig:
     def __post_init__(self):
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
-        if self.arch_type != "dense":
+        if self.arch_type not in ("dense", "vlm"):
             raise NotImplementedError(
                 f"arch_type {self.arch_type!r} not yet ported")
 
@@ -60,6 +62,10 @@ class ModelConfig:
             per_layer += hq + 2 * hkv
         n = self.vocab_size * self.d_model * (1 if self.tie_embeddings else 2)
         return n + self.num_layers * per_layer + self.d_model
+
+    def active_param_count(self) -> int:
+        """Params touched per token: every one (no experts yet)."""
+        return self.param_count()
 
     def kv_bytes_per_token(self, bytes_per_elt: float = 2.0) -> float:
         """KV-cache bytes per token per sequence (the survey's core metric)."""
@@ -89,7 +95,23 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
     return cfg.replace(**kw)
 
 
+# the reference's order (`repro.configs.base.ARCH_IDS`), restricted to
+# the configs the port knows
+ARCH_IDS = [
+    "qwen2.5-32b",
+    "minicpm-2b",
+    "chameleon-34b",
+    "command-r-plus-104b",
+    "granite-8b",
+    # the survey's own comparison model family
+    "paper-llama-7b",
+]
+
 _MODULE_FOR: dict[str, str] = {
+    "qwen2.5-32b": "qwen2_5_32b",
+    "minicpm-2b": "minicpm_2b",
+    "chameleon-34b": "chameleon_34b",
+    "command-r-plus-104b": "command_r_plus_104b",
     "granite-8b": "granite_8b",
     "paper-llama-7b": "paper_llama_7b",
 }
@@ -100,3 +122,7 @@ def get_config(arch: str) -> ModelConfig:
         raise KeyError(f"arch {arch!r} not ported; known: {sorted(_MODULE_FOR)}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULE_FOR[arch]}")
     return mod.CONFIG
+
+
+def all_configs() -> dict[str, ModelConfig]:
+    return {a: get_config(a) for a in ARCH_IDS}

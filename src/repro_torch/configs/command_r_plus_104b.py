@@ -1,0 +1,17 @@
+"""command-r-plus-104b — GQA, no biases [hf:CohereForAI/c4ai-command-r-v01]."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="command-r-plus-104b",
+    arch_type="dense",
+    source="hf:CohereForAI/c4ai-command-r-v01 (family card)",
+    num_layers=64,
+    d_model=12_288,
+    num_heads=96,
+    num_kv_heads=8,
+    d_ff=33_792,
+    vocab_size=256_000,
+    head_dim=128,
+    rope_theta=75_000_000.0,
+    tie_embeddings=True,
+)

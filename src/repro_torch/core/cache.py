@@ -191,6 +191,14 @@ def validity_bias(lc: LayerKV) -> torch.Tensor:
     return bias
 
 
+def materialize(lc, spec: CacheSpec, dtype=torch.bfloat16):
+    """(k, v, bias) over [main | residual]: `materialize_kv` +
+    `validity_bias` (callers that already hold the bias call
+    `materialize_kv` directly)."""
+    k, v = materialize_kv(lc, spec, dtype)
+    return k, v, validity_bias(lc)
+
+
 def materialize_kv(lc, spec: CacheSpec, dtype=torch.bfloat16):
     """Dense (k, v) [B, S+W, H, D] over [main | residual]: the decode
     reference path (dequantizes the whole main store every call; a paged

@@ -42,6 +42,13 @@ seed, on the card unless ``--device cpu``.
         --policy kivi2 --budget 32 --window 8 --continuous --paged \
         --block-growth lazy --preemption --degrade
 
+    # a full-width config on the card (no --reduced): qwen2.5-32b, 64
+    # layers, kivi2 over a paged pool with 512-token prefill segments
+    python -m repro_torch.launch.serve --arch qwen2.5-32b --policy kivi2 \
+        --budget 512 --window 128 --requests 8 --buckets 1024,2048 \
+        --max-new 64 --slots 8 --continuous --paged --chunked-prefill \
+        --chunk-len 512 --metrics-json metrics.json
+
     # telemetry: a Chrome trace (Perfetto / chrome://tracing) and the
     # metrics snapshot (schema "repro.obs.metrics/1") of a run
     python -m repro_torch.launch.serve --arch granite-8b --reduced \
@@ -63,7 +70,9 @@ from repro_torch.serving.engine import Engine, resolve_device
 from repro_torch.serving.scheduler import Request
 
 
-def main(argv: Optional[Sequence[str]] = None) -> None:
+def main(argv: Optional[Sequence[str]] = None):
+    """Run the CLI; returns (engine, result) for a caller that drives it
+    in-process (the engine holds the run's parameters)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
@@ -334,7 +343,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                   f"{p['evicted_blocks']} evicted, "
                   f"{p['cow_copies']} copy-on-write copies")
         export_telemetry()
-        return
+        return eng, res
 
     prompts = rng.integers(0, cfg.vocab_size,
                            size=(args.requests, args.prompt_len))
@@ -350,6 +359,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
           f"(logical {res.cache_logical_bytes / 2**20:.1f} MiB vs "
           f"full {res.full_cache_bytes / 2**20:.1f} MiB)")
     export_telemetry()
+    return eng, res
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """The LM: init_params / prefill / chunked prefill / decode_step /
 verify_step / init_cache (counterpart of `repro.nn.model` for
-attention-only dense decoders).
+attention-only decoders over token ids).
 
 Parameters keep the JAX package's tree: ``blocks/sub0/...`` leaves carry
 a leading ``[n_sb]`` layer dim (one layer per superblock: n_sb is the
@@ -161,12 +161,9 @@ class PrefillState(NamedTuple):
 
 
 def _check_chunkable(cfg) -> None:
-    """Chunked prefill needs an attention-only decoder: SSM state and MoE
-    capacity couple tokens across segments (the JAX package gates those
-    archs; the port serves dense decoders only)."""
-    if cfg.arch_type != "dense":
-        raise ValueError(f"chunked prefill is attention-only; arch_type "
-                         f"{cfg.arch_type!r}")
+    """The JAX package's gate refuses SSM positions, experts and
+    encoder-decoders; `ModelConfig.__post_init__` refuses those arch kinds
+    until their modules are ported, so every config that builds chunks."""
 
 
 def init_prefill_state(cfg, prompt_len: int, *, device=None) -> PrefillState:

@@ -174,6 +174,12 @@ class ContinuousGenerationResult:
     readmit_prefill_s: float = 0.0
     recomputed_uids: List[int] = field(default_factory=list)
 
+    def tokens_for(self, uid: int) -> np.ndarray:
+        for r in self.results:
+            if r.uid == uid:
+                return r.tokens
+        raise KeyError(uid)
+
     def failed(self) -> List[RequestResult]:
         """Requests retired without being served (a paged pool too small
         for their budgeted length)."""

@@ -253,6 +253,18 @@ DECODE_EDGES = {
     "gq8": (16, 1, 1100, 128, 64, 8, 128,
             [(0, 1100), (0, 999), (0, 0), (0, 64)],
             [(0, 128), (0, 5), (0, 0), (0, 128)]),
+    # qwen2.5-32b (Hq 40 / Hkv 8) and command-r-plus-104b (96 / 8): the
+    # `full` store at S 2112 and the kivi2 store (512 + ring 128)
+    "gq5": (16, 1, 2112, 0, 40, 8, 128,
+            [(0, 2112), (0, 1100), (0, 0), (0, 33)], None),
+    "gq5-2bit": (2, 128, 512, 128, 40, 8, 128,
+                 [(0, 512), (0, 384), (0, 0), (0, 128)],
+                 [(0, 128), (0, 1), (0, 0), (0, 127)]),
+    "gq12": (16, 1, 2112, 0, 96, 8, 128,
+             [(0, 2112), (0, 1100), (0, 0), (0, 33)], None),
+    "gq12-2bit": (2, 128, 512, 128, 96, 8, 128,
+                  [(0, 512), (0, 384), (0, 0), (0, 128)],
+                  [(0, 128), (0, 1), (0, 0), (0, 127)]),
 }
 
 
@@ -316,6 +328,62 @@ def test_decode_attn_kernel_at_split_edges(cuda, dt, case):
     out2, m2 = dq_ops.decode_attn_cuda(*args, **kw)
     torch.cuda.synchronize()
     assert torch.equal(out, out2) and torch.equal(m, m2)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("bits", [2, 16])
+@pytest.mark.parametrize("Hq", [40, 64, 96], ids=["gq5", "gq8", "gq12"])
+def test_paged_decode_kernel_at_real_gq(cuda, dt, bits, Hq):
+    """B3 at the head groups of qwen2.5-32b, chameleon-34b and
+    command-r-plus-104b (Hkv 8, D 128) with mass and a ring: within TOL
+    of its plain version and bit-equal to B1 on the same rows."""
+    paged, dense = _paged_inputs(cuda, dt, bits, True, Hq=Hq)
+    kw = dict(bits=bits, group=128, return_mass=True, compute_dtype=dt)
+    out, m = dq_ops.decode_attn_paged_cuda(*paged, **kw)
+    out_d, m_d = dq_ops.decode_attn_cuda(*dense, **kw)
+    out_r, m_r = decode_attn_paged_ref(*paged, bits=bits, group=128,
+                                       compute_dtype=dt)
+    torch.cuda.synchronize()
+    atol, rtol = TOL[dt]
+    torch.testing.assert_close(out.float(), out_r.float(), atol=atol,
+                               rtol=rtol)
+    torch.testing.assert_close(m, m_r, atol=MASS_TOL[0], rtol=MASS_TOL[1])
+    assert torch.equal(out, out_d) and torch.equal(m, m_d)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("Hq,Hkv,D", [(36, 36, 64), (40, 8, 128),
+                                      (96, 8, 128)],
+                         ids=["gq1-mha", "gq5", "gq12"])
+def test_flash_kernels_at_real_gq(cuda, dt, Hq, Hkv, D):
+    """B2 on one 2048-row prompt and B4 on its 512-row segments at the
+    head groups of minicpm-2b (MHA, D 64), qwen2.5-32b and
+    command-r-plus-104b: each within TOL of its plain version, the
+    segments bit-equal to the monolithic kernel."""
+    g = torch.Generator(device=cuda).manual_seed(Hq + D)
+    T, C = 2048, 512
+    q, k, v = (torch.randn(1, T, h, D, generator=g, device=cuda).to(dt)
+               for h in (Hq, Hkv, Hkv))
+    atol, rtol = TOL[dt]
+    whole = fp_ops.flash_prefill_cuda(q, k, v)
+    ref = flash_prefill_ref(q, k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(whole.float(), ref.float(), atol=atol,
+                               rtol=rtol)
+    outs = []
+    for c0 in range(0, T, C):
+        ks, vs = torch.zeros_like(k), torch.zeros_like(v)
+        ks[:, :c0 + C], vs[:, :c0 + C] = k[:, :c0 + C], v[:, :c0 + C]
+        out = fp_ops.flash_prefill_chunk_cuda(q[:, c0:c0 + C], ks, vs,
+                                              q_offset=c0)
+        ref = flash_prefill_chunk_ref(q[:, c0:c0 + C], ks, vs, q_offset=c0)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), ref.float(), atol=atol,
+                                   rtol=rtol)
+        outs.append(out)
+    assert torch.equal(torch.cat(outs, 1), whole)
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
@@ -473,6 +541,8 @@ VERIFY_EDGES = {
     "most-splits": (6, 2048, 5, 4, 1, 128),          # 64 splits at 132 SMs
     "two-row-tiles": (6, 700, 16, 32, 8, 128),       # L 16 x Gq 4 = 64 rows
     "d64": (6, 300, 7, 16, 2, 64),
+    "gq5": (6, 700, 5, 40, 8, 128),                  # L 5: 25 rows, one tile
+    "gq12": (6, 700, 5, 96, 8, 128),                 # L 5: 60 rows, two
 }
 
 
@@ -498,8 +568,10 @@ def test_flash_verify_kernel_at_split_edges(cuda, dt, case):
                                                     Tk, n_sm)
     if case == "most-splits" and n_sm == 132:
         assert n_split == SPLIT_MAX
-    if case == "two-row-tiles":
+    if case in ("two-row-tiles", "gq12"):
         assert n_rt == 2
+    if case == "gq5":
+        assert n_rt == 1
     args = _verify_edge_inputs(cuda, dt, B, Tk, L, Hq, Hkv, D, split_len,
                                n_split)
     out = fp_ops.flash_verify_cuda(*args)

@@ -12,8 +12,11 @@ torch = pytest.importorskip("torch")
 
 import repro_torch
 from repro_torch import bridge
-from repro_torch.configs import base, granite_8b, paper_llama_7b
-from repro_torch.core import budgets, cache, paging, policy, quantization
+from repro_torch.configs import (base, chameleon_34b, command_r_plus_104b,
+                                 granite_8b, minicpm_2b, paper_llama_7b,
+                                 qwen2_5_32b)
+from repro_torch.core import (budgets, cache, paging, policy, quantization,
+                              sharing)
 from repro_torch.kernels import build
 from repro_torch.kernels.decode_qattn import ops as dq_ops
 from repro_torch.kernels.decode_qattn import ref as dq_ref
@@ -26,13 +29,15 @@ from repro_torch.nn import attention, blocks, layers, model, rope
 from repro_torch import obs
 from repro_torch.obs import metrics, trace
 from repro_torch.serving import (adaptive, cacheblend, engine, prefix,
-                                 sampler, scheduler, speculative)
+                                 sampler, scheduler, shared_runner,
+                                 speculative)
 
-MODULES = [repro_torch, bridge, base, granite_8b, paper_llama_7b, budgets,
-           cache, paging, policy, quantization, build, dq_ops, dq_ref, fp_ops,
-           fp_ref, kvq_ops, kvq_ref, serve, attention, blocks, layers, model,
-           rope, obs, metrics, trace, adaptive, cacheblend, engine, prefix,
-           sampler, scheduler, speculative]
+MODULES = [repro_torch, bridge, base, chameleon_34b, command_r_plus_104b,
+           granite_8b, minicpm_2b, paper_llama_7b, qwen2_5_32b, budgets,
+           cache, paging, policy, quantization, sharing, build, dq_ops,
+           dq_ref, fp_ops, fp_ref, kvq_ops, kvq_ref, serve, attention, blocks,
+           layers, model, rope, obs, metrics, trace, adaptive, cacheblend,
+           engine, prefix, sampler, scheduler, shared_runner, speculative]
 
 _CHILD = textwrap.dedent("""
     import importlib, json, os, sys, tempfile
@@ -82,6 +87,24 @@ _CHILD = textwrap.dedent("""
                 "--continuous", "--device", "cpu", "--paged",
                 "--block-growth", "lazy", "--preemption", "--degrade",
                 "--tiering", "--audit-every", "2"])
+    serve.main(["--arch", "chameleon-34b", "--reduced", "--policy", "full",
+                "--requests", "2", "--prompt-len", "32", "--max-new", "2",
+                "--slots", "2", "--continuous", "--paged",
+                "--chunked-prefill", "--chunk-len", "16", "--device", "cpu"])
+    import torch
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.core.cache import CacheSpec
+    from repro_torch.nn import model as M
+    from repro_torch.serving import shared_runner as SR
+    cfg = reduced(get_config("qwen2.5-32b"), num_layers=4)
+    p = M.init_params(cfg, seed=0, device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (1, 16))
+    m = SR.calibrate_sharing(p, cfg, toks, 1)
+    lg, caches = SR.shared_prefill(p, cfg, {{"tokens": toks}},
+                                   CacheSpec(budget=20), m)
+    lg, caches = SR.shared_decode_step(p, cfg, caches, lg.argmax(-1)[:, None],
+                                       CacheSpec(budget=20), m)
+    print("KVSHARER", len(m), sum(c is None for c in caches))
     bad = sorted(m for m in sys.modules
                  if m == "jax" or m.startswith("jax.")
                  or m == "repro" or m.startswith("repro."))
@@ -104,6 +127,8 @@ def test_port_imports_no_jax_and_no_repro():
     assert "tier: " in r.stdout, r.stdout
     assert "policy=nacl continuous" in r.stdout, r.stdout
     assert "policy=keyformer" in r.stdout, r.stdout
+    assert "policy=full continuous requests=2" in r.stdout, r.stdout
+    assert "KVSHARER 1 1" in r.stdout, r.stdout
     assert re.search(r"TRACE [1-9]\d* repro.obs.metrics/1", r.stdout), \
         r.stdout
 
