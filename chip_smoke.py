@@ -23,8 +23,10 @@ Phases, each printing its own lines; any failure exits non-zero:
               kernels (K, V, and the one launch of both that the cache
               makes) at the flush and prompt shapes; then B1, B3, B2,
               B4 and B5 at each head group of phase 7 (Gq 1 / D 64, Gq 5,
-              8 and 12), f32 and bf16, B5's 60 packed rows at Gq 12 in
-              two row tiles
+              6, 8 and 12), f32 and bf16, B5's 60 packed rows at Gq 12 in
+              two row tiles; mixtral's sliding window: B2 at T 6144, Gq
+              6, window 4096 (tiles outside the window skipped) and B5
+              at Gq 6 over a 6208-row view with window 4096
   4. serve    granite-8b at full width and depth, random bf16 weights from
               a seed, `Engine.generate_continuous` under full / h2o /
               kivi2 / h2o+kivi2 and the noisy nacl / keyformer (dense
@@ -77,16 +79,23 @@ Phases, each printing its own lines; any failure exits non-zero:
               one verify round: wall vs dispatch time, device-busy time
               and the top kernels (torch.profiler); for h2o+kivi2 also a
               step whose ring flushes (the fused quantizer's share)
-  7. configs  the four further attention-only configs at full width, one
-              on the card at a time: minicpm-2b (Gq 1, D 64; full and h2o
-              dense), qwen2.5-32b (Gq 5, QKV bias; kivi2 paged + chunked
-              through the serving CLI, its metrics snapshot read, one
-              decode step profiled), chameleon-34b (Gq 8, the vlm config;
-              full paged + chunked) at full depth, command-r-plus-104b
-              (Gq 12; full dense and speculative with the `same` drafter)
-              on a 16-layer cut; launches exact, then each config at 4
-              layers with the kernels against use_kernels=False, dense
-              and paged + chunked, an f32 reference path beside them
+  7. configs  the further configs at full width, one on the card at a
+              time: minicpm-2b (Gq 1, D 64; full and h2o dense),
+              qwen2.5-32b (Gq 5, QKV bias; kivi2 paged + chunked through
+              the serving CLI, its metrics snapshot read, one decode step
+              profiled), chameleon-34b (Gq 8, the vlm config; full paged +
+              chunked) at full depth, command-r-plus-104b (Gq 12; full
+              dense and speculative with the `same` drafter) on a 16-layer
+              cut; the mixture-of-experts decoders mixtral-8x22b (Gq 6,
+              window 4096, prompts of 6144 and 2048; full dense, kivi2
+              paged with monolithic admission) on 8 of 56 layers and
+              kimi-k2-1t-a32b (Gq 8, 384 experts top 8; full and h2o
+              dense) on 1 of 61, each MoE FFN held to its f32 oracle at
+              full width, drop fractions at decode printed, one decode
+              step profiled; launches exact, then each config at 4
+              layers (or its cut) with the kernels against
+              use_kernels=False, dense and paged, an f32 reference path
+              beside them where its weights fit
   8. kvsharer granite-8b through the layer-sharing runner: 9 of 36 layers
               share a calibrated source's cache (27/36 of the model's
               own prefill cache of the same prompts, B2
@@ -371,6 +380,7 @@ def phase_parity(info: dict) -> None:
     _parity_quantized_wrapper(info)
     _parity_kvquant(info)
     _parity_config_shapes(info)
+    _parity_window(info)
 
 
 def _parity_decode_full_path(info: dict) -> None:
@@ -430,13 +440,16 @@ FULL_S = 2112
 GAMMA = 4
 
 
-def _verify_case(torch, dt, *, kind: str, B=8, Hq=32, Hkv=8, D=128, seed=0):
+def _verify_case(torch, dt, *, kind: str, B=8, Hq=32, Hkv=8, D=128, seed=0,
+                 S_full=FULL_S, before=(2048, 1500, 1030, 0, 2000, 1024, 7,
+                                        2100)):
     """A speculative-verify input at the serve path's shapes: an L = 5
     segment (gamma 4) per slot, already appended, over the materialized
     view the engine hands the kernel. `kind`:
 
-      * ``full``   dense view of S = 2112 rows, positions 0.. in order, the
-                   segment in the main store (ring-free: W 0);
+      * ``full``   dense view of S = `S_full` rows (2112), positions 0.. in
+                   order, `before` committed rows a slot, the segment in
+                   the main store (ring-free: W 0);
       * ``kivi``   512 main rows at streaming positions + a 128-row ring
                    whose `pos - rlen + arange` labels are true positions,
                    the segment in the ring;
@@ -456,10 +469,9 @@ def _verify_case(torch, dt, *, kind: str, B=8, Hq=32, Hkv=8, D=128, seed=0):
 
     valid = torch.tensor([5, 4, 3, 2, 1, 0, 5, 1], device=dev)
     if kind in ("full", "paged"):
-        S = FULL_S
+        S = S_full
         # committed rows before the segment, then the valid segment rows
-        before = torch.tensor([2048, 1500, 1030, 0, 2000, 1024, 7, 2100],
-                              device=dev)
+        before = torch.tensor(before, device=dev)
         length = before + valid
         idx = torch.arange(S, device=dev)[None]
         kv_pos = torch.where(idx < length[:, None], idx, -1).to(torch.int32)
@@ -569,15 +581,20 @@ def _parity_verify(info: dict) -> None:
 
 
 # B5's tiles of 32 packed query rows at L 5, per Gq (5, 25, 40, 60 rows)
-VERIFY_ROW_TILES = {1: 1, 5: 1, 8: 2, 12: 2}
+VERIFY_ROW_TILES = {1: 1, 5: 1, 6: 1, 8: 2, 12: 2}
 
 
 def _config_shapes():
     """The head groups the configs phase serves, beside granite's (32 / 8
-    / 128): (config, Hq, Hkv, D) from the port's own configs."""
+    / 128): (configs, Hq, Hkv, D) from the port's own configs, one entry
+    per distinct shape (chameleon's and kimi's are one)."""
     from repro_torch.configs.base import get_config
-    return [(a, c.num_heads, c.num_kv_heads, c.head_dim)
-            for a, c in ((a, get_config(a)) for a, _ in CONFIG_RUNS)]
+    shapes: dict = {}
+    for a, _ in CONFIG_RUNS:
+        c = get_config(a)
+        shapes.setdefault((c.num_heads, c.num_kv_heads, c.head_dim),
+                          []).append(a)
+    return [(" / ".join(a), *k) for k, a in shapes.items()]
 
 
 def _parity_config_shapes(info: dict) -> None:
@@ -691,6 +708,70 @@ def _parity_config_shapes(info: dict) -> None:
                                       errs.items())
               + f" (bounds f32 {OUT_TOL['float32']}, bf16 "
                 f"{OUT_TOL['bfloat16']}, mass {MASS_TOL})")
+    torch.cuda.empty_cache()
+
+
+# mixtral's sliding window at the shapes its runs give the kernels: B2 at
+# its longest prompt, B5 over a view as long as a 6144-token prompt plus
+# its 64 new tokens (the serve run's compressed 640-row view rarely lets
+# the window mask a row; here it masks 2100 of some rows' keys)
+WINDOW_B2 = (6144, 48, 8, 128, 4096)          # T, Hq, Hkv, D, window
+WINDOW_B5_S = 6208
+WINDOW_B5_BEFORE = (6200, 5000, 4500, 0, 6100, 4096, 7, 6203)
+
+
+def _parity_window(info: dict) -> None:
+    """B2 and B5 with mixtral's 4096-token window against their plain
+    versions, f32 and bf16, under the per-kernel bounds. B2's bf16 call is
+    timed beside the same call without a window: the kernel skips the
+    key tiles wholly outside the window, so the windowed call must not be
+    slower than the causal one by more than timing noise (printed, not
+    gated)."""
+    import torch
+    from repro_torch.kernels.flash_prefill import ops as fp
+    from repro_torch.kernels.flash_prefill.ref import (flash_prefill_ref,
+                                                       flash_verify_ref)
+    T, Hq, Hkv, D, win = WINDOW_B2
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt)[6:]
+        tol = OUT_TOL[name]
+        g = torch.Generator(device="cuda").manual_seed(T + win)
+        q, k, v = (torch.randn(1, T, h, D, generator=g, device="cuda")
+                   .to(dt) for h in (Hq, Hkv, Hkv))
+        out_k = fp.flash_prefill_cuda(q, k, v, window=win)
+        out_r = flash_prefill_ref(q, k, v, window=win)
+        torch.cuda.synchronize()
+        what = (f"flash_prefill {name} T={T} Hq {Hq} Hkv {Hkv} (Gq "
+                f"{Hq // Hkv}) window {win}")
+        err = check_close(what, out_k, out_r, *tol)
+        line = f"[parity] {what}: max|err| {err:.3g}"
+        if dt == torch.bfloat16:
+            ms = median_ms(lambda: fp.flash_prefill_cuda(q, k, v,
+                                                         window=win), reps=10)
+            causal = median_ms(lambda: fp.flash_prefill_cuda(q, k, v),
+                               reps=10)
+            dev = device_ms(lambda: fp.flash_prefill_cuda(q, k, v,
+                                                          window=win), n=10)
+            line += (f"; {ms:.4f} ms, device {dev:.4f} ms (the same call "
+                     f"without a window {causal:.4f} ms)")
+        print(line)
+        del q, k, v, out_k, out_r
+        torch.cuda.empty_cache()
+        args = _verify_case(torch, dt, kind="full", Hq=Hq, Hkv=Hkv, D=D,
+                            S_full=WINDOW_B5_S, before=WINDOW_B5_BEFORE)
+        out_k = fp.flash_verify_cuda(*args, window=win)
+        out_r = flash_verify_ref(*args, window=win)
+        nowin = flash_verify_ref(*args, window=0)
+        torch.cuda.synchronize()
+        what = (f"flash_verify {name} Gq {Hq // Hkv} L {GAMMA + 1} Tk "
+                f"{WINDOW_B5_S} window {win}")
+        err = check_close(what, out_k, out_r, *tol)
+        moved = (out_r.float() - nowin.float()).abs().max().item()
+        print(f"[parity] {what}: max|err| {err:.3g}; the window moves the "
+              f"plain output by up to {moved:.3g}")
+        if moved == 0.0:
+            fail(f"{what}: the window masked nothing")
+        del args, out_k, out_r, nowin
     torch.cuda.empty_cache()
 
 
@@ -1246,7 +1327,8 @@ def _kernel_objs():
 def _want_launches(eng, res, n_layers: int, n_req: int, segments: int):
     """The launches a serve run must show, per kernel, from its own step
     counts: one per layer for every decode step (B1 dense / B3 paged),
-    admission (B2) or prompt segment (B4) of a policy that reads no mass,
+    monolithic admission (B2, also into a paged pool) or prompt segment
+    (B4) of a policy that reads no mass,
     and, speculative, verify round (B5) and drafter decode step and
     drafter admission (B1 / B2: the drafter's cache is dense); for a
     quantized (KIVI) cache, B6 once per layer (K and V in one fused
@@ -1255,8 +1337,8 @@ def _want_launches(eng, res, n_layers: int, n_req: int, segments: int):
     `kv_flush_steps`) and every quantized admission (target, and drafter
     when its view is quantized)."""
     want = dict.fromkeys(KERNELS, 0)
-    dec, pre = (("decode_attn_paged", "flash_prefill_chunk") if eng.paged
-                else ("decode_attn", "flash_prefill"))
+    dec = "decode_attn_paged" if eng.paged else "decode_attn"
+    pre = "flash_prefill_chunk" if eng.chunked_prefill else "flash_prefill"
     st = res.spec
     want[dec] = (st.plain_rounds if st else res.decode_steps) * n_layers
     if not eng.spec.track_scores():
@@ -2392,38 +2474,72 @@ def _e2e_noise() -> None:
     torch.cuda.empty_cache()
 
 
+def _paged_kw(cfg) -> dict:
+    """The engine options of a paged run: chunked admission, or for a
+    mixture-of-experts config (which chunked prefill refuses: capacity
+    couples a segment's tokens) monolithic admission into the pool."""
+    return dict(paged=True) if cfg.is_moe else _CHUNKED
+
+
 def _kernels_vs_reference(cfg, params, pol, toks, *, paged: bool,
-                          witness=None):
+                          witness=None, buckets=BUCKETS):
     """An engine with the kernels against one with use_kernels=False (the
     model's dtype): the admission of `toks` (one prompt a slot; monolithic
-    prefill into the dense store, or chunked admission into a paged pool),
+    prefill into the dense store, or into a paged pool chunked, or
+    monolithic for experts),
     then E2E_STEPS decode steps fed the reference's greedy tokens. Returns
     {"kr": max |logit delta| per call, "scale": the reference's max
     |logit|}; with `witness` (an f32 (cfg, params) of the same weights),
     also "k32" / "r32": each path's max |logit delta| per call against
-    the f32 reference path fed the same tokens."""
+    the f32 reference path fed the same tokens.
+
+    An MoE config runs with its discrete choices pinned (`_DiscretePin`):
+    the reference path routes and KIVI-quantizes, and the kernel path
+    takes the same experts and weights at every MoE call and the same
+    codes, scales and zeros at every quantization (its quantizer still
+    runs). Both are discontinuous functions of their input: a bf16
+    rounding can swap a token's second expert (and at capacity 1.25
+    reorder which tokens drop) or move a 2-bit code a level, and MoE
+    layers amplify the bf16 noise that reaches them, so without the pin
+    the distance measures those flips, not the kernels. The counts of
+    what the kernel path would have chosen otherwise are returned:
+    "flips" / "routed" tokens, "code_flips" / "codes" code bytes."""
     import torch
     from repro_torch.nn import model as M
     from repro_torch.serving.engine import Engine
     runs = [(cfg, params, True), (cfg, params, False)]
     if witness is not None:
         runs.append((*witness, False))
-    engs = [Engine(c, p, pol, prompt_len=max(BUCKETS), max_new=MAX_NEW,
-                   slots=SLOTS, buckets=BUCKETS, use_kernels=uk,
-                   **(_CHUNKED if paged else {}))
+    engs = [Engine(c, p, pol, prompt_len=max(buckets), max_new=MAX_NEW,
+                   slots=SLOTS, buckets=buckets, use_kernels=uk,
+                   **(_paged_kw(cfg) if paged else {}))
             for c, p, uk in runs]
-    if paged:
-        admitted = [_admit_paged_chunked(e, toks.cpu().numpy())
-                    for e in engs]
-    else:
-        admitted = [M.prefill(e.params, e.cfg, {"tokens": toks}, e.spec,
-                              layer_budgets=e.layer_budgets)[::-1]
-                    for e in engs]
-    logits = [[lg] for _, lg in admitted]
-    for _ in range(E2E_STEPS):
-        tok = torch.argmax(logits[1][-1], -1)[:, None]   # reference leads
-        for e, (c, _), lgs in zip(engs, admitted, logits):
-            lgs.append(M.decode_step(e.params, e.cfg, c, tok, e.spec)[0])
+    # the reference (engine 1) goes first where its choices are pinned
+    order = [1, 0, *range(2, len(engs))] if cfg.is_moe else range(len(engs))
+    pin = _DiscretePin() if cfg.is_moe else None
+    admitted = [None] * len(engs)
+    with (pin if pin else contextlib.nullcontext()):
+        for i in order:
+            e = engs[i]
+            if pin:
+                pin.recording = i == 1
+            if paged:
+                admit = (_admit_paged_mono if cfg.is_moe
+                         else _admit_paged_chunked)
+                admitted[i] = admit(e, toks.cpu().numpy())
+            else:
+                admitted[i] = M.prefill(e.params, e.cfg, {"tokens": toks},
+                                        e.spec,
+                                        layer_budgets=e.layer_budgets)[::-1]
+        logits = [[lg] for _, lg in admitted]
+        for _ in range(E2E_STEPS):
+            tok = torch.argmax(logits[1][-1], -1)[:, None]  # reference leads
+            for i in order:
+                if pin:
+                    pin.recording = i == 1
+                logits[i].append(M.decode_step(engs[i].params, engs[i].cfg,
+                                               admitted[i][0], tok,
+                                               engs[i].spec)[0])
     torch.cuda.synchronize()
 
     def delta(a, b):
@@ -2435,7 +2551,61 @@ def _kernels_vs_reference(cfg, params, pol, toks, *, paged: bool,
     if witness is not None:
         out.update(k32=delta(logits[0], logits[2]),
                    r32=delta(logits[1], logits[2]))
+    if pin:
+        out.update(flips=pin.flips, routed=pin.routed,
+                   code_flips=pin.code_flips, codes=pin.codes)
     return out
+
+
+class _DiscretePin:
+    """While open, `nn.moe._route` and `core.cache.quantize_kv` record
+    each call's discrete outcome when `recording` (the experts and
+    weights; the codes, scales and zeros), and otherwise hand the
+    recorded ones out in call order, counting what the caller's own call
+    chose otherwise: tokens routed to other experts (`flips` of
+    `routed`), code bytes (`code_flips` of `codes`)."""
+
+    def __init__(self):
+        self.recording, self.routes, self.quants = True, [], []
+        self.flips = self.routed = self.code_flips = self.codes = 0
+
+    def __enter__(self):
+        from repro_torch.core import cache as kvcache
+        from repro_torch.nn import moe as moe_lib
+        self._route, self._quant = moe_lib._route, kvcache.quantize_kv
+
+        def route(p, x, top_k):
+            logits, probs, vals, idx = self._route(p, x, top_k)
+            if self.recording:
+                self.routes.append((vals, idx))
+                return logits, probs, vals, idx
+            v0, i0 = self.routes.pop(0)
+            own = idx.sort(dim=-1).values != i0.sort(dim=-1).values
+            self.flips += int(own.any(-1).sum())
+            self.routed += own.shape[0] * own.shape[1]
+            return logits, probs, v0, i0
+
+        def quantize_kv(k, v, spec, **kw):
+            got = self._quant(k, v, spec, **kw)
+            if self.recording:
+                self.quants.append(got)
+                return got
+            ref = self.quants.pop(0)
+            for a, b in zip(got, ref):
+                self.code_flips += int((a.q != b.q).sum())
+                self.codes += a.q.numel()
+            return ref
+
+        moe_lib._route, kvcache.quantize_kv = route, quantize_kv
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import cache as kvcache
+        from repro_torch.nn import moe as moe_lib
+        moe_lib._route, kvcache.quantize_kv = self._route, self._quant
+        if not exc[0] and (self.routes or self.quants):
+            fail(f"discrete pin: {len(self.routes)} routings and "
+                 f"{len(self.quants)} quantizations recorded, unused")
 
 
 def _admit_paged_chunked(eng, prompts):
@@ -2461,6 +2631,32 @@ def _admit_paged_chunked(eng, prompts):
         adm = eng._start_chunked_admission(sched)
         eng._advance_chunked_admission(adm, sched, cache, run_all=True)
         logits.append(adm.last_logits)
+    return cache, torch.cat(logits)
+
+
+def _admit_paged_mono(eng, prompts):
+    """Admit `prompts` (one per slot, in slot order) by monolithic batch-1
+    prefill into a fresh paged cache, as `generate_continuous` does
+    without chunked prefill. Returns (cache, first-token logits)."""
+    import torch
+    from repro_torch.core import paging
+    from repro_torch.nn import model as M
+    from repro_torch.serving.scheduler import Request, Scheduler
+    sched = Scheduler(eng.buckets, eng.slots,
+                      allocator=paging.BlockAllocator(eng.pool_blocks),
+                      block_need=eng._request_blocks)
+    cache = M.init_cache(eng.cfg, eng.spec, eng.slots,
+                         eng.prompt_len + eng.max_new,
+                         layer_budgets=eng.layer_budgets, device="cuda",
+                         paged=True, block_len=eng.block_len,
+                         pool_blocks=eng.pool_blocks)
+    logits = []
+    for slot, p in enumerate(prompts):
+        sched.submit(Request(tokens=p, max_new=eng.max_new))
+        req = sched.admit_next(slot)
+        lg, pc = eng._prefill(req.tokens[None])
+        eng._insert(cache, sched, slot, pc)
+        logits.append(lg)
     return cache, torch.cat(logits)
 
 
@@ -2667,13 +2863,21 @@ def _profile_verify(params) -> None:
 
 
 # ---------------------------------------------------------------------------
-# 7. configs: the four further attention-only configs at full width
+# 7. configs: the further configs at full width
 # ---------------------------------------------------------------------------
 
 # layers served where the config's weights leave no room for a pool on
-# one card (command-r-plus-104b: 193.4 GiB at 64 layers, 52.7 GiB at 16);
-# every other config serves at its full depth
-CONFIG_DEPTH = {"command-r-plus-104b": 16}
+# one card (bf16 by param_count: command-r-plus-104b 193.4 GiB at 64
+# layers, 52.7 GiB at 16; mixtral-8x22b 261.9 GiB at 56, 38.1 at 8, 56.7
+# at 12; kimi-k2-1t-a32b 1.9 TiB at 61, 36.1 GiB at 1, 67.9 at 2, which
+# leaves too little for the transients); every other config serves at
+# its full depth
+CONFIG_DEPTH = {"command-r-plus-104b": 16, "mixtral-8x22b": 8,
+                "kimi-k2-1t-a32b": 1}
+# prompt buckets where they differ from BUCKETS: mixtral's prompts
+# alternate 2048 / 6144, so half of them cross its 4096-token window in
+# prefill and go on crossing it in decode
+CONFIG_BUCKETS = {"mixtral-8x22b": (2048, 6144)}
 # per config, its runs over the serve phase's one-wave traffic (N_SHORT
 # requests, prompts alternating 1024 / 2048, MAX_NEW new, SLOTS slots,
 # budget 512, window 128, 512-token segments): (policy, paged + chunked?,
@@ -2681,13 +2885,30 @@ CONFIG_DEPTH = {"command-r-plus-104b": 16}
 # that serves it: minicpm Gq 1 / D 64 (B2, B1 dense and with mass), qwen
 # Gq 5 (B4, B3 2-bit, B6; through the serve CLI), chameleon Gq 8 (B4, B3;
 # the vlm config through chunked admission), command-r Gq 12 (B2, B1, and
-# B5 whose 60 packed rows take two row tiles)
+# B5 whose 60 packed rows take two row tiles), mixtral Gq 6 with its
+# window (B2 at T 6144, B1 with the window's bias; kivi2 paged: B3 2-bit,
+# B6, B2 through monolithic admission, as chunked prefill refuses
+# experts), kimi Gq 8 with 384 experts (B1 dense and with mass). A paged
+# run of an MoE config admits monolithically (`_paged_kw`). Speculative
+# decoding refuses experts as the JAX engine does (its gate is the
+# chunking gate), so no MoE run verifies: B5 meets Gq 6 and the window
+# in phase 3.
 CONFIG_RUNS = (
     ("minicpm-2b", (("full", False, None), ("h2o", False, None))),
     ("qwen2.5-32b", (("kivi2", True, None),)),
     ("chameleon-34b", (("full", True, None),)),
     ("command-r-plus-104b", (("full", False, None), ("full", False, "same"))),
+    ("mixtral-8x22b", (("full", False, None), ("kivi2", True, None))),
+    ("kimi-k2-1t-a32b", (("full", False, None), ("h2o", False, None))),
 )
+# configs whose decode step is profiled (wall against device-busy time)
+CONFIG_PROFILE = ("qwen2.5-32b", "mixtral-8x22b", "kimi-k2-1t-a32b")
+# the MoE FFN at full width against its f32 oracle: MOE_TOKENS tokens of
+# one layer at drop-free capacity, in bf16, within |y - ref| <= atol +
+# rtol * |ref| (two bf16 products with f32 accumulation, each rounded,
+# against the f32 oracle on the same bf16 inputs)
+MOE_TOKENS = 64
+MOE_TOL = (2e-2, 2e-2)
 # the qwen run goes through the serving CLI, as a user starts it
 QWEN_ARGV = ("--arch", "qwen2.5-32b", "--policy", "kivi2", "--budget",
              str(BUDGET), "--window", str(WINDOW), "--requests",
@@ -2707,14 +2928,18 @@ def _layers_view(params, n: int) -> dict:
 
 def phase_configs(info: dict) -> None:
     """minicpm-2b, qwen2.5-32b and chameleon-34b at full width and depth,
-    command-r-plus-104b at full width on the CONFIG_DEPTH cut, random bf16
-    weights from seed 0, one config on the card at a time: every run of
-    CONFIG_RUNS completes all its requests with launches exactly as its
-    own step counts predict (speculative: its stream agreement with the
-    plain run printed); qwen's decode step profiled (wall against
-    device-busy time); then each config at E2E_LAYERS depth, its logits
-    with the kernels against use_kernels=False for each of its policies,
-    dense and paged + chunked, within E2E_LOGIT_TOL."""
+    command-r-plus-104b, mixtral-8x22b and kimi-k2-1t-a32b at full width
+    on the CONFIG_DEPTH cuts, random bf16 weights from seed 0, one config
+    on the card at a time: every run of CONFIG_RUNS completes all its
+    requests with launches exactly as its own step counts predict
+    (speculative: its stream agreement with the plain run printed; MoE:
+    each layer's drop fraction at decode printed); an MoE config's FFN
+    held to its f32 oracle (`_moe_oracle`); the CONFIG_PROFILE configs'
+    decode step profiled (wall against device-busy time); then each
+    config at E2E_LAYERS depth (or its cut), its logits with the kernels
+    against use_kernels=False for each of its policies, dense and paged,
+    within E2E_LOGIT_TOL (MoE: with the routing and the KIVI codes pinned
+    to the reference's, `_kernels_vs_reference`)."""
     import numpy as np
     import torch
     from repro_torch.configs.base import get_config
@@ -2733,26 +2958,54 @@ def phase_configs(info: dict) -> None:
               f"qkv_bias {cfg.qkv_bias} tied {cfg.tie_embeddings} "
               f"rope_theta {cfg.rope_theta:g} arch_type {cfg.arch_type}; "
               f"{w_gib:.1f} GiB of bf16 weights")
+        buckets = CONFIG_BUCKETS.get(arch, BUCKETS)
         rng = np.random.default_rng(0)
-        prompts = [rng.integers(0, cfg.vocab_size, size=BUCKETS[i % 2])
+        prompts = [rng.integers(0, cfg.vocab_size, size=buckets[i % 2])
                    for i in range(N_SHORT)]
         params, plain = None, {}
         for pname, paged, draft in runs:
             params = _config_run(info, cfg, params, pname, paged, draft,
-                                 prompts, kernels, launches, plain, w_gib)
-        if arch == "qwen2.5-32b":
-            _profile_config_step(info, cfg, params)
+                                 prompts, kernels, launches, plain, w_gib,
+                                 buckets)
+        if cfg.is_moe:
+            _moe_oracle(info, cfg, params)
+        if arch in CONFIG_PROFILE:
+            _profile_config_step(info, cfg, params, buckets)
         # the e2e's first layers, copied so that the served weights go
-        # before its f32 witness is cast
-        params = _tree(torch.clone, _layers_view(params, E2E_LAYERS))
+        # before its f32 witness is cast (a cut no deeper than the e2e
+        # serves them as they are)
+        if cfg.num_layers > E2E_LAYERS:
+            params = _tree(torch.clone, _layers_view(params, E2E_LAYERS))
         torch.cuda.empty_cache()
-        _config_e2e(info, cfg, params, sorted({p for p, _, _ in runs}))
+        _config_e2e(info, cfg, params, sorted({p for p, _, _ in runs}),
+                    buckets)
         del params, plain
         torch.cuda.empty_cache()
 
 
+@contextlib.contextmanager
+def _moe_drops():
+    """Record each `moe_apply` call's drop fraction (a device scalar, read
+    after the run) while the context is open, decode calls (one row a
+    slot) apart from prefill ones."""
+    from repro_torch.nn import moe as moe_lib
+    apply, rec = moe_lib.moe_apply, {"decode": [], "prefill": []}
+
+    def counted(p, x, **kw):
+        y, aux = apply(p, x, **kw)
+        rec["decode" if x.shape[1] == 1 else "prefill"].append(
+            aux.drop_fraction)
+        return y, aux
+
+    moe_lib.moe_apply = counted
+    try:
+        yield rec
+    finally:
+        moe_lib.moe_apply = apply
+
+
 def _config_run(info, cfg, params, pname, paged, draft, prompts, kernels,
-                launches, plain, w_gib):
+                launches, plain, w_gib, buckets):
     """One serve run of `cfg` (the qwen one through the serving CLI, which
     draws its own weights and requests: its engine's parameters serve the
     config's later steps). Returns the parameters."""
@@ -2786,18 +3039,22 @@ def _config_run(info, cfg, params, pname, paged, draft, prompts, kernels,
         spec_kw = (dict(speculative=True, gamma=GAMMA, draft_policy=draft)
                    if draft else {})
         eng = Engine(cfg, params, presets(budget=BUDGET, window=WINDOW)[
-                         pname], prompt_len=max(BUCKETS), max_new=MAX_NEW,
-                     slots=SLOTS, buckets=BUCKETS,
-                     **(_CHUNKED if paged else {}), **spec_kw)
+                         pname], prompt_len=max(buckets), max_new=MAX_NEW,
+                     slots=SLOTS, buckets=buckets,
+                     **(_paged_kw(cfg) if paged else {}), **spec_kw)
         t1 = time.perf_counter()
-        res = eng.generate_continuous([Request(tokens=p, max_new=MAX_NEW)
-                                       for p in prompts])
+        with (_moe_drops() if cfg.is_moe
+              else contextlib.nullcontext()) as drops:
+            res = eng.generate_continuous([Request(tokens=p, max_new=MAX_NEW)
+                                           for p in prompts])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
     n = {name: k.launches for name, k in kernels.items()}
     for name in KERNELS:
         launches[name] += n[name]
-    label = (f"{cfg.name} {pname}" + (" paged+chunked" if paged else "")
+    label = (f"{cfg.name} {pname}"
+             + ((" paged" if cfg.is_moe else " paged+chunked") if paged
+                else "")
              + (f" spec[{draft}]" if draft else "")
              + (" (serve CLI)" if cli else ""))
     done = [r for r in res.results if r.finish_reason == "length"]
@@ -2850,6 +3107,19 @@ def _config_run(info, cfg, params, pname, paged, draft, prompts, kernels,
              f"({res.decode_steps} decode steps, {res.kv_flush_steps} flush "
              f"steps, {L} layers"
              f"{'; ' + res.spec.describe() if res.spec else ''})")
+    if cfg.is_moe:
+        dec = torch.stack(drops["decode"]).view(-1, L).mean(0).tolist()
+        pre = torch.stack(drops["prefill"]).view(-1, L).mean(0).tolist()
+        print(f"[configs]   {label}: MoE drop fraction a layer at decode "
+              f"(capacity {cfg.moe.capacity_factor}, {SLOTS} slots x top "
+              f"{cfg.moe.num_experts_per_tok} over "
+              f"{cfg.moe.num_experts} experts: "
+              f"{_moe_cap(cfg, SLOTS)} rows an expert), mean over "
+              f"{len(drops['decode']) // L} steps: "
+              + " ".join(f"{x:.4f}" for x in dec)
+              + "; at admission: " + " ".join(f"{x:.4f}" for x in pre)
+              + " (printed, not gated)")
+        row.update(drop_decode=dec, drop_prefill=pre)
     if draft is None:
         plain[(pname, paged)] = res
     else:
@@ -2871,21 +3141,107 @@ def _config_run(info, cfg, params, pname, paged, draft, prompts, kernels,
     return params
 
 
-def _profile_config_step(info, cfg, params) -> None:
+def _moe_cap(cfg, n_tokens: int) -> int:
+    from repro_torch.nn import moe as moe_lib
+    return moe_lib.capacity(n_tokens, cfg.moe.num_experts_per_tok,
+                            cfg.moe.num_experts, cfg.moe.capacity_factor)
+
+
+def _moe_dense_by_expert(p, x, top_k: int):
+    """`moe_apply_dense` one expert at a time: the soft-dispatch oracle in
+    f32 without casting every expert at once (kimi's 384 would take 63
+    GiB in f32)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.nn import moe as moe_lib
+    E = p["router"].shape[1]
+    _, _, top_vals, top_idx = moe_lib._route(p, x, top_k)
+    combine = torch.sum(F.one_hot(top_idx, E).float() * top_vals[..., None],
+                        dim=2)                            # [B, T, E]
+    xf = x.float()
+    y = torch.zeros(xf.shape, dtype=torch.float32, device=x.device)
+    for e in range(E):
+        h = (F.silu(xf @ p["gate"][e].float()) * (xf @ p["up"][e].float())
+             * combine[..., e, None])
+        y += h @ p["down"][e].float()
+    return y
+
+
+def _moe_oracle(info, cfg, params) -> None:
+    """The MoE FFN of the first served layer at full width: MOE_TOKENS
+    random bf16 tokens through `moe_apply` at drop-free capacity against
+    the f32 soft-dispatch oracle (`moe_apply_dense`, and one expert at a
+    time, which must agree with it where both fit), within MOE_TOL; then
+    at the config's capacity the drop fraction must be the host's count
+    from the same routing."""
+    import numpy as np
+    import torch
+    from repro_torch.nn import moe as moe_lib
+    p = {k: v[0] for k, v in params["blocks"]["sub0"]["moe"].items()}
+    E, k = cfg.moe.num_experts, cfg.moe.num_experts_per_tok
+    g = torch.Generator(device="cuda").manual_seed(MOE_TOKENS)
+    x = torch.randn(1, MOE_TOKENS, cfg.d_model, generator=g,
+                    device="cuda").to(cfg.dtype)
+    y, aux = moe_lib.moe_apply(p, x, top_k=k, capacity_factor=float(E))
+    ref = _moe_dense_by_expert(p, x, k)
+    f32_gib = 3 * E * cfg.d_model * cfg.moe.d_expert * 4 / 2**30
+    line = ""
+    if f32_gib < 16:
+        dense, _ = moe_lib.moe_apply_dense(p, x.float(), top_k=k)
+        d = (dense - ref).abs().max().item()
+        line = f"; by expert vs moe_apply_dense {d:.3g}"
+        if not d <= 1e-4 + 1e-4 * ref.abs().max().item():
+            fail(f"{cfg.name} MoE oracle: by-expert and dense oracles "
+                 f"differ by {d:.3g}")
+        del dense
+    err = check_close(f"{cfg.name} moe_apply bf16 vs f32 oracle", y, ref,
+                      *MOE_TOL)
+    if aux.drop_fraction.item() != 0.0:
+        fail(f"{cfg.name} moe_apply drops at drop-free capacity")
+    cf = cfg.moe.capacity_factor
+    _, aux = moe_lib.moe_apply(p, x, top_k=k, capacity_factor=cf)
+    _, _, _, top_idx = moe_lib._route(p, x, k)
+    cap = _moe_cap(cfg, MOE_TOKENS)
+    seen = np.zeros(E, np.int64)
+    kept = 0
+    for e in top_idx.reshape(-1).tolist():      # token-major, as routed
+        seen[e] += 1
+        kept += seen[e] <= cap
+    want = 1.0 - kept / (MOE_TOKENS * k)
+    got = aux.drop_fraction.item()
+    print(f"[configs] {cfg.name} MoE FFN at full width ({E} experts, top "
+          f"{k}, d_model {cfg.d_model}, d_expert {cfg.moe.d_expert}), "
+          f"{MOE_TOKENS} tokens: bf16 moe_apply vs f32 oracle max|err| "
+          f"{err:.4g} (max|ref| {ref.abs().max().item():.3f}, tol "
+          f"{MOE_TOL}){line}; at capacity {cf} ({cap} rows an expert) drop "
+          f"fraction {got:.6f}, host count {want:.6f}")
+    if abs(got - want) > 1e-6:
+        fail(f"{cfg.name} MoE drop fraction {got} != host count {want}")
+    info.setdefault("moe_oracle", []).append(dict(
+        label=cfg.name, err=err, drop=got, cap=cap))
+    del y, ref, x
+    torch.cuda.empty_cache()
+
+
+def _profile_config_step(info, cfg, params, buckets) -> None:
     """One decode step of `cfg` at its served depth under kivi2 on the
-    paged pool, 8 slots after 8 chunked admissions of 1024 tokens: wall
-    against device-busy time."""
+    paged pool, 8 slots after 8 admissions of `buckets[0]` tokens
+    (chunked; monolithic for experts): wall against device-busy time. For
+    an MoE config also the expert products of one decode step alone (the
+    three `torch.bmm` over every expert at the step's capacity), beside
+    the time to read the experts' weights once."""
     import numpy as np
     import torch
     from repro_torch.core.policy import presets
     from repro_torch.nn import model as M
     from repro_torch.serving.engine import Engine, RingMirror
     eng = Engine(cfg, params, presets(budget=BUDGET, window=WINDOW)["kivi2"],
-                 prompt_len=max(BUCKETS), max_new=MAX_NEW, slots=SLOTS,
-                 buckets=BUCKETS, **_CHUNKED)
+                 prompt_len=max(buckets), max_new=MAX_NEW, slots=SLOTS,
+                 buckets=buckets, **_paged_kw(cfg))
     prompts = np.random.default_rng(2).integers(0, cfg.vocab_size,
-                                                (SLOTS, BUCKETS[0]))
-    cache, _ = _admit_paged_chunked(eng, prompts)
+                                                (SLOTS, buckets[0]))
+    admit = _admit_paged_mono if cfg.is_moe else _admit_paged_chunked
+    cache, _ = admit(eng, prompts)
     ring = RingMirror(eng.spec, SLOTS)
     ring.fill()
     tok = torch.zeros(SLOTS, 1, dtype=torch.long, device="cuda")
@@ -2896,40 +3252,82 @@ def _profile_config_step(info, cfg, params) -> None:
 
     row = _profile_decode_step("[configs]", f"{cfg.name} kivi2 paged "
                                f"({cfg.num_layers} layers)", step)
-    info["config_profile"] = dict(row, label=cfg.name)
+    if cfg.is_moe:
+        p = {k: v[0] for k, v in params["blocks"]["sub0"]["moe"].items()}
+        cap = _moe_cap(cfg, SLOTS)
+        g = torch.Generator(device="cuda").manual_seed(cap)
+        E, Dm, F_ = cfg.moe.num_experts, cfg.d_model, cfg.moe.d_expert
+        buf = torch.randn(E, cap, Dm, generator=g, device="cuda").to(cfg.dtype)
+        h = torch.randn(E, cap, F_, generator=g, device="cuda").to(cfg.dtype)
+
+        def experts():
+            torch.bmm(buf, p["gate"])
+            torch.bmm(buf, p["up"])
+            return torch.bmm(h, p["down"])
+
+        # event-timed: three products of milliseconds each hold next to
+        # no host time (the profiler's kernel sum read below the bound)
+        ms = median_ms(experts)
+        b_ms, by = bound(nbytes(p["gate"], p["up"], p["down"]),
+                         6.0 * E * cap * Dm * F_, "bfloat16")
+        print(f"[configs]   {cfg.name} expert products of one decode step "
+              f"({E} experts x {cap} rows, one layer): {ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms by {by} ({b_ms / ms:.1%} of it); "
+              f"x{cfg.num_layers} layers {ms * cfg.num_layers:.3f} ms of "
+              "the step")
+        row.update(expert_ms=ms, expert_bound_ms=b_ms)
+        del buf, h
+    info.setdefault("config_profile", []).append(dict(row, label=cfg.name))
     del eng, cache
     torch.cuda.empty_cache()
 
 
-def _config_e2e(info, cfg, params4, pnames) -> None:
-    """`cfg` at E2E_LAYERS depth (`params4`: its served parameters' first
-    layers): kernels against use_kernels=False, dense and paged + chunked,
-    per policy, within E2E_LOGIT_TOL; the f32 reference path on the same
-    weights printed beside them with the logits' scale, as phase 5 does."""
+def _config_e2e(info, cfg, params4, pnames, buckets) -> None:
+    """`cfg` at E2E_LAYERS depth or its cut if shallower (`params4`: its
+    served parameters' first layers): kernels against use_kernels=False,
+    dense and paged, per policy, within E2E_LOGIT_TOL; the f32 reference
+    path on the same weights printed beside them with the logits' scale,
+    as phase 5 does, where the f32 copy fits (not for experts: mixtral's
+    4 layers are 39 GiB in f32, kimi's one 72 GiB). Prompts are
+    `buckets[-1]` long: mixtral's 6144 cross its 4096-token window in both
+    paths."""
     import numpy as np
     import torch
     from repro_torch.core.policy import presets
-    cfg4 = cfg.replace(num_layers=E2E_LAYERS)
-    witness = (cfg4.replace(dtype=torch.float32),
-               _cast(params4, torch.float32))
+    n = min(E2E_LAYERS, cfg.num_layers)
+    cfg4 = cfg.replace(num_layers=n)
+    witness = (None if cfg.is_moe else
+               (cfg4.replace(dtype=torch.float32),
+                _cast(params4, torch.float32)))
+    T = buckets[-1] if cfg.sliding_window else buckets[0]
     toks = torch.as_tensor(np.random.default_rng(1).integers(
-        0, cfg.vocab_size, size=(SLOTS, BUCKETS[0])), device="cuda")
+        0, cfg.vocab_size, size=(SLOTS, T)), device="cuda")
     for pname in pnames:
         pol = presets(budget=BUDGET, window=WINDOW)[pname]
         for paged in (False, True):
             d = _kernels_vs_reference(cfg4, params4, pol, toks, paged=paged,
-                                      witness=witness)
+                                      witness=witness, buckets=buckets)
             kr = d["kr"]
-            label = f"{cfg.name} {pname}{' paged+chunked' if paged else ''}"
-            print(f"[configs] e2e {label} ({E2E_LAYERS} layers): "
+            label = (f"{cfg.name} {pname}"
+                     + ((" paged" if cfg.is_moe else " paged+chunked")
+                        if paged else ""))
+            f32 = (f"vs f32 reference: kernels {max(d['k32']):.4f}, bf16 "
+                   f"reference {max(d['r32']):.4f}" if witness else
+                   "no f32 reference (its weights would not fit)")
+            if "flips" in d:
+                f32 += (f"; routing and KIVI codes pinned to the "
+                        f"reference's: the kernel path alone would route "
+                        f"{d['flips']} of {d['routed']} tokens to other "
+                        f"experts and code {d['code_flips']} of "
+                        f"{d['codes']} code bytes otherwise")
+            print(f"[configs] e2e {label} ({n} layers, prompts of {T}): "
                   f"max|dlogit| kernels vs reference (bf16) prefill "
                   f"{kr[0]:.4f} decode {max(kr[1:]):.4f} (tol "
-                  f"{E2E_LOGIT_TOL}); vs f32 reference: kernels "
-                  f"{max(d['k32']):.4f}, bf16 reference "
-                  f"{max(d['r32']):.4f}; max|logit| {d['scale']:.2f}")
+                  f"{E2E_LOGIT_TOL}); {f32}; max|logit| {d['scale']:.2f}")
             info.setdefault("config_e2e", []).append(dict(
-                label=label, kr=max(kr), k32=max(d["k32"]),
-                r32=max(d["r32"]), scale=d["scale"]))
+                label=label, kr=max(kr), k32=max(d.get("k32", [0.0])),
+                r32=max(d.get("r32", [0.0])), scale=d["scale"],
+                flips=d.get("flips"), code_flips=d.get("code_flips")))
             if not all(math.isfinite(x) and x <= E2E_LOGIT_TOL for x in kr):
                 fail(f"e2e {label}: kernels vs reference logits differ by "
                      f"{max(kr):.4f} > {E2E_LOGIT_TOL}")

@@ -29,11 +29,14 @@ def tensor_from_numpy(a, device=None) -> torch.Tensor:
 
 def params_from_numpy(tree: dict, cfg, device=None) -> dict:
     """A `repro.nn.model.init_params` tree (leaves as numpy) -> the
-    port's parameter dict, leaves on `device` in `cfg.dtype`."""
+    port's parameter dict, leaves on `device`. Each leaf keeps its JAX
+    dtype class: an f32 leaf stays f32 (the MoE router, which JAX keeps
+    in f32 in a bf16 model), the model-dtype leaves take `cfg.dtype`."""
     def conv(x):
         if isinstance(x, dict):
             return {k: conv(v) for k, v in x.items()}
-        return tensor_from_numpy(x, device).to(cfg.dtype)
+        t = tensor_from_numpy(x, device)
+        return t if t.dtype == torch.float32 else t.to(cfg.dtype)
     return conv(tree)
 
 

@@ -11,6 +11,15 @@ import torch
 from repro_torch.kernels.kvquant import ref as qref
 
 
+def decode_qattn_ref(q, kq, ks, kz, vq, vs, vz, bias, *, bits: int,
+                     group: int) -> torch.Tensor:
+    """Same signature as `ops.decode_attention_quantized`. q: [B, Hq, D];
+    kq/vq: [B, S, Hkv, Dp] packed; returns [B, Hq, D]."""
+    out, _ = decode_attn_ref(q, kq, ks, kz, vq, vs, vz, bias, None, None,
+                             None, bits=bits, group=group)
+    return out
+
+
 def decode_attn_ref(q, k, k_scale, k_zero, v, v_scale, v_zero, bias_main,
                     rk, rv, bias_ring, *, bits: int, group: int,
                     compute_dtype=torch.float32):

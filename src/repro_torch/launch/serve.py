@@ -49,6 +49,14 @@ seed, on the card unless ``--device cpu``.
         --max-new 64 --slots 8 --continuous --paged --chunked-prefill \
         --chunk-len 512 --metrics-json metrics.json
 
+    # a mixture-of-experts arch (reduced: 4 experts, mixtral's window
+    # cut to 64); --chunked-prefill / --prefix-sharing / --speculative
+    # refuse experts, as the JAX CLI does, and --paged admits whole
+    # prompts
+    python -m repro_torch.launch.serve --arch mixtral-8x22b --reduced \
+        --policy kivi2 --budget 32 --window 8 --continuous \
+        --buckets 80,96 --paged
+
     # telemetry: a Chrome trace (Perfetto / chrome://tracing) and the
     # metrics snapshot (schema "repro.obs.metrics/1") of a run
     python -m repro_torch.launch.serve --arch granite-8b --reduced \

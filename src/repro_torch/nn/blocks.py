@@ -1,5 +1,5 @@
-"""Decoder blocks: attention mixer + dense SwiGLU FFN, pre-norm residual
-(counterpart of `repro.nn.blocks` for `attn` mixers with a dense FFN):
+"""Decoder blocks: attention mixer + (dense SwiGLU | MoE) FFN, pre-norm
+residual (counterpart of `repro.nn.blocks` for `attn` mixers):
 monolithic prefill, one chunked-prefill segment, speculative verify, and
 decode. `generator` (a `torch.Generator` on the block's device, or None)
 feeds the NACL / Keyformer noise where the JAX blocks take `key`."""
@@ -14,10 +14,20 @@ from repro_torch.core.cache import CacheSpec
 from repro_torch.kernels.flash_prefill import ops as fp_ops
 from repro_torch.nn import attention as attn
 from repro_torch.nn import layers as L
+from repro_torch.nn import moe as moe_lib
 
 
 def _ffn(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
-    return x + L.mlp(p["mlp"], L.rmsnorm(p["norm2"], x, cfg.norm_eps))
+    """The FFN residual. An MoE FFN routes the call's tokens together
+    (capacity is per call); serving discards its `MoEAux`, as the JAX
+    engine does."""
+    h = L.rmsnorm(p["norm2"], x, cfg.norm_eps)
+    if "moe" in p:
+        y, _ = moe_lib.moe_apply(p["moe"], h,
+                                 top_k=cfg.moe.num_experts_per_tok,
+                                 capacity_factor=cfg.moe.capacity_factor)
+        return x + y
+    return x + L.mlp(p["mlp"], h)
 
 
 def block_prefill(p: dict, x: torch.Tensor, cfg, spec: CacheSpec, *,

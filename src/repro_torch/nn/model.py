@@ -1,11 +1,13 @@
 """The LM: init_params / prefill / chunked prefill / decode_step /
-verify_step / init_cache (counterpart of `repro.nn.model` for
-attention-only decoders over token ids).
+verify_step / init_cache (counterpart of `repro.nn.model` for decoders
+over token ids whose every layer attends, with dense or MoE FFNs).
 
 Parameters keep the JAX package's tree: ``blocks/sub0/...`` leaves carry
 a leading ``[n_sb]`` layer dim (one layer per superblock: n_sb is the
-number of layers for these attention-only decoders), linear weights
-are ``[d_in, d_out]``. The cache is a `ModelCache` whose `LayerKV` (or
+number of layers for the decoders ported so far, whose layers all attend
+and whose MoE period is 1; `sb_layout`), linear weights are ``[d_in,
+d_out]``, an MoE FFN's ``moe/{router,gate,up,down}`` the JAX leaves.
+The cache is a `ModelCache` whose `LayerKV` (or
 paged `PagedLayerKV`) leaves carry leading ``[n_sb, nA]`` dims (nA = 1),
 also the JAX layout. A Python loop over layers takes the place of
 `lax.scan`; decode and the chunked-prefill segments update the cache and
@@ -19,6 +21,7 @@ function hands that layer its split key: once per layer per call in
 """
 from __future__ import annotations
 
+import itertools
 import math
 from typing import NamedTuple, Optional, Sequence, Union
 
@@ -30,13 +33,38 @@ from repro_torch.core import paging
 from repro_torch.core.cache import CacheSpec, LayerKV
 from repro_torch.nn import blocks as B
 from repro_torch.nn import layers as L
+from repro_torch.nn import moe as moe_lib
 
 
 class ModelCache(NamedTuple):
     attn: Union[LayerKV, paging.PagedLayerKV]    # leaves [n_sb, nA, ...]
 
 
+# ---------------------------------------------------------------------------
+# Superblock layout
+# ---------------------------------------------------------------------------
+
+
+def sb_layout(cfg):
+    """Returns (sb, n_sb, kinds) where kinds[i] = (mixer_kind, ffn_kind):
+    the JAX package's superblock of lcm(attention period, MoE period)
+    layers. No attention period (the hybrid's) is ported yet, so sb is
+    the MoE period: 1 for every config the port builds."""
+    sb = cfg.moe.layer_period if cfg.is_moe else 1
+    assert cfg.num_layers % sb == 0, (cfg.num_layers, sb)
+    kinds = [(cfg.layer_kind(i), cfg.ffn_kind(i)) for i in range(sb)]
+    return sb, cfg.num_layers // sb, kinds
+
+
+def ssm_positions(cfg):
+    sb, n_sb, kinds = sb_layout(cfg)
+    return [i for i, (k, _) in enumerate(kinds) if k == "ssm"]
+
+
 def _block_shapes(cfg) -> dict:
+    sb, _, kinds = sb_layout(cfg)
+    if sb != 1:
+        raise NotImplementedError(f"superblocks of {sb} layers not ported")
     d, D = cfg.d_model, cfg.head_dim
     hq, hkv = cfg.num_heads * D, cfg.num_kv_heads * D
 
@@ -46,41 +74,51 @@ def _block_shapes(cfg) -> dict:
             p["b"] = ((d_out,), 0)
         return p
 
-    return {
+    p = {
         "norm1": {"scale": ((d,), -1)},
         "attn": {"wq": lin(d, hq, cfg.qkv_bias), "wk": lin(d, hkv, cfg.qkv_bias),
                  "wv": lin(d, hkv, cfg.qkv_bias),
                  "wo": lin(hq, d, cfg.attn_out_bias)},
         "norm2": {"scale": ((d,), -1)},
-        "mlp": {"gate": lin(d, cfg.d_ff, cfg.mlp_bias),
-                "up": lin(d, cfg.d_ff, cfg.mlp_bias),
-                "down": lin(cfg.d_ff, d, cfg.mlp_bias)},
     }
+    if kinds[0][1] == "moe":
+        p["moe"] = moe_lib.moe_shapes(d, cfg.moe.d_expert,
+                                      cfg.moe.num_experts)
+    else:
+        p["mlp"] = {"gate": lin(d, cfg.d_ff, cfg.mlp_bias),
+                    "up": lin(d, cfg.d_ff, cfg.mlp_bias),
+                    "down": lin(cfg.d_ff, d, cfg.mlp_bias)}
+    return p
 
 
 def init_params(cfg, *, seed: int = 0, device=None) -> dict:
     """Random parameters drawn on `device` (None: the card, raising
     without one) from a `torch.Generator`:
-    normal(0, 1/fan_in) weights (drawn in f32, cast to cfg.dtype), unit
-    norms, zero biases — the JAX package's init scheme, not its numbers.
-    Layers are drawn one at a time, so the f32 draw never holds more than
-    one layer's largest leaf."""
+    normal(0, 1/fan_in) weights (drawn in f32, cast to cfg.dtype; an MoE
+    router kept in f32, as in JAX), unit norms, zero biases — the JAX
+    package's init scheme, not its numbers. Layers are drawn one at a
+    time, and expert leaves one expert at a time, so the f32 draw never
+    holds more than one layer's largest dense leaf or one expert's
+    matrix."""
     device = resolve_device(device)
     g = torch.Generator(device=device).manual_seed(seed)
     n_sb = cfg.num_layers
 
     def make(spec, lead=()):
-        shape, fan_in = spec
-        out = torch.empty(*lead, *shape, dtype=cfg.dtype, device=device)
+        shape, fan_in, dtype = (*spec, cfg.dtype)[:3]
+        out = torch.empty(*lead, *shape, dtype=dtype, device=device)
         if fan_in < 0:
             out.fill_(1)
         elif fan_in == 0:
             out.zero_()
         else:
-            for idx in ([()] if not lead else [(i,) for i in range(lead[0])]):
-                w = torch.randn(shape, generator=g, dtype=torch.float32,
+            # [E, d_in, d_out] expert leaves: one expert a draw
+            per = shape[1:] if len(shape) == 3 else shape
+            n_lead = len(lead) + len(shape) - len(per)
+            for idx in itertools.product(*map(range, out.shape[:n_lead])):
+                w = torch.randn(per, generator=g, dtype=torch.float32,
                                 device=device)
-                out[idx] = w.mul_(1.0 / math.sqrt(fan_in)).to(cfg.dtype)
+                out[idx] = w.mul_(1.0 / math.sqrt(fan_in)).to(dtype)
         return out
 
     def tree(shapes, lead=()):
@@ -161,9 +199,18 @@ class PrefillState(NamedTuple):
 
 
 def _check_chunkable(cfg) -> None:
-    """The JAX package's gate refuses SSM positions, experts and
-    encoder-decoders; `ModelConfig.__post_init__` refuses those arch kinds
-    until their modules are ported, so every config that builds chunks."""
+    """The JAX package's gate, with its messages. `ModelConfig` refuses
+    the SSM and encoder-decoder kinds until their modules are ported, so
+    of the three refusals only the MoE one can fire so far."""
+    if ssm_positions(cfg):
+        raise ValueError("chunked prefill is attention-only: SSM state "
+                         "carries across segments (sequential scan)")
+    if cfg.is_moe:
+        raise ValueError("chunked prefill needs per-row MoE capacity: "
+                         "per-batch expert capacity couples segment "
+                         "tokens, so segmenting changes routing")
+    if cfg.arch_type == "audio":          # the encoder-decoder kind
+        raise ValueError("chunked prefill is decoder-only")
 
 
 def init_prefill_state(cfg, prompt_len: int, *, device=None) -> PrefillState:

@@ -1257,7 +1257,9 @@ class Engine:
                                             self._S_phys, self.slots),
                 upto={},            # slot -> leading blocks mapped shared
                 align=align,
-                near_ok=self.near_hit > 0 and self.spec.policy == "none",
+                near_ok=(self.near_hit > 0
+                         and self.spec.policy == "none"
+                         and M.sb_layout(self.cfg)[0] == 1),
                 stats=dict(warm_hits=0, cold=0, near_hits=0, cow_copies=0,
                            ingested_blocks=0, evicted_blocks=0,
                            peak_mapped_blocks=0, warm_prefill_s=[],

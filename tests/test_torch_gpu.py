@@ -10,7 +10,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.configs.base import reduced
+from repro_torch.configs.base import get_config, reduced
 from repro_torch.configs.granite_8b import CONFIG as GRANITE
 from repro_torch.core import paging as TP
 from repro_torch.core.policy import presets
@@ -25,6 +25,7 @@ from repro_torch.kernels.kvquant import ops as kvq_ops
 from repro_torch.kernels.kvquant.ref import (kquant_ref, unpack_ref,
                                              vquant_ref)
 from repro_torch.nn import model as M
+from repro_torch.nn import moe as moe_lib
 from repro_torch.serving import sampler as sampler_lib
 from repro_torch.serving.engine import Engine
 from repro_torch.serving.scheduler import Request
@@ -265,6 +266,13 @@ DECODE_EDGES = {
     "gq12-2bit": (2, 128, 512, 128, 96, 8, 128,
                   [(0, 512), (0, 384), (0, 0), (0, 128)],
                   [(0, 128), (0, 1), (0, 0), (0, 127)]),
+    # mixtral-8x22b (48 / 8): the `full` store of a 6144-token prompt
+    # plus 64 new (its window masks the first rows of slot 0), and kivi2
+    "gq6": (16, 1, 6208, 0, 48, 8, 128,
+            [(2100, 6208), (0, 2048), (0, 0), (0, 33)], None),
+    "gq6-2bit": (2, 128, 512, 128, 48, 8, 128,
+                 [(0, 512), (0, 384), (0, 0), (0, 128)],
+                 [(0, 128), (0, 1), (0, 0), (0, 127)]),
 }
 
 
@@ -333,10 +341,12 @@ def test_decode_attn_kernel_at_split_edges(cuda, dt, case):
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("bits", [2, 16])
-@pytest.mark.parametrize("Hq", [40, 64, 96], ids=["gq5", "gq8", "gq12"])
+@pytest.mark.parametrize("Hq", [40, 48, 64, 96],
+                         ids=["gq5", "gq6", "gq8", "gq12"])
 def test_paged_decode_kernel_at_real_gq(cuda, dt, bits, Hq):
-    """B3 at the head groups of qwen2.5-32b, chameleon-34b and
-    command-r-plus-104b (Hkv 8, D 128) with mass and a ring: within TOL
+    """B3 at the head groups of qwen2.5-32b, mixtral-8x22b, chameleon-34b /
+    kimi-k2-1t-a32b and command-r-plus-104b (Hkv 8, D 128) with mass and
+    a ring: within TOL
     of its plain version and bit-equal to B1 on the same rows."""
     paged, dense = _paged_inputs(cuda, dt, bits, True, Hq=Hq)
     kw = dict(bits=bits, group=128, return_mass=True, compute_dtype=dt)
@@ -355,11 +365,11 @@ def test_paged_decode_kernel_at_real_gq(cuda, dt, bits, Hq):
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("Hq,Hkv,D", [(36, 36, 64), (40, 8, 128),
-                                      (96, 8, 128)],
-                         ids=["gq1-mha", "gq5", "gq12"])
+                                      (48, 8, 128), (96, 8, 128)],
+                         ids=["gq1-mha", "gq5", "gq6", "gq12"])
 def test_flash_kernels_at_real_gq(cuda, dt, Hq, Hkv, D):
     """B2 on one 2048-row prompt and B4 on its 512-row segments at the
-    head groups of minicpm-2b (MHA, D 64), qwen2.5-32b and
+    head groups of minicpm-2b (MHA, D 64), qwen2.5-32b, mixtral-8x22b and
     command-r-plus-104b: each within TOL of its plain version, the
     segments bit-equal to the monolithic kernel."""
     g = torch.Generator(device=cuda).manual_seed(Hq + D)
@@ -393,7 +403,8 @@ def test_flash_kernels_at_real_gq(cuda, dt, Hq, Hkv, D):
     (2, 777, 8, 8, 64, 200),       # ... under a window, D 64
     (1, 65, 32, 8, 64, 0),         # one row past a tile
     (2, 1, 32, 8, 128, 0),         # a single row
-    (1, 2048, 32, 8, 128, 64)])    # window tiles skipped, the serve width
+    (1, 2048, 32, 8, 128, 64),     # window tiles skipped, the serve width
+    (1, 6144, 48, 8, 128, 4096)])  # mixtral's longest prompt and window
 def test_flash_prefill_kernel_at_tile_edges(cuda, dt, B, T, Hq, Hkv, D,
                                             window):
     g = torch.Generator(device=cuda).manual_seed(T + D + window)
@@ -586,6 +597,42 @@ def test_flash_verify_kernel_at_split_edges(cuda, dt, case):
         torch.testing.assert_close(out[b].float(),
                                    uniform[b].expand(L, -1, -1),
                                    atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_verify_kernel_windowed_at_gq6(cuda, dt):
+    """B5 at mixtral's head group (48 / 8: 30 packed rows, one row tile)
+    with its 4096-token window over a 6208-row view whose segments sit at
+    positions past 6000, so the window masks a slot's first ~2000 keys:
+    within TOL of its plain version, which the window moves."""
+    g = torch.Generator(device=cuda).manual_seed(6208)
+    B, Tk, L, Hq, Hkv, D, win = 4, 6208, 5, 48, 8, 128, 4096
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=cuda).to(dt)
+
+    before = torch.tensor([6200, 5000, 100, 6203], device=cuda)
+    valid = torch.tensor([5, 4, 3, 1], device=cuda)
+    idx = torch.arange(Tk, device=cuda)[None]
+    length = before + valid
+    kv_pos = torch.where(idx < length[:, None], idx, -1).to(torch.int32)
+    bias = torch.where(idx < length[:, None], 0.0, -1e30).float()
+    q_pos = (before[:, None] + torch.arange(L, device=cuda)[None]) \
+        .to(torch.int32)
+    args = (rnd(B, L, Hq, D), rnd(B, Tk, Hkv, D), rnd(B, Tk, Hkv, D),
+            kv_pos.contiguous(), bias.contiguous(), q_pos.contiguous())
+    n_rt, _, _ = fp_ops.verify_splits(B, Hkv, Hq // Hkv * L, Tk,
+                                      torch.cuda.get_device_properties(
+                                          cuda).multi_processor_count)
+    assert n_rt == 1
+    out = fp_ops.flash_verify_cuda(*args, window=win)
+    ref = flash_verify_ref(*args, window=win)
+    torch.cuda.synchronize()
+    atol, rtol = TOL[dt]
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol,
+                               rtol=rtol)
+    assert not torch.equal(ref, flash_verify_ref(*args, window=0))
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
@@ -786,6 +833,66 @@ def test_reduced_engine_on_card_matches_cpu(cuda, pname):
         out["cuda"].decode_steps * cfg.num_layers
     if not pol.spec.track_scores():
         assert fp_ops.flash_prefill_kernel.launches == 3 * cfg.num_layers
+    for a, b in zip(out["cpu"].results, out["cuda"].results):
+        assert a.tokens.tolist() == b.tokens.tolist()
+
+
+@pytest.mark.parametrize("cf", [4.0, 1.25], ids=["drop-free", "cf1.25"])
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "kimi-k2-1t-a32b"])
+def test_moe_apply_on_card_matches_cpu(cuda, arch, cf):
+    """`moe_apply` (and the dense oracle) on the card against the CPU port
+    at a small width in f32: drop-free at the reduced 4 experts top 2; at
+    capacity 1.25 with each config's real experts and top k (8 / 2, 384 /
+    8), where tokens drop. Outputs within 1e-5, the same drop fraction
+    (the fixed-order combine has no atomics), two calls bit-equal."""
+    cfg = reduced(get_config(arch))
+    E, k = cfg.moe.num_experts, cfg.moe.num_experts_per_tok
+    if cf == 1.25:
+        E, k = (get_config(arch).moe.num_experts,
+                get_config(arch).moe.num_experts_per_tok)
+    p = M.init_params(cfg.replace(moe=cfg.moe.__class__(
+        num_experts=E, num_experts_per_tok=k, d_expert=64)), seed=0,
+        device="cpu")["blocks"]["sub0"]["moe"]
+    p = {n: v[0] for n, v in p.items()}
+    x = torch.randn(4, 8, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(1))
+    y, aux = moe_lib.moe_apply(p, x, top_k=k, capacity_factor=cf)
+    yc, auxc = moe_lib.moe_apply(_to(p, "cuda"), x.cuda(), top_k=k,
+                                 capacity_factor=cf)
+    torch.testing.assert_close(yc.cpu(), y, atol=1e-5, rtol=1e-5)
+    assert auxc.drop_fraction.item() == aux.drop_fraction.item()
+    assert (aux.drop_fraction.item() > 0) == (cf == 1.25)
+    yd, _ = moe_lib.moe_apply_dense(_to(p, "cuda"), x.cuda(), top_k=k)
+    if cf == 4.0:
+        torch.testing.assert_close(yd.cpu(), y, atol=1e-4, rtol=1e-4)
+    again, _ = moe_lib.moe_apply(_to(p, "cuda"), x.cuda(), top_k=k,
+                                 capacity_factor=cf)
+    assert torch.equal(again, yc)
+
+
+@pytest.mark.parametrize("arch,pname,paged", [
+    ("mixtral-8x22b", "full", False), ("mixtral-8x22b", "kivi2", True),
+    ("kimi-k2-1t-a32b", "h2o", False)])
+def test_reduced_moe_engine_on_card_matches_cpu(cuda, arch, pname, paged):
+    """Reduced mixtral (window 64, prompts past it) and kimi in f32 at
+    capacity 1.25 over 8 experts (drops couple the slots): the engine on
+    the card (kernels; paged with monolithic admission) gives the CPU's
+    streams."""
+    cfg = reduced(get_config(arch))
+    cfg = cfg.replace(moe=cfg.moe.__class__(
+        num_experts=8, num_experts_per_tok=2, d_expert=256,
+        capacity_factor=1.25))
+    pol = presets(32, 8)[pname]
+    reqs = [torch.randint(0, cfg.vocab_size, (n,), generator=torch
+                          .Generator().manual_seed(n)).numpy()
+            for n in (96, 80, 96)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = _to(M.init_params(cfg, seed=0, device="cpu"), dev)
+        eng = Engine(cfg, params, pol, prompt_len=96, max_new=6, slots=2,
+                     buckets=(80, 96), device=dev, paged=paged)
+        out[dev] = eng.generate_continuous(
+            [Request(tokens=t, max_new=6) for t in reqs])
     for a, b in zip(out["cpu"].results, out["cuda"].results):
         assert a.tokens.tolist() == b.tokens.tolist()
 

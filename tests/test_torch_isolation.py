@@ -13,10 +13,10 @@ torch = pytest.importorskip("torch")
 import repro_torch
 from repro_torch import bridge
 from repro_torch.configs import (base, chameleon_34b, command_r_plus_104b,
-                                 granite_8b, minicpm_2b, paper_llama_7b,
-                                 qwen2_5_32b)
-from repro_torch.core import (budgets, cache, paging, policy, quantization,
-                              sharing)
+                                 granite_8b, kimi_k2_1t_a32b, minicpm_2b,
+                                 mixtral_8x22b, paper_llama_7b, qwen2_5_32b)
+from repro_torch.core import (budgets, cache, eviction, lexico, paging,
+                              policy, quantization, sharing)
 from repro_torch.kernels import build
 from repro_torch.kernels.decode_qattn import ops as dq_ops
 from repro_torch.kernels.decode_qattn import ref as dq_ref
@@ -25,7 +25,7 @@ from repro_torch.kernels.flash_prefill import ref as fp_ref
 from repro_torch.kernels.kvquant import ops as kvq_ops
 from repro_torch.kernels.kvquant import ref as kvq_ref
 from repro_torch.launch import serve
-from repro_torch.nn import attention, blocks, layers, model, rope
+from repro_torch.nn import attention, blocks, layers, model, moe, rope
 from repro_torch import obs
 from repro_torch.obs import metrics, trace
 from repro_torch.serving import (adaptive, cacheblend, engine, prefix,
@@ -33,11 +33,13 @@ from repro_torch.serving import (adaptive, cacheblend, engine, prefix,
                                  speculative)
 
 MODULES = [repro_torch, bridge, base, chameleon_34b, command_r_plus_104b,
-           granite_8b, minicpm_2b, paper_llama_7b, qwen2_5_32b, budgets,
-           cache, paging, policy, quantization, sharing, build, dq_ops,
-           dq_ref, fp_ops, fp_ref, kvq_ops, kvq_ref, serve, attention, blocks,
-           layers, model, rope, obs, metrics, trace, adaptive, cacheblend,
-           engine, prefix, sampler, scheduler, shared_runner, speculative]
+           granite_8b, kimi_k2_1t_a32b, minicpm_2b, mixtral_8x22b,
+           paper_llama_7b, qwen2_5_32b, budgets, cache, eviction, lexico,
+           paging, policy, quantization, sharing, build, dq_ops, dq_ref,
+           fp_ops, fp_ref, kvq_ops, kvq_ref, serve, attention, blocks,
+           layers, model, moe, rope, obs, metrics, trace, adaptive,
+           cacheblend, engine, prefix, sampler, scheduler, shared_runner,
+           speculative]
 
 _CHILD = textwrap.dedent("""
     import importlib, json, os, sys, tempfile
@@ -91,6 +93,10 @@ _CHILD = textwrap.dedent("""
                 "--requests", "2", "--prompt-len", "32", "--max-new", "2",
                 "--slots", "2", "--continuous", "--paged",
                 "--chunked-prefill", "--chunk-len", "16", "--device", "cpu"])
+    serve.main(["--arch", "mixtral-8x22b", "--reduced", "--policy", "kivi2",
+                "--budget", "16", "--window", "8", "--requests", "2",
+                "--max-new", "2", "--slots", "2", "--continuous",
+                "--buckets", "80", "--paged", "--device", "cpu"])
     import torch
     from repro_torch.configs.base import get_config, reduced
     from repro_torch.core.cache import CacheSpec
@@ -129,6 +135,8 @@ def test_port_imports_no_jax_and_no_repro():
     assert "policy=keyformer" in r.stdout, r.stdout
     assert "policy=full continuous requests=2" in r.stdout, r.stdout
     assert "KVSHARER 1 1" in r.stdout, r.stdout
+    assert "policy=kivi2 continuous requests=2 buckets=[80]" in r.stdout, \
+        r.stdout
     assert re.search(r"TRACE [1-9]\d* repro.obs.metrics/1", r.stdout), \
         r.stdout
 
