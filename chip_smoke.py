@@ -83,10 +83,10 @@ Phases, each printing its own lines; any failure exits non-zero:
               time: minicpm-2b (Gq 1, D 64; full and h2o dense),
               qwen2.5-32b (Gq 5, QKV bias; kivi2 paged + chunked through
               the serving CLI, its metrics snapshot read, one decode step
-              profiled), chameleon-34b (Gq 8, the vlm config; full paged +
-              chunked) at full depth, command-r-plus-104b (Gq 12; full
-              dense and speculative with the `same` drafter) on a 16-layer
-              cut; the mixture-of-experts decoders mixtral-8x22b (Gq 6,
+              profiled) at full depth, chameleon-34b (Gq 8, the vlm
+              config; full paged + chunked) on 24 of 48 layers,
+              command-r-plus-104b (Gq 12; full dense and speculative with
+              the `same` drafter) on 8 of 64; the mixture-of-experts decoders mixtral-8x22b (Gq 6,
               window 4096, prompts of 6144 and 2048; full dense, kivi2
               paged with monolithic admission) on 8 of 56 layers and
               kimi-k2-1t-a32b (Gq 8, 384 experts top 8; full and h2o
@@ -95,7 +95,20 @@ Phases, each printing its own lines; any failure exits non-zero:
               step profiled; launches exact, then each config at 4
               layers (or its cut) with the kernels against
               use_kernels=False, dense and paged, an f32 reference path
-              beside them where its weights fit
+              beside them where its weights fit; the hybrid
+              jamba-v0.1-52b (Gq 4; a superblock of 8 layers holds one
+              attention layer and seven Mamba-2 mixers, MoE of 16
+              experts top 2 every second layer) on 16 of 32 layers: full
+              dense and kivi2 paged (monolithic admission), launches
+              exact (2 attention layers), its MoE FFN held to the f32
+              oracle, one decode step profiled, the e2e on one 8-layer
+              superblock, and there the host tier on a starving pool
+              (every preemption spills and restores the slot's SSM state
+              with its blocks) token-equal to its unpreempted twin; then
+              mamba2-130m at full size through the model-level prefill
+              and decode (the engine refuses it: no attention layer),
+              every kernel counter 0, decode continuing prefill in f32,
+              `ssd_chunked` against the sequential recurrence
   8. kvsharer granite-8b through the layer-sharing runner: 9 of 36 layers
               share a calibrated source's cache (27/36 of the model's
               own prefill cache of the same prompts, B2
@@ -586,14 +599,18 @@ VERIFY_ROW_TILES = {1: 1, 5: 1, 6: 1, 8: 2, 12: 2}
 
 def _config_shapes():
     """The head groups the configs phase serves, beside granite's (32 / 8
-    / 128): (configs, Hq, Hkv, D) from the port's own configs, one entry
-    per distinct shape (chameleon's and kimi's are one)."""
+    / 128, which the cases above hold, jamba's among them): (configs,
+    Hq, Hkv, D) from the port's own configs, one entry per distinct shape
+    (chameleon's and kimi's are one)."""
     from repro_torch.configs.base import get_config
+    from repro_torch.configs.granite_8b import CONFIG as granite
+    main = (granite.num_heads, granite.num_kv_heads, granite.head_dim)
     shapes: dict = {}
     for a, _ in CONFIG_RUNS:
         c = get_config(a)
-        shapes.setdefault((c.num_heads, c.num_kv_heads, c.head_dim),
-                          []).append(a)
+        key = (c.num_heads, c.num_kv_heads, c.head_dim)
+        if key != main:
+            shapes.setdefault(key, []).append(a)
     return [(" / ".join(a), *k) for k, a in shapes.items()]
 
 
@@ -2868,12 +2885,18 @@ def _profile_verify(params) -> None:
 
 # layers served where the config's weights leave no room for a pool on
 # one card (bf16 by param_count: command-r-plus-104b 193.4 GiB at 64
-# layers, 52.7 GiB at 16; mixtral-8x22b 261.9 GiB at 56, 38.1 at 8, 56.7
-# at 12; kimi-k2-1t-a32b 1.9 TiB at 61, 36.1 GiB at 1, 67.9 at 2, which
-# leaves too little for the transients); every other config serves at
-# its full depth
-CONFIG_DEPTH = {"command-r-plus-104b": 16, "mixtral-8x22b": 8,
-                "kimi-k2-1t-a32b": 1}
+# layers, 52.7 GiB at 16, 29.3 at 8; mixtral-8x22b 261.9 GiB at 56, 38.1
+# at 8, 56.7 at 12; kimi-k2-1t-a32b 1.9 TiB at 61, 36.1 GiB at 1, 67.9 at
+# 2, which leaves too little for the transients; jamba-v0.1-52b 95.85 GiB
+# at 32 layers, 48.43 at 16 = two of its four 8-layer superblocks, 72.14
+# at 24, which leaves no room for admission transients), or where the
+# script's time asks for it: once jamba and mamba2 joined, the whole run
+# read 759 s on a slow host, so command-r-plus-104b went from 16 layers to
+# 8 and chameleon-34b (63.88 GiB at 48) to 24 (32.94 GiB); every other
+# config serves at its full depth
+CONFIG_DEPTH = {"command-r-plus-104b": 8, "chameleon-34b": 24,
+                "mixtral-8x22b": 8, "kimi-k2-1t-a32b": 1,
+                "jamba-v0.1-52b": 16}
 # prompt buckets where they differ from BUCKETS: mixtral's prompts
 # alternate 2048 / 6144, so half of them cross its 4096-token window in
 # prefill and go on crossing it in decode
@@ -2892,7 +2915,11 @@ CONFIG_BUCKETS = {"mixtral-8x22b": (2048, 6144)}
 # run of an MoE config admits monolithically (`_paged_kw`). Speculative
 # decoding refuses experts as the JAX engine does (its gate is the
 # chunking gate), so no MoE run verifies: B5 meets Gq 6 and the window
-# in phase 3.
+# in phase 3. jamba (the hybrid: 1 attention + 7 Mamba-2 layers a
+# superblock of 8, MoE every second layer) runs B1 / B3 / B2 / B6 at Gq 4,
+# D 128 (granite's group) on its 2 attention layers of 16; chunked
+# prefill and speculation refuse its SSM layers, so its paged run admits
+# monolithically too.
 CONFIG_RUNS = (
     ("minicpm-2b", (("full", False, None), ("h2o", False, None))),
     ("qwen2.5-32b", (("kivi2", True, None),)),
@@ -2900,9 +2927,11 @@ CONFIG_RUNS = (
     ("command-r-plus-104b", (("full", False, None), ("full", False, "same"))),
     ("mixtral-8x22b", (("full", False, None), ("kivi2", True, None))),
     ("kimi-k2-1t-a32b", (("full", False, None), ("h2o", False, None))),
+    ("jamba-v0.1-52b", (("full", False, None), ("kivi2", True, None))),
 )
 # configs whose decode step is profiled (wall against device-busy time)
-CONFIG_PROFILE = ("qwen2.5-32b", "mixtral-8x22b", "kimi-k2-1t-a32b")
+CONFIG_PROFILE = ("qwen2.5-32b", "mixtral-8x22b", "kimi-k2-1t-a32b",
+                  "jamba-v0.1-52b")
 # the MoE FFN at full width against its f32 oracle: MOE_TOKENS tokens of
 # one layer at drop-free capacity, in bf16, within |y - ref| <= atol +
 # rtol * |ref| (two bf16 products with f32 accumulation, each rounded,
@@ -2919,17 +2948,39 @@ QWEN_ARGV = ("--arch", "qwen2.5-32b", "--policy", "kivi2", "--budget",
 
 
 def _layers_view(params, n: int) -> dict:
-    """The first `n` layers of a parameter tree (views, no copy)."""
+    """The first `n` layers of a parameter tree (views, no copy): whole
+    superblocks, over every ``sub{i}``."""
+    sb = len(params["blocks"])
+    assert n % sb == 0, (n, sb)
+
     def head(tree):
         return ({k: head(v) for k, v in tree.items()}
-                if isinstance(tree, dict) else tree[:n])
-    return dict(params, blocks={"sub0": head(params["blocks"]["sub0"])})
+                if isinstance(tree, dict) else tree[:n // sb])
+    return dict(params, blocks=head(params["blocks"]))
+
+
+def _e2e_layers(cfg) -> int:
+    """The e2e depth: E2E_LAYERS, at least one superblock (jamba's 8),
+    no deeper than the served cut."""
+    from repro_torch.nn import model as M
+    return min(max(E2E_LAYERS, M.sb_layout(cfg)[0]), cfg.num_layers)
+
+
+def _n_moe(cfg) -> int:
+    return sum(cfg.ffn_kind(i) == "moe" for i in range(cfg.num_layers))
+
+
+def _first_moe(params) -> dict:
+    """The first layer's MoE FFN leaves (the first sublayer with one)."""
+    sub = next(v for _, v in sorted(params["blocks"].items())
+               if "moe" in v)
+    return {k: v[0] for k, v in sub["moe"].items()}
 
 
 def phase_configs(info: dict) -> None:
-    """minicpm-2b, qwen2.5-32b and chameleon-34b at full width and depth,
-    command-r-plus-104b, mixtral-8x22b and kimi-k2-1t-a32b at full width
-    on the CONFIG_DEPTH cuts, random bf16 weights from seed 0, one config
+    """minicpm-2b and qwen2.5-32b at full width and depth, chameleon-34b,
+    command-r-plus-104b, mixtral-8x22b, kimi-k2-1t-a32b and jamba-v0.1-52b
+    at full width on the CONFIG_DEPTH cuts, random bf16 weights from seed 0, one config
     on the card at a time: every run of CONFIG_RUNS completes all its
     requests with launches exactly as its own step counts predict
     (speculative: its stream agreement with the plain run printed; MoE:
@@ -2939,7 +2990,9 @@ def phase_configs(info: dict) -> None:
     config at E2E_LAYERS depth (or its cut), its logits with the kernels
     against use_kernels=False for each of its policies, dense and paged,
     within E2E_LOGIT_TOL (MoE: with the routing and the KIVI codes pinned
-    to the reference's, `_kernels_vs_reference`)."""
+    to the reference's, `_kernels_vs_reference`); the hybrid's host tier
+    at that depth (`_hybrid_tier`). Then mamba2-130m at full size through
+    the model-level prefill and decode (`_mamba2`)."""
     import numpy as np
     import torch
     from repro_torch.configs.base import get_config
@@ -2950,14 +3003,18 @@ def phase_configs(info: dict) -> None:
         if arch in CONFIG_DEPTH:
             cfg = cfg.replace(num_layers=CONFIG_DEPTH[arch])
         w_gib = cfg.param_count() * 2 / 2**30
+        ssm = (f"; Mamba-2 d_inner {cfg.d_inner} heads {cfg.ssm_heads} x "
+               f"{cfg.ssm.head_dim} d_state {cfg.ssm.d_state}, attention "
+               f"layers {cfg.num_attn_layers()} of {cfg.num_layers}"
+               if cfg.attn_layer_period else "")
         print(f"[configs] {arch}: {cfg.num_layers}"
               f"{'' if arch not in CONFIG_DEPTH else ' (cut)'} layers "
               f"d_model {cfg.d_model} heads {cfg.num_heads}/"
               f"{cfg.num_kv_heads} (Gq {cfg.num_heads // cfg.num_kv_heads}) "
               f"D {cfg.head_dim} d_ff {cfg.d_ff} vocab {cfg.vocab_size} "
               f"qkv_bias {cfg.qkv_bias} tied {cfg.tie_embeddings} "
-              f"rope_theta {cfg.rope_theta:g} arch_type {cfg.arch_type}; "
-              f"{w_gib:.1f} GiB of bf16 weights")
+              f"rope_theta {cfg.rope_theta:g} arch_type {cfg.arch_type}"
+              f"{ssm}; {w_gib:.2f} GiB of bf16 weights")
         buckets = CONFIG_BUCKETS.get(arch, BUCKETS)
         rng = np.random.default_rng(0)
         prompts = [rng.integers(0, cfg.vocab_size, size=buckets[i % 2])
@@ -2974,13 +3031,18 @@ def phase_configs(info: dict) -> None:
         # the e2e's first layers, copied so that the served weights go
         # before its f32 witness is cast (a cut no deeper than the e2e
         # serves them as they are)
-        if cfg.num_layers > E2E_LAYERS:
-            params = _tree(torch.clone, _layers_view(params, E2E_LAYERS))
+        if cfg.num_layers > _e2e_layers(cfg):
+            params = _tree(torch.clone,
+                           _layers_view(params, _e2e_layers(cfg)))
         torch.cuda.empty_cache()
         _config_e2e(info, cfg, params, sorted({p for p, _, _ in runs}),
                     buckets)
+        if cfg.attn_layer_period:
+            _hybrid_tier(info, cfg.replace(num_layers=_e2e_layers(cfg)),
+                         params, prompts)
         del params, plain
         torch.cuda.empty_cache()
+    _mamba2(info)
 
 
 @contextlib.contextmanager
@@ -3019,6 +3081,7 @@ def _config_run(info, cfg, params, pname, paged, draft, prompts, kernels,
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.scheduler import Request
     L = cfg.num_layers
+    n_attn, n_moe = cfg.num_attn_layers(), _n_moe(cfg)
     cli = cfg.name == "qwen2.5-32b"
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3075,7 +3138,7 @@ def _config_run(info, cfg, params, pname, paged, draft, prompts, kernels,
              f"{eng.last_audit['clean']}" if paged else "")
           + "; launches " + " ".join(f"{k} {v}" for k, v in n.items())
           + f"; {info['smi']}")
-    row = dict(label=label, layers=L, completed=len(done),
+    row = dict(label=label, layers=L, attn_layers=n_attn, completed=len(done),
                tok_s=res.decode_tokens_per_s, ttft=res.ttft_mean_s,
                prefill_s=res.prefill_seconds, wall=wall,
                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
@@ -3101,21 +3164,21 @@ def _config_run(info, cfg, params, pname, paged, draft, prompts, kernels,
     if paged and not (eng.last_audit["clean"]
                       and res.pool_peak_blocks <= res.pool_blocks):
         fail(f"{label}: pool audit {eng.last_audit}")
-    want = _want_launches(eng, res, L, N_SHORT, segments)
+    want = _want_launches(eng, res, n_attn, N_SHORT, segments)
     if n != want:
         fail(f"{label}: kernel launches {n}, want {want} "
              f"({res.decode_steps} decode steps, {res.kv_flush_steps} flush "
-             f"steps, {L} layers"
+             f"steps, {n_attn} attention layers of {L}"
              f"{'; ' + res.spec.describe() if res.spec else ''})")
     if cfg.is_moe:
-        dec = torch.stack(drops["decode"]).view(-1, L).mean(0).tolist()
-        pre = torch.stack(drops["prefill"]).view(-1, L).mean(0).tolist()
+        dec = torch.stack(drops["decode"]).view(-1, n_moe).mean(0).tolist()
+        pre = torch.stack(drops["prefill"]).view(-1, n_moe).mean(0).tolist()
         print(f"[configs]   {label}: MoE drop fraction a layer at decode "
               f"(capacity {cfg.moe.capacity_factor}, {SLOTS} slots x top "
               f"{cfg.moe.num_experts_per_tok} over "
               f"{cfg.moe.num_experts} experts: "
               f"{_moe_cap(cfg, SLOTS)} rows an expert), mean over "
-              f"{len(drops['decode']) // L} steps: "
+              f"{len(drops['decode']) // n_moe} steps: "
               + " ".join(f"{x:.4f}" for x in dec)
               + "; at admission: " + " ".join(f"{x:.4f}" for x in pre)
               + " (printed, not gated)")
@@ -3177,7 +3240,7 @@ def _moe_oracle(info, cfg, params) -> None:
     import numpy as np
     import torch
     from repro_torch.nn import moe as moe_lib
-    p = {k: v[0] for k, v in params["blocks"]["sub0"]["moe"].items()}
+    p = _first_moe(params)
     E, k = cfg.moe.num_experts, cfg.moe.num_experts_per_tok
     g = torch.Generator(device="cuda").manual_seed(MOE_TOKENS)
     x = torch.randn(1, MOE_TOKENS, cfg.d_model, generator=g,
@@ -3253,7 +3316,7 @@ def _profile_config_step(info, cfg, params, buckets) -> None:
     row = _profile_decode_step("[configs]", f"{cfg.name} kivi2 paged "
                                f"({cfg.num_layers} layers)", step)
     if cfg.is_moe:
-        p = {k: v[0] for k, v in params["blocks"]["sub0"]["moe"].items()}
+        p = _first_moe(params)
         cap = _moe_cap(cfg, SLOTS)
         g = torch.Generator(device="cuda").manual_seed(cap)
         E, Dm, F_ = cfg.moe.num_experts, cfg.d_model, cfg.moe.d_expert
@@ -3273,7 +3336,7 @@ def _profile_config_step(info, cfg, params, buckets) -> None:
         print(f"[configs]   {cfg.name} expert products of one decode step "
               f"({E} experts x {cap} rows, one layer): {ms:.4f} ms, bound "
               f"{b_ms:.4f} ms by {by} ({b_ms / ms:.1%} of it); "
-              f"x{cfg.num_layers} layers {ms * cfg.num_layers:.3f} ms of "
+              f"x{_n_moe(cfg)} MoE layers {ms * _n_moe(cfg):.3f} ms of "
               "the step")
         row.update(expert_ms=ms, expert_bound_ms=b_ms)
         del buf, h
@@ -3290,11 +3353,11 @@ def _config_e2e(info, cfg, params4, pnames, buckets) -> None:
     as phase 5 does, where the f32 copy fits (not for experts: mixtral's
     4 layers are 39 GiB in f32, kimi's one 72 GiB). Prompts are
     `buckets[-1]` long: mixtral's 6144 cross its 4096-token window in both
-    paths."""
+    paths. The hybrid runs one whole superblock (`_e2e_layers`)."""
     import numpy as np
     import torch
     from repro_torch.core.policy import presets
-    n = min(E2E_LAYERS, cfg.num_layers)
+    n = _e2e_layers(cfg)
     cfg4 = cfg.replace(num_layers=n)
     witness = (None if cfg.is_moe else
                (cfg4.replace(dtype=torch.float32),
@@ -3333,6 +3396,258 @@ def _config_e2e(info, cfg, params4, pnames, buckets) -> None:
                      f"{max(kr):.4f} > {E2E_LOGIT_TOL}")
             torch.cuda.empty_cache()
     del witness
+    torch.cuda.empty_cache()
+
+
+def _hybrid_tier(info, cfg, params, prompts) -> None:
+    """The hybrid's host tier at `cfg`'s depth (one superblock), on the
+    configs phase's traffic: `full` paged (monolithic admission) with lazy
+    growth, preemption and the host-RAM tier on the starving pool of the
+    serve phase's overload runs (784 blocks: the same prompts need 776 to
+    admit and 800 to finish), against its unpreempted twin at the parity
+    pool. Every preemption spills the slot's blocks, metadata and Mamba-2
+    state to host and restores them (`_check_tier_run`'s gates: nothing
+    recomputed or replayed), the periodic audits are clean, and the bf16
+    streams equal the twin's token for token, which they do only if the
+    SSM state rides through the spill. Expert capacity couples the slots
+    of a decode step and a preemption changes which slots hold requests,
+    so both runs route drop-free (capacity = the expert count): what is
+    compared is the tier, not the drops."""
+    import dataclasses
+    import torch
+    from repro_torch.core.policy import presets
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.scheduler import Request
+    cfg = cfg.replace(moe=dataclasses.replace(
+        cfg.moe, capacity_factor=float(cfg.moe.num_experts)))
+    pol = presets(budget=BUDGET, window=WINDOW)["full"]
+    runs = {}
+    for tag, kw in (("twin", {}),
+                    ("tier", dict(pool_blocks=784, block_growth="lazy",
+                                  preemption=True, tiering=True,
+                                  audit_every=OVERLOAD_AUDIT))):
+        eng = Engine(cfg, params, pol, prompt_len=max(BUCKETS),
+                     max_new=MAX_NEW, slots=SLOTS, buckets=BUCKETS,
+                     paged=True, **kw)
+        n_audit = _counted_audits(eng)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res = eng.generate_continuous([Request(tokens=p, max_new=MAX_NEW)
+                                       for p in prompts])
+        torch.cuda.synchronize()
+        runs[tag] = (eng, res, time.perf_counter() - t1, n_audit)
+    eng, res, wall, n_audit = runs["tier"]
+    _, base, base_wall, _ = runs["twin"]
+    label = (f"{cfg.name} full paged lazy+preemption+tier pool "
+             f"{eng.pool_blocks} ({cfg.num_layers} layers, drop-free "
+             "experts)")
+    n_pre = sum(r.n_preemptions for r in res.results)
+    done = [r for r in res.results if r.finish_reason == "length"
+            and r.n_tokens == MAX_NEW]
+    same = sum(a.tokens.tolist() == b.tokens.tolist()
+               for a, b in zip(res.results, base.results))
+    print(f"[configs] {label}: {len(done)}/{N_SHORT} requests completed; "
+          f"{n_pre} preemptions "
+          f"({[r.n_preemptions for r in res.results]} per request), "
+          f"{len(res.recomputed_uids)} re-admissions recomputed, "
+          f"{res.replayed_tokens} tokens replayed; decode "
+          f"{res.decode_tokens_per_s:.1f} tok/s over {res.decode_steps} "
+          f"steps vs the twin's {base.decode_tokens_per_s:.1f} over "
+          f"{base.decode_steps}; pool peak {res.pool_peak_blocks}/"
+          f"{res.pool_blocks}; {n_audit[0]} device-table audits, last clean="
+          f"{eng.last_audit['clean']}; bf16 streams equal to the "
+          f"unpreempted twin: {same}/{N_SHORT}; wall {wall:.2f} s (twin "
+          f"{base_wall:.2f} s)")
+    row = dict(label=label, preemptions=n_pre, streams_equal=same,
+               tok_s=res.decode_tokens_per_s,
+               twin_tok_s=base.decode_tokens_per_s, wall=wall)
+    if len(done) != N_SHORT or len(base.results) != N_SHORT:
+        fail(f"{label}: only {len(done)} of {N_SHORT} requests completed")
+    if n_pre < 1:
+        fail(f"{label}: the pool never starved (no preemption)")
+    if not (n_audit[0] >= 1 and eng.last_audit["clean"]
+            and res.pool_peak_blocks <= res.pool_blocks):
+        fail(f"{label}: {n_audit[0]} device-table audits, last "
+             f"{eng.last_audit}")
+    _check_tier_run(info, label, eng, res, n_pre, row,
+                    dict(tok_s=base.decode_tokens_per_s,
+                         ttft=base.ttft_mean_s))
+    if same != N_SHORT:
+        fail(f"{label}: {N_SHORT - same} bf16 streams differ from the "
+             "unpreempted twin's")
+    info.setdefault("hybrid_tier", []).append(row)
+    del runs, eng, res, base
+    torch.cuda.empty_cache()
+
+
+# mamba2-130m at full size (24 layers, d_model 768, 0.24 GiB of bf16
+# weights) through the model-level prefill and greedy decode (the engine
+# needs an attention layer and refuses it): two batches of MAMBA_BATCH
+# prompts, of BUCKETS[0] and BUCKETS[1] tokens, MAX_NEW new tokens each;
+# in f32, decode continues prefill within MAMBA_CONT_TOL (the bound of
+# tests/test_system.py); `ssd_chunked` at its real shapes (H 24, P 64,
+# N 128, chunk 256) over whole and ragged sequences against the
+# sequential f32 recurrence within SSD_TOL (tests/test_ssm.py's bound)
+MAMBA_BATCH = 4
+MAMBA_CONT_TOL = 2e-3
+SSD_TOL = (2e-4, 1e-3)
+SSD_T = (2048, 2000)
+
+
+def _ssd_sequential(x, dt, A, B_, C_):
+    """The SSD as its recurrence, one step a token, in f32."""
+    import torch
+    Bsz, T, H, P = x.shape
+    rep = H // B_.shape[2]
+    Bh = torch.repeat_interleave(B_, rep, dim=2)
+    Ch = torch.repeat_interleave(C_, rep, dim=2)
+    h = torch.zeros(Bsz, H, P, B_.shape[3], device=x.device)
+    ys = torch.empty(Bsz, T, H, P, device=x.device)
+    for t in range(T):
+        h = (h * torch.exp(dt[:, t] * A)[:, :, None, None]
+             + (dt[:, t, :, None] * Bh[:, t])[:, :, None, :]
+             * x[:, t, :, :, None])
+        ys[:, t] = torch.einsum("bhn,bhpn->bhp", Ch[:, t], h)
+    return ys, h
+
+
+def _mamba2(info) -> None:
+    """mamba2-130m at full size on the card, random bf16 weights from seed
+    0: `nn.model.prefill` + greedy `decode_step` over two batches (tok/s
+    and prefill seconds printed; every token id in range, logits finite);
+    no kernel counter moves across these runs (no TPU kernel lies on the
+    SSM path). In f32 on the same weights: the logits after decoding
+    prompt token T equal the last logits of a T+1 prefill within
+    MAMBA_CONT_TOL, and the bf16 logits beside the f32 ones are printed.
+    `ssd_chunked` at the config's shapes against `_ssd_sequential`."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.cache import CacheSpec
+    from repro_torch.nn import model as M
+    from repro_torch.nn import ssm as ssm_lib
+    cfg = get_config("mamba2-130m")
+    kernels = _kernel_objs()
+    for k in kernels.values():
+        k.launches = 0
+    # the earlier engines sit in reference cycles (`_counted_audits`
+    # wraps a bound method) with jamba's weights: free them first, so
+    # the peak below is mamba2's own
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cfg, seed=0, device="cuda")
+    rng = np.random.default_rng(0)
+    print(f"[configs] mamba2-130m: {cfg.num_layers} layers d_model "
+          f"{cfg.d_model}, Mamba-2 d_inner {cfg.d_inner} heads "
+          f"{cfg.ssm_heads} x {cfg.ssm.head_dim} d_state {cfg.ssm.d_state} "
+          f"chunk {cfg.ssm.chunk_size}, vocab {cfg.vocab_size} (tied), no "
+          f"attention and no FFN; {cfg.param_count() * 2 / 2**30:.2f} GiB "
+          "of bf16 weights")
+    rows = []
+    first = None
+    for T in BUCKETS:
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                            (MAMBA_BATCH, T)), device="cuda")
+        spec = CacheSpec(budget=T + MAX_NEW)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = M.prefill(params, cfg, {"tokens": toks}, spec)
+        tok = torch.argmax(lg, -1)[:, None]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = [tok]
+        for _ in range(MAX_NEW - 1):
+            lg, cache = M.decode_step(params, cfg, cache, tok, spec)
+            tok = torch.argmax(lg, -1)[:, None]
+            out.append(tok)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        out = torch.cat(out, 1)
+        tok_s = MAMBA_BATCH * (MAX_NEW - 1) / (t2 - t1)
+        print(f"[configs] mamba2-130m bf16: {MAMBA_BATCH} prompts of {T}: "
+              f"prefill {t1 - t0:.3f} s, decode {tok_s:.1f} tok/s over "
+              f"{MAX_NEW - 1} steps ({(t2 - t1) / (MAX_NEW - 1) * 1e3:.2f} "
+              f"ms a step); SSM state {cache.ssm.state.numel() * 4 / 2**20:.1f}"
+              f" MiB f32 + conv {cache.ssm.conv.numel() * 2 / 2**20:.2f} MiB"
+              f" for the batch, whatever T; {info['smi']}")
+        rows.append(dict(T=T, prefill_s=t1 - t0, tok_s=tok_s))
+        if not (torch.isfinite(lg).all() and out.min() >= 0
+                and out.max() < cfg.vocab_size):
+            fail(f"mamba2-130m T {T}: non-finite logits or token ids out "
+                 "of range")
+        if first is None:
+            first = (toks, out)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    moved = {n: k.launches for n, k in kernels.items() if k.launches}
+    print(f"[configs] mamba2-130m: kernel counters across both batches "
+          f"{moved or 'all 0'} (no TPU kernel on the SSM path); peak "
+          f"allocated {peak:.2f} GiB")
+    if moved:
+        fail(f"mamba2-130m launched kernels {moved}")
+
+    # f32: decode continues prefill; bf16 beside f32
+    cfg32 = cfg.replace(dtype=torch.float32)
+    p32 = _cast(params, torch.float32)
+    toks, out = first
+    T = toks.shape[1]
+    spec = CacheSpec(budget=T + MAX_NEW)
+    lg, cache = M.prefill(p32, cfg32, {"tokens": toks[:, :-1]}, spec)
+    lg_dec, _ = M.decode_step(p32, cfg32, cache, toks[:, -1:], spec)
+    lg_full, _ = M.prefill(p32, cfg32, {"tokens": toks}, spec)
+    cont = (lg_dec - lg_full).abs().max().item()
+    lg16, c16 = M.prefill(params, cfg, {"tokens": toks}, spec)
+    lg32, c32 = lg_full, M.prefill(p32, cfg32, {"tokens": toks}, spec)[1]
+    d_pre = (lg16 - lg32).abs().max().item()
+    d_dec = []
+    for t in range(4):
+        tok = out[:, t:t + 1]
+        lg16, c16 = M.decode_step(params, cfg, c16, tok, spec)
+        lg32, c32 = M.decode_step(p32, cfg32, c32, tok, spec)
+        d_dec.append((lg16 - lg32).abs().max().item())
+    print(f"[configs] mamba2-130m f32: decode of token {T} after a "
+          f"{T - 1}-token prefill vs a {T}-token prefill max|dlogit| "
+          f"{cont:.3g} (tol {MAMBA_CONT_TOL}); bf16 vs f32 max|dlogit| "
+          f"prefill {d_pre:.4f}, 4 decode steps {max(d_dec):.4f} (max|logit|"
+          f" {lg_full.abs().max().item():.2f}; printed, not gated)")
+    if not (math.isfinite(cont) and cont <= MAMBA_CONT_TOL):
+        fail(f"mamba2-130m: decode does not continue prefill ({cont:.3g})")
+    del p32, cache, c16, c32
+    torch.cuda.empty_cache()
+
+    # ssd_chunked at the real shapes against the recurrence
+    H, P, N = cfg.ssm_heads, cfg.ssm.head_dim, cfg.ssm.d_state
+    g = torch.Generator(device="cuda").manual_seed(0)
+    errs = []
+    for T in SSD_T:
+        x = torch.randn(1, T, H, P, generator=g, device="cuda")
+        dt = torch.nn.functional.softplus(
+            torch.randn(1, T, H, generator=g, device="cuda") - 1)
+        A = -torch.exp(torch.randn(H, generator=g, device="cuda") * 0.5)
+        B_ = torch.randn(1, T, 1, N, generator=g, device="cuda") * 0.3
+        C_ = torch.randn(1, T, 1, N, generator=g, device="cuda") * 0.3
+        t0 = time.perf_counter()
+        y, fin = ssm_lib.ssd_chunked(x, dt, A, B_, C_,
+                                     min(cfg.ssm.chunk_size, T))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        ys, hs = _ssd_sequential(x, dt, A, B_, C_)
+        e_y = check_close(f"mamba2 ssd_chunked y T {T}", y, ys, *SSD_TOL)
+        e_h = check_close(f"mamba2 ssd_chunked state T {T}", fin, hs,
+                          *SSD_TOL)
+        print(f"[configs] mamba2-130m ssd_chunked H {H} P {P} N {N} chunk "
+              f"{min(cfg.ssm.chunk_size, T)} T {T}"
+              f"{' (ragged: padded to whole chunks)' if T % 256 else ''}: "
+              f"vs the sequential f32 recurrence max|err| y {e_y:.3g}, final"
+              f" state {e_h:.3g} (tol {SSD_TOL}); {ms:.2f} ms (first call "
+              "included)")
+        errs.append(max(e_y, e_h))
+    info["mamba2"] = dict(runs=rows, cont=cont, bf16_prefill=d_pre,
+                          bf16_decode=max(d_dec), ssd_err=max(errs),
+                          peak_gib=peak)
+    del params
     torch.cuda.empty_cache()
 
 

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import paging
-from repro_torch.core.cache import LayerKV
+from repro_torch.core.cache import LayerKV, SSMState
 
 
 def tensor_from_numpy(a, device=None) -> torch.Tensor:
@@ -61,3 +61,23 @@ def paged_kv_from_numpy(p, device=None) -> paging.PagedLayerKV:
             t = torch.cat([t, t.new_zeros(shape)], dim=axis)
         out[f] = t
     return paging.PagedLayerKV(**out)
+
+
+def ssm_state_from_numpy(st, device=None) -> SSMState:
+    """A JAX `SSMState` (leaves as numpy) -> the port's, same dtypes."""
+    return SSMState(*(tensor_from_numpy(getattr(st, f), device)
+                      for f in SSMState._fields))
+
+
+def model_cache_from_numpy(c, device=None):
+    """A JAX `ModelCache` (leaves as numpy; no cross-attention memory)
+    -> the port's: its attention part dense or paged, plus its SSM
+    part."""
+    from repro_torch.nn.model import ModelCache
+    attn = None
+    if c.attn is not None:
+        attn = (layer_kv_from_numpy(c.attn, device)
+                if hasattr(c.attn, "k") else paged_kv_from_numpy(c.attn,
+                                                                  device))
+    ssm = None if c.ssm is None else ssm_state_from_numpy(c.ssm, device)
+    return ModelCache(attn, ssm)

@@ -1,10 +1,11 @@
 """Model configuration (counterpart of `repro.configs.base`).
 
-The port serves decoders over token ids whose every layer attends so far
-(`arch_type` "dense"; "vlm": early fusion puts the image tokens in the
-vocabulary; "moe": a mixture-of-experts FFN, `MoEConfig`): `get_config`
-knows the eight reference configs of those kinds (`ARCH_IDS`). `dtype`
-is a torch dtype;
+The port serves decoders over token ids (`arch_type` "dense"; "vlm":
+early fusion puts the image tokens in the vocabulary; "moe": a
+mixture-of-experts FFN, `MoEConfig`; "ssm": Mamba-2 mixers only, no
+attention; "hybrid": one attention layer per `attn_layer_period` layers,
+Mamba-2 mixers between, `SSMConfig`): `get_config` knows the ten
+reference configs of those kinds (`ARCH_IDS`). `dtype` is a torch dtype;
 `use_kernels` selects the CUDA kernels (on the card; their plain
 versions on the CPU) against the materialize / matmul reference path.
 """
@@ -17,9 +18,8 @@ from typing import Any
 
 import torch
 
-# the arch kinds the port builds; "ssm", "hybrid" and "audio" wait for
-# their mixers (Mamba2, the encoder-decoder)
-PORTED_ARCH_TYPES = ("dense", "vlm", "moe")
+# the arch kinds the port builds; "audio" waits for the encoder-decoder
+PORTED_ARCH_TYPES = ("dense", "vlm", "moe", "ssm", "hybrid")
 
 
 @dataclass(frozen=True)
@@ -34,9 +34,21 @@ class MoEConfig:
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    d_state: int = 128
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64
+    n_groups: int = 1
+    chunk_size: int = 256
+    dt_min: float = 1e-3
+    dt_max: float = 0.1
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
-    arch_type: str                 # "dense" | "vlm" | "moe" (ported so far)
+    arch_type: str                 # dense | vlm | moe | ssm | hybrid
     source: str                    # citation for the config
     num_layers: int
     d_model: int
@@ -53,6 +65,12 @@ class ModelConfig:
     rope_theta: float = 10_000.0
     sliding_window: int = 0        # 0 = full attention
     moe: MoEConfig = field(default_factory=MoEConfig)
+    ssm: SSMConfig = field(default_factory=SSMConfig)
+    # hybrid interleave: 1 attention layer per `attn_layer_period` layers,
+    # at offset `attn_layer_offset`; the rest are SSM mixers. 0 = attention
+    # everywhere (or SSM everywhere for arch_type == "ssm").
+    attn_layer_period: int = 0
+    attn_layer_offset: int = 0
     dtype: Any = torch.bfloat16
     # the fused decode-attention and flash-prefill kernels (True), or the
     # materialize / matmul reference path (False: tests and the on-card
@@ -71,8 +89,26 @@ class ModelConfig:
     def is_moe(self) -> bool:
         return self.moe.num_experts > 0
 
+    @property
+    def is_ssm_only(self) -> bool:
+        return self.arch_type == "ssm"
+
+    @property
+    def d_inner(self) -> int:
+        """Mamba2 inner width."""
+        return self.ssm.expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm.head_dim
+
     def layer_kind(self, idx: int) -> str:
-        """Mixer kind of layer `idx`: "attn" for every kind ported so far."""
+        """Mixer kind of layer `idx`: "attn" or "ssm"."""
+        if self.arch_type == "ssm":
+            return "ssm"
+        if self.attn_layer_period > 0:
+            return ("attn" if idx % self.attn_layer_period
+                    == self.attn_layer_offset else "ssm")
         return "attn"
 
     def ffn_kind(self, idx: int) -> str:
@@ -92,11 +128,20 @@ class ModelConfig:
         hq = self.num_heads * self.head_dim
         hkv = self.num_kv_heads * self.head_dim
         n = self.vocab_size * self.d_model * (1 if self.tie_embeddings else 2)
+        G, N, H = self.ssm.n_groups, self.ssm.d_state, self.ssm_heads
+        d_in = self.d_inner
         for i in range(self.num_layers):
             n += 2 * self.d_model                                # norms
-            n += self.d_model * (hq + 2 * hkv) + hq * self.d_model
-            if self.qkv_bias:
-                n += hq + 2 * hkv
+            if self.layer_kind(i) == "attn":
+                n += self.d_model * (hq + 2 * hkv) + hq * self.d_model
+                if self.qkv_bias:
+                    n += hq + 2 * hkv
+            else:
+                n += self.d_model * (2 * d_in + 2 * G * N + H)   # in proj
+                n += (d_in + 2 * G * N) * self.ssm.d_conv        # conv
+                n += 3 * H                                       # A, D, dt_bias
+                n += d_in * self.d_model                         # out proj
+                n += d_in                                        # gated norm
             if self.ffn_kind(i) == "moe":
                 e = self.moe
                 n += e.num_experts * 3 * self.d_model * e.d_expert
@@ -117,9 +162,11 @@ class ModelConfig:
         return n - n_moe_layers * inactive * 3 * self.d_model * e.d_expert
 
     def kv_bytes_per_token(self, bytes_per_elt: float = 2.0) -> float:
-        """KV-cache bytes per token per sequence (the survey's core metric)."""
-        return (self.num_layers * 2 * self.num_kv_heads * self.head_dim
-                * bytes_per_elt)
+        """KV-cache bytes per token per sequence (the survey's core
+        metric): attention layers only, an SSM layer's state is constant
+        in sequence length."""
+        return (self.num_attn_layers() * 2 * self.num_kv_heads
+                * self.head_dim * bytes_per_elt)
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
@@ -146,6 +193,13 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
             d_expert=min(cfg.moe.d_expert, 256),
             capacity_factor=float(min(cfg.moe.num_experts, 4)),  # drop-free
         )
+    if cfg.arch_type in ("ssm", "hybrid"):
+        kw["ssm"] = dataclasses.replace(
+            cfg.ssm, d_state=min(cfg.ssm.d_state, 32), head_dim=32,
+            chunk_size=32)
+    if cfg.attn_layer_period > 0:
+        kw["attn_layer_period"] = 2
+        kw["attn_layer_offset"] = 1
     if cfg.sliding_window:
         kw["sliding_window"] = 64
     kw.update(overrides)
@@ -155,11 +209,13 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
 # the reference's order (`repro.configs.base.ARCH_IDS`), restricted to
 # the configs the port knows
 ARCH_IDS = [
+    "mamba2-130m",
     "mixtral-8x22b",
     "qwen2.5-32b",
     "minicpm-2b",
     "chameleon-34b",
     "command-r-plus-104b",
+    "jamba-v0.1-52b",
     "kimi-k2-1t-a32b",
     "granite-8b",
     # the survey's own comparison model family
@@ -167,11 +223,13 @@ ARCH_IDS = [
 ]
 
 _MODULE_FOR: dict[str, str] = {
+    "mamba2-130m": "mamba2_130m",
     "mixtral-8x22b": "mixtral_8x22b",
     "qwen2.5-32b": "qwen2_5_32b",
     "minicpm-2b": "minicpm_2b",
     "chameleon-34b": "chameleon_34b",
     "command-r-plus-104b": "command_r_plus_104b",
+    "jamba-v0.1-52b": "jamba_v0_1_52b",
     "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
     "granite-8b": "granite_8b",
     "paper-llama-7b": "paper_llama_7b",

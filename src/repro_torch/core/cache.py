@@ -37,7 +37,9 @@ same key); `compress_prompt` and `append_segment` take the generator and
 draw where the JAX functions draw. Without a generator nothing is drawn
 and both policies rank by the plain mass.
 
-Not ported yet: `SSMState`.
+A Mamba-2 layer's "cache" is its `SSMState` (the conv window and the
+recurrent state, constant in sequence length); `insert_request_tree` /
+`reset_slot_tree` are its per-slot surgery, in place as well.
 """
 from __future__ import annotations
 
@@ -314,6 +316,24 @@ def reset_slot(stacked: LayerKV, slot_idx: int, *,
         if f != "budget":
             getattr(stacked, f).narrow(batch_axis, slot_idx, 1).fill_(
                 -1 if f == "slot_pos" else 0)
+    return stacked
+
+
+def insert_request_tree(stacked, slot_idx: int, prefilled, *,
+                        batch_axis: int):
+    """Generic scatter over a NamedTuple of tensors (an `SSMState`): every
+    leaf of `prefilled` (batch 1 at `batch_axis`) replaces batch position
+    `slot_idx` of `stacked`, in place."""
+    for d, s in zip(stacked, prefilled):
+        d.narrow(batch_axis, slot_idx, 1).copy_(s)
+    return stacked
+
+
+def reset_slot_tree(stacked, slot_idx: int, *, batch_axis: int,
+                    fill: float = 0.0):
+    """Generic clear of batch position `slot_idx`, in place."""
+    for d in stacked:
+        d.narrow(batch_axis, slot_idx, 1).fill_(fill)
     return stacked
 
 
@@ -712,8 +732,35 @@ def compress_prompt(spec: CacheSpec, k: torch.Tensor, v: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# SSM / conv state (Mamba2 layers): the attention-free "cache"
+# ---------------------------------------------------------------------------
+
+
+class SSMState(NamedTuple):
+    conv: torch.Tensor    # [B, d_conv-1, conv_dim] model dtype
+    state: torch.Tensor   # [B, H, P, N] f32
+
+
+def init_ssm_state(batch: int, conv_dim: int, d_conv: int, heads: int,
+                   head_dim: int, d_state: int, *, dtype=torch.bfloat16,
+                   device=None, lead: Sequence[int] = ()) -> SSMState:
+    """Zero state; `lead` prepends layer dims (the model's ``[n_sb, nS]``)."""
+    return SSMState(
+        conv=torch.zeros(*lead, batch, d_conv - 1, conv_dim, dtype=dtype,
+                         device=device),
+        state=torch.zeros(*lead, batch, heads, head_dim, d_state,
+                          dtype=torch.float32, device=device))
+
+
+# ---------------------------------------------------------------------------
 # Bytes accounting
 # ---------------------------------------------------------------------------
+
+
+def tree_bytes(tree) -> int:
+    """Bytes of every tensor of a NamedTuple of tensors (None: 0)."""
+    return 0 if tree is None else sum(t.numel() * t.element_size()
+                                      for t in tree)
 
 
 def cache_physical_bytes(lc) -> int:
@@ -722,7 +769,7 @@ def cache_physical_bytes(lc) -> int:
     if not isinstance(lc, LayerKV):
         from repro_torch.core import paging
         return paging.paged_physical_bytes(lc)
-    return sum(t.numel() * t.element_size() for t in lc)
+    return tree_bytes(lc)
 
 
 def cache_logical_bytes_per_layer(spec: CacheSpec, max_len: int,

@@ -2,8 +2,8 @@
 `repro.core.quantization`): KIVI quantization of the main store
 (asymmetric min/max, keys per channel over sequence groups, values per
 token; codes bit-packed into int8 lanes), QAQ-style mixed bit widths and
-the GEAR low-rank + sparse-outlier residual. SSM-state quantization waits
-for the SSM mixer.
+the GEAR low-rank + sparse-outlier residual, and the SSM-state quantizer
+of attention-free layers.
 
 GEAR's power iteration starts from a Gaussian draw; it goes through
 `normal` (as `lexico`'s dictionary does), where the JAX function draws
@@ -190,6 +190,22 @@ def _scatter_last(x: torch.Tensor, idx: torch.Tensor,
     out = x.reshape(-1, N).clone()
     out.scatter_add_(1, idx.reshape(-1, k), vals.reshape(-1, k).to(out.dtype))
     return out.reshape(*lead, N)
+
+
+# ---------------------------------------------------------------------------
+# SSM-state quantization: for attention-free layers the recurrent state
+# [B, H, P, N] is the "cache"; min-max per (B, H, P) row over N.
+# ---------------------------------------------------------------------------
+
+
+def quantize_ssm_state(state: torch.Tensor, bits: int = 8) -> Quantized:
+    """state: [B, H, P, N] f32 -> codes + per-(B, H, P) scale / zero."""
+    return _minmax_quant(state, bits, dims=(-1,))
+
+
+def dequantize_ssm_state(qz: Quantized,
+                         dtype=torch.float32) -> torch.Tensor:
+    return qz.dequantize(dtype)
 
 
 def kv_logical_bytes(

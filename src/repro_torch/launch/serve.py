@@ -57,6 +57,14 @@ seed, on the card unless ``--device cpu``.
         --policy kivi2 --budget 32 --window 8 --continuous \
         --buckets 80,96 --paged
 
+    # the hybrid (reduced jamba-v0.1-52b: a Mamba-2 mixer and an
+    # attention layer with an MoE FFN per superblock); the attention
+    # layers hold the compressed cache, the Mamba-2 layers their
+    # constant-size state. mamba2-130m has no attention layer: the engine
+    # refuses it (serve it through nn.model.prefill / decode_step)
+    python -m repro_torch.launch.serve --arch jamba-v0.1-52b --reduced \\
+        --policy kivi2 --budget 32 --window 8 --continuous --paged
+
     # telemetry: a Chrome trace (Perfetto / chrome://tracing) and the
     # metrics snapshot (schema "repro.obs.metrics/1") of a run
     python -m repro_torch.launch.serve --arch granite-8b --reduced \

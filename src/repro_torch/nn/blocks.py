@@ -1,8 +1,9 @@
-"""Decoder blocks: attention mixer + (dense SwiGLU | MoE) FFN, pre-norm
-residual (counterpart of `repro.nn.blocks` for `attn` mixers):
+"""Decoder blocks: (attention | Mamba-2) mixer + (dense SwiGLU | MoE |
+no) FFN, pre-norm residual (counterpart of `repro.nn.blocks`):
 monolithic prefill, one chunked-prefill segment, speculative verify, and
-decode. `generator` (a `torch.Generator` on the block's device, or None)
-feeds the NACL / Keyformer noise where the JAX blocks take `key`."""
+decode (the last three attention-only but for decode, as in JAX).
+`generator` (a `torch.Generator` on the block's device, or None) feeds
+the NACL / Keyformer noise where the JAX blocks take `key`."""
 from __future__ import annotations
 
 from typing import Optional
@@ -10,31 +11,38 @@ from typing import Optional
 import torch
 
 from repro_torch.core import cache as kvcache
-from repro_torch.core.cache import CacheSpec
+from repro_torch.core.cache import CacheSpec, SSMState
 from repro_torch.kernels.flash_prefill import ops as fp_ops
 from repro_torch.nn import attention as attn
 from repro_torch.nn import layers as L
 from repro_torch.nn import moe as moe_lib
+from repro_torch.nn import ssm as ssm_lib
 
 
 def _ffn(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     """The FFN residual. An MoE FFN routes the call's tokens together
     (capacity is per call); serving discards its `MoEAux`, as the JAX
-    engine does."""
-    h = L.rmsnorm(p["norm2"], x, cfg.norm_eps)
+    engine does. A block with neither (mamba2, d_ff 0) passes x on."""
     if "moe" in p:
-        y, _ = moe_lib.moe_apply(p["moe"], h,
+        y, _ = moe_lib.moe_apply(p["moe"],
+                                 L.rmsnorm(p["norm2"], x, cfg.norm_eps),
                                  top_k=cfg.moe.num_experts_per_tok,
                                  capacity_factor=cfg.moe.capacity_factor)
         return x + y
-    return x + L.mlp(p["mlp"], h)
+    if "mlp" in p:
+        return x + L.mlp(p["mlp"], L.rmsnorm(p["norm2"], x, cfg.norm_eps))
+    return x
 
 
 def block_prefill(p: dict, x: torch.Tensor, cfg, spec: CacheSpec, *,
-                  logical_budget: Optional[int] = None,
+                  kind: str = "attn", logical_budget: Optional[int] = None,
                   generator: Optional[torch.Generator] = None):
-    """x: [B, T, d_model], positions 0..T-1. Returns (x, LayerKV)."""
+    """x: [B, T, d_model], positions 0..T-1. Returns (x, LayerKV), or for
+    a Mamba-2 mixer (`kind` "ssm") (x, its final SSMState)."""
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
+    if kind == "ssm":
+        o, st = ssm_lib.mamba2_forward(p["ssm"], h, cfg)
+        return _ffn(p, x + o, cfg), st
     q, k, v = attn.qkv(p["attn"], h, cfg, None)
     if cfg.use_kernels and not spec.track_scores():
         # policies that never read the mass statistic take the flash
@@ -124,10 +132,12 @@ def block_verify(p: dict, x: torch.Tensor, cfg, spec: CacheSpec, lc,
 
 
 def block_decode(p: dict, x: torch.Tensor, cfg, spec: CacheSpec, lc, *,
-                 ring_full: Optional[bool] = None,
+                 kind: str = "attn", ring_full: Optional[bool] = None,
                  append_mask: Optional[torch.Tensor] = None,
                  generator: Optional[torch.Generator] = None):
-    """x: [B, 1, d_model]. Appends this token's K/V to `lc` (a dense or
+    """x: [B, 1, d_model]. For a Mamba-2 mixer (`kind` "ssm") `lc` is the
+    layer's `SSMState` (views into the model's stacks), advanced one step
+    in place. Otherwise appends this token's K/V to `lc` (a dense or
     paged layer cache, in place), attends over the cache, accumulates
     the mass. `append_mask` [B] bool: rows where it is False leave the
     cache untouched (their output is computed and discarded by the
@@ -136,6 +146,12 @@ def block_decode(p: dict, x: torch.Tensor, cfg, spec: CacheSpec, lc, *,
     accumulation), as one key serves the JAX block; it is applied after
     the attention returns the mass. Returns x."""
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
+    if kind == "ssm":
+        st: SSMState = lc
+        o, new = ssm_lib.mamba2_decode_step(p["ssm"], h, st, cfg)
+        st.conv.copy_(new.conv)
+        st.state.copy_(new.state)
+        return _ffn(p, x + o, cfg)
     pos = lc.pos[:, None].clone()   # [B, 1]; the append advances lc.pos
     q, k_new, v_new = attn.qkv(p["attn"], h, cfg, pos)
     noise = kvcache.policy_noise(spec, lc.scores.shape, generator, x.device)

@@ -1,23 +1,28 @@
 """The LM: init_params / prefill / chunked prefill / decode_step /
 verify_step / init_cache (counterpart of `repro.nn.model` for decoders
-over token ids whose every layer attends, with dense or MoE FFNs).
+over token ids: attention, Mamba-2 or hybrid mixers, dense, MoE or no
+FFNs).
 
-Parameters keep the JAX package's tree: ``blocks/sub0/...`` leaves carry
-a leading ``[n_sb]`` layer dim (one layer per superblock: n_sb is the
-number of layers for the decoders ported so far, whose layers all attend
-and whose MoE period is 1; `sb_layout`), linear weights are ``[d_in,
-d_out]``, an MoE FFN's ``moe/{router,gate,up,down}`` the JAX leaves.
-The cache is a `ModelCache` whose `LayerKV` (or
-paged `PagedLayerKV`) leaves carry leading ``[n_sb, nA]`` dims (nA = 1),
-also the JAX layout. A Python loop over layers takes the place of
-`lax.scan`; decode and the chunked-prefill segments update the cache and
-the prompt scratch in place.
+Layers are organized into **superblocks** of ``lcm(attn_layer_period,
+moe.layer_period)`` layers (1 for uniform models, 8 for Jamba), the JAX
+package's layout: parameters keep its tree, ``blocks/sub{i}/...`` leaves
+carry a leading ``[n_sb]`` dim, linear weights are ``[d_in, d_out]``, an
+MoE FFN's ``moe/{router,gate,up,down}`` the JAX leaves, a Mamba-2
+mixer's ``ssm/...`` those of `nn.ssm.ssm_shapes`. The cache is a
+`ModelCache`: `LayerKV` (or paged `PagedLayerKV`) leaves for the
+attention layers with leading ``[n_sb, nA]`` dims, `SSMState` leaves for
+the Mamba-2 layers with ``[n_sb, nS]``. A Python loop over superblocks,
+then sublayers, takes the place of `lax.scan`; decode and the
+chunked-prefill segments update the cache and the prompt scratch in
+place. The chunked and verify paths are attention-only (uniform, sb 1),
+gated as in JAX.
 
 Where the JAX functions take ``key=`` (the NACL / Keyformer noise), these
 take ``generator=``, a `torch.Generator` on the model's device (None:
-no noise). Each layer draws from it in layer order where the JAX
-function hands that layer its split key: once per layer per call in
-`prefill`, `prefill_finalize` and `decode_step`.
+no noise). Each attention layer draws from it where the JAX function
+hands that layer its split key, superblock-major then attention
+position: once per attention layer per call in `prefill`,
+`prefill_finalize` and `decode_step`.
 """
 from __future__ import annotations
 
@@ -30,14 +35,17 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core import cache as kvcache
 from repro_torch.core import paging
-from repro_torch.core.cache import CacheSpec, LayerKV
+from repro_torch.core.cache import CacheSpec, LayerKV, SSMState
 from repro_torch.nn import blocks as B
 from repro_torch.nn import layers as L
 from repro_torch.nn import moe as moe_lib
+from repro_torch.nn import ssm as ssm_lib
 
 
 class ModelCache(NamedTuple):
-    attn: Union[LayerKV, paging.PagedLayerKV]    # leaves [n_sb, nA, ...]
+    # leaves [n_sb, nA, ...]; None without attention layers (mamba2)
+    attn: Optional[Union[LayerKV, paging.PagedLayerKV]]
+    ssm: Optional[SSMState] = None   # leaves [n_sb, nS, ...]; None if none
 
 
 # ---------------------------------------------------------------------------
@@ -47,13 +55,18 @@ class ModelCache(NamedTuple):
 
 def sb_layout(cfg):
     """Returns (sb, n_sb, kinds) where kinds[i] = (mixer_kind, ffn_kind):
-    the JAX package's superblock of lcm(attention period, MoE period)
-    layers. No attention period (the hybrid's) is ported yet, so sb is
-    the MoE period: 1 for every config the port builds."""
-    sb = cfg.moe.layer_period if cfg.is_moe else 1
+    superblocks of lcm(attention period, MoE period) layers."""
+    p1 = cfg.attn_layer_period if cfg.attn_layer_period > 0 else 1
+    p2 = cfg.moe.layer_period if cfg.is_moe else 1
+    sb = math.lcm(p1, p2)
     assert cfg.num_layers % sb == 0, (cfg.num_layers, sb)
     kinds = [(cfg.layer_kind(i), cfg.ffn_kind(i)) for i in range(sb)]
     return sb, cfg.num_layers // sb, kinds
+
+
+def attn_positions(cfg):
+    sb, n_sb, kinds = sb_layout(cfg)
+    return [i for i, (k, _) in enumerate(kinds) if k == "attn"]
 
 
 def ssm_positions(cfg):
@@ -61,10 +74,8 @@ def ssm_positions(cfg):
     return [i for i, (k, _) in enumerate(kinds) if k == "ssm"]
 
 
-def _block_shapes(cfg) -> dict:
-    sb, _, kinds = sb_layout(cfg)
-    if sb != 1:
-        raise NotImplementedError(f"superblocks of {sb} layers not ported")
+def _sublayer_shapes(cfg, kind: str, ffn_kind: str) -> dict:
+    """Leaf specs of one layer, the JAX `block_init` tree."""
     d, D = cfg.d_model, cfg.head_dim
     hq, hkv = cfg.num_heads * D, cfg.num_kv_heads * D
 
@@ -74,42 +85,63 @@ def _block_shapes(cfg) -> dict:
             p["b"] = ((d_out,), 0)
         return p
 
-    p = {
-        "norm1": {"scale": ((d,), -1)},
-        "attn": {"wq": lin(d, hq, cfg.qkv_bias), "wk": lin(d, hkv, cfg.qkv_bias),
-                 "wv": lin(d, hkv, cfg.qkv_bias),
-                 "wo": lin(hq, d, cfg.attn_out_bias)},
-        "norm2": {"scale": ((d,), -1)},
-    }
-    if kinds[0][1] == "moe":
-        p["moe"] = moe_lib.moe_shapes(d, cfg.moe.d_expert,
-                                      cfg.moe.num_experts)
+    p = {"norm1": {"scale": ((d,), -1)}}
+    if kind == "attn":
+        p["attn"] = {"wq": lin(d, hq, cfg.qkv_bias),
+                     "wk": lin(d, hkv, cfg.qkv_bias),
+                     "wv": lin(d, hkv, cfg.qkv_bias),
+                     "wo": lin(hq, d, cfg.attn_out_bias)}
     else:
-        p["mlp"] = {"gate": lin(d, cfg.d_ff, cfg.mlp_bias),
-                    "up": lin(d, cfg.d_ff, cfg.mlp_bias),
-                    "down": lin(cfg.d_ff, d, cfg.mlp_bias)}
+        p["ssm"] = ssm_lib.ssm_shapes(cfg)
+    if cfg.d_ff > 0 or ffn_kind == "moe":
+        p["norm2"] = {"scale": ((d,), -1)}
+        if ffn_kind == "moe":
+            p["moe"] = moe_lib.moe_shapes(d, cfg.moe.d_expert,
+                                          cfg.moe.num_experts)
+        else:
+            p["mlp"] = {"gate": lin(d, cfg.d_ff, cfg.mlp_bias),
+                        "up": lin(d, cfg.d_ff, cfg.mlp_bias),
+                        "down": lin(cfg.d_ff, d, cfg.mlp_bias)}
     return p
+
+
+def _block_shapes(cfg) -> dict:
+    """Leaf specs of one superblock: ``sub{i}`` per sublayer."""
+    sb, _, kinds = sb_layout(cfg)
+    return {f"sub{i}": _sublayer_shapes(cfg, *kinds[i]) for i in range(sb)}
 
 
 def init_params(cfg, *, seed: int = 0, device=None) -> dict:
     """Random parameters drawn on `device` (None: the card, raising
     without one) from a `torch.Generator`:
     normal(0, 1/fan_in) weights (drawn in f32, cast to cfg.dtype; an MoE
-    router kept in f32, as in JAX), unit norms, zero biases — the JAX
+    router kept in f32, as in JAX), unit norms, zero biases; a Mamba-2
+    mixer's A_log = log(1..H), D = 1 and dt_bias the inverse softplus of
+    a log-uniform draw in [dt_min, dt_max], all three f32 — the JAX
     package's init scheme, not its numbers. Layers are drawn one at a
     time, and expert leaves one expert at a time, so the f32 draw never
     holds more than one layer's largest dense leaf or one expert's
     matrix."""
     device = resolve_device(device)
     g = torch.Generator(device=device).manual_seed(seed)
-    n_sb = cfg.num_layers
+    _, n_sb, _ = sb_layout(cfg)
+    lo, hi = math.log(cfg.ssm.dt_min), math.log(cfg.ssm.dt_max)
 
     def make(spec, lead=()):
-        shape, fan_in, dtype = (*spec, cfg.dtype)[:3]
+        shape, init, dtype = (*spec, cfg.dtype)[:3]
         out = torch.empty(*lead, *shape, dtype=dtype, device=device)
-        if fan_in < 0:
+        if init == "a_log":
+            out.copy_(torch.log(torch.arange(1, shape[0] + 1,
+                                             dtype=torch.float32)))
+        elif init == "dt_bias":
+            for idx in itertools.product(*map(range, lead)):
+                u = torch.rand(shape, generator=g, dtype=torch.float32,
+                               device=device)
+                dt = torch.exp(u * (hi - lo) + lo)
+                out[idx] = dt + torch.log(-torch.expm1(-dt))
+        elif init < 0:
             out.fill_(1)
-        elif fan_in == 0:
+        elif init == 0:
             out.zero_()
         else:
             # [E, d_in, d_out] expert leaves: one expert a draw
@@ -118,7 +150,7 @@ def init_params(cfg, *, seed: int = 0, device=None) -> dict:
             for idx in itertools.product(*map(range, out.shape[:n_lead])):
                 w = torch.randn(per, generator=g, dtype=torch.float32,
                                 device=device)
-                out[idx] = w.mul_(1.0 / math.sqrt(fan_in)).to(dtype)
+                out[idx] = w.mul_(1.0 / math.sqrt(init)).to(dtype)
         return out
 
     def tree(shapes, lead=()):
@@ -128,7 +160,7 @@ def init_params(cfg, *, seed: int = 0, device=None) -> dict:
     params = {
         "embed": {"table": make(((cfg.vocab_size, cfg.d_model), cfg.d_model))},
         "final_norm": {"scale": make(((cfg.d_model,), -1))},
-        "blocks": {"sub0": tree(_block_shapes(cfg), (n_sb,))},
+        "blocks": tree(_block_shapes(cfg), (n_sb,)),
     }
     if not cfg.tie_embeddings:
         params["head"] = {"w": make(((cfg.d_model, cfg.vocab_size),
@@ -139,6 +171,16 @@ def init_params(cfg, *, seed: int = 0, device=None) -> dict:
 def _layer(tree: dict, i: int) -> dict:
     return {k: (_layer(v, i) if isinstance(v, dict) else v[i])
             for k, v in tree.items()}
+
+
+def _stack(pieces, cls, n_sb: int):
+    """Per-layer batch pieces in superblock-major order -> one `cls`
+    (LayerKV or SSMState) with leading [n_sb, n_per_sb] dims; None for no
+    pieces."""
+    if not pieces:
+        return None
+    return cls(*(torch.stack(leaves).unflatten(0, (n_sb, -1))
+                 for leaves in zip(*pieces)))
 
 
 def _logits(params, cfg, x: torch.Tensor) -> torch.Tensor:
@@ -152,26 +194,32 @@ def prefill(params, cfg, batch: dict, spec: CacheSpec, *,
             layer_budgets: Optional[Sequence[int]] = None,
             generator: Optional[torch.Generator] = None):
     """batch: {"tokens": [B, T] int}. Returns (last-token logits [B, V]
-    f32, ModelCache of the compressed prompt)."""
+    f32, ModelCache of the compressed prompt and the SSM states).
+    `layer_budgets`: one per attention layer, superblock-major."""
     tokens = batch["tokens"]
     x = L.embed(params["embed"], tokens)
     T = tokens.shape[1]
+    sb, n_sb, kinds = sb_layout(cfg)
+    aps = attn_positions(cfg)
+    nA = len(aps)
     if layer_budgets is None:
-        layer_budgets = [spec.main_store_len(T)] * cfg.num_layers
-    pieces = []
-    for i in range(cfg.num_layers):
-        x, lc = B.block_prefill(_layer(params["blocks"]["sub0"], i), x, cfg,
-                                spec, logical_budget=int(layer_budgets[i]),
-                                generator=generator)
-        pieces.append(lc)
+        layer_budgets = [spec.main_store_len(T)] * (n_sb * nA)
+    attn_pieces, ssm_pieces = [], []
+    for s in range(n_sb):
+        for i, (kind, _) in enumerate(kinds):
+            p = _layer(params["blocks"][f"sub{i}"], s)
+            if kind == "attn":
+                x, lc = B.block_prefill(
+                    p, x, cfg, spec,
+                    logical_budget=int(layer_budgets[s * nA + aps.index(i)]),
+                    generator=generator)
+                attn_pieces.append(lc)
+            else:
+                x, st = B.block_prefill(p, x, cfg, spec, kind="ssm")
+                ssm_pieces.append(st)
     logits = _logits(params, cfg, x[:, -1:])[:, 0]
-    return logits, _stack_layers(pieces)
-
-
-def _stack_layers(pieces) -> ModelCache:
-    """Per-layer batch caches -> one `ModelCache` with [n_sb, nA] dims."""
-    return ModelCache(LayerKV(*(torch.stack(leaves)[:, None]
-                                for leaves in zip(*pieces))))
+    return logits, ModelCache(_stack(attn_pieces, LayerKV, n_sb),
+                              _stack(ssm_pieces, SSMState, n_sb))
 
 
 # ---------------------------------------------------------------------------
@@ -200,8 +248,8 @@ class PrefillState(NamedTuple):
 
 def _check_chunkable(cfg) -> None:
     """The JAX package's gate, with its messages. `ModelConfig` refuses
-    the SSM and encoder-decoder kinds until their modules are ported, so
-    of the three refusals only the MoE one can fire so far."""
+    the encoder-decoder kind until it is ported, so its refusal cannot
+    fire yet."""
     if ssm_positions(cfg):
         raise ValueError("chunked prefill is attention-only: SSM state "
                          "carries across segments (sequential scan)")
@@ -246,13 +294,13 @@ def prefill_finalize(cfg, st: PrefillState, spec: CacheSpec, *,
     T = st.mass.shape[-1]
     if layer_budgets is None:
         layer_budgets = [spec.main_store_len(T)] * cfg.num_layers
-    return _stack_layers([
+    return ModelCache(_stack([
         kvcache.compress_prompt(spec, st.k[i, 0], st.v[i, 0], st.mass[i, 0],
                                 dtype=cfg.dtype,
                                 logical_budget=int(layer_budgets[i]),
                                 use_kernels=cfg.use_kernels,
                                 generator=generator)
-        for i in range(cfg.num_layers)])
+        for i in range(cfg.num_layers)], LayerKV, cfg.num_layers))
 
 
 def prefill_finalize_meta(cfg, st: PrefillState, spec: CacheSpec, *,
@@ -265,6 +313,9 @@ def prefill_finalize_meta(cfg, st: PrefillState, spec: CacheSpec, *,
     (`paging.write_prefill_rows`), so only the dense metadata that branch
     builds is left. K/V leaves are zero-width: the insert runs with
     ``pool_write=False`` and never reads them."""
+    if sb_layout(cfg)[0] != 1:
+        raise ValueError("prefill_finalize_meta assumes uniform attention "
+                         "layers")
     n_sb = cfg.num_layers
     T = st.mass.shape[-1]
     S = spec.main_store_len(T)
@@ -307,7 +358,11 @@ def prefill_from_kv(cfg, spec: CacheSpec, ks: torch.Tensor,
     K / V ``[L, B, S, Hkv, D]`` (CacheBlend's blended prompt KV): the
     finalize of a chunked admission over that scratch, attention mass
     zero — legal only for policies whose selection ignores the mass (the
-    engine routes near-hits for policy "none" only)."""
+    engine routes near-hits for policy "none" only). Uniform attention
+    models only (sb == 1), as in JAX."""
+    sb, _, kinds = sb_layout(cfg)
+    if sb != 1 or kinds[0][0] != "attn":
+        raise ValueError("prefill_from_kv assumes uniform attention layers")
     _check_chunkable(cfg)
     st = PrefillState(k=ks[:, None].to(cfg.dtype), v=vs[:, None].to(cfg.dtype),
                       mass=torch.zeros((ks.shape[0], 1, *ks.shape[1:3]),
@@ -321,19 +376,35 @@ def decode_step(params, cfg, cache: ModelCache, token: torch.Tensor,
                 spec: CacheSpec, *, ring_full: Optional[bool] = None,
                 append_mask: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None):
-    """token: [B, 1] int. Appends one token to every layer's cache (in
-    place) and returns (logits [B, V] f32, the same ModelCache).
+    """token: [B, 1] int. Appends one token to every attention layer's
+    cache and advances every SSM state (in place); returns (logits [B, V]
+    f32, the same ModelCache).
 
     ring_full: host-side knowledge of whether any row's quantized ring
     flushes this step (see `cache.append_token_quantized`); None asks the
     device once per layer. append_mask: [B] bool, rows where it is False
-    leave the cache untouched (the speculative drafter's ragged depths)."""
+    leave the cache untouched (the speculative drafter's ragged depths;
+    attention-only: an SSM state advances unconditionally)."""
     x = L.embed(params["embed"], token)
-    for i in range(cfg.num_layers):
-        x = B.block_decode(_layer(params["blocks"]["sub0"], i), x, cfg, spec,
-                           kvcache.layer_view(cache.attn, i, 0),
-                           ring_full=ring_full, append_mask=append_mask,
-                           generator=generator)
+    sb, n_sb, kinds = sb_layout(cfg)
+    aps, sps = attn_positions(cfg), ssm_positions(cfg)
+    if append_mask is not None and sps:
+        raise ValueError("append_mask is attention-only (SSM state "
+                         "advances unconditionally)")
+    for s in range(n_sb):
+        for i, (kind, _) in enumerate(kinds):
+            p = _layer(params["blocks"][f"sub{i}"], s)
+            if kind == "attn":
+                x = B.block_decode(
+                    p, x, cfg, spec,
+                    kvcache.layer_view(cache.attn, s, aps.index(i)),
+                    ring_full=ring_full, append_mask=append_mask,
+                    generator=generator)
+            else:
+                x = B.block_decode(
+                    p, x, cfg, spec,
+                    kvcache.layer_view(cache.ssm, s, sps.index(i)),
+                    kind="ssm")
     return _logits(params, cfg, x)[:, 0], cache
 
 
@@ -420,23 +491,34 @@ def init_cache(cfg, spec: CacheSpec, batch: int, max_len: int, *,
                layer_budgets: Optional[Sequence[int]] = None,
                device=None, paged: bool = False, block_len: int = 16,
                pool_blocks: Optional[int] = None) -> ModelCache:
-    """The serving cache: dense `LayerKV` leaves, or with `paged` one
-    block pool per layer plus a shared table (`core.paging`; the default
-    pool is capacity parity with the dense layout)."""
-    n_sb = cfg.num_layers
-    if paged:
-        S = spec.main_store_len(max_len)
-        bl = paging.resolve_block_len(spec, S, block_len)
-        attn_c = paging.init_paged_kv(
-            spec, batch, max_len, cfg.num_kv_heads, cfg.head_dim,
-            n_blocks=pool_blocks or batch * (S // bl), block_len=bl,
-            dtype=cfg.dtype, device=device, lead=(n_sb, 1))
-    else:
-        attn_c = kvcache.init_layer_kv(spec, batch, max_len,
-                                       cfg.num_kv_heads, cfg.head_dim,
-                                       cfg.dtype, device=device,
-                                       lead=(n_sb, 1))
-    if layer_budgets is not None:
-        attn_c.budget.copy_(torch.as_tensor(
-            [int(b) for b in layer_budgets], dtype=torch.int32).view(n_sb, 1))
-    return ModelCache(attn_c)
+    """The serving cache: for the attention layers dense `LayerKV`
+    leaves, or with `paged` one block pool per layer plus a shared table
+    (`core.paging`; the default pool is capacity parity with the dense
+    layout); for the Mamba-2 layers zero `SSMState` stacks."""
+    sb, n_sb, kinds = sb_layout(cfg)
+    aps, sps = attn_positions(cfg), ssm_positions(cfg)
+    attn_c = ssm_c = None
+    if aps:
+        lead = (n_sb, len(aps))
+        if paged:
+            S = spec.main_store_len(max_len)
+            bl = paging.resolve_block_len(spec, S, block_len)
+            attn_c = paging.init_paged_kv(
+                spec, batch, max_len, cfg.num_kv_heads, cfg.head_dim,
+                n_blocks=pool_blocks or batch * (S // bl), block_len=bl,
+                dtype=cfg.dtype, device=device, lead=lead)
+        else:
+            attn_c = kvcache.init_layer_kv(spec, batch, max_len,
+                                           cfg.num_kv_heads, cfg.head_dim,
+                                           cfg.dtype, device=device,
+                                           lead=lead)
+        if layer_budgets is not None:
+            attn_c.budget.copy_(torch.as_tensor(
+                [int(b) for b in layer_budgets], dtype=torch.int32
+            ).view(lead))
+    if sps:
+        ssm_c = kvcache.init_ssm_state(
+            batch, ssm_lib.conv_dim(cfg), cfg.ssm.d_conv, cfg.ssm_heads,
+            cfg.ssm.head_dim, cfg.ssm.d_state, dtype=cfg.dtype,
+            device=device, lead=(n_sb, len(sps)))
+    return ModelCache(attn_c, ssm_c)

@@ -74,6 +74,12 @@ census included, every N dispatches.
 first. Neither rung 1 nor rung 2 runs with ``speculative=True`` (the
 constructor refuses, as the JAX engine does).
 
+**Mamba-2 layers.** A hybrid config's (jamba's) slots carry their SSM
+state beside their attention cache: the insert, the reset and the host
+tier's spill / restore copy a slot's SSM leaves too, and the physical
+bytes count them. A config with no attention layer (mamba2) is refused
+at construction: it serves through `nn.model.prefill` / `decode_step`.
+
 **Sampling and noise.** The engine owns one `torch.Generator` on its
 device, seeded from ``seed``: the sampler (``sampler=greedy``, or
 `sampler.temperature(temp, top_k)`) and the NACL / Keyformer noise of the
@@ -516,6 +522,14 @@ class Engine:
                 high_water=degrade_high, low_water=degrade_low,
                 keep_groups=degrade_keep_groups, tracer=self.trace)
 
+        if not n_attn:
+            # the JAX engine takes this config and fails at the first
+            # admission (a reshape of its empty layer-budget array)
+            raise ValueError(
+                f"{cfg.name}: the serving engine needs an attention layer "
+                f"(arch_type {cfg.arch_type!r} has none); serve it through "
+                "nn.model.prefill / decode_step")
+
     # ------------------------------------------------------------------
     def _check_aligned(self, buckets) -> None:
         bad = [int(b) for b in buckets if int(b) % MASS_GROUP]
@@ -748,6 +762,9 @@ class Engine:
         paged cache maps the slot's granted blocks and scatters the rows
         into them (not at all on the prefill-direct path, and not into the
         first `n_skip` blocks, adopted read-only from the prefix index)."""
+        if cache.ssm is not None:
+            kvcache.insert_request_tree(cache.ssm, slot, pc.ssm,
+                                        batch_axis=2)
         if not self.paged:
             kvcache.insert_request(cache.attn, slot, pc.attn, batch_axis=2)
             return
@@ -760,7 +777,10 @@ class Engine:
 
     def _reset(self, cache: M.ModelCache, slot: int) -> None:
         """Clear a slot (paged: its table row too, so a free slot's
-        garbage appends never route into re-granted blocks)."""
+        garbage appends never route into re-granted blocks; its SSM
+        state back to zeros)."""
+        if cache.ssm is not None:
+            kvcache.reset_slot_tree(cache.ssm, slot, batch_axis=2)
         if self.paged:
             paging.reset_slot_paged(cache.attn, slot, batch_axis=2)
         else:
@@ -1177,8 +1197,8 @@ class Engine:
             sp.__exit__()
             decode_s += sp.elapsed
             active = w1 - w0
-            phys += (kvcache.cache_physical_bytes(cache.attn) * active
-                     / self.slots)
+            phys += ((kvcache.cache_physical_bytes(cache.attn)
+                      + kvcache.tree_bytes(cache.ssm)) * active / self.slots)
             logical += self._logical_bytes_per_seq() * active
         full = (self.cfg.kv_bytes_per_token()
                 * (self.prompt_len + self.max_new) * n)
@@ -1476,6 +1496,12 @@ class Engine:
                 blocks=paging.gather_pool_blocks(
                     cache.attn, self._h2d_ids(ids), batch_axis=2),
                 meta=paging.gather_slot_meta(cache.attn, s, batch_axis=2))
+            if cache.ssm is not None:
+                # the slot's SSM leaves ride with its blocks: a restored
+                # hybrid request resumes from its own recurrent state
+                payload["ssm"] = {
+                    f: t.narrow(2, s, 1).clone()
+                    for f, t in zip(kvcache.SSMState._fields, cache.ssm)}
             h = tier.begin_spill(payload, len(ids))
             if h is None:
                 return None         # host full: recompute-on-resume
@@ -1510,6 +1536,10 @@ class Engine:
                                        dev["blocks"], batch_axis=2)
             paging.scatter_slot_meta(cache.attn, slot_idx, dev["meta"],
                                      batch_axis=2)
+            if cache.ssm is not None:
+                kvcache.insert_request_tree(
+                    cache.ssm, slot_idx,
+                    kvcache.SSMState(**dev["ssm"]), batch_axis=2)
             # map the whole grant: the k saved blocks plus any headroom
             # the re-admission granted past them
             row = np.full(self.n_max_blocks, -1, np.int32)
@@ -1954,15 +1984,17 @@ class Engine:
             # real pool usage, not the reserved worst case: the blocks the
             # run pinned at its high-water mark, plus the dense metadata
             per_block = paging.bytes_per_block(cache.attn)
-            meta = (sum(t.numel() * t.element_size() for t in cache.attn)
-                    - paging.pool_bytes(cache.attn))
+            meta = (kvcache.tree_bytes(cache.attn)
+                    - paging.pool_bytes(cache.attn)
+                    + kvcache.tree_bytes(cache.ssm))
             peak = self.block_allocator.peak_used
             phys = meta + peak * per_block
             pool_stats = dict(pool_blocks=self.pool_blocks,
                               pool_block_bytes=per_block,
                               pool_peak_blocks=peak)
         else:
-            phys = kvcache.cache_physical_bytes(cache.attn)
+            phys = (kvcache.cache_physical_bytes(cache.attn)
+                    + kvcache.tree_bytes(cache.ssm))
         results = sorted(sched.results, key=lambda r: r.uid)
         ttfts = [r.ttft_s for r in results if r.finish_reason != "failed"]
         prefix_stats = None

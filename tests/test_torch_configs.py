@@ -72,8 +72,9 @@ def test_config_fields_and_sizes_equal_jax(arch):
     for f in dataclasses.fields(TB.ModelConfig):
         if f.name == "dtype":
             assert cfg.dtype == torch.bfloat16 and jcfg.dtype == jnp.bfloat16
-        elif f.name == "moe":
-            assert dataclasses.asdict(cfg.moe) == dataclasses.asdict(jcfg.moe)
+        elif f.name in ("moe", "ssm"):
+            assert (dataclasses.asdict(getattr(cfg, f.name))
+                    == dataclasses.asdict(getattr(jcfg, f.name))), f.name
         elif f.name != "use_kernels":
             assert getattr(cfg, f.name) == getattr(jcfg, f.name), f.name
     assert cfg.param_count() == jcfg.param_count()
@@ -97,7 +98,8 @@ def test_get_config_and_all_configs_agree_with_jax():
     assert list(port) == [a for a in JB.ARCH_IDS if a in port]
     assert list(port) == TB.ARCH_IDS
     assert set(NEW_ARCHS) | {"granite-8b", "paper-llama-7b", "mixtral-8x22b",
-                             "kimi-k2-1t-a32b"} == set(port)
+                             "kimi-k2-1t-a32b", "mamba2-130m",
+                             "jamba-v0.1-52b"} == set(port)
     jall = JB.all_configs()
     for name, cfg in port.items():
         assert cfg is TB.get_config(name)
@@ -107,7 +109,7 @@ def test_get_config_and_all_configs_agree_with_jax():
         with pytest.raises(KeyError):
             TB.get_config(name)
     with pytest.raises(NotImplementedError):
-        TB.ModelConfig(name="x", arch_type="ssm", source="", num_layers=1,
+        TB.ModelConfig(name="x", arch_type="audio", source="", num_layers=1,
                        d_model=8, num_heads=1, num_kv_heads=1, d_ff=8,
                        vocab_size=8)
 
@@ -123,15 +125,16 @@ def _verdict(check, cfg):
 @pytest.mark.parametrize("arch", JB.ARCH_IDS)
 def test_check_chunkable_gives_jax_verdict(arch):
     """Every reference config: the port's gate gives the JAX gate's
-    verdict, message included, on every config the port builds (MoE is
-    refused). A config of a kind not yet ported (SSM, hybrid,
+    verdict, message included, on every config the port builds (MoE and
+    SSM layers are refused). A config of a kind not yet ported (the
     encoder-decoder) is refused at construction."""
     jcfg = JB.get_config(arch)
     want = _verdict(JM._check_chunkable, jcfg)
     if arch in TB.ARCH_IDS:
         cfg = TB.get_config(arch)
         assert _verdict(M._check_chunkable, cfg) == want
-        assert (want is not None) == cfg.is_moe
+        assert (want is not None) == (cfg.is_moe
+                                      or bool(M.ssm_positions(cfg)))
         if want is None:
             M.init_prefill_state(TB.reduced(cfg), 16, device="cpu")
     else:

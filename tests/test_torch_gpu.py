@@ -1327,3 +1327,101 @@ def test_tracing_adds_no_sync_on_card(cuda):
     assert mx.snapshot()["tier.spills"] == on.tier["n_spills"]
     assert sum(n_off.values()) > 0, n_off   # the profiler sees the syncs
     assert n_on == n_off
+
+
+# ---------------------------------------------------------------------------
+# The Mamba-2 mixer and the hybrid
+# ---------------------------------------------------------------------------
+
+
+def _ssd_sequential(x, dt, A, B_, C_):
+    """The SSD as its recurrence, one token a step, in f32."""
+    Bsz, T, H, P = x.shape
+    rep = H // B_.shape[2]
+    Bh = torch.repeat_interleave(B_, rep, dim=2)
+    Ch = torch.repeat_interleave(C_, rep, dim=2)
+    h = torch.zeros(Bsz, H, P, B_.shape[3], device=x.device)
+    ys = torch.empty(Bsz, T, H, P, device=x.device)
+    for t in range(T):
+        h = (h * torch.exp(dt[:, t] * A)[:, :, None, None]
+             + (dt[:, t, :, None] * Bh[:, t])[:, :, None, :]
+             * x[:, t, :, :, None])
+        ys[:, t] = torch.einsum("bhn,bhpn->bhp", Ch[:, t], h)
+    return ys, h
+
+
+@pytest.mark.parametrize("T", [512, 600])
+def test_ssd_chunked_on_card_matches_recurrence(cuda, T):
+    """`ssd_chunked` at mamba2-130m's head shapes (H 24, P 64, N 128,
+    chunk 256), whole and ragged T, against the sequential f32
+    recurrence within tests/test_ssm.py's 2e-4 + 1e-3 |ref|."""
+    from repro_torch.nn import ssm as ssm_lib
+    g = torch.Generator(device="cuda").manual_seed(T)
+    H, P, N = 24, 64, 128
+    x = torch.randn(2, T, H, P, generator=g, device="cuda")
+    dt = torch.nn.functional.softplus(
+        torch.randn(2, T, H, generator=g, device="cuda") - 1)
+    A = -torch.exp(torch.randn(H, generator=g, device="cuda") * 0.5)
+    B_ = torch.randn(2, T, 1, N, generator=g, device="cuda") * 0.3
+    C_ = torch.randn(2, T, 1, N, generator=g, device="cuda") * 0.3
+    y, fin = ssm_lib.ssd_chunked(x, dt, A, B_, C_, 256)
+    ys, hs = _ssd_sequential(x, dt, A, B_, C_)
+    torch.testing.assert_close(y, ys, atol=2e-4, rtol=1e-3)
+    torch.testing.assert_close(fin, hs, atol=2e-4, rtol=1e-3)
+
+
+def test_mamba2_decode_continues_prefill_on_card(cuda):
+    """Reduced mamba2 in f32 on the card: decoding prompt token T after a
+    T-1 prefill gives a T prefill's last logits within 2e-3
+    (tests/test_system.py's bound), and the card's logits equal the
+    CPU's within 1e-4; no kernel launches."""
+    from repro_torch.core.cache import CacheSpec
+    cfg = reduced(get_config("mamba2-130m"))
+    params = M.init_params(cfg, seed=0, device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 45),
+                         generator=torch.Generator().manual_seed(0))
+    spec = CacheSpec(budget=64)
+    kernels = (dq_ops.decode_attn_kernel, fp_ops.flash_prefill_kernel)
+    for k in kernels:
+        k.launches = 0
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = _to(params, dev)
+        t = toks.to(dev)
+        lg, c = M.prefill(p, cfg, {"tokens": t[:, :-1]}, spec)
+        lg_dec, _ = M.decode_step(p, cfg, c, t[:, -1:], spec)
+        lg_full, _ = M.prefill(p, cfg, {"tokens": t}, spec)
+        torch.testing.assert_close(lg_dec, lg_full, atol=2e-3, rtol=0)
+        out[dev] = lg_dec.cpu()
+    torch.testing.assert_close(out["cuda"], out["cpu"], atol=1e-4, rtol=0)
+    assert all(k.launches == 0 for k in kernels)
+
+
+@pytest.mark.parametrize("pname,paged", [("full", False), ("kivi2", True),
+                                         ("h2o", False)])
+def test_reduced_jamba_engine_kernels_match_reference(cuda, pname, paged):
+    """Reduced jamba (f32, a Mamba-2 + dense layer and an attention + MoE
+    layer a superblock, two superblocks) through the engine on the card:
+    the kernels' streams equal use_kernels=False's and the CPU's, and the
+    decode went through B1 / B3 once per attention layer a step."""
+    cfg = reduced(get_config("jamba-v0.1-52b"), num_layers=4)
+    pol = presets(32, 8)[pname]
+    reqs = [torch.randint(0, cfg.vocab_size, (n,), generator=torch
+                          .Generator().manual_seed(n)).numpy()
+            for n in (96, 80, 96)]
+    params = M.init_params(cfg, seed=0, device="cpu")
+    dec = (dq_ops.decode_attn_paged_kernel if paged
+           else dq_ops.decode_attn_kernel)
+    out = {}
+    for dev, uk in (("cpu", False), ("cuda", False), ("cuda", True)):
+        eng = Engine(cfg, _to(params, dev), pol, prompt_len=96, max_new=6,
+                     slots=2, buckets=(80, 96), device=dev, paged=paged,
+                     use_kernels=uk)
+        dec.launches = 0
+        out[(dev, uk)] = eng.generate_continuous(
+            [Request(tokens=t, max_new=6) for t in reqs])
+        if uk:
+            assert dec.launches == (out[(dev, uk)].decode_steps
+                                    * cfg.num_attn_layers())
+    for a, b, c in zip(*(out[k].results for k in out)):
+        assert a.tokens.tolist() == b.tokens.tolist() == c.tokens.tolist()

@@ -146,8 +146,9 @@ def test_moe_config_fields_and_sizes_equal_jax(arch):
     for f in dataclasses.fields(TB.ModelConfig):
         if f.name == "dtype":
             assert cfg.dtype == torch.bfloat16 and jcfg.dtype == jnp.bfloat16
-        elif f.name == "moe":
-            assert dataclasses.asdict(cfg.moe) == dataclasses.asdict(jcfg.moe)
+        elif f.name in ("moe", "ssm"):
+            assert (dataclasses.asdict(getattr(cfg, f.name))
+                    == dataclasses.asdict(getattr(jcfg, f.name))), f.name
         elif f.name != "use_kernels":
             assert getattr(cfg, f.name) == getattr(jcfg, f.name), f.name
     assert cfg.is_moe and jcfg.is_moe
@@ -271,7 +272,7 @@ def test_engine_gates_give_jax_verdict(arch, gate):
     got = _verdict(lambda: Engine(cfg, p, presets(32, 8)["full"],
                                   device="cpu", **kw))
     assert got == want
-    assert (want is not None) == cfg.is_moe
+    assert (want is not None) == (cfg.is_moe or bool(M.ssm_positions(cfg)))
 
 
 # ---------------------------------------------------------------------------
