@@ -36,7 +36,7 @@ Phases, each printing its own lines; any failure exits non-zero:
               reloads, its counters equal the result, the host seconds
               of each span printed), then the temperature / top-k
               sampler (top_k 1 equal to greedy, top_k 50 beside it),
-              then self-speculative decoding (gamma 4) on 18 of the 36
+              then self-speculative decoding (gamma 4) on 9 of the 36
               layers, each beside a plain twin of that depth: full with
               the `same` drafter, kivi2 with a `window:64` drafter, full
               paged + chunked with `same`; then the overload ladder
@@ -55,7 +55,7 @@ Phases, each printing its own lines; any failure exits non-zero:
               prefix cache (paged + chunked, templated prompts): full and
               kivi2 with sharing, each beside the same requests without,
               and full near-hits through CacheBlend at recompute 1.0 and
-              0.25 (18 of the 36 layers); each run must go through its
+              0.25 (9 of the 36 layers); each run must go through its
               kernels, and only its kernels, as many times as its steps
               (flushes and quantized admissions for KIVI; re-admissions
               of preempted requests)
@@ -115,6 +115,22 @@ Phases, each printing its own lines; any failure exits non-zero:
               once per unshared layer, B1 once per layer a step), then at
               4 layers against use_kernels=False and, with no sharing,
               against the model's own prefill and decode
+  9. encdec   seamless-m4t-large-v2 at full size (24 encoder + 24
+              decoder layers, Gq 1, D 64) through the wave path
+              (`Engine.generate`): 16 requests of 1024 tokens, each with
+              256 seeded source frames, two waves of 8; full and h2o,
+              kivi2 through the serving CLI; launches exact (B2 once per
+              layer a wave, B1 once per layer a decode step, B6 per
+              admission and flush); then on a 4 + 4 layer cut the
+              kernels against use_kernels=False, the bf16 paths against
+              an f32 reference path, and f32 decode continuing
+              `train_forward`'s logits
+ 10. train    `launch/train.py` at full size, bf16 params and f32
+              moments, remat: 4 steps of 8 x 256 tokens of seamless
+              (cosine) and minicpm-2b (WSD); loss, ce, lr, grad norm,
+              step wall, tokens/s and peak memory per step; finite, every
+              weight matrix moved, no kernel launched; the first step's
+              loss in bf16 against f32 on seamless's 4 + 4 layer cut
 
 Then one JSON line describing every ported kernel, and as the last line
 ``{"ok": true, "device": {...}}``. There is no CPU path: without a CUDA
@@ -135,7 +151,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 PHASES = ("device", "build", "parity", "serve", "e2e", "profile", "configs",
-          "kvsharer")
+          "kvsharer", "encdec", "train")
 # kernel vs plain version, |kernel - plain| <= atol + rtol * |plain|.
 # Both sides compute in f32 on the same (bf16-rounded) inputs, so they
 # differ by f32 summation order (readings <= 1e-6) and, for bf16 outputs,
@@ -1270,10 +1286,11 @@ PAGED_RUNS = (("full", 640), ("kivi2", None), ("h2o+kivi2", None))
 # They serve SPEC_LAYERS of the 36 layers, each beside a plain twin of
 # the same depth and requests (their launches follow from each run's own
 # counts at any depth; the host-bound verify rounds made them the
-# script's longest runs)
+# script's longest runs: 18 layers since PR 21, 9 since the
+# encoder-decoder and training phases joined)
 SPEC_RUNS = (("full", "same", False), ("kivi2", "window:64", False),
              ("full", "same", True))
-SPEC_LAYERS = 18
+SPEC_LAYERS = 9
 # overload runs (paged + chunked, the first N_SHORT prompts), each held
 # token for token to the unpreempted paged + chunked run of its policy
 # above: (policy, engine options, forced preemptions or None). `full`
@@ -1381,6 +1398,22 @@ def _agreement(res_a, res_b):
         tok += int((a.tokens[:m] == b.tokens[:m]).sum())
         n += max(len(a.tokens), len(b.tokens))
     return same, tok, n
+
+
+def _counted(fn, kernels, launches):
+    """fn() with every kernel counter set to 0 just before and read just
+    after (summed into `launches`); returns (out, counts, seconds)."""
+    import torch
+    torch.cuda.synchronize()
+    for k in kernels.values():
+        k.launches = 0
+    t1 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    n = {name: k.launches for name, k in kernels.items()}
+    for name in KERNELS:
+        launches[name] += n[name]
+    return out, n, time.perf_counter() - t1
 
 
 def phase_serve(info: dict) -> None:
@@ -1873,10 +1906,11 @@ def _check_tier_run(info, label, eng, res, n_pre, row, no_tier) -> None:
 # is never reclaimed and the counts below are exact. Each run with
 # sharing is set beside the same requests without it. The runs use the
 # first PREFIX_LAYERS of the 36 layers (full width): cut in half to keep
-# the script near 700 s once the noise, sampler and traced runs joined
+# the script near 700 s once the noise, sampler and traced runs joined,
+# and in half again (9) once the encoder-decoder and training phases did
 # (the schedule, the counts and the pool sizes do not depend on depth).
 PREFIX_SHARED = 1536
-PREFIX_LAYERS = 18
+PREFIX_LAYERS = 9
 PREFIX_RUNS = (("full", dict(pool_blocks=640)),
                ("kivi2", dict(budget=1920, pool_blocks=192)))
 # near-hits: NEAR_REQUESTS copies of one template with tokens NEAR_EDIT
@@ -2499,11 +2533,11 @@ def _paged_kw(cfg) -> dict:
 
 
 def _kernels_vs_reference(cfg, params, pol, toks, *, paged: bool,
-                          witness=None, buckets=BUCKETS):
+                          witness=None, buckets=BUCKETS, src=None):
     """An engine with the kernels against one with use_kernels=False (the
     model's dtype): the admission of `toks` (one prompt a slot; monolithic
     prefill into the dense store, or into a paged pool chunked, or
-    monolithic for experts),
+    monolithic for experts; an encoder-decoder's prefill encodes `src`),
     then E2E_STEPS decode steps fed the reference's greedy tokens. Returns
     {"kr": max |logit delta| per call, "scale": the reference's max
     |logit|}; with `witness` (an f32 (cfg, params) of the same weights),
@@ -2545,8 +2579,10 @@ def _kernels_vs_reference(cfg, params, pol, toks, *, paged: bool,
                          else _admit_paged_chunked)
                 admitted[i] = admit(e, toks.cpu().numpy())
             else:
-                admitted[i] = M.prefill(e.params, e.cfg, {"tokens": toks},
-                                        e.spec,
+                batch = {"tokens": toks}
+                if src is not None:
+                    batch["src_embeds"] = src
+                admitted[i] = M.prefill(e.params, e.cfg, batch, e.spec,
                                         layer_budgets=e.layer_budgets)[::-1]
         logits = [[lg] for _, lg in admitted]
         for _ in range(E2E_STEPS):
@@ -3693,16 +3729,7 @@ def phase_kvsharer(info: dict) -> None:
     L = cfg.num_layers
 
     def counted(fn):
-        torch.cuda.synchronize()
-        for k in kernels.values():
-            k.launches = 0
-        t1 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        n = {name: k.launches for name, k in kernels.items()}
-        for name in KERNELS:
-            launches[name] += n[name]
-        return out, n, time.perf_counter() - t1
+        return _counted(fn, kernels, launches)
 
     mapping, n_cal, t_cal = counted(
         lambda: SR.calibrate_sharing(params, cfg, calib, KVS_SHARE))
@@ -3826,6 +3853,323 @@ def _kvsharer_e2e(cfg, params, calib, toks) -> None:
                  f"{E2E_LOGIT_TOL}")
         del logits, a, b
         torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# 9. encdec: seamless-m4t-large-v2 at full size through the wave path
+# ---------------------------------------------------------------------------
+
+# the wave path's traffic: N_REQUESTS prompts of BUCKETS[0] tokens, each
+# with BUCKETS[0] // 4 source frames (the JAX engine's default length;
+# seeded standard normal: the stubbed speech frontend's output), MAX_NEW
+# new tokens, waves of SLOTS; `full` and `h2o` through `Engine.generate`,
+# kivi2 through the serving CLI (the same draws: prompts, then frames)
+ENCDEC_ARCH = "seamless-m4t-large-v2"
+ENCDEC_POLICIES = ("full", "h2o")
+ENCDEC_CLI = ("--arch", ENCDEC_ARCH, "--policy", "kivi2", "--budget",
+              str(BUDGET), "--window", str(WINDOW), "--requests",
+              str(N_REQUESTS), "--prompt-len", str(BUCKETS[0]), "--max-new",
+              str(MAX_NEW), "--slots", str(SLOTS))
+# decode continuing the training forward in f32 (the JAX invariant of
+# tests/test_system.py:test_decode_matches_forward): prompt rows, then
+# ENCDEC_CONT_NEW tokens fed one at a time
+ENCDEC_CONT_T, ENCDEC_CONT_NEW, ENCDEC_CONT_TOL = 256, 8, 2e-3
+
+
+def _named_leaves(tree, path: str = ""):
+    for k, v in tree.items():
+        yield from (_named_leaves(v, f"{path}/{k}") if isinstance(v, dict)
+                    else ((f"{path}/{k}", v),))
+
+
+def _encdec_view(params, n: int) -> dict:
+    """The first `n` decoder and `n` encoder layers (views, no copy)."""
+    out = _layers_view(params, n)
+    out["enc_blocks"] = _tree(lambda t: t[:n], params["enc_blocks"])
+    return out
+
+
+def _want_wave(eng, n_waves: int, n_layers: int) -> dict:
+    """A wave run's launches from its own counts: B1 once per layer per
+    decode step (MAX_NEW - 1 a wave), B2 once per layer per wave prefill
+    of a policy that reads no mass, B6 once per layer per wave's
+    quantized admission and per flushing decode step (the engine's
+    `flush_steps`, counted on the host)."""
+    want = dict.fromkeys(KERNELS, 0)
+    want["decode_attn"] = n_waves * (MAX_NEW - 1) * n_layers
+    if not eng.spec.track_scores():
+        want["flash_prefill"] = n_waves * n_layers
+    want["kvquant"] = (eng.flush_steps
+                       + n_waves * int(eng.spec.quantized)) * n_layers
+    return want
+
+
+def phase_encdec(info: dict) -> None:
+    """seamless-m4t-large-v2 at full size (24 encoder + 24 decoder
+    layers, 16 heads of 64, vocab 256 206, bf16, random weights from
+    seed 0) on the wave path: 16 requests in two waves of 8, each wave's
+    prefill encoding its 256 source frames and keeping the cross memory
+    (24 x 8 x 256 x 16 x 64 x 2 leaves x 2 B) beside the self-attention
+    cache. `full` and `h2o` through `Engine.generate`, kivi2 through
+    `launch/serve.py`; launches exact. Then, on a 4 + 4 layer cut at full
+    width, the kernels against use_kernels=False and the bf16 paths
+    against an f32 reference path (unquantized policies) within
+    E2E_LOGIT_TOL, and in f32 the
+    decode continuing `train_forward`'s logits within ENCDEC_CONT_TOL."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.cache import CacheSpec
+    from repro_torch.core.policy import presets
+    from repro_torch.launch import serve
+    from repro_torch.nn import model as M
+    from repro_torch.serving.engine import Engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(ENCDEC_ARCH)
+    L, T = cfg.num_layers, BUCKETS[0]
+    kernels = _kernel_objs()
+    launches = info.setdefault("launches", dict.fromkeys(KERNELS, 0))
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_par = sum(t.numel() for t in _leaves(params))
+    print(f"[encdec] {cfg.name}: {cfg.num_encoder_layers} encoder + {L} "
+          f"decoder layers d_model {cfg.d_model} heads {cfg.num_heads}/"
+          f"{cfg.num_kv_heads} D {cfg.head_dim} d_ff {cfg.d_ff} vocab "
+          f"{cfg.vocab_size} {str(cfg.dtype)[6:]}; {n_par / 1e9:.3f} B "
+          f"random parameters ({n_par * 2 / 2**30:.2f} GiB) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size, size=(N_REQUESTS, T))
+    src = rng.standard_normal((N_REQUESTS, T // 4, cfg.d_model)
+                              ).astype(np.float32)
+    n_waves = -(-N_REQUESTS // SLOTS)
+    cross = L * SLOTS * (T // 4) * cfg.num_kv_heads * cfg.head_dim * 2 * 2
+    runs = [(p, None) for p in ENCDEC_POLICIES] + [("kivi2", ENCDEC_CLI)]
+    rows = []
+    for pname, argv in runs:
+        torch.cuda.reset_peak_memory_stats()
+        if argv is None:
+            eng = Engine(cfg, params, presets(BUDGET, WINDOW)[pname],
+                         prompt_len=T, max_new=MAX_NEW, slots=SLOTS)
+            res, n, wall = _counted(
+                lambda: eng.generate(prompts, src_embeds=src), kernels,
+                launches)
+        else:
+            (eng, res), n, wall = _counted(lambda: serve.main(list(argv)),
+                                           kernels, launches)
+        want = _want_wave(eng, n_waves, L)
+        ok = (res.tokens.shape == (N_REQUESTS, MAX_NEW)
+              and res.tokens.min() >= 0 and res.tokens.max() < cfg.vocab_size)
+        label = pname + (" (serving CLI)" if argv else "")
+        row = dict(label=label, prefill_s=res.prefill_seconds,
+                   tok_s=res.decode_tokens_per_s, wall=wall,
+                   peak=torch.cuda.max_memory_allocated(),
+                   phys=res.cache_physical_bytes, flush_steps=eng.flush_steps,
+                   launches=n)
+        rows.append(row)
+        print(f"[encdec] {label}: {res.tokens.shape[0] if ok else 0}/"
+              f"{N_REQUESTS} requests, {n_waves} waves, prefill "
+              f"{res.prefill_seconds:.3f} s, decode "
+              f"{res.decode_tokens_per_s:.1f} tok/s, wall {wall:.2f} s"
+              f"{' (its weights drawn in it)' if argv else ''}, peak allocated "
+              f"{row['peak'] / 2**30:.2f} GiB, cache "
+              f"{res.cache_physical_bytes / 2**20:.1f} MiB physical a "
+              f"request's share summed (cross memory {cross / 1e6:.1f} MB "
+              f"a wave), compression {res.compression_ratio:.2f}x, flush "
+              f"steps {eng.flush_steps}; launches "
+              + " ".join(f"{k} {v}" for k, v in n.items())
+              + f"; {info['smi']}")
+        if not ok:
+            fail(f"encdec {label}: tokens {res.tokens.shape}, want "
+                 f"{(N_REQUESTS, MAX_NEW)} in [0, {cfg.vocab_size})")
+        if n != want:
+            fail(f"encdec {label}: kernel launches {n}, want {want}")
+        del eng, res
+    info["encdec"] = rows
+    gc.collect()
+    torch.cuda.empty_cache()
+    _encdec_profile(info, cfg, params, prompts, src)
+
+    # the 4 + 4 layer cut: kernels vs reference, bf16 vs f32
+    n = E2E_LAYERS
+    cfg4 = cfg.replace(num_layers=n, num_encoder_layers=n)
+    params4 = _encdec_view(params, n)
+    witness = (cfg4.replace(dtype=torch.float32),
+               _cast(params4, torch.float32))
+    toks = torch.as_tensor(prompts[:SLOTS], device="cuda")
+    src4 = torch.as_tensor(src[:SLOTS], device="cuda")
+    for pname in ("full", "h2o", "kivi2"):
+        pol = presets(budget=BUDGET, window=WINDOW)[pname]
+        d = _kernels_vs_reference(cfg4, params4, pol, toks, paged=False,
+                                  witness=witness, buckets=(T,), src=src4)
+        kr, k32, r32 = d["kr"], d["k32"], d["r32"]
+        print(f"[encdec] e2e {pname} ({n} + {n} layers, prompts of {T}, "
+              f"{T // 4} frames): max|dlogit| kernels vs reference (bf16) "
+              f"prefill {kr[0]:.4f} decode {max(kr[1:]):.4f}; vs the f32 "
+              f"reference: kernels {max(k32):.4f}, bf16 reference "
+              f"{max(r32):.4f} (tol {E2E_LOGIT_TOL}); max|logit| "
+              f"{d['scale']:.2f}")
+        info.setdefault("encdec_e2e", []).append(dict(
+            policy=pname, kr=max(kr), k32=max(k32), r32=max(r32)))
+        # bf16 against f32 is gated where no 2-bit code can flip between
+        # the two (kivi2's codes move a level on a bf16 rounding: phase
+        # 7's qwen kivi2 reads ~0.9 on both bf16 paths, so f32 is no
+        # witness there; printed)
+        gated = kr + ([] if pol.spec.quantized else k32)
+        if not all(math.isfinite(x) and x <= E2E_LOGIT_TOL for x in gated):
+            fail(f"encdec e2e {pname}: logits differ by "
+                 f"{max(gated):.4f} > {E2E_LOGIT_TOL}")
+    # f32: decode continuing the training forward (kernels on)
+    c32, p32 = witness
+    Tc = ENCDEC_CONT_T
+    batch = {"tokens": toks[:, :Tc + ENCDEC_CONT_NEW],
+             "src_embeds": src4[:, :Tc // 4]}
+    with torch.no_grad():
+        full, _ = M.train_forward(p32, c32, batch)
+    spec = CacheSpec(budget=Tc + ENCDEC_CONT_NEW + 8)
+    lg, cache = M.prefill(p32, c32, dict(batch, tokens=toks[:, :Tc]), spec)
+    errs = [(lg - full[:, Tc - 1]).abs().max().item()]
+    for t in range(Tc, Tc + ENCDEC_CONT_NEW - 1):
+        lg, cache = M.decode_step(p32, c32, cache, toks[:, t:t + 1], spec)
+        errs.append((lg - full[:, t]).abs().max().item())
+    print(f"[encdec] f32 ({n} + {n} layers): prefill of {Tc} + "
+          f"{ENCDEC_CONT_NEW - 1} decode steps against train_forward's "
+          f"logits: max|dlogit| {max(errs):.3g} (tol {ENCDEC_CONT_TOL})")
+    info["encdec_cont"] = max(errs)
+    if not all(math.isfinite(e) and e <= ENCDEC_CONT_TOL for e in errs):
+        fail(f"encdec: f32 decode leaves train_forward by {max(errs):.3g}")
+    del params, params4, witness, full, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _encdec_profile(info, cfg, params, prompts, src) -> None:
+    """One `full` decode step of a wave (8 slots after a 1024-token
+    prefill, as the loop dispatches it) profiled, and the plain
+    cross-attention's share: its 24 layers' `_cross_attend` calls alone
+    on the step's hidden states (event-timed: host and device)."""
+    import torch
+    from repro_torch.core.policy import presets
+    from repro_torch.nn import blocks as B
+    from repro_torch.nn import model as M
+    from repro_torch.serving.engine import Engine
+    eng = Engine(cfg, params, presets(BUDGET, WINDOW)["full"],
+                 prompt_len=BUCKETS[0], max_new=MAX_NEW, slots=SLOTS)
+    _, cache = eng._prefill(prompts[:SLOTS], src_embeds=src[:SLOTS])
+    tok = torch.zeros((SLOTS, 1), dtype=torch.long, device="cuda")
+    prof = _profile_decode_step("[encdec]", "full, wave of 8",
+                                lambda: eng._decode(cache, tok, False))
+    x = torch.randn(SLOTS, 1, cfg.d_model, device="cuda").to(cfg.dtype)
+    layers = [M._layer(params["blocks"]["sub0"], i)
+              for i in range(cfg.num_layers)]
+    mkv = [(cache.cross_k[i], cache.cross_v[i], cache.cross_bias)
+           for i in range(cfg.num_layers)]
+    xa = median_ms(lambda: [B._cross_attend(p, x, m, cfg)
+                            for p, m in zip(layers, mkv)])
+    print(f"[encdec]   plain cross-attention, {cfg.num_layers} layers over "
+          f"{src.shape[1]} frames: {xa:.2f} ms a step (event-timed, host "
+          f"included) of the step's {prof['wall_ms']:.2f} ms; "
+          f"{info['smi']}")
+    info["encdec_profile"] = dict(prof, cross_ms=xa)
+    del eng, cache
+
+
+# ---------------------------------------------------------------------------
+# 10. train: `launch/train.py` at full size, no kernel
+# ---------------------------------------------------------------------------
+
+TRAIN_RUNS = (("seamless-m4t-large-v2", "cosine"), ("minicpm-2b", "wsd"))
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 4, 8, 256
+# |first-step loss bf16 - f32| on the 4 + 4 layer cut of seamless, the
+# same weights and batch (stated before the first card run; loss ~13)
+TRAIN_LOSS_TOL = 0.05
+
+
+def phase_train(info: dict) -> None:
+    """`launch/train.py` on the card at full size, bf16 params and f32
+    moments, remat per superblock / encoder layer: TRAIN_STEPS steps of
+    TRAIN_BATCH x TRAIN_SEQ tokens, seamless-m4t-large-v2 (cosine) and
+    minicpm-2b (WSD). Per step: loss, ce, lr, grad norm, wall, tokens/s,
+    peak memory. Gates: finite loss and grad norm, grad norm > 0, every
+    weight matrix moved from its seeded init, and no kernel
+    launched (training runs plain PyTorch: the kernels have no
+    backward). Then the first step's loss in bf16 against f32 on the 4 +
+    4 layer cut of seamless, within TRAIN_LOSS_TOL."""
+    import gc
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.launch import train as train_cli
+    from repro_torch.nn import model as M
+    from repro_torch.train import loop as TL
+    kernels = _kernel_objs()
+    launches = info.setdefault("launches", dict.fromkeys(KERNELS, 0))
+    for arch, sched in TRAIN_RUNS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        argv = ["--arch", arch, "--steps", str(TRAIN_STEPS), "--batch",
+                str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--schedule",
+                sched]
+        (state, hist), n, wall = _counted(lambda: train_cli.main(argv),
+                                          kernels, launches)
+        cfg = get_config(arch)
+        for i, h in enumerate(hist):
+            print(f"[train] {arch} step {i}: loss {h['loss']:.4f} ce "
+                  f"{h['ce_loss']:.4f} lr {h['lr']:.3e} grad norm "
+                  f"{h['grad_norm']:.4f} wall {h['wall_s']:.3f} s "
+                  f"({TRAIN_BATCH * TRAIN_SEQ / h['wall_s']:.0f} tokens/s), "
+                  f"peak allocated {h['max_memory_allocated'] / 2**30:.2f} "
+                  f"GiB")
+        # the weight matrices (not the norm scales: a bf16 1.0 moves
+        # only by an update past half its ulp, 2^-8, and lr is 3e-4)
+        fresh = M.init_params(cfg, seed=0, device="cuda")
+        mats = [(a, b) for (k, a), (_, b) in zip(_named_leaves(state.params),
+                                                 _named_leaves(fresh))
+                if "norm" not in k and a.dim() >= 2]
+        moved = sum(not torch.equal(a, b) for a, b in mats)
+        print(f"[train] {arch}: {cfg.param_count() / 1e9:.3f} B params "
+              f"{str(cfg.dtype)[6:]}, remat {cfg.remat}, {TRAIN_STEPS} "
+              f"steps in {wall:.1f} s (weights drawn in it), {moved}/"
+              f"{len(mats)} matrices moved, launches "
+              + " ".join(f"{k} {v}" for k, v in n.items())
+              + f"; {info['smi']}")
+        info.setdefault("train", []).append(dict(
+            arch=arch, steps=hist, wall=wall, moved=moved))
+        for i, h in enumerate(hist):
+            if not (math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+                    and h["grad_norm"] > 0):
+                fail(f"train {arch} step {i}: loss {h['loss']}, grad norm "
+                     f"{h['grad_norm']}")
+        if moved != len(mats):
+            fail(f"train {arch}: {len(mats) - moved} matrices never moved")
+        if any(n.values()):
+            fail(f"train {arch}: kernels launched while training: {n}")
+        del state, hist, fresh, mats
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # bf16 against f32, first step's loss, 4 + 4 layers of seamless
+    cfg = get_config(TRAIN_RUNS[0][0])
+    cfg4 = cfg.replace(num_layers=E2E_LAYERS, num_encoder_layers=E2E_LAYERS)
+    p16 = M.init_params(cfg4, seed=0, device="cuda")
+    b = {k: torch.as_tensor(v, device="cuda") for k, v in
+         next(lm_batches(cfg4, TRAIN_BATCH, TRAIN_SEQ, seed=0)).items()}
+    with torch.no_grad():
+        l16 = TL.loss_fn(p16, cfg4, b)[0].item()
+        l32 = TL.loss_fn(_cast(p16, torch.float32),
+                         cfg4.replace(dtype=torch.float32), b)[0].item()
+    print(f"[train] first-step loss, {E2E_LAYERS} + {E2E_LAYERS} layers of "
+          f"{cfg.name}: bf16 {l16:.5f} f32 {l32:.5f}, |d| "
+          f"{abs(l16 - l32):.5f} (tol {TRAIN_LOSS_TOL})")
+    info["train_loss_d"] = abs(l16 - l32)
+    if not abs(l16 - l32) <= TRAIN_LOSS_TOL:
+        fail(f"train: bf16 loss {l16} vs f32 {l32}")
+    del p16
+    torch.cuda.empty_cache()
 
 
 def main() -> int:

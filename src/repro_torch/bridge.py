@@ -70,9 +70,9 @@ def ssm_state_from_numpy(st, device=None) -> SSMState:
 
 
 def model_cache_from_numpy(c, device=None):
-    """A JAX `ModelCache` (leaves as numpy; no cross-attention memory)
-    -> the port's: its attention part dense or paged, plus its SSM
-    part."""
+    """A JAX `ModelCache` (leaves as numpy) -> the port's: its attention
+    part dense or paged, its SSM part, and an encoder-decoder's cross
+    memory."""
     from repro_torch.nn.model import ModelCache
     attn = None
     if c.attn is not None:
@@ -80,4 +80,25 @@ def model_cache_from_numpy(c, device=None):
                 if hasattr(c.attn, "k") else paged_kv_from_numpy(c.attn,
                                                                   device))
     ssm = None if c.ssm is None else ssm_state_from_numpy(c.ssm, device)
-    return ModelCache(attn, ssm)
+    cross = [None if getattr(c, f) is None
+             else tensor_from_numpy(getattr(c, f), device)
+             for f in ("cross_k", "cross_v", "cross_bias")]
+    return ModelCache(attn, ssm, *cross)
+
+
+def train_state_from_numpy(st, cfg, device=None):
+    """A JAX `TrainState` (leaves as numpy) -> the port's: params as
+    `params_from_numpy`, the `AdamState` moments in f32 and the step
+    counts as int32 0-dim tensors."""
+    from repro_torch.optim.optimizers import AdamState, tree_map
+    from repro_torch.train.loop import TrainState
+
+    def f32(tree):
+        return tree_map(lambda v: tensor_from_numpy(v, device).float(), tree)
+
+    def step(x):
+        return tensor_from_numpy(np.asarray(x, np.int32), device)
+
+    opt = AdamState(step(st.opt.step), f32(st.opt.mu), f32(st.opt.nu))
+    return TrainState(params_from_numpy(st.params, cfg, device), opt,
+                      step(st.step))

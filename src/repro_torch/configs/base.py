@@ -4,10 +4,14 @@ The port serves decoders over token ids (`arch_type` "dense"; "vlm":
 early fusion puts the image tokens in the vocabulary; "moe": a
 mixture-of-experts FFN, `MoEConfig`; "ssm": Mamba-2 mixers only, no
 attention; "hybrid": one attention layer per `attn_layer_period` layers,
-Mamba-2 mixers between, `SSMConfig`): `get_config` knows the ten
-reference configs of those kinds (`ARCH_IDS`). `dtype` is a torch dtype;
-`use_kernels` selects the CUDA kernels (on the card; their plain
-versions on the CPU) against the materialize / matmul reference path.
+Mamba-2 mixers between, `SSMConfig`) and the encoder-decoder ("audio": a
+bidirectional encoder over stubbed frame embeddings, `input_kind`
+"embeds", and a decoder that cross-attends its output): `get_config`
+knows all eleven reference configs (`ARCH_IDS`). `dtype` is a torch
+dtype; `use_kernels` selects the CUDA kernels (on the card; their plain
+versions on the CPU) against the materialize / matmul reference path;
+`remat` "block" recomputes each superblock's and encoder layer's
+activations in the backward pass (training only).
 """
 from __future__ import annotations
 
@@ -18,8 +22,8 @@ from typing import Any
 
 import torch
 
-# the arch kinds the port builds; "audio" waits for the encoder-decoder
-PORTED_ARCH_TYPES = ("dense", "vlm", "moe", "ssm", "hybrid")
+# the arch kinds the port builds (all of the reference's)
+PORTED_ARCH_TYPES = ("dense", "vlm", "moe", "ssm", "hybrid", "audio")
 
 
 @dataclass(frozen=True)
@@ -48,7 +52,7 @@ class SSMConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    arch_type: str                 # dense | vlm | moe | ssm | hybrid
+    arch_type: str                 # dense | vlm | moe | ssm | hybrid | audio
     source: str                    # citation for the config
     num_layers: int
     d_model: int
@@ -71,7 +75,15 @@ class ModelConfig:
     # everywhere (or SSM everywhere for arch_type == "ssm").
     attn_layer_period: int = 0
     attn_layer_offset: int = 0
+    # encoder/decoder (audio): encoder is bidirectional over frame embeddings
+    is_encoder_decoder: bool = False
+    num_encoder_layers: int = 0
+    # what the model consumes: "tokens" (int ids) or "embeds" (stubbed
+    # modality frontend producing [B, T, d_model] features)
+    input_kind: str = "tokens"
     dtype: Any = torch.bfloat16
+    # activation remat policy for training: "none" | "block"
+    remat: str = "block"
     # the fused decode-attention and flash-prefill kernels (True), or the
     # materialize / matmul reference path (False: tests and the on-card
     # kernels-vs-reference comparison only)
@@ -148,6 +160,14 @@ class ModelConfig:
                 n += self.d_model * e.num_experts                # router
             else:
                 n += 3 * self.d_model * self.d_ff                # swiglu
+        if self.is_encoder_decoder:
+            # encoder blocks + decoder cross-attention
+            enc = self.num_encoder_layers * (
+                4 * self.d_model * hq + 3 * self.d_model * self.d_ff
+                + 2 * self.d_model)
+            xattn = self.num_layers * (self.d_model * (hq + 2 * hkv)
+                                       + hq * self.d_model + self.d_model)
+            n += enc + xattn
         return n + self.d_model                                  # final norm
 
     def active_param_count(self) -> int:
@@ -174,7 +194,8 @@ class ModelConfig:
 
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
     """A smoke-test-sized variant of the same family (<=2 layers, d<=256),
-    the same shrink as `repro.configs.base.reduced`."""
+    the same shrink as `repro.configs.base.reduced` (2 encoder layers for
+    an encoder-decoder, no remat)."""
     kw: dict[str, Any] = dict(
         num_layers=2,
         d_model=min(cfg.d_model, 256),
@@ -184,6 +205,7 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
         vocab_size=min(cfg.vocab_size, 512),
         head_dim=64,
         dtype=torch.float32,
+        remat="none",
     )
     if cfg.is_moe:
         kw["moe"] = dataclasses.replace(
@@ -200,14 +222,15 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
     if cfg.attn_layer_period > 0:
         kw["attn_layer_period"] = 2
         kw["attn_layer_offset"] = 1
+    if cfg.is_encoder_decoder:
+        kw["num_encoder_layers"] = 2
     if cfg.sliding_window:
         kw["sliding_window"] = 64
     kw.update(overrides)
     return cfg.replace(**kw)
 
 
-# the reference's order (`repro.configs.base.ARCH_IDS`), restricted to
-# the configs the port knows
+# the reference's order (`repro.configs.base.ARCH_IDS`)
 ARCH_IDS = [
     "mamba2-130m",
     "mixtral-8x22b",
@@ -215,6 +238,7 @@ ARCH_IDS = [
     "minicpm-2b",
     "chameleon-34b",
     "command-r-plus-104b",
+    "seamless-m4t-large-v2",
     "jamba-v0.1-52b",
     "kimi-k2-1t-a32b",
     "granite-8b",
@@ -229,6 +253,7 @@ _MODULE_FOR: dict[str, str] = {
     "minicpm-2b": "minicpm_2b",
     "chameleon-34b": "chameleon_34b",
     "command-r-plus-104b": "command_r_plus_104b",
+    "seamless-m4t-large-v2": "seamless_m4t_large_v2",
     "jamba-v0.1-52b": "jamba_v0_1_52b",
     "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
     "granite-8b": "granite_8b",
@@ -238,7 +263,7 @@ _MODULE_FOR: dict[str, str] = {
 
 def get_config(arch: str) -> ModelConfig:
     if arch not in _MODULE_FOR:
-        raise KeyError(f"arch {arch!r} not ported; known: {sorted(_MODULE_FOR)}")
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(_MODULE_FOR)}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULE_FOR[arch]}")
     return mod.CONFIG
 

@@ -758,9 +758,10 @@ def init_ssm_state(batch: int, conv_dim: int, d_conv: int, heads: int,
 
 
 def tree_bytes(tree) -> int:
-    """Bytes of every tensor of a NamedTuple of tensors (None: 0)."""
+    """Bytes of every tensor of a NamedTuple of tensors (None: 0; None
+    leaves count 0)."""
     return 0 if tree is None else sum(t.numel() * t.element_size()
-                                      for t in tree)
+                                      for t in tree if t is not None)
 
 
 def cache_physical_bytes(lc) -> int:

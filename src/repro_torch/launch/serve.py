@@ -65,6 +65,15 @@ seed, on the card unless ``--device cpu``.
     python -m repro_torch.launch.serve --arch jamba-v0.1-52b --reduced \\
         --policy kivi2 --budget 32 --window 8 --continuous --paged
 
+    # the encoder-decoder (seamless-m4t-large-v2) on the wave path: each
+    # wave encodes its requests' source frames (seeded standard normal,
+    # max(prompt_len // 4, 16) frames, the stubbed speech frontend's
+    # output) and its decoder cross-attends them; --continuous refuses
+    # it, as the JAX CLI does
+    python -m repro_torch.launch.serve --arch seamless-m4t-large-v2 \
+        --policy kivi2 --budget 512 --window 128 --requests 16 \
+        --prompt-len 1024 --max-new 64 --slots 8
+
     # telemetry: a Chrome trace (Perfetto / chrome://tracing) and the
     # metrics snapshot (schema "repro.obs.metrics/1") of a run
     python -m repro_torch.launch.serve --arch granite-8b --reduced \
@@ -363,11 +372,17 @@ def main(argv: Optional[Sequence[str]] = None):
 
     prompts = rng.integers(0, cfg.vocab_size,
                            size=(args.requests, args.prompt_len))
+    src = None
+    if cfg.is_encoder_decoder:
+        # the stubbed frontend's frames, drawn after the prompts
+        src = rng.standard_normal(
+            (args.requests, max(args.prompt_len // 4, 16), cfg.d_model)
+        ).astype(np.float32)
     eng = Engine(cfg, params, pol, prompt_len=args.prompt_len,
                  max_new=args.max_new, slots=args.slots,
                  use_kernels=use_kernels, device=device, tracer=tracer,
                  metrics=metrics)
-    res = eng.generate(prompts)
+    res = eng.generate(prompts, src_embeds=src)
     print(f"policy={res.policy_name}")
     print(f"prefill_s={res.prefill_seconds:.2f} "
           f"decode_tok/s={res.decode_tokens_per_s:.1f}")

@@ -1,12 +1,16 @@
-"""Decoder blocks: (attention | Mamba-2) mixer + (dense SwiGLU | MoE |
-no) FFN, pre-norm residual (counterpart of `repro.nn.blocks`):
-monolithic prefill, one chunked-prefill segment, speculative verify, and
-decode (the last three attention-only but for decode, as in JAX).
-`generator` (a `torch.Generator` on the block's device, or None) feeds
-the NACL / Keyformer noise where the JAX blocks take `key`."""
+"""Decoder / encoder blocks: (attention | Mamba-2) mixer, an
+encoder-decoder's cross-attention, (dense SwiGLU | MoE | no) FFN,
+pre-norm residual (counterpart of `repro.nn.blocks`): the full-sequence
+forward (training, the encoder), monolithic prefill, one chunked-prefill
+segment, speculative verify, and decode (the chunked and verify steps
+attention-only, as in JAX). `generator` (a `torch.Generator` on the
+block's device, or None) feeds the NACL / Keyformer noise where the JAX
+blocks take `key`. `memory_kv` is an encoder-decoder layer's cross
+memory ``(k, v, bias)``, k / v [B, Ts, Hkv, D] (bias [B, Ts] f32 or
+None); None in a decoder-only model."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -19,30 +23,92 @@ from repro_torch.nn import moe as moe_lib
 from repro_torch.nn import ssm as ssm_lib
 
 
-def _ffn(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
-    """The FFN residual. An MoE FFN routes the call's tokens together
-    (capacity is per call); serving discards its `MoEAux`, as the JAX
-    engine does. A block with neither (mamba2, d_ff 0) passes x on."""
+class BlockAux(NamedTuple):
+    lb_loss: torch.Tensor
+    z_loss: torch.Tensor
+
+
+def _ffn_aux(p: dict, x: torch.Tensor, cfg):
+    """The FFN residual and, for an MoE FFN, its `BlockAux` (None for a
+    dense FFN or none). An MoE FFN routes the call's tokens together
+    (capacity is per call). A block with neither (mamba2, d_ff 0) passes
+    x on."""
     if "moe" in p:
-        y, _ = moe_lib.moe_apply(p["moe"],
-                                 L.rmsnorm(p["norm2"], x, cfg.norm_eps),
-                                 top_k=cfg.moe.num_experts_per_tok,
-                                 capacity_factor=cfg.moe.capacity_factor)
-        return x + y
+        y, aux = moe_lib.moe_apply(p["moe"],
+                                   L.rmsnorm(p["norm2"], x, cfg.norm_eps),
+                                   top_k=cfg.moe.num_experts_per_tok,
+                                   capacity_factor=cfg.moe.capacity_factor)
+        return x + y, BlockAux(aux.load_balance_loss, aux.router_z_loss)
     if "mlp" in p:
-        return x + L.mlp(p["mlp"], L.rmsnorm(p["norm2"], x, cfg.norm_eps))
-    return x
+        return (x + L.mlp(p["mlp"], L.rmsnorm(p["norm2"], x, cfg.norm_eps)),
+                None)
+    return x, None
+
+
+def _ffn(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    """The FFN residual; serving discards an MoE FFN's aux losses, as the
+    JAX engine does."""
+    return _ffn_aux(p, x, cfg)[0]
+
+
+def _cross_attend(p: dict, x: torch.Tensor, memory_kv, cfg) -> torch.Tensor:
+    """Pre-norm cross-attention over the encoder memory (an
+    encoder-decoder layer; x unchanged otherwise): the query gets no
+    RoPE, every memory row is visible."""
+    if "xattn" not in p or memory_kv is None:
+        return x
+    mk, mv, mbias = memory_kv
+    h = L.rmsnorm(p["norm_x"], x, cfg.norm_eps)
+    B, T, _ = h.shape
+    q = L.linear(p["xattn"]["wq"], h).reshape(B, T, cfg.num_heads,
+                                              cfg.head_dim)
+    o = attn.gqa_attention(q, mk, mv, causal=False, kv_bias=mbias)
+    return x + L.linear(p["xattn"]["wo"], o.reshape(B, T, -1))
+
+
+def cross_kv(p: dict, memory: torch.Tensor, cfg):
+    """Cross-attention K / V [B, Ts, Hkv, D] of the encoder output
+    `memory` [B, Ts, d_model] (no RoPE on the memory)."""
+    B, Ts, _ = memory.shape
+    k = L.linear(p["xattn"]["wk"], memory).reshape(B, Ts, cfg.num_kv_heads,
+                                                   cfg.head_dim)
+    v = L.linear(p["xattn"]["wv"], memory).reshape(B, Ts, cfg.num_kv_heads,
+                                                   cfg.head_dim)
+    return k, v
+
+
+def block_train(p: dict, x: torch.Tensor, cfg, kind: str = "attn", *,
+                causal: bool = True, memory_kv=None):
+    """Full-sequence forward over positions 0..T-1 (training; the
+    encoder with `causal` False, its q and k still rotated). It runs
+    under autograd, so attention stays plain PyTorch whatever
+    `cfg.use_kernels` says: the CUDA kernels have no backward, as the
+    JAX package's `pallas_call` has no AD rule. Returns (x, `BlockAux`
+    of an MoE FFN or None)."""
+    h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
+    if kind == "attn":
+        q, k, v = attn.qkv(p["attn"], h, cfg, None)
+        o = attn.gqa_attention(q, k, v, causal=causal,
+                               window=cfg.sliding_window)
+        B, T, _ = x.shape
+        x = x + L.linear(p["attn"]["wo"], o.reshape(B, T, -1))
+    else:
+        o, _ = ssm_lib.mamba2_forward(p["ssm"], h, cfg)
+        x = x + o
+    x = _cross_attend(p, x, memory_kv, cfg)
+    return _ffn_aux(p, x, cfg)
 
 
 def block_prefill(p: dict, x: torch.Tensor, cfg, spec: CacheSpec, *,
                   kind: str = "attn", logical_budget: Optional[int] = None,
-                  generator: Optional[torch.Generator] = None):
+                  generator: Optional[torch.Generator] = None,
+                  memory_kv=None):
     """x: [B, T, d_model], positions 0..T-1. Returns (x, LayerKV), or for
     a Mamba-2 mixer (`kind` "ssm") (x, its final SSMState)."""
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
     if kind == "ssm":
         o, st = ssm_lib.mamba2_forward(p["ssm"], h, cfg)
-        return _ffn(p, x + o, cfg), st
+        return _ffn(p, _cross_attend(p, x + o, memory_kv, cfg), cfg), st
     q, k, v = attn.qkv(p["attn"], h, cfg, None)
     if cfg.use_kernels and not spec.track_scores():
         # policies that never read the mass statistic take the flash
@@ -60,7 +126,7 @@ def block_prefill(p: dict, x: torch.Tensor, cfg, spec: CacheSpec, *,
                                  logical_budget=logical_budget,
                                  use_kernels=cfg.use_kernels,
                                  generator=generator)
-    return _ffn(p, x, cfg), lc
+    return _ffn(p, _cross_attend(p, x, memory_kv, cfg), cfg), lc
 
 
 def block_prefill_chunk(p: dict, x: torch.Tensor, cfg, spec: CacheSpec,
@@ -134,7 +200,8 @@ def block_verify(p: dict, x: torch.Tensor, cfg, spec: CacheSpec, lc,
 def block_decode(p: dict, x: torch.Tensor, cfg, spec: CacheSpec, lc, *,
                  kind: str = "attn", ring_full: Optional[bool] = None,
                  append_mask: Optional[torch.Tensor] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 memory_kv=None):
     """x: [B, 1, d_model]. For a Mamba-2 mixer (`kind` "ssm") `lc` is the
     layer's `SSMState` (views into the model's stacks), advanced one step
     in place. Otherwise appends this token's K/V to `lc` (a dense or
@@ -151,7 +218,7 @@ def block_decode(p: dict, x: torch.Tensor, cfg, spec: CacheSpec, lc, *,
         o, new = ssm_lib.mamba2_decode_step(p["ssm"], h, st, cfg)
         st.conv.copy_(new.conv)
         st.state.copy_(new.state)
-        return _ffn(p, x + o, cfg)
+        return _ffn(p, _cross_attend(p, x + o, memory_kv, cfg), cfg)
     pos = lc.pos[:, None].clone()   # [B, 1]; the append advances lc.pos
     q, k_new, v_new = attn.qkv(p["attn"], h, cfg, pos)
     noise = kvcache.policy_noise(spec, lc.scores.shape, generator, x.device)
@@ -165,4 +232,4 @@ def block_decode(p: dict, x: torch.Tensor, cfg, spec: CacheSpec, lc, *,
     kvcache.accumulate_scores(lc, spec, mass, gate=append_mask, noise=noise)
     B = x.shape[0]
     x = x + L.linear(p["attn"]["wo"], o.reshape(B, 1, -1))
-    return _ffn(p, x, cfg)
+    return _ffn(p, _cross_attend(p, x, memory_kv, cfg), cfg)

@@ -1,7 +1,9 @@
-"""The LM: init_params / prefill / chunked prefill / decode_step /
-verify_step / init_cache (counterpart of `repro.nn.model` for decoders
-over token ids: attention, Mamba-2 or hybrid mixers, dense, MoE or no
-FFNs).
+"""The LM: init_params / encode / train_forward / prefill / chunked
+prefill / decode_step / verify_step / init_cache (counterpart of
+`repro.nn.model`: decoders over token ids with attention, Mamba-2 or
+hybrid mixers and dense, MoE or no FFNs, and the encoder-decoder, whose
+bidirectional encoder reads stubbed frame embeddings and whose decoder
+layers cross-attend its output).
 
 Layers are organized into **superblocks** of ``lcm(attn_layer_period,
 moe.layer_period)`` layers (1 for uniform models, 8 for Jamba), the JAX
@@ -11,11 +13,18 @@ MoE FFN's ``moe/{router,gate,up,down}`` the JAX leaves, a Mamba-2
 mixer's ``ssm/...`` those of `nn.ssm.ssm_shapes`. The cache is a
 `ModelCache`: `LayerKV` (or paged `PagedLayerKV`) leaves for the
 attention layers with leading ``[n_sb, nA]`` dims, `SSMState` leaves for
-the Mamba-2 layers with ``[n_sb, nS]``. A Python loop over superblocks,
-then sublayers, takes the place of `lax.scan`; decode and the
-chunked-prefill segments update the cache and the prompt scratch in
-place. The chunked and verify paths are attention-only (uniform, sb 1),
-gated as in JAX.
+the Mamba-2 layers with ``[n_sb, nS]``, and for an encoder-decoder the
+cross memory ``cross_k`` / ``cross_v`` [L, B, Ts, Hkv, D] with
+``cross_bias`` [B, Ts]. An encoder-decoder's parameters add
+``enc_blocks`` (leading ``[num_encoder_layers]``), ``enc_norm`` and
+each decoder layer's ``norm_x`` / ``xattn``. A Python loop over
+superblocks, then sublayers, takes the place of `lax.scan`; decode and
+the chunked-prefill segments update the cache and the prompt scratch in
+place. The chunked and verify paths are attention-only decoders
+(uniform, sb 1), gated as in JAX. `train_forward` is differentiable
+(`torch.autograd`) and launches no kernel; with ``cfg.remat ==
+"block"`` each superblock and encoder layer recomputes its activations
+in the backward pass (`torch.utils.checkpoint`, as `jax.checkpoint`).
 
 Where the JAX functions take ``key=`` (the NACL / Keyformer noise), these
 take ``generator=``, a `torch.Generator` on the model's device (None:
@@ -31,6 +40,7 @@ import math
 from typing import NamedTuple, Optional, Sequence, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.core import cache as kvcache
@@ -46,6 +56,14 @@ class ModelCache(NamedTuple):
     # leaves [n_sb, nA, ...]; None without attention layers (mamba2)
     attn: Optional[Union[LayerKV, paging.PagedLayerKV]]
     ssm: Optional[SSMState] = None   # leaves [n_sb, nS, ...]; None if none
+    cross_k: Optional[torch.Tensor] = None   # [L, B, Ts, Hkv, D] enc-dec
+    cross_v: Optional[torch.Tensor] = None
+    cross_bias: Optional[torch.Tensor] = None   # [B, Ts] f32
+
+
+class TrainAux(NamedTuple):
+    lb_loss: torch.Tensor
+    z_loss: torch.Tensor
 
 
 # ---------------------------------------------------------------------------
@@ -74,8 +92,11 @@ def ssm_positions(cfg):
     return [i for i, (k, _) in enumerate(kinds) if k == "ssm"]
 
 
-def _sublayer_shapes(cfg, kind: str, ffn_kind: str) -> dict:
-    """Leaf specs of one layer, the JAX `block_init` tree."""
+def _sublayer_shapes(cfg, kind: str, ffn_kind: str, *,
+                     cross: bool = False) -> dict:
+    """Leaf specs of one layer, the JAX `block_init` tree (`cross`: an
+    encoder-decoder's decoder layer, whose cross-attention leaves have
+    the self-attention's shapes and biases)."""
     d, D = cfg.d_model, cfg.head_dim
     hq, hkv = cfg.num_heads * D, cfg.num_kv_heads * D
 
@@ -102,13 +123,21 @@ def _sublayer_shapes(cfg, kind: str, ffn_kind: str) -> dict:
             p["mlp"] = {"gate": lin(d, cfg.d_ff, cfg.mlp_bias),
                         "up": lin(d, cfg.d_ff, cfg.mlp_bias),
                         "down": lin(cfg.d_ff, d, cfg.mlp_bias)}
+    if cross:
+        p["norm_x"] = {"scale": ((d,), -1)}
+        p["xattn"] = {"wq": lin(d, hq, cfg.qkv_bias),
+                      "wk": lin(d, hkv, cfg.qkv_bias),
+                      "wv": lin(d, hkv, cfg.qkv_bias),
+                      "wo": lin(hq, d, cfg.attn_out_bias)}
     return p
 
 
 def _block_shapes(cfg) -> dict:
     """Leaf specs of one superblock: ``sub{i}`` per sublayer."""
     sb, _, kinds = sb_layout(cfg)
-    return {f"sub{i}": _sublayer_shapes(cfg, *kinds[i]) for i in range(sb)}
+    return {f"sub{i}": _sublayer_shapes(cfg, *kinds[i],
+                                        cross=cfg.is_encoder_decoder)
+            for i in range(sb)}
 
 
 def init_params(cfg, *, seed: int = 0, device=None) -> dict:
@@ -165,6 +194,10 @@ def init_params(cfg, *, seed: int = 0, device=None) -> dict:
     if not cfg.tie_embeddings:
         params["head"] = {"w": make(((cfg.d_model, cfg.vocab_size),
                                      cfg.d_model))}
+    if cfg.is_encoder_decoder:
+        params["enc_blocks"] = tree(_sublayer_shapes(cfg, "attn", "dense"),
+                                    (cfg.num_encoder_layers,))
+        params["enc_norm"] = {"scale": make(((cfg.d_model,), -1))}
     return params
 
 
@@ -190,11 +223,87 @@ def _logits(params, cfg, x: torch.Tensor) -> torch.Tensor:
     return L.linear(params["head"], x).float()
 
 
+def _maybe_remat(cfg, fn, *args):
+    """fn(*args), its activations recomputed in the backward pass when
+    ``cfg.remat == "block"`` and autograd records (`jax.checkpoint`'s
+    place; without a backward it changes nothing)."""
+    if cfg.remat == "block" and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+# ---------------------------------------------------------------------------
+# Encoder (enc-dec archs; bidirectional over stubbed frame embeddings)
+# ---------------------------------------------------------------------------
+
+
+def encode(params, cfg, src_embeds: torch.Tensor) -> torch.Tensor:
+    """src_embeds: [B, Ts, d_model] from the stubbed modality frontend,
+    in the model dtype. Returns the normed encoder output."""
+    def layer(x, p):
+        return B.block_train(p, x, cfg, "attn", causal=False)[0]
+
+    x = src_embeds
+    for i in range(cfg.num_encoder_layers):
+        x = _maybe_remat(cfg, layer, x, _layer(params["enc_blocks"], i))
+    return L.rmsnorm(params["enc_norm"], x, cfg.norm_eps)
+
+
+def _cross_memory(params, cfg, memory: torch.Tensor):
+    """Per-decoder-layer cross K / V [L, B, Ts, Hkv, D] of the encoder
+    output and a zero bias [B, Ts] f32."""
+    sb, n_sb, _ = sb_layout(cfg)
+    assert sb == 1, "enc-dec assumes uniform decoder layers"
+    kv = [B.cross_kv(_layer(params["blocks"]["sub0"], i), memory, cfg)
+          for i in range(n_sb)]
+    bias = torch.zeros(memory.shape[:2], dtype=torch.float32,
+                       device=memory.device)
+    return (torch.stack([k for k, _ in kv]), torch.stack([v for _, v in kv]),
+            bias)
+
+
+# ---------------------------------------------------------------------------
+# Train forward
+# ---------------------------------------------------------------------------
+
+
+def train_forward(params, cfg, batch: dict):
+    """batch: {"tokens": [B, S]} (+ "src_embeds" [B, Ts, d_model] for an
+    encoder-decoder). Returns (logits [B, S, V] f32, TrainAux: the MoE
+    load-balance and router-z losses summed over layers, zeros without
+    MoE). Every block runs `block_train`: no kernel is launched."""
+    tokens = batch["tokens"]
+    x = L.embed(params["embed"], tokens)
+    memory = None
+    if cfg.is_encoder_decoder:
+        memory = encode(params, cfg, batch["src_embeds"].to(cfg.dtype))
+    sb, n_sb, kinds = sb_layout(cfg)
+
+    def superblock(x, lb, zl, memory, p_sb):
+        for i in range(sb):
+            mk = None
+            if memory is not None:
+                mk = (*B.cross_kv(p_sb[f"sub{i}"], memory, cfg), None)
+            x, aux = B.block_train(p_sb[f"sub{i}"], x, cfg, kinds[i][0],
+                                   memory_kv=mk)
+            if aux is not None:
+                lb, zl = lb + aux.lb_loss, zl + aux.z_loss
+        return x, lb, zl
+
+    lb = zl = torch.zeros((), dtype=torch.float32, device=x.device)
+    for s in range(n_sb):
+        x, lb, zl = _maybe_remat(cfg, superblock, x, lb, zl, memory,
+                                 _layer(params["blocks"], s))
+    return _logits(params, cfg, x), TrainAux(lb, zl)
+
+
 def prefill(params, cfg, batch: dict, spec: CacheSpec, *,
             layer_budgets: Optional[Sequence[int]] = None,
             generator: Optional[torch.Generator] = None):
-    """batch: {"tokens": [B, T] int}. Returns (last-token logits [B, V]
-    f32, ModelCache of the compressed prompt and the SSM states).
+    """batch: {"tokens": [B, T] int} (+ "src_embeds" [B, Ts, d_model]
+    for an encoder-decoder: encoded once, its cross memory kept in the
+    cache). Returns (last-token logits [B, V] f32, ModelCache of the
+    compressed prompt, the SSM states and the cross memory).
     `layer_budgets`: one per attention layer, superblock-major."""
     tokens = batch["tokens"]
     x = L.embed(params["embed"], tokens)
@@ -202,24 +311,31 @@ def prefill(params, cfg, batch: dict, spec: CacheSpec, *,
     sb, n_sb, kinds = sb_layout(cfg)
     aps = attn_positions(cfg)
     nA = len(aps)
+    cross = (None, None, None)
+    if cfg.is_encoder_decoder:
+        memory = encode(params, cfg, batch["src_embeds"].to(cfg.dtype))
+        cross = _cross_memory(params, cfg, memory)
     if layer_budgets is None:
         layer_budgets = [spec.main_store_len(T)] * (n_sb * nA)
     attn_pieces, ssm_pieces = [], []
     for s in range(n_sb):
+        # the prefill attends the memory with no bias, as in JAX
+        mkv = None if cross[0] is None else (cross[0][s], cross[1][s], None)
         for i, (kind, _) in enumerate(kinds):
             p = _layer(params["blocks"][f"sub{i}"], s)
             if kind == "attn":
                 x, lc = B.block_prefill(
                     p, x, cfg, spec,
                     logical_budget=int(layer_budgets[s * nA + aps.index(i)]),
-                    generator=generator)
+                    generator=generator, memory_kv=mkv)
                 attn_pieces.append(lc)
             else:
-                x, st = B.block_prefill(p, x, cfg, spec, kind="ssm")
+                x, st = B.block_prefill(p, x, cfg, spec, kind="ssm",
+                                        memory_kv=mkv)
                 ssm_pieces.append(st)
     logits = _logits(params, cfg, x[:, -1:])[:, 0]
     return logits, ModelCache(_stack(attn_pieces, LayerKV, n_sb),
-                              _stack(ssm_pieces, SSMState, n_sb))
+                              _stack(ssm_pieces, SSMState, n_sb), *cross)
 
 
 # ---------------------------------------------------------------------------
@@ -247,9 +363,7 @@ class PrefillState(NamedTuple):
 
 
 def _check_chunkable(cfg) -> None:
-    """The JAX package's gate, with its messages. `ModelConfig` refuses
-    the encoder-decoder kind until it is ported, so its refusal cannot
-    fire yet."""
+    """The JAX package's gate, with its messages."""
     if ssm_positions(cfg):
         raise ValueError("chunked prefill is attention-only: SSM state "
                          "carries across segments (sequential scan)")
@@ -257,7 +371,7 @@ def _check_chunkable(cfg) -> None:
         raise ValueError("chunked prefill needs per-row MoE capacity: "
                          "per-batch expert capacity couples segment "
                          "tokens, so segmenting changes routing")
-    if cfg.arch_type == "audio":          # the encoder-decoder kind
+    if cfg.is_encoder_decoder:
         raise ValueError("chunked prefill is decoder-only")
 
 
@@ -392,6 +506,8 @@ def decode_step(params, cfg, cache: ModelCache, token: torch.Tensor,
         raise ValueError("append_mask is attention-only (SSM state "
                          "advances unconditionally)")
     for s in range(n_sb):
+        mkv = (None if cache.cross_k is None
+               else (cache.cross_k[s], cache.cross_v[s], cache.cross_bias))
         for i, (kind, _) in enumerate(kinds):
             p = _layer(params["blocks"][f"sub{i}"], s)
             if kind == "attn":
@@ -399,12 +515,12 @@ def decode_step(params, cfg, cache: ModelCache, token: torch.Tensor,
                     p, x, cfg, spec,
                     kvcache.layer_view(cache.attn, s, aps.index(i)),
                     ring_full=ring_full, append_mask=append_mask,
-                    generator=generator)
+                    generator=generator, memory_kv=mkv)
             else:
                 x = B.block_decode(
                     p, x, cfg, spec,
                     kvcache.layer_view(cache.ssm, s, sps.index(i)),
-                    kind="ssm")
+                    kind="ssm", memory_kv=mkv)
     return _logits(params, cfg, x)[:, 0], cache
 
 
@@ -488,13 +604,15 @@ def verify_step(params, cfg, cache: ModelCache, tokens: torch.Tensor,
 
 
 def init_cache(cfg, spec: CacheSpec, batch: int, max_len: int, *,
+               src_len: int = 0,
                layer_budgets: Optional[Sequence[int]] = None,
                device=None, paged: bool = False, block_len: int = 16,
                pool_blocks: Optional[int] = None) -> ModelCache:
     """The serving cache: for the attention layers dense `LayerKV`
     leaves, or with `paged` one block pool per layer plus a shared table
     (`core.paging`; the default pool is capacity parity with the dense
-    layout); for the Mamba-2 layers zero `SSMState` stacks."""
+    layout); for the Mamba-2 layers zero `SSMState` stacks; for an
+    encoder-decoder with `src_len` > 0 zero cross memory."""
     sb, n_sb, kinds = sb_layout(cfg)
     aps, sps = attn_positions(cfg), ssm_positions(cfg)
     attn_c = ssm_c = None
@@ -521,4 +639,12 @@ def init_cache(cfg, spec: CacheSpec, batch: int, max_len: int, *,
             batch, ssm_lib.conv_dim(cfg), cfg.ssm.d_conv, cfg.ssm_heads,
             cfg.ssm.head_dim, cfg.ssm.d_state, dtype=cfg.dtype,
             device=device, lead=(n_sb, len(sps)))
-    return ModelCache(attn_c, ssm_c)
+    cross = ()
+    if cfg.is_encoder_decoder and src_len > 0:
+        shape = (cfg.num_layers, batch, src_len, cfg.num_kv_heads,
+                 cfg.head_dim)
+        cross = (torch.zeros(shape, dtype=cfg.dtype, device=device),
+                 torch.zeros(shape, dtype=cfg.dtype, device=device),
+                 torch.zeros((batch, src_len), dtype=torch.float32,
+                             device=device))
+    return ModelCache(attn_c, ssm_c, *cross)

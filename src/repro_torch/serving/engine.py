@@ -557,10 +557,14 @@ class Engine:
             return self.draft.cfg, self.draft.spec, self.draft_layer_budgets
         return self.cfg, self.spec, self.layer_budgets
 
-    def _prefill(self, tokens: np.ndarray, *, draft: bool = False):
+    def _prefill(self, tokens: np.ndarray, *, draft: bool = False,
+                 src_embeds: Optional[np.ndarray] = None):
         cfg, spec, budgets = self._model_of(draft)
         batch = {"tokens": torch.as_tensor(np.asarray(tokens, np.int64),
                                            device=self.device)}
+        if src_embeds is not None:
+            batch["src_embeds"] = torch.as_tensor(src_embeds,
+                                                  device=self.device)
         return M.prefill(self.params, cfg, batch, spec,
                          layer_budgets=budgets, generator=self.gen)
 
@@ -1147,8 +1151,19 @@ class Engine:
             for lb in self.layer_budgets)
 
     # ------------------------------------------------------------------
-    def generate(self, prompts: np.ndarray) -> GenerationResult:
-        """prompts: [n, prompt_len] int (exact bucket length)."""
+    def generate(self, prompts: np.ndarray,
+                 src_embeds: Optional[np.ndarray] = None
+                 ) -> GenerationResult:
+        """prompts: [n, prompt_len] int (exact bucket length). An
+        encoder-decoder reads `src_embeds` [n, Ts, d_model] f32 (the
+        stubbed frontend's frames; None: zeros of max(prompt_len // 4,
+        16) frames); a padded final wave repeats its last row, as the
+        prompts do."""
+        if self.paged:
+            raise ValueError(
+                "the wave path decodes straight off the prefill cache "
+                "(dense by construction); build a dense engine for "
+                "generate(), paged applies to generate_continuous()")
         if self.speculative:
             raise ValueError(
                 "speculative decoding lives in the continuous engine "
@@ -1167,9 +1182,16 @@ class Engine:
             pad = self.slots - (w1 - w0)
             if pad:
                 wave = np.concatenate([wave, np.repeat(wave[-1:], pad, 0)], 0)
+            se = None
+            if self.cfg.is_encoder_decoder:
+                se = (src_embeds[w0:w1] if src_embeds is not None else
+                      np.zeros((w1 - w0, max(L // 4, 16), self.cfg.d_model),
+                               np.float32))
+                if pad:
+                    se = np.concatenate([se, np.repeat(se[-1:], pad, 0)], 0)
             with self.trace.span("wave_prefill",
                                  args=dict(wave=w0 // self.slots)) as sp:
-                logits, cache = self._prefill(wave)
+                logits, cache = self._prefill(wave, src_embeds=se)
                 tok = self.sampler(logits, self.gen)
                 # kvlint: ok(host-sync: prefill's first tokens — once per wave, before the decode loop)
                 first = tok.cpu().numpy()
@@ -1197,8 +1219,10 @@ class Engine:
             sp.__exit__()
             decode_s += sp.elapsed
             active = w1 - w0
+            cross = (cache.cross_k, cache.cross_v, cache.cross_bias)
             phys += ((kvcache.cache_physical_bytes(cache.attn)
-                      + kvcache.tree_bytes(cache.ssm)) * active / self.slots)
+                      + kvcache.tree_bytes(cache.ssm)
+                      + kvcache.tree_bytes(cross)) * active / self.slots)
             logical += self._logical_bytes_per_seq() * active
         full = (self.cfg.kv_bytes_per_token()
                 * (self.prompt_len + self.max_new) * n)
@@ -1223,7 +1247,12 @@ class Engine:
         batch slot; every decode step advances all active slots at once;
         a request hitting its `eos_id` or `max_new` retires immediately
         and its slot (paged: its blocks) goes to the next queued request.
-        Bare arrays become `Request(tokens, max_new=self.max_new)`."""
+        Bare arrays become `Request(tokens, max_new=self.max_new)`.
+        Decoder-only archs (an encoder-decoder raises, as in JAX)."""
+        if self.cfg.is_encoder_decoder:
+            raise NotImplementedError(
+                "continuous batching is decoder-only for now (enc-dec "
+                "requests carry per-request cross memory)")
         if buckets and max(int(b) for b in buckets) > self.prompt_len:
             raise ValueError(
                 f"bucket {max(int(b) for b in buckets)} exceeds engine "

@@ -94,22 +94,41 @@ def test_config_fields_and_sizes_equal_jax(arch):
 
 
 def test_get_config_and_all_configs_agree_with_jax():
+    """All eleven reference configs, in JAX's order; the encoder-decoder
+    (seamless-m4t-large-v2) field for field, its `param_count` (encoder
+    blocks and cross-attention included, 2.03 B) and `reduced` (2
+    encoder layers, no remat) JAX's. An unknown arch still raises
+    KeyError and an unknown `arch_type` NotImplementedError."""
     port = TB.all_configs()
-    assert list(port) == [a for a in JB.ARCH_IDS if a in port]
-    assert list(port) == TB.ARCH_IDS
-    assert set(NEW_ARCHS) | {"granite-8b", "paper-llama-7b", "mixtral-8x22b",
-                             "kimi-k2-1t-a32b", "mamba2-130m",
-                             "jamba-v0.1-52b"} == set(port)
+    assert list(port) == JB.ARCH_IDS == TB.ARCH_IDS
     jall = JB.all_configs()
     for name, cfg in port.items():
         assert cfg is TB.get_config(name)
         assert cfg.name == name == jall[name].name
         assert cfg.param_count() == jall[name].param_count()
-    for name in set(JB.ARCH_IDS) - set(port):
-        with pytest.raises(KeyError):
-            TB.get_config(name)
+        assert (cfg.remat, cfg.input_kind, cfg.is_encoder_decoder,
+                cfg.num_encoder_layers) == (
+            jall[name].remat, jall[name].input_kind,
+            jall[name].is_encoder_decoder, jall[name].num_encoder_layers)
+    cfg, jcfg = TB.get_config("seamless-m4t-large-v2"), jall[
+        "seamless-m4t-large-v2"]
+    for f in dataclasses.fields(TB.ModelConfig):
+        if f.name in ("moe", "ssm"):
+            assert (dataclasses.asdict(getattr(cfg, f.name))
+                    == dataclasses.asdict(getattr(jcfg, f.name))), f.name
+        elif f.name not in ("dtype", "use_kernels"):
+            assert getattr(cfg, f.name) == getattr(jcfg, f.name), f.name
+    assert cfg.param_count() == 2_034_783_232
+    assert cfg.kv_bytes_per_token() == jcfg.kv_bytes_per_token()
+    r, jr = TB.reduced(cfg), JB.reduced(jcfg)
+    for f in ("num_layers", "num_encoder_layers", "d_model", "num_heads",
+              "num_kv_heads", "d_ff", "vocab_size", "remat"):
+        assert getattr(r, f) == getattr(jr, f), f
+    assert r.param_count() == jr.param_count()
+    with pytest.raises(KeyError):
+        TB.get_config("seamless-m4t-medium")
     with pytest.raises(NotImplementedError):
-        TB.ModelConfig(name="x", arch_type="audio", source="", num_layers=1,
+        TB.ModelConfig(name="x", arch_type="video", source="", num_layers=1,
                        d_model=8, num_heads=1, num_kv_heads=1, d_ff=8,
                        vocab_size=8)
 
@@ -125,22 +144,16 @@ def _verdict(check, cfg):
 @pytest.mark.parametrize("arch", JB.ARCH_IDS)
 def test_check_chunkable_gives_jax_verdict(arch):
     """Every reference config: the port's gate gives the JAX gate's
-    verdict, message included, on every config the port builds (MoE and
-    SSM layers are refused). A config of a kind not yet ported (the
-    encoder-decoder) is refused at construction."""
+    verdict, message included (MoE, SSM layers and the encoder-decoder
+    are refused)."""
     jcfg = JB.get_config(arch)
     want = _verdict(JM._check_chunkable, jcfg)
-    if arch in TB.ARCH_IDS:
-        cfg = TB.get_config(arch)
-        assert _verdict(M._check_chunkable, cfg) == want
-        assert (want is not None) == (cfg.is_moe
-                                      or bool(M.ssm_positions(cfg)))
-        if want is None:
-            M.init_prefill_state(TB.reduced(cfg), 16, device="cpu")
-    else:
-        assert want is not None
-        with pytest.raises(NotImplementedError):
-            TB.get_config("granite-8b").replace(arch_type=jcfg.arch_type)
+    cfg = TB.get_config(arch)
+    assert _verdict(M._check_chunkable, cfg) == want
+    assert (want is not None) == (cfg.is_moe or bool(M.ssm_positions(cfg))
+                                  or cfg.is_encoder_decoder)
+    if want is None:
+        M.init_prefill_state(TB.reduced(cfg), 16, device="cpu")
 
 
 # ---------------------------------------------------------------------------

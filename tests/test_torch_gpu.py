@@ -1425,3 +1425,84 @@ def test_reduced_jamba_engine_kernels_match_reference(cuda, pname, paged):
                                     * cfg.num_attn_layers())
     for a, b, c in zip(*(out[k].results for k in out)):
         assert a.tokens.tolist() == b.tokens.tolist() == c.tokens.tolist()
+
+
+@pytest.mark.parametrize("pname", ["full", "h2o", "kivi2"])
+def test_reduced_seamless_wave_path_on_card(cuda, pname):
+    """Reduced seamless-m4t-large-v2 (f32, 2 encoder + 2 decoder layers)
+    through `Engine.generate` on the card: the kernels' streams equal
+    use_kernels=False's and the CPU's, with B1 once per decoder layer a
+    decode step and B2 once per layer a wave for the policies that read
+    no mass."""
+    cfg = reduced(get_config("seamless-m4t-large-v2"))
+    pol = presets(32, 8)[pname]
+    g = torch.Generator().manual_seed(0)
+    prompts = torch.randint(0, cfg.vocab_size, (3, 64), generator=g).numpy()
+    src = torch.randn(3, 16, cfg.d_model, generator=g).numpy()
+    params = M.init_params(cfg, seed=0, device="cpu")
+    out = {}
+    for dev, uk in (("cpu", False), ("cuda", False), ("cuda", True)):
+        eng = Engine(cfg, _to(params, dev), pol, prompt_len=64, max_new=6,
+                     slots=2, device=dev, use_kernels=uk)
+        dq_ops.decode_attn_kernel.launches = 0
+        fp_ops.flash_prefill_kernel.launches = 0
+        out[(dev, uk)] = eng.generate(prompts, src_embeds=src)
+        if uk:
+            assert dq_ops.decode_attn_kernel.launches == 2 * 5 * 2
+            assert fp_ops.flash_prefill_kernel.launches == (
+                0 if pol.spec.track_scores() else 2 * 2)
+    a, b, c = (out[k] for k in out)
+    assert a.tokens.tolist() == b.tokens.tolist() == c.tokens.tolist()
+    assert a.cache_physical_bytes == c.cache_physical_bytes
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One `make_train_step` step of reduced seamless (f32) on the card
+    against the CPU: loss, grad norm and the new params within 1e-4; no
+    kernel launched; reduced seamless's f32 decode continues its
+    `train_forward` logits within 2e-3 on the card (the JAX invariant of
+    tests/test_system.py)."""
+    from repro_torch.core.cache import CacheSpec
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.optim import cosine_schedule
+    from repro_torch.optim.optimizers import tree_map
+    from repro_torch.train import loop as TL
+    cfg = reduced(get_config("seamless-m4t-large-v2"), remat="block")
+    params = M.init_params(cfg, seed=0, device="cpu")
+    batch = next(lm_batches(cfg, 2, 48, seed=0))
+    kernels = (dq_ops.decode_attn_kernel, fp_ops.flash_prefill_kernel,
+               kvq_ops.kvquant_kernel)
+    for k in kernels:
+        k.launches = 0
+    out = {}
+    for dev in ("cpu", "cuda"):
+        init, step = TL.make_train_step(cfg, cosine_schedule(3e-4, 0, 4))
+        # the step donates its state: each device steps its own copy
+        st, m = step(init(tree_map(lambda x: x.to(dev, copy=True), params)),
+                     {k: torch.as_tensor(v, device=dev)
+                      for k, v in batch.items()})
+        out[dev] = (m, st)
+    assert all(k.launches == 0 for k in kernels)
+    (mc, sc), (mg, sg) = out["cpu"], out["cuda"]
+    for f in ("loss", "ce_loss", "grad_norm", "lr"):
+        assert abs(float(getattr(mg, f)) - float(getattr(mc, f))) <= 1e-4 * (
+            1 + abs(float(getattr(mc, f)))), f
+    for a, b in zip(_leaves_of(sc.params), _leaves_of(sg.params)):
+        torch.testing.assert_close(b.cpu(), a, atol=1e-4, rtol=1e-4)
+    p = _to(params, "cuda")
+    t = torch.as_tensor(batch["tokens"], device="cuda")
+    src = torch.as_tensor(batch["src_embeds"], device="cuda")
+    with torch.no_grad():
+        full, _ = M.train_forward(p, cfg, {"tokens": t, "src_embeds": src})
+    spec = CacheSpec(budget=64)
+    lg, c = M.prefill(p, cfg, {"tokens": t[:, :40], "src_embeds": src}, spec)
+    errs = [(lg - full[:, 39]).abs().max().item()]
+    for i in range(40, 48):
+        lg, c = M.decode_step(p, cfg, c, t[:, i:i + 1], spec)
+        errs.append((lg - full[:, i]).abs().max().item())
+    assert max(errs) < 2e-3, errs
+
+
+def _leaves_of(tree):
+    return [x for k in sorted(tree) for x in
+            (_leaves_of(tree[k]) if isinstance(tree[k], dict) else [tree[k]])]

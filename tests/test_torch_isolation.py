@@ -11,11 +11,16 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import repro_torch
-from repro_torch import bridge
+from repro_torch import bridge, checkpoint, data, optim, train
+from repro_torch.checkpoint import io as ckpt_io
 from repro_torch.configs import (base, chameleon_34b, command_r_plus_104b,
                                  granite_8b, jamba_v0_1_52b, kimi_k2_1t_a32b,
                                  mamba2_130m, minicpm_2b, mixtral_8x22b,
-                                 paper_llama_7b, qwen2_5_32b)
+                                 paper_llama_7b, qwen2_5_32b,
+                                 seamless_m4t_large_v2)
+from repro_torch.data import synthetic
+from repro_torch.optim import optimizers, schedules
+from repro_torch.train import loop
 from repro_torch.core import (budgets, cache, eviction, lexico, paging,
                               policy, quantization, sharing)
 from repro_torch.kernels import build
@@ -26,6 +31,7 @@ from repro_torch.kernels.flash_prefill import ref as fp_ref
 from repro_torch.kernels.kvquant import ops as kvq_ops
 from repro_torch.kernels.kvquant import ref as kvq_ref
 from repro_torch.launch import serve
+from repro_torch.launch import train as train_cli
 from repro_torch.nn import attention, blocks, layers, model, moe, rope, ssm
 from repro_torch import obs
 from repro_torch.obs import metrics, trace
@@ -41,7 +47,8 @@ MODULES = [repro_torch, bridge, base, chameleon_34b, command_r_plus_104b,
            attention, blocks, layers, model, moe, rope, ssm, obs, metrics,
            trace, adaptive,
            cacheblend, engine, prefix, sampler, scheduler, shared_runner,
-           speculative]
+           speculative, seamless_m4t_large_v2, checkpoint, ckpt_io, data,
+           synthetic, optim, optimizers, schedules, train, loop, train_cli]
 
 _CHILD = textwrap.dedent("""
     import importlib, json, os, sys, tempfile
@@ -117,6 +124,14 @@ _CHILD = textwrap.dedent("""
     lg, caches = SR.shared_decode_step(p, cfg, caches, lg.argmax(-1)[:, None],
                                        CacheSpec(budget=20), m)
     print("KVSHARER", len(m), sum(c is None for c in caches))
+    serve.main(["--arch", "seamless-m4t-large-v2", "--reduced", "--policy",
+                "kivi2", "--budget", "16", "--window", "8", "--requests",
+                "3", "--prompt-len", "32", "--max-new", "3", "--slots", "2",
+                "--device", "cpu"])
+    from repro_torch.launch import train as train_cli
+    train_cli.main(["--arch", "seamless-m4t-large-v2", "--reduced",
+                    "--steps", "2", "--batch", "2", "--seq", "16",
+                    "--device", "cpu", "--ckpt", os.path.join(tmp, "ck")])
     bad = sorted(m for m in sys.modules
                  if m == "jax" or m.startswith("jax.")
                  or m == "repro" or m.startswith("repro."))
@@ -141,6 +156,7 @@ def test_port_imports_no_jax_and_no_repro():
     assert "policy=keyformer" in r.stdout, r.stdout
     assert "policy=full continuous requests=2" in r.stdout, r.stdout
     assert "KVSHARER 1 1" in r.stdout, r.stdout
+    assert "saved " in r.stdout and "step     1  loss=" in r.stdout, r.stdout
     assert "policy=kivi2 continuous requests=2 buckets=[80]" in r.stdout, \
         r.stdout
     assert "policy=kivi2 continuous requests=2 buckets=[48]" in r.stdout, \
@@ -167,6 +183,8 @@ def test_entry_points_default_to_cuda():
                       speculative=True)
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--arch", "granite-8b", "--reduced"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_cli.main(["--arch", "granite-8b", "--reduced"])
 
 
 def test_tracer_copy_sampler_and_allocators():

@@ -272,7 +272,8 @@ def test_engine_gates_give_jax_verdict(arch, gate):
     got = _verdict(lambda: Engine(cfg, p, presets(32, 8)["full"],
                                   device="cpu", **kw))
     assert got == want
-    assert (want is not None) == (cfg.is_moe or bool(M.ssm_positions(cfg)))
+    assert (want is not None) == (cfg.is_moe or bool(M.ssm_positions(cfg))
+                                  or cfg.is_encoder_decoder)
 
 
 # ---------------------------------------------------------------------------
