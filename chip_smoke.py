@@ -131,6 +131,21 @@ Phases, each printing its own lines; any failure exits non-zero:
               step wall, tokens/s and peak memory per step; finite, every
               weight matrix moved, no kernel launched; the first step's
               loss in bf16 against f32 on seamless's 4 + 4 layer cut
+ 11. shard    the sharded path (DTensor over torch.distributed):
+              `launch/train.py --mesh host` as one NCCL rank (mesh 1 x 1)
+              against phase 10's minicpm-2b steps; two gloo ranks
+              spawned on the one card (mesh 1 x 2, tp 2; a probe first
+              finds the collectives gloo cannot run on CUDA tensors, which
+              then go through host memory, printed): granite-8b at full
+              width on 18 of 36 layers, 4 x 1024 prompts + 16 steps under
+              full and h2o+kivi2 against the one-rank run, B2 / B1 / B6
+              launches exact per rank, both ranks' kept positions equal;
+              mixtral-8x22b's MoE FFN through `moe_apply_expert_parallel`
+              (4 of 8 experts a rank) against the f32 oracle, one
+              all-reduce; then the production dry run, every arch but
+              paper-llama-7b x the four shapes on a fake 256-rank mesh
+              (CPU worker processes started with the script, overlapping
+              phases 1-10), and perf_moe's two collective totals
 
 Then one JSON line describing every ported kernel, and as the last line
 ``{"ok": true, "device": {...}}``. There is no CPU path: without a CUDA
@@ -151,7 +166,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 PHASES = ("device", "build", "parity", "serve", "e2e", "profile", "configs",
-          "kvsharer", "encdec", "train")
+          "kvsharer", "encdec", "train", "shard")
 # kernel vs plain version, |kernel - plain| <= atol + rtol * |plain|.
 # Both sides compute in f32 on the same (bf16-rounded) inputs, so they
 # differ by f32 summation order (readings <= 1e-6) and, for bf16 outputs,
@@ -4172,6 +4187,448 @@ def phase_train(info: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# 11. shard: the sharded path (DTensor over torch.distributed) on the card
+# ---------------------------------------------------------------------------
+#
+# (a) `launch/train.py --mesh host` as one NCCL rank (mesh 1 x 1) against
+#     phase 10's un-meshed minicpm-2b run; (b) two ranks on the one card
+#     over gloo (NCCL refuses two ranks on one device), mesh (1, 2), tp 2:
+#     granite-8b at full width on 18 of 36 layers through prefill +
+#     decode (the kernels on each rank's heads) held to the one-rank run,
+#     then mixtral-8x22b's MoE FFN through `moe_apply_expert_parallel`;
+#     (c) the
+#     production dry run on a fake 256-rank mesh, every arch but
+#     paper-llama-7b x the four shapes, run by worker processes started
+#     with the script (CPU only, meta tensors), then `perf_moe`.
+
+# |loss| and relative |grad norm| differences per step of the 1 x 1 mesh
+# against phase 10 (stated before the first card run; expected 0: the
+# mesh runs the same local ops)
+SHARD_TRAIN_TOL = (1e-2, 1e-2)
+SHARD_ARCH, SHARD_B, SHARD_PROMPT, SHARD_STEPS = "granite-8b", 4, 1024, 16
+# (b) runs granite at full width on 18 of its 36 layers: the cut stated
+# in PERF.md §6 before the first run, for a (b) over 60 s (PR 25's two
+# archive runs took 59.0 and 65.4 s)
+SHARD_LAYERS = 18
+SHARD_POLICIES = ("full", "h2o+kivi2")
+SHARD_DEADLINE = 420          # seconds for the two ranks, both runs
+SHARD_DRYRUN_WORKERS = 4
+SHARD_DRYRUN_DEADLINE = 900   # seconds after the script starts
+_DRYRUN: dict = {}
+# functional collectives DTensor may call, by the c10d collective they run
+_FUNCOL = {"all_reduce": ("all_reduce",),
+           "all_gather": ("all_gather_tensor", "all_gather_single"),
+           "reduce_scatter": ("reduce_scatter_tensor", "reduce_scatter_single"),
+           "all_to_all": ("all_to_all_single",)}
+
+
+def start_dryrun() -> None:
+    """Start the phase-11 dry-run workers (CPU processes over meta
+    tensors: they overlap the card phases). Each runs
+    `repro_torch.launch.dryrun` over its share of the archs into a
+    temporary directory; `_stop_dryrun` ends them."""
+    import atexit
+    import tempfile
+    from repro_torch.configs.base import ARCH_IDS
+    archs = [a for a in ARCH_IDS if a != "paper-llama-7b"]
+    out = tempfile.mkdtemp(prefix="dryrun_torch_")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
+    procs = []
+    for i in range(SHARD_DRYRUN_WORKERS):
+        mine = archs[i::SHARD_DRYRUN_WORKERS]
+        log = open(os.path.join(out, f"worker{i}.log"), "w")
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             ",".join(mine), "--shape", "all", "--mesh", "single", "--out",
+             out], env=env, stdout=log, stderr=subprocess.STDOUT))
+    _DRYRUN.update(out=out, procs=procs, t0=time.time(), archs=archs)
+    atexit.register(_stop_dryrun)
+
+
+def _stop_dryrun() -> None:
+    for p in _DRYRUN.get("procs", ()):
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def _host_collectives(ops) -> None:
+    """Carry the functional collectives of `ops` through host memory: a
+    CUDA tensor goes to the CPU, the gloo collective runs there, the
+    result comes back to the card. Phase 11 (b) only, for the collectives
+    gloo cannot run on CUDA tensors (printed)."""
+    import torch
+    import torch.distributed._functional_collectives as funcol
+
+    def wrap(fn):
+        def call(x, *args, **kwargs):
+            if isinstance(x, torch.Tensor) and x.is_cuda:
+                y = funcol.wait_tensor(fn(x.cpu(), *args, **kwargs))
+                return y.to(x.device)
+            return fn(x, *args, **kwargs)
+        return call
+
+    for op in ops:
+        for name in _FUNCOL[op]:
+            if hasattr(funcol, name):
+                setattr(funcol, name, wrap(getattr(funcol, name)))
+
+
+def _shard_probe_rank(rank: int, rdv: str, out: str) -> None:
+    """Which functional collectives gloo runs on CUDA tensors (two
+    ranks, one card): each op is tried once and its result checked."""
+    import torch
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as funcol
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{rdv}", rank=rank,
+                            world_size=2)
+    g = dist.group.WORLD
+    x = torch.arange(4, device="cuda", dtype=torch.float32) + 10 * rank
+    want = {"all_reduce": [10., 12., 14., 16.],
+            "all_gather": [0., 1., 2., 3., 10., 11., 12., 13.],
+            "reduce_scatter": [[10., 12.], [14., 16.]][rank],
+            "all_to_all": [[0., 1., 10., 11.], [2., 3., 12., 13.]][rank]}
+    res = {}
+    for op, fn in (
+            ("all_reduce", lambda: funcol.all_reduce(x, "sum", g)),
+            ("all_gather", lambda: funcol.all_gather_tensor(x, 0, g)),
+            ("reduce_scatter",
+             lambda: funcol.reduce_scatter_tensor(x, "sum", 0, g)),
+            ("all_to_all",
+             lambda: funcol.all_to_all_single(x, None, None, g))):
+        try:
+            y = funcol.wait_tensor(fn())
+            torch.cuda.synchronize()
+            res[op] = y.cpu().tolist() == want[op]
+        except Exception as e:  # noqa: BLE001 — recorded: goes by host
+            res[op] = repr(e)[:200]
+        with open(f"{out}.{rank}", "w") as f:
+            json.dump(res, f)
+    dist.destroy_process_group()
+
+
+def _spawn(target, args_of, n: int, deadline: float, what: str):
+    """Start `n` spawned processes target(rank, *args_of(rank)), wait
+    until `deadline` (seconds from now), kill any left. Returns their
+    exit codes (None: killed at the deadline)."""
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=target, args=(r, *args_of(r)))
+             for r in range(n)]
+    for p in procs:
+        p.start()
+    end = time.monotonic() + deadline
+    for p in procs:
+        p.join(timeout=max(end - time.monotonic(), 1))
+    codes = [None if p.is_alive() else p.exitcode for p in procs]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    if None in codes:
+        print(f"[shard] {what}: ranks still running after {deadline} s "
+              f"killed (exit codes {codes})")
+    return codes
+
+
+def _shard_tokens(cfg, seed: int):
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    return torch.randint(0, cfg.vocab_size,
+                         (SHARD_B, SHARD_PROMPT + SHARD_STEPS),
+                         generator=g).to(torch.int32)
+
+
+def _shard_serve(params, cfg, spec, toks, place):
+    """prefill + SHARD_STEPS decode steps (the tokens fed: teacher
+    forcing, so both runs see the same inputs); the logits of every
+    call on the host, and the final cache."""
+    from repro_torch.nn import model as M
+    lg, cache = M.prefill(params, cfg,
+                          {"tokens": place(toks[:, :SHARD_PROMPT])}, spec)
+    out = [lg]
+    for t in range(SHARD_PROMPT, SHARD_PROMPT + SHARD_STEPS):
+        lg, cache = M.decode_step(params, cfg, cache,
+                                  place(toks[:, t:t + 1]), spec)
+        out.append(lg)
+    return out, cache
+
+
+def _shard_rank(rank: int, rdv: str, out: str, host_ops) -> None:
+    """One of the two phase-11 ranks: granite-8b over the (1, 2) mesh
+    under each policy (kernel launches counted around the run), then
+    mixtral's expert-parallel MoE FFN; results to `out`.<rank>."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.policy import presets
+    from repro_torch.launch.dryrun import DeviceCounter
+    from repro_torch.nn import model as M
+    from repro_torch.nn import sharding as shd
+    from repro_torch.nn.moe_ep import moe_apply_expert_parallel
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{rdv}", rank=rank,
+                            world_size=2)
+    _host_collectives(host_ops)
+    mesh = init_device_mesh("cuda", (1, 2), mesh_dim_names=("data", "model"))
+    kernels = _kernel_objs()
+    res = {"runs": {}}
+    cfg = get_config(SHARD_ARCH).replace(num_layers=SHARD_LAYERS)
+    params = M.init_params(cfg, seed=0, device="cuda")
+    dp = shd.distribute_tree(params, shd.param_pspecs(params, cfg, mesh),
+                             mesh)
+    del params
+    torch.cuda.empty_cache()
+    toks = _shard_tokens(cfg, 1).cuda()
+
+    def place(t):
+        return shd.distribute_leaf(t, (("data",), None), mesh)
+
+    for pname in SHARD_POLICIES:
+        spec = presets(budget=BUDGET, window=WINDOW)[pname].spec
+        torch.cuda.synchronize()
+        for k in kernels.values():
+            k.launches = 0
+        t1 = time.perf_counter()
+        with torch.no_grad():
+            logits, cache = _shard_serve(dp, cfg, spec, toks, place)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        n = {name: k.launches for name, k in kernels.items()}
+        res["runs"][pname] = dict(
+            logits=[lg.full_tensor().float().cpu() for lg in logits],
+            slot_pos=cache.attn.slot_pos.to_local().cpu(),
+            launches=n, wall=wall,
+            peak=torch.cuda.max_memory_allocated())
+        del cache, logits
+    del dp
+    torch.cuda.empty_cache()
+
+    # mixtral-8x22b's MoE FFN, one layer at full width: 4 of 8 experts a
+    # rank, drop-free capacity, one all-reduce
+    mcfg = get_config("mixtral-8x22b").replace(num_layers=1)
+    p = _first_moe(M.init_params(mcfg, seed=0, device="cuda"))
+    E, k = mcfg.moe.num_experts, mcfg.moe.num_experts_per_tok
+    g = torch.Generator(device="cuda").manual_seed(MOE_TOKENS)
+    x = torch.randn(1, MOE_TOKENS, mcfg.d_model, generator=g,
+                    device="cuda").to(mcfg.dtype)
+    counter = DeviceCounter()
+    with counter, torch.no_grad():
+        y = moe_apply_expert_parallel(p, x, top_k=k, mesh=mesh,
+                                      capacity_factor=float(E))
+    torch.cuda.synchronize()
+    res["moe"] = dict(
+        y=y.float().cpu(),
+        colls={c: v["count"] for c, v in counter.collectives.items()},
+        ref=_moe_dense_by_expert(p, x, k).cpu() if rank == 0 else None)
+    torch.save(res, f"{out}.{rank}")
+    dist.destroy_process_group()
+
+
+def phase_shard(info: dict) -> None:
+    """(a) the 1 x 1 NCCL mesh against phase 10, (b) two gloo ranks on the
+    card against one rank, (c) the production dry-run grid and
+    perf_moe."""
+    import gc
+    import tempfile
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.policy import presets
+    from repro_torch.launch import train as train_cli
+    from repro_torch.nn import model as M
+    kernels = _kernel_objs()
+    launches = info.setdefault("launches", dict.fromkeys(KERNELS, 0))
+    t_phase = time.perf_counter()
+
+    # (a) --mesh host, one NCCL rank, against phase 10's minicpm-2b
+    arch, sched = TRAIN_RUNS[1]
+    ref = next(r for r in info["train"] if r["arch"] == arch)["steps"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    argv = ["--arch", arch, "--steps", str(TRAIN_STEPS), "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--schedule", sched,
+            "--mesh", "host"]
+    (state, hist), n, wall = _counted(lambda: train_cli.main(argv), kernels,
+                                      launches)
+    del state
+    for i, (h, r) in enumerate(zip(hist, ref)):
+        dl = abs(h["loss"] - r["loss"])
+        dg = abs(h["grad_norm"] - r["grad_norm"]) / max(r["grad_norm"], 1e-9)
+        print(f"[shard] {arch} --mesh host (1 x 1, nccl) step {i}: loss "
+              f"{h['loss']:.6f} vs {r['loss']:.6f} (|d| {dl:.3g}), grad norm "
+              f"{h['grad_norm']:.6f} vs {r['grad_norm']:.6f} (rel {dg:.3g}); "
+              f"wall {h['wall_s']:.3f} s vs {r['wall_s']:.3f} s, peak "
+              f"{h['max_memory_allocated'] / 2**30:.2f} GiB vs "
+              f"{r['max_memory_allocated'] / 2**30:.2f} GiB")
+        if not (dl <= SHARD_TRAIN_TOL[0] and dg <= SHARD_TRAIN_TOL[1]):
+            fail(f"shard: --mesh host step {i} differs from phase 10: loss "
+                 f"{dl}, grad norm {dg} (tol {SHARD_TRAIN_TOL})")
+    if len(hist) != len(ref) or any(n.values()):
+        fail(f"shard: --mesh host ran {len(hist)} steps, launches {n}")
+    info["shard_train"] = [dict(loss=h["loss"], grad_norm=h["grad_norm"],
+                                wall=h["wall_s"]) for h in hist]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) two gloo ranks on the card: which collectives gloo runs on CUDA
+    tmp = tempfile.mkdtemp(prefix="shard_")
+    probe = os.path.join(tmp, "probe")
+    codes = _spawn(_shard_probe_rank,
+                   lambda r: (os.path.join(tmp, "rdv0"), probe), 2, 90,
+                   "gloo probe")
+    host_ops = []
+    for op in _FUNCOL:
+        got = []
+        for r in range(2):
+            try:
+                with open(f"{probe}.{r}") as f:
+                    got.append(json.load(f).get(
+                        op, f"no answer, probe exit codes {codes}"))
+            except OSError:
+                got.append(f"no answer, probe exit codes {codes}")
+        if not all(v is True for v in got):
+            host_ops.append(op)
+        print(f"[shard] gloo {op} on CUDA tensors: "
+              + ("native" if op not in host_ops else
+                 f"through host memory ({got[0]})"))
+    info["shard_host_ops"] = host_ops
+
+    # the one-rank reference: the same weights, tokens and policies
+    cfg = get_config(SHARD_ARCH).replace(num_layers=SHARD_LAYERS)
+    params = M.init_params(cfg, seed=0, device="cuda")
+    toks = _shard_tokens(cfg, 1).cuda()
+    want = {}
+    for pname in SHARD_POLICIES:
+        spec = presets(budget=BUDGET, window=WINDOW)[pname].spec
+        with torch.no_grad():
+            logits, cache = _shard_serve(params, cfg, spec, toks,
+                                         lambda t: t)
+        want[pname] = [lg.float().cpu() for lg in logits]
+        del cache, logits
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    out = os.path.join(tmp, "rank")
+    t1 = time.perf_counter()
+    codes = _spawn(_shard_rank, lambda r: (os.path.join(tmp, "rdv1"), out,
+                                           host_ops),
+                   2, SHARD_DEADLINE, "tp 2")
+    if codes != [0, 0]:
+        fail(f"shard: a tp-2 rank failed or hung (exit codes {codes})")
+    ranks = [torch.load(f"{out}.{r}", weights_only=False) for r in range(2)]
+    print(f"[shard] two ranks (mesh 1 x 2, gloo, one card) done in "
+          f"{time.perf_counter() - t1:.1f} s")
+    n_layers = cfg.num_layers
+    for pname in SHARD_POLICIES:
+        spec = presets(budget=BUDGET, window=WINDOW)[pname].spec
+        flushes = (sum(1 for t in range(SHARD_STEPS) if t % spec.window == 0)
+                   if spec.quantized else 0)
+        want_n = dict.fromkeys(KERNELS, 0)
+        want_n["decode_attn"] = SHARD_STEPS * n_layers
+        if not spec.track_scores():
+            want_n["flash_prefill"] = n_layers
+        if spec.quantized:
+            want_n["kvquant"] = (1 + flushes) * n_layers
+        d = max(max((a - b).abs().max().item() for a, b in
+                    zip(r["runs"][pname]["logits"], want[pname]))
+                for r in ranks)
+        same_pos = torch.equal(ranks[0]["runs"][pname]["slot_pos"],
+                               ranks[1]["runs"][pname]["slot_pos"])
+        for r, rk in enumerate(ranks):
+            run = rk["runs"][pname]
+            print(f"[shard] {SHARD_ARCH} ({SHARD_LAYERS} layers) tp 2 rank "
+                  f"{r} {pname}: prefill "
+                  f"{SHARD_B} x {SHARD_PROMPT} + {SHARD_STEPS} decode steps "
+                  f"in {run['wall']:.2f} s, peak {run['peak'] / 2**30:.2f} "
+                  f"GiB, launches " + " ".join(
+                      f"{k} {v}" for k, v in run["launches"].items() if v))
+            if run["launches"] != want_n:
+                fail(f"shard: rank {r} {pname} launches {run['launches']} "
+                     f"!= {want_n}")
+            for key in KERNELS:
+                launches[key] += run["launches"][key]
+        print(f"[shard] {SHARD_ARCH} ({SHARD_LAYERS} layers) tp 2 {pname}: "
+              f"max|logit - one rank| "
+              f"{d:.4f} over {SHARD_STEPS + 1} calls (tol {E2E_LOGIT_TOL}), "
+              f"the ranks' kept positions equal: {same_pos}")
+        info.setdefault("shard_tp", []).append(dict(policy=pname, d=d,
+                                                    same_pos=same_pos))
+        if not (math.isfinite(d) and d <= E2E_LOGIT_TOL and same_pos):
+            fail(f"shard: tp 2 {pname} logits differ by {d} or kept "
+                 f"positions differ ({same_pos})")
+    moe = [rk["moe"] for rk in ranks]
+    err = check_close("shard: mixtral expert-parallel MoE vs f32 oracle",
+                      moe[0]["y"], moe[0]["ref"], *MOE_TOL)
+    same = torch.equal(moe[0]["y"], moe[1]["y"])
+    print(f"[shard] mixtral-8x22b MoE FFN expert parallel (4 of 8 experts a "
+          f"rank, {MOE_TOKENS} tokens, drop-free): max|err| vs f32 oracle "
+          f"{err:.4g} (tol {MOE_TOL}), ranks equal {same}, collectives "
+          f"{moe[0]['colls']}")
+    if not same or moe[0]["colls"]["all-reduce"] != 1 or sum(
+            moe[0]["colls"].values()) != 1:
+        fail(f"shard: expert-parallel MoE ranks differ ({same}) or "
+             f"collectives {moe[0]['colls']} are not one all-reduce")
+    info["shard_moe"] = dict(err=err, colls=moe[0]["colls"])
+
+    # (c) the production dry run (started with the script) and perf_moe
+    from repro_torch.launch import perf, perf_moe
+    end = _DRYRUN["t0"] + SHARD_DRYRUN_DEADLINE
+    for p in _DRYRUN["procs"]:
+        try:
+            p.wait(timeout=max(end - time.time(), 1))
+        except subprocess.TimeoutExpired:
+            pass
+    _stop_dryrun()
+    recs, n_ok, last = [], 0, _DRYRUN["t0"]
+    for arch in _DRYRUN["archs"]:
+        for shape in ("train_4k", "prefill_32k", "decode_32k", "long_500k"):
+            path = os.path.join(_DRYRUN["out"],
+                                f"{arch}__{shape}__single.json")
+            try:
+                with open(path) as f:
+                    rec = json.load(f)
+                last = max(last, os.path.getmtime(path))
+            except OSError:
+                rec = {"arch": arch, "shape": shape, "status": "missing"}
+            recs.append(rec)
+            if rec["status"] != "ok":
+                print(f"[shard] dry run {arch} {shape}: {rec['status']} "
+                      f"{rec.get('error', '')}")
+                continue
+            n_ok += 1
+            t = perf.terms(rec)
+            coll = sum(v["bytes_weighted_n"] for v in
+                       rec["collectives"].values())
+            print(f"[shard] dryrun {arch} {shape} lower {rec['lower_s']} s: "
+                  f"dot flops/dev {rec['dot_flops_per_device']:.4g}, "
+                  f"collective bytes/dev {coll:.4g}; compute "
+                  f"{t['compute_s']:.4g} s memory {t['memory_s']:.4g} s "
+                  f"collective {t['collective_s']:.4g} s, {t['dominant']}, "
+                  f"useful {t['useful_ratio']:.3f}")
+    wall = last - _DRYRUN["t0"]
+    print(f"[shard] production dry run (16 x 16 fake ranks, meta tensors): "
+          f"{n_ok}/{len(recs)} ok, {SHARD_DRYRUN_WORKERS} worker processes, "
+          f"the last record written {wall:.1f} s after the script's start "
+          f"(lower_s summed {sum(r.get('lower_s', 0) for r in recs):.1f} s)")
+    if n_ok != len(recs):
+        fail(f"shard: dry run {n_ok}/{len(recs)} ok")
+    res = perf_moe.run()
+    for name, (total, coll) in res.items():
+        print(f"[shard] perf_moe {name}: collective bytes/dev {total:.4g} "
+              f"{coll}")
+    ratio = res["dtensor_dispatch"][0] / res["expert_parallel"][0]
+    print(f"[shard] perf_moe: DTensor dispatch / expert parallel = "
+          f"{ratio:.1f}x; phase 11 took {time.perf_counter() - t_phase:.1f} "
+          f"s; {info['smi']}")
+    info["shard_dryrun"] = dict(ok=n_ok, n=len(recs), wall=wall, moe=ratio)
+
+
 def main() -> int:
     try:
         import torch
@@ -4185,6 +4642,7 @@ def main() -> int:
         fail("src/repro_torch not found beside chip_smoke.py")
     info: dict = {}
     t0 = time.perf_counter()
+    start_dryrun()
     for name in PHASES:
         globals()["phase_" + name](info)
         print(f"[{name}] done at {time.perf_counter() - t0:.1f} s",

@@ -12,6 +12,12 @@ is stored as JAX's `np.asarray` stores it, 2-byte void (``|V2``) with
 manifest dtype ``"bfloat16"``, and restored by viewing its 16 bits as
 bf16, bit for bit. (The JAX loader's ``astype`` cannot cast those void
 bytes back, so it fails on any bf16 leaf; this one restores them.)
+
+A sharded tree (DTensor leaves) is saved whole: every rank gathers each
+leaf (`full_tensor`, a collective: every rank calls `save_pytree`) and
+rank 0 writes, so the files equal those of the unsharded tree. Loading
+into a sharded template places each leaf by the template leaf's
+placements.
 """
 from __future__ import annotations
 
@@ -55,8 +61,19 @@ def _rebuild(tree: Any, leaves):
     return next(leaves)
 
 
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def _sharded(leaves) -> bool:
+    return any(_is_dtensor(x) for _, x in leaves)
+
+
 def _to_numpy(leaf) -> tuple[np.ndarray, str]:
     """A leaf as the numpy array JAX would save, and its manifest dtype."""
+    if _is_dtensor(leaf):
+        leaf = leaf.full_tensor()
     t = torch.as_tensor(leaf).detach().cpu()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.dtype("V2")), "bfloat16"
@@ -66,19 +83,27 @@ def _to_numpy(leaf) -> tuple[np.ndarray, str]:
 
 def save_pytree(tree: Any, directory: str, *,
                 shard_bytes: int = 2 << 30) -> None:
-    os.makedirs(directory, exist_ok=True)
+    import torch.distributed as dist
+    leaves = _flatten(tree)
+    sharded = _sharded(leaves)
+    # a sharded tree is saved by every rank together: rank 0 writes
+    write = not sharded or dist.get_rank() == 0
+    if write:
+        os.makedirs(directory, exist_ok=True)
     manifest = {"leaves": [], "version": 1}
     shard_idx, shard_payload, shard_size = 0, {}, 0
 
     def flush():
         nonlocal shard_idx, shard_payload, shard_size
         if shard_payload:
-            np.savez(os.path.join(directory, f"shard_{shard_idx:04d}.npz"),
-                     **shard_payload)
+            if write:
+                np.savez(os.path.join(directory,
+                                      f"shard_{shard_idx:04d}.npz"),
+                         **shard_payload)
             shard_idx += 1
             shard_payload, shard_size = {}, 0
 
-    for i, (name, leaf) in enumerate(_flatten(tree)):
+    for i, (name, leaf) in enumerate(leaves):
         arr, dtype = _to_numpy(leaf)
         key = f"leaf_{i:05d}"
         if shard_size + arr.nbytes > shard_bytes:
@@ -90,13 +115,17 @@ def save_pytree(tree: Any, directory: str, *,
             "shape": list(arr.shape), "dtype": dtype,
         })
     flush()
-    with open(os.path.join(directory, "manifest.json"), "w") as f:
-        json.dump(manifest, f, indent=1)
+    if write:
+        with open(os.path.join(directory, "manifest.json"), "w") as f:
+            json.dump(manifest, f, indent=1)
+    if sharded:
+        dist.barrier()      # the files exist before any rank returns
 
 
 def load_pytree(template: Any, directory: str) -> Any:
     """Restore into the structure of `template` (tensor leaves: shapes
-    checked; each leaf takes the template leaf's dtype and device)."""
+    checked; each leaf takes the template leaf's dtype and device, and a
+    DTensor leaf its mesh and placements)."""
     with open(os.path.join(directory, "manifest.json")) as f:
         manifest = json.load(f)
     by_path = {e["path"]: e for e in manifest["leaves"]}
@@ -115,5 +144,10 @@ def load_pytree(template: Any, directory: str) -> Any:
                                  .copy()).view(torch.bfloat16)
         else:
             t = torch.from_numpy(np.array(arr))
-        out.append(t.to(device=leaf.device, dtype=leaf.dtype))
+        t = t.to(device=leaf.device, dtype=leaf.dtype)
+        if _is_dtensor(leaf):
+            from torch.distributed.tensor import distribute_tensor
+            t = distribute_tensor(t, leaf.device_mesh, leaf.placements,
+                                  src_data_rank=None)
+        out.append(t)
     return _rebuild(template, iter(out))

@@ -230,6 +230,27 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
     return cfg.replace(**kw)
 
 
+# ---------------------------------------------------------------------------
+# Input shapes: the four workload shapes the dry run lowers
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES: dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
+
+
 # the reference's order (`repro.configs.base.ARCH_IDS`)
 ARCH_IDS = [
     "mamba2-130m",

@@ -24,6 +24,7 @@ from repro_torch.core.cache import CacheSpec, LayerKV
 from repro_torch.kernels.decode_qattn import ops as dq_ops
 from repro_torch.kernels.flash_prefill import ops as fp_ops
 from repro_torch.nn import layers as L
+from repro_torch.nn import sharding as shd
 from repro_torch.nn.rope import apply_rope
 
 NEG_INF = -1e30
@@ -37,15 +38,26 @@ MASS_GROUP = 8
 def qkv(p: dict, x: torch.Tensor, cfg, positions: Optional[torch.Tensor],
         *, rope: bool = True):
     """x: [B, T, d_model] -> q [B,T,Hq,D], k,v [B,T,Hkv,D] (rotated)."""
-    B, T, _ = x.shape
-    q = L.linear(p["wq"], x).reshape(B, T, cfg.num_heads, cfg.head_dim)
-    k = L.linear(p["wk"], x).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
-    v = L.linear(p["wv"], x).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+    T = x.shape[1]
+    pq, pk, pv = p["wq"], p["wk"], p["wv"]
+    if shd.opt_enabled("weight_gather"):
+        pq = {**pq, "w": shd.constrain(pq["w"], None, "tp")}
+        pk = {**pk, "w": shd.constrain(pk["w"], None, "tp")}
+        pv = {**pv, "w": shd.constrain(pv["w"], None, "tp")}
+    q = shd.split_last(L.linear(pq, x), cfg.num_heads, cfg.head_dim)
+    k = shd.split_last(L.linear(pk, x), cfg.num_kv_heads, cfg.head_dim)
+    v = shd.split_last(L.linear(pv, x), cfg.num_kv_heads, cfg.head_dim)
     if rope:
         if positions is None:
             positions = torch.arange(T, device=x.device)[None]
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    if shd.opt_enabled("kv_replicated"):
+        # GQA under tp > kv_heads: keep K/V whole per shard rather than
+        # head_dim-sharded
+        q = shd.constrain(q, "fsdp", None, "tp", None)
+        k = shd.constrain(k, "fsdp", None, None, None)
+        v = shd.constrain(v, "fsdp", None, None, None)
     return q, k, v
 
 
@@ -66,7 +78,8 @@ def _fold_mass(carry: torch.Tensor, row_mass: torch.Tensor,
     rows (group None), or `group`-row partial sums folded into the carry
     strictly left to right."""
     B, Tq, Tk = row_mass.shape
-    if group is None:
+    if group is None or row_mass.is_meta:
+        # meta tensors (the dry run) hold no values to associate
         return carry + row_mass.sum(dim=1)
     pad = (-Tq) % group
     if pad:
@@ -89,7 +102,30 @@ def gqa_attention(q, k, v, *, causal: bool, window: int = 0,
 
     `mass_init` seeds the mass fold: chunked prefill passes the running
     mass, so a prompt split across calls accumulates the association
-    chain of one monolithic call."""
+    chain of one monolithic call.
+
+    On DTensors (training, the encoder, cross-attention) each rank
+    attends its own batch rows and kv heads (`sharding.on_shards`); the
+    mass is a partial sum over the tp ranks' heads."""
+    def local(q, k, v, qp, kp, kb, mi):
+        return _gqa_attention(q, k, v, causal=causal, window=window,
+                              q_positions=qp, kv_positions=kp, kv_bias=kb,
+                              q_chunk=q_chunk, return_mass=return_mass,
+                              mass_group=mass_group, mass_init=mi)
+
+    layout = (shd.heads_layout(k, k.shape[2]) if shd.is_dtensor(k)
+              else None)
+    return shd.on_shards(local, layout, q, k, v, q_positions, kv_positions,
+                         kv_bias, mass_init,
+                         out=(4, ("sum", 2)) if return_mass else (4,))
+
+
+def _gqa_attention(q, k, v, *, causal: bool, window: int = 0,
+                  q_positions: Optional[torch.Tensor] = None,
+                  kv_positions: Optional[torch.Tensor] = None,
+                  kv_bias: Optional[torch.Tensor] = None, q_chunk: int = 512,
+                  return_mass: bool = False, mass_group: Optional[int] = None,
+                  mass_init: Optional[torch.Tensor] = None):
     B, Tq, Hq, D = q.shape
     Tk, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -148,9 +184,26 @@ def decode_attention(q: torch.Tensor, lc, spec: CacheSpec, *,
 
     Returns (out [B, 1, Hq, D], attn_mass [B, S+W]) with the mass aligned
     to `materialize_kv` ordering; the kernel computes the mass only when
-    the policy reads it (zeros otherwise)."""
+    the policy reads it (zeros otherwise).
+
+    On a sharded (DTensor) dense cache each rank attends its own batch
+    rows and kv heads (`sharding.on_shards`: the kernel sees local
+    tensors); the mass comes back as a partial sum over the tp ranks'
+    heads, which its reader all-reduces."""
     if q_pos is None:
         q_pos = lc.pos - 1
+    if shd.is_dtensor(getattr(lc, "k", None)):
+        return shd.on_shards(
+            lambda q_, lc_, qp: _decode_attention(
+                q_, lc_, spec, window=window, dtype=dtype, q_pos=qp,
+                use_kernels=use_kernels),
+            lc.k, q, lc, q_pos, out=(4, ("sum", 2)))
+    return _decode_attention(q, lc, spec, window=window, dtype=dtype,
+                             q_pos=q_pos, use_kernels=use_kernels)
+
+
+def _decode_attention(q, lc, spec: CacheSpec, *, window: int, dtype,
+                      q_pos: torch.Tensor, use_kernels: bool):
     B = q.shape[0]
     S, W = lc.scores.shape[1], lc.rk.shape[1]
     bias = kvcache.validity_bias(lc)

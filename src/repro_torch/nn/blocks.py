@@ -20,6 +20,7 @@ from repro_torch.kernels.flash_prefill import ops as fp_ops
 from repro_torch.nn import attention as attn
 from repro_torch.nn import layers as L
 from repro_torch.nn import moe as moe_lib
+from repro_torch.nn import sharding as shd
 from repro_torch.nn import ssm as ssm_lib
 
 
@@ -59,21 +60,19 @@ def _cross_attend(p: dict, x: torch.Tensor, memory_kv, cfg) -> torch.Tensor:
         return x
     mk, mv, mbias = memory_kv
     h = L.rmsnorm(p["norm_x"], x, cfg.norm_eps)
-    B, T, _ = h.shape
-    q = L.linear(p["xattn"]["wq"], h).reshape(B, T, cfg.num_heads,
-                                              cfg.head_dim)
+    q = shd.split_last(L.linear(p["xattn"]["wq"], h), cfg.num_heads,
+                       cfg.head_dim)
     o = attn.gqa_attention(q, mk, mv, causal=False, kv_bias=mbias)
-    return x + L.linear(p["xattn"]["wo"], o.reshape(B, T, -1))
+    return x + L.linear(p["xattn"]["wo"], shd.merge_last(o))
 
 
 def cross_kv(p: dict, memory: torch.Tensor, cfg):
     """Cross-attention K / V [B, Ts, Hkv, D] of the encoder output
     `memory` [B, Ts, d_model] (no RoPE on the memory)."""
-    B, Ts, _ = memory.shape
-    k = L.linear(p["xattn"]["wk"], memory).reshape(B, Ts, cfg.num_kv_heads,
-                                                   cfg.head_dim)
-    v = L.linear(p["xattn"]["wv"], memory).reshape(B, Ts, cfg.num_kv_heads,
-                                                   cfg.head_dim)
+    k = shd.split_last(L.linear(p["xattn"]["wk"], memory), cfg.num_kv_heads,
+                       cfg.head_dim)
+    v = shd.split_last(L.linear(p["xattn"]["wv"], memory), cfg.num_kv_heads,
+                       cfg.head_dim)
     return k, v
 
 
@@ -90,8 +89,7 @@ def block_train(p: dict, x: torch.Tensor, cfg, kind: str = "attn", *,
         q, k, v = attn.qkv(p["attn"], h, cfg, None)
         o = attn.gqa_attention(q, k, v, causal=causal,
                                window=cfg.sliding_window)
-        B, T, _ = x.shape
-        x = x + L.linear(p["attn"]["wo"], o.reshape(B, T, -1))
+        x = x + L.linear(p["attn"]["wo"], shd.merge_last(o))
     else:
         o, _ = ssm_lib.mamba2_forward(p["ssm"], h, cfg)
         x = x + o
@@ -110,22 +108,31 @@ def block_prefill(p: dict, x: torch.Tensor, cfg, spec: CacheSpec, *,
         o, st = ssm_lib.mamba2_forward(p["ssm"], h, cfg)
         return _ffn(p, _cross_attend(p, x + o, memory_kv, cfg), cfg), st
     q, k, v = attn.qkv(p["attn"], h, cfg, None)
-    if cfg.use_kernels and not spec.track_scores():
-        # policies that never read the mass statistic take the flash
-        # kernel; their prompt selection uses recency, so zero mass is
-        # exact for them
-        o = fp_ops.flash_attention(q, k, v, window=cfg.sliding_window)
-        mass = torch.zeros(x.shape[:2], dtype=torch.float32, device=x.device)
-    else:
-        o, mass = attn.gqa_attention(
+
+    def attend(q, k, v):
+        if cfg.use_kernels and not spec.track_scores():
+            # policies that never read the mass statistic take the flash
+            # kernel; their prompt selection uses recency, so zero mass
+            # is exact for them
+            o = fp_ops.flash_attention(q, k, v, window=cfg.sliding_window)
+            return o, torch.zeros(q.shape[:2], dtype=torch.float32,
+                                  device=q.device)
+        return attn.gqa_attention(
             q, k, v, causal=True, window=cfg.sliding_window,
             return_mass=True, mass_group=attn.MASS_GROUP)
-    B, T, _ = x.shape
-    x = x + L.linear(p["attn"]["wo"], o.reshape(B, T, -1))
-    lc = kvcache.compress_prompt(spec, k, v, mass, dtype=cfg.dtype,
-                                 logical_budget=logical_budget,
-                                 use_kernels=cfg.use_kernels,
-                                 generator=generator)
+
+    # sharded: each rank attends and compresses its own rows and kv
+    # heads; the mass, a partial sum over the tp ranks' heads, is
+    # all-reduced before the selection reads it
+    layout = (shd.heads_layout(k, cfg.num_kv_heads) if shd.is_dtensor(k)
+              else None)
+    o, mass = shd.on_shards(attend, layout, q, k, v, out=(4, ("sum", 2)))
+    x = x + L.linear(p["attn"]["wo"], shd.merge_last(o))
+    lc = shd.on_shards(
+        lambda k_, v_, m_: kvcache.compress_prompt(
+            spec, k_, v_, m_, dtype=cfg.dtype, logical_budget=logical_budget,
+            use_kernels=cfg.use_kernels, generator=generator),
+        layout, k, v, mass, out=shd.LAYER_KV_NDIMS)
     return _ffn(p, _cross_attend(p, x, memory_kv, cfg), cfg), lc
 
 
@@ -222,14 +229,22 @@ def block_decode(p: dict, x: torch.Tensor, cfg, spec: CacheSpec, lc, *,
     pos = lc.pos[:, None].clone()   # [B, 1]; the append advances lc.pos
     q, k_new, v_new = attn.qkv(p["attn"], h, cfg, pos)
     noise = kvcache.policy_noise(spec, lc.scores.shape, generator, x.device)
-    # append-first: the new token attends to itself through the cache
-    kvcache.append_token(lc, spec, k_new[:, 0], v_new[:, 0],
-                         ring_full=ring_full, mask=append_mask,
-                         use_kernels=cfg.use_kernels, noise=noise)
+    # append-first: the new token attends to itself through the cache.
+    # On a sharded cache the in-place updates run on each rank's own rows
+    # and heads (`sharding.on_shards`); the mass is all-reduced over the
+    # tp ranks before it is accumulated, so every rank evicts alike.
+    ref = getattr(lc, "k", None)     # a sharded store is dense
+    shd.on_shards(
+        lambda lc_, k_, v_, m_, n_: kvcache.append_token(
+            lc_, spec, k_[:, 0], v_[:, 0], ring_full=ring_full, mask=m_,
+            use_kernels=cfg.use_kernels, noise=n_),
+        ref, lc, k_new, v_new, append_mask, noise, writes=(0,))
     o, mass = attn.decode_attention(
         q, lc, spec, window=cfg.sliding_window, dtype=cfg.dtype,
         q_pos=pos[:, 0], use_kernels=cfg.use_kernels)
-    kvcache.accumulate_scores(lc, spec, mass, gate=append_mask, noise=noise)
-    B = x.shape[0]
-    x = x + L.linear(p["attn"]["wo"], o.reshape(B, 1, -1))
+    shd.on_shards(
+        lambda lc_, m_, g_, n_: kvcache.accumulate_scores(
+            lc_, spec, m_, gate=g_, noise=n_),
+        ref, lc, mass, append_mask, noise, writes=(0,))
+    x = x + L.linear(p["attn"]["wo"], shd.merge_last(o))
     return _ffn(p, _cross_attend(p, x, memory_kv, cfg), cfg)

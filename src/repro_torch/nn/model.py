@@ -49,6 +49,7 @@ from repro_torch.core.cache import CacheSpec, LayerKV, SSMState
 from repro_torch.nn import blocks as B
 from repro_torch.nn import layers as L
 from repro_torch.nn import moe as moe_lib
+from repro_torch.nn import sharding as shd
 from repro_torch.nn import ssm as ssm_lib
 
 
@@ -147,18 +148,23 @@ def init_params(cfg, *, seed: int = 0, device=None) -> dict:
     router kept in f32, as in JAX), unit norms, zero biases; a Mamba-2
     mixer's A_log = log(1..H), D = 1 and dt_bias the inverse softplus of
     a log-uniform draw in [dt_min, dt_max], all three f32 — the JAX
-    package's init scheme, not its numbers. Layers are drawn one at a
+    package's init scheme, not its numbers. On the "meta" device the
+    leaves are shapes and dtypes only (the dry run's stand-in for
+    `jax.eval_shape`), nothing drawn. Layers are drawn one at a
     time, and expert leaves one expert at a time, so the f32 draw never
     holds more than one layer's largest dense leaf or one expert's
     matrix."""
     device = resolve_device(device)
-    g = torch.Generator(device=device).manual_seed(seed)
+    meta = device.type == "meta"
+    g = None if meta else torch.Generator(device=device).manual_seed(seed)
     _, n_sb, _ = sb_layout(cfg)
     lo, hi = math.log(cfg.ssm.dt_min), math.log(cfg.ssm.dt_max)
 
     def make(spec, lead=()):
         shape, init, dtype = (*spec, cfg.dtype)[:3]
         out = torch.empty(*lead, *shape, dtype=dtype, device=device)
+        if meta:
+            return out
         if init == "a_log":
             out.copy_(torch.log(torch.arange(1, shape[0] + 1,
                                              dtype=torch.float32)))
@@ -267,6 +273,7 @@ def _cross_memory(params, cfg, memory: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 
+@shd.replicates_plain
 def train_forward(params, cfg, batch: dict):
     """batch: {"tokens": [B, S]} (+ "src_embeds" [B, Ts, d_model] for an
     encoder-decoder). Returns (logits [B, S, V] f32, TrainAux: the MoE
@@ -297,6 +304,7 @@ def train_forward(params, cfg, batch: dict):
     return _logits(params, cfg, x), TrainAux(lb, zl)
 
 
+@shd.replicates_plain
 def prefill(params, cfg, batch: dict, spec: CacheSpec, *,
             layer_budgets: Optional[Sequence[int]] = None,
             generator: Optional[torch.Generator] = None):
@@ -486,6 +494,7 @@ def prefill_from_kv(cfg, spec: CacheSpec, ks: torch.Tensor,
                             generator=generator)
 
 
+@shd.replicates_plain
 def decode_step(params, cfg, cache: ModelCache, token: torch.Tensor,
                 spec: CacheSpec, *, ring_full: Optional[bool] = None,
                 append_mask: Optional[torch.Tensor] = None,

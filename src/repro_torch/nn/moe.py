@@ -12,8 +12,13 @@ of a decode step, every row of a prefill bucket) share each expert's
 `moe_apply_dense` is the soft-dispatch reference (exact, no token
 dropping), the oracle for the dispatch path.
 
-The JAX function's sharding constraints (expert / tensor parallel
-layouts) have no counterpart here: one card holds every expert.
+On sharded (DTensor) params the activation-sharding hooks of the JAX
+function sit at the same points (`nn.sharding`: ``weight_gather`` keeps
+experts on tp when it divides them, else tp on d_expert;
+``moe_ep_dispatch`` pins the expert buffer to tp). The dispatch's sort,
+searchsorted and scatter run on tensors replicated over the mesh,
+where XLA replicates them too; `nn.moe_ep` is the explicit
+expert-parallel alternative.
 """
 from __future__ import annotations
 
@@ -71,30 +76,21 @@ def capacity(n_tokens: int, top_k: int, num_experts: int,
     return int(min(cap, A))                         # never beyond drop-free
 
 
-def moe_apply(p: dict, x: torch.Tensor, *, top_k: int,
-              capacity_factor: float = 1.25):
-    """Capacity-based sort dispatch. x: [B, T, d_model]. Returns
-    (y [B, T, d_model] in x's dtype, MoEAux)."""
-    B, T, Dm = x.shape
-    E = p["router"].shape[1]
-    logits, probs, top_vals, top_idx = _route(p, x, top_k)
-
-    N = B * T
-    A = N * top_k                                   # assignments
-    cap = capacity(N, top_k, E, capacity_factor)
-    dev = x.device
-    x_flat = x.reshape(N, Dm)
+def _dispatch(x_flat, top_idx, E: int, cap: int, top_k: int):
+    """The sort dispatch of the call's assignments: (buf [E, cap, Dm],
+    sorted_e, rank_c, keep, order), each [A] over the sorted order."""
+    dev = x_flat.device
+    A = top_idx.numel()
+    Dm = x_flat.shape[1]
     flat_e = top_idx.reshape(A)                     # token-major assignments
-    flat_w = top_vals.reshape(A)
-
     # A stable sort keeps each expert's assignments in token order, so an
     # assignment's rank (and whether it is dropped) is that of JAX's
     # stable argsort. torch.topk may order a row's tied experts unlike
     # lax.top_k, but ranks do not depend on that order: one token never
     # picks one expert twice.
     sorted_e, order = torch.sort(flat_e, stable=True)
-    starts = torch.searchsorted(sorted_e,
-                                torch.arange(E, device=dev, dtype=flat_e.dtype))
+    starts = torch.searchsorted(
+        sorted_e, torch.arange(E, device=dev, dtype=flat_e.dtype))
     rank = torch.arange(A, device=dev) - starts[sorted_e]
     keep = rank < cap
     rank_c = torch.clamp(rank, max=cap - 1)
@@ -103,33 +99,86 @@ def moe_apply(p: dict, x: torch.Tensor, *, top_k: int,
     # every kept assignment owns one (expert, rank) row; the dropped ones
     # land in a spare last row that is cut off (JAX adds their zeros)
     dest = torch.where(keep, sorted_e * cap + rank, E * cap)
-    buf = torch.zeros(E * cap + 1, Dm, dtype=x.dtype, device=dev)
+    buf = torch.zeros(E * cap + 1, Dm, dtype=x_flat.dtype, device=dev)
     buf[dest] = x_flat[tok]
-    buf = buf[:E * cap].view(E, cap, Dm)
+    return buf[:E * cap].view(E, cap, Dm), sorted_e, rank_c, keep, order
 
-    g = torch.bmm(buf, p["gate"])
-    u = torch.bmm(buf, p["up"])
-    h = F.silu(g.float()).to(x.dtype) * u
-    y_buf = torch.bmm(h, p["down"])                 # [E, cap, Dm]
 
-    # The combine, in a fixed order: JAX scatter-adds the contributions
-    # into f32 zeros in the sorted (expert-major) order. Here each
-    # assignment's contribution goes back to token-major [N, top_k, Dm]
-    # and a token's are summed in ascending expert order, with no atomics
-    # (index_add_ on the card sums in an order that changes run to run).
-    w_sorted = torch.where(keep, flat_w[order], 0.0)
+def _combine(y_buf, sorted_e, rank_c, keep, order, top_vals, top_idx):
+    """The expert outputs back to tokens: [N, Dm] f32.
+
+    The combine, in a fixed order: JAX scatter-adds the contributions
+    into f32 zeros in the sorted (expert-major) order. Here each
+    assignment's contribution goes back to token-major [N, top_k, Dm]
+    and a token's are summed in ascending expert order, with no atomics
+    (index_add_ on the card sums in an order that changes run to run)."""
+    N, top_k = top_idx.shape[0] * top_idx.shape[1], top_idx.shape[-1]
+    Dm = y_buf.shape[-1]
+    w_sorted = torch.where(keep, top_vals.reshape(-1)[order], 0.0)
     contrib = y_buf[sorted_e, rank_c].float() * w_sorted[:, None]
     tm = torch.empty_like(contrib)
     tm[order] = contrib
     tm = tm.view(N, top_k, Dm)
     by_expert = torch.argsort(top_idx.reshape(N, top_k), dim=-1)
     tm = torch.gather(tm, 1, by_expert[..., None].expand(N, top_k, Dm))
-    out = torch.zeros(N, Dm, dtype=torch.float32, device=dev)
+    out = torch.zeros(N, Dm, dtype=torch.float32, device=y_buf.device)
     for j in range(top_k):
         out = out + tm[:, j]
+    return out
 
-    drop_frac = 1.0 - keep.float().mean()
-    aux = _aux(logits, probs, top_idx, top_vals, E, drop_frac)
+
+def moe_apply(p: dict, x: torch.Tensor, *, top_k: int,
+              capacity_factor: float = 1.25):
+    """Capacity-based sort dispatch. x: [B, T, d_model]. Returns
+    (y [B, T, d_model] in x's dtype, MoEAux).
+
+    On DTensors the dispatch, the combine and the aux statistics (sort,
+    searchsorted, scatters: no DTensor sharding rule) run on tensors
+    replicated over the mesh (`sharding.on_shards` with a replicated
+    layout); the expert products run on the expert-sharded weights
+    through DTensor's propagation."""
+    from repro_torch.nn import sharding as shd
+    if shd.opt_enabled("weight_gather"):
+        # keep experts sharded over tp when divisible, else tp stays on
+        # d_expert; either way the fsdp'd d_model dim is gathered at use
+        E_ = p["gate"].shape[0]
+        if shd.tp_divides(E_):
+            spec_gu, spec_d = ("tp", None, None), ("tp", None, None)
+        else:
+            spec_gu, spec_d = (None, None, "tp"), (None, "tp", None)
+        p = {**p,
+             "gate": shd.constrain(p["gate"], *spec_gu),
+             "up": shd.constrain(p["up"], *spec_gu),
+             "down": shd.constrain(p["down"], *spec_d)}
+    B, T, Dm = x.shape
+    E = p["router"].shape[1]
+    logits, probs, top_vals, top_idx = _route(p, x, top_k)
+
+    N = B * T
+    cap = capacity(N, top_k, E, capacity_factor)
+    rep = shd.replicated_layout(x)
+    buf, sorted_e, rank_c, keep, order = shd.on_shards(
+        lambda xf, ti: _dispatch(xf, ti, E, cap, top_k), rep,
+        x.reshape(N, Dm), top_idx, out=(3, 1, 1, 1, 1))
+    if shd.opt_enabled("moe_ep_dispatch") and shd.tp_divides(E):
+        # expert-parallel dispatch: pin the expert buffer to the tp axis
+        buf = shd.constrain(buf, "tp", None, None)
+    else:
+        # experts over tp, each expert's rows over the fsdp axes, as GSPMD
+        # partitions the products
+        buf = shd.place(buf, "tp", "fsdp", None)
+
+    g = torch.bmm(buf, shd.gather_fsdp(p["gate"]))
+    u = torch.bmm(buf, shd.gather_fsdp(p["up"]))
+    h = F.silu(g.float()).to(x.dtype) * u
+    y_buf = torch.bmm(h, shd.gather_fsdp(p["down"]))    # [E, cap, Dm]
+
+    out = shd.on_shards(_combine, rep, y_buf, sorted_e, rank_c, keep, order,
+                        top_vals, top_idx, out=(2,))
+    aux = shd.on_shards(
+        lambda lg, pr, ti, tv, kp: _aux(lg, pr, ti, tv, E,
+                                        1.0 - kp.float().mean()),
+        rep, logits, probs, top_idx, top_vals, keep, out=(0, 0, 1, 0))
     return out.reshape(B, T, Dm).to(x.dtype), aux
 
 

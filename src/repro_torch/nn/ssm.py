@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.cache import SSMState
 from repro_torch.nn import layers as L
+from repro_torch.nn import sharding as shd
 
 f32 = torch.float32
 
@@ -114,8 +115,12 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     # intra-chunk (the dual, attention-like form)
     li = torch.arange(chunk, device=x.device)
     causal = li[:, None] >= li[None, :]                      # [L, L]
-    decay = torch.exp(cum[:, :, :, None, :] - cum[:, :, None, :, :])
-    decay = torch.where(causal[None, None, :, :, None], decay, 0.0)
+    # the exponent is masked before the exp: above the diagonal it grows
+    # with the chunk and overflows, and exp's gradient there (0 * inf)
+    # would be NaN; the causal entries are the exp the reference takes
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]     # [B,c,L,S,H]
+    decay = torch.exp(torch.where(causal[None, None, :, :, None], seg,
+                                  float("-inf")))
     cb = torch.einsum("bclhn,bcshn->bclsh", Cc, Bc)          # [B,c,L,S,H]
     att = cb * decay * dtc[:, :, None, :, :]                 # weight dt[s]
     del decay, cb
@@ -146,11 +151,29 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 def mamba2_forward(p: dict, x: torch.Tensor, cfg,
                    state: Optional[SSMState] = None):
     """Full-sequence mixer (prefill). x: [B, T, d_model].
-    Returns (out [B, T, d_model], final SSMState)."""
-    Bsz, T, _ = x.shape
+    Returns (out [B, T, d_model], final SSMState).
+
+    On DTensors the mixer between the two projections (the fused
+    projection's split, the conv, the chunked scan: cumsums and
+    einsums over head-interleaved dims) runs on each rank's own batch
+    rows with every head whole (`sharding.on_shards`)."""
+    zxbcdt = L.linear(p["in_proj"], x)
+    small = {k: p[k] for k in ("conv_w", "conv_b", "dt_bias", "A_log", "D",
+                               "norm")}
+    layout = shd.heads_layout(zxbcdt) if shd.is_dtensor(zxbcdt) else None
+    y, st = shd.on_shards(
+        lambda zx, q, s: _mixer(q, zx, cfg, s), layout, zxbcdt, small,
+        state, out=(3, 3, 4), whole=(1,))
+    return L.linear(p["out_proj"], y), st
+
+
+def _mixer(p: dict, zxbcdt: torch.Tensor, cfg, state: Optional[SSMState]):
+    """`mamba2_forward` between its projections: (y [B, T, d_inner],
+    final SSMState)."""
+    Bsz, T, _ = zxbcdt.shape
     H, P = cfg.ssm_heads, cfg.ssm.head_dim
     G, N = cfg.ssm.n_groups, cfg.ssm.d_state
-    z, xBC, dt = _split_proj(cfg, L.linear(p["in_proj"], x))
+    z, xBC, dt = _split_proj(cfg, zxbcdt)
     conv_init = state.conv if state is not None else None
     xBC, conv_state = _causal_conv(xBC, p["conv_w"], p["conv_b"], conv_init)
     xs, B_, C_ = torch.split(xBC, [cfg.d_inner, G * N, G * N], dim=-1)
@@ -163,25 +186,39 @@ def mamba2_forward(p: dict, x: torch.Tensor, cfg,
                          init_state=state.state if state is not None
                          else None)
     y = y + xs.float() * p["D"][None, None, :, None]
-    y = y.reshape(Bsz, T, cfg.d_inner).to(x.dtype)
+    y = y.reshape(Bsz, T, cfg.d_inner).to(zxbcdt.dtype)
     y = L.rmsnorm(p["norm"], y * F.silu(z.float()).to(z.dtype),
                   cfg.norm_eps)
-    return L.linear(p["out_proj"], y), SSMState(conv=conv_state, state=fin)
+    return y, SSMState(conv=conv_state, state=fin)
 
 
 def mamba2_decode_step(p: dict, x: torch.Tensor, state: SSMState, cfg):
     """One-token recurrent step. x: [B, 1, d_model] -> (out [B, 1,
-    d_model], new SSMState); `state` is not written."""
-    Bsz = x.shape[0]
+    d_model], new SSMState); `state` is not written. On DTensors the
+    step between the projections runs as in `mamba2_forward`."""
+    zxbcdt = L.linear(p["in_proj"], x)
+    small = {k: p[k] for k in ("conv_w", "conv_b", "dt_bias", "A_log", "D",
+                               "norm")}
+    layout = shd.heads_layout(zxbcdt) if shd.is_dtensor(zxbcdt) else None
+    y, st = shd.on_shards(
+        lambda zx, q, s: _step(q, zx[:, 0], cfg, s), layout, zxbcdt, small,
+        state, out=(2, 3, 4), whole=(1,))
+    return L.linear(p["out_proj"], y)[:, None], st
+
+
+def _step(p: dict, zxbcdt: torch.Tensor, cfg, state: SSMState):
+    """`mamba2_decode_step` between its projections: (y [B, d_inner],
+    new SSMState)."""
+    Bsz = zxbcdt.shape[0]
     H, P = cfg.ssm_heads, cfg.ssm.head_dim
     G, N = cfg.ssm.n_groups, cfg.ssm.d_state
-    z, xBC, dt = _split_proj(cfg, L.linear(p["in_proj"], x[:, 0]))
+    z, xBC, dt = _split_proj(cfg, zxbcdt)
 
     # the conv window: state.conv holds the last K-1 inputs
     win = torch.cat([state.conv, xBC[:, None].to(state.conv.dtype)], dim=1)
     conv_out = (torch.einsum("bkc,kc->bc", win.float(), p["conv_w"].float())
                 + p["conv_b"].float())
-    xBC_t = F.silu(conv_out).to(x.dtype)
+    xBC_t = F.silu(conv_out).to(zxbcdt.dtype)
 
     xs, B_, C_ = torch.split(xBC_t, [cfg.d_inner, G * N, G * N], dim=-1)
     xs = xs.reshape(Bsz, H, P)
@@ -194,7 +231,7 @@ def mamba2_decode_step(p: dict, x: torch.Tensor, state: SSMState, cfg):
         "bhn,bhp->bhpn", dt[:, :, None] * B_.float(), xs.float())
     y = torch.einsum("bhn,bhpn->bhp", C_.float(), s)
     y = y + xs.float() * p["D"][None, :, None]
-    y = y.reshape(Bsz, cfg.d_inner).to(x.dtype)
+    y = y.reshape(Bsz, cfg.d_inner).to(zxbcdt.dtype)
     y = L.rmsnorm(p["norm"], y * F.silu(z.float()).to(z.dtype),
                   cfg.norm_eps)
-    return L.linear(p["out_proj"], y)[:, None], SSMState(win[:, 1:], s)
+    return y, SSMState(win[:, 1:], s)

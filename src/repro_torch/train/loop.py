@@ -3,9 +3,10 @@ the MoE aux losses, gradient clipping, AdamW.
 
 `make_train_step` builds the step function; `launch/train.py` runs it.
 Gradients come from `torch.autograd` through `nn.model.train_forward`,
-which launches no CUDA kernel (the kernels have no backward). One card
-holds the whole state: the JAX launcher's FSDP x TP shardings have no
-counterpart here yet.
+which launches no CUDA kernel (the kernels have no backward). On
+DTensor params (`launch/train.py --mesh host`) the same step runs
+sharded: the gradients come back placed like the params, and the
+in-place AdamW updates each rank's shards.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from repro_torch.nn import model as M
+from repro_torch.nn import sharding as shd
 from repro_torch.optim import adamw
 from repro_torch.optim.optimizers import (adamw_step_, clip_scale,
                                           global_norm, tree_leaves, tree_map)
@@ -79,6 +81,7 @@ def make_train_step(cfg, lr_schedule: Callable, *, max_grad_norm: float = 1.0,
         opt = opt_init(params)
         return TrainState(params, opt, torch.zeros_like(opt.step))
 
+    @shd.replicates_plain
     def train_step(state: TrainState, batch: dict):
         (loss, (ce, aux)), grads = value_and_grad(state.params, cfg, batch)
         gn = global_norm(grads)

@@ -1506,3 +1506,90 @@ def test_train_step_on_card_matches_cpu(cuda):
 def _leaves_of(tree):
     return [x for k in sorted(tree) for x in
             (_leaves_of(tree[k]) if isinstance(tree[k], dict) else [tree[k]])]
+
+
+# ---------------------------------------------------------------------------
+# The kernels on a rank's head shard (`nn.sharding.on_shards`, local_map):
+# a fake 2-rank world (collectives return without moving data) over a
+# (1, 2) mesh on the card, each rank's run against the kernel on every
+# head, sliced to that rank's heads; the per-rank masses, partial sums
+# over heads, summed against the full-heads mass.
+# ---------------------------------------------------------------------------
+
+
+def _fake_rank(rank):
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=2)
+    return init_device_mesh("cuda", (1, 2), mesh_dim_names=("data", "model"))
+
+
+def _heads_spec(t):
+    return (None, None, "model") if t.dim() >= 3 else ()
+
+
+@pytest.mark.parametrize("pname", ["full", "h2o+kivi2"])
+def test_decode_kernel_on_head_shards_equals_full_heads(cuda, pname):
+    import torch.distributed as dist
+    from repro_torch.core import cache as kvcache
+    from repro_torch.nn import attention as attn
+    from repro_torch.nn import sharding as shd
+    spec = presets(budget=512, window=128)[pname].spec
+    B, T, Hq, Hkv, D = 4, 640, 32, 8, 128
+    g = torch.Generator(device=cuda).manual_seed(5)
+    k, v = (torch.randn(B, T, Hkv, D, generator=g, device=cuda)
+            .to(torch.bfloat16) for _ in range(2))
+    mass = torch.rand(B, T, generator=g, device=cuda)
+    lc = kvcache.compress_prompt(spec, k, v, mass)
+    q = torch.randn(B, 1, Hq, D, generator=g, device=cuda).to(torch.bfloat16)
+    out, m = attn.decode_attention(q, lc, spec, q_pos=lc.pos)
+    sums = torch.zeros_like(m)
+    for r in range(2):
+        mesh = _fake_rank(r)
+        try:
+            lc_d = type(lc)(*(shd.distribute_leaf(t, _heads_spec(t), mesh)
+                              for t in lc))
+            q_d = shd.distribute_leaf(q, _heads_spec(q), mesh)
+            with shd.replicate_plain():
+                o_d, m_d = attn.decode_attention(q_d, lc_d, spec,
+                                                 q_pos=lc.pos)
+            assert o_d.placements[1].is_shard(2)
+            assert m_d.placements[1].is_partial()
+            h = slice(r * Hq // 2, (r + 1) * Hq // 2)
+            # the key split follows the kv heads: another summation order
+            atol, rtol = TOL[torch.bfloat16]
+            torch.testing.assert_close(o_d.to_local(), out[:, :, h],
+                                       rtol=rtol, atol=atol)
+            sums += m_d.to_local()
+        finally:
+            dist.destroy_process_group()
+    torch.testing.assert_close(sums, m, atol=MASS_TOL[0], rtol=MASS_TOL[1])
+
+
+@pytest.mark.parametrize("window", [0, 256])
+def test_flash_prefill_on_head_shards_equals_full_heads(cuda, window):
+    import torch.distributed as dist
+    from repro_torch.nn import sharding as shd
+    B, T, Hq, Hkv, D = 2, 1024, 32, 8, 128
+    g = torch.Generator(device=cuda).manual_seed(6)
+    q = torch.randn(B, T, Hq, D, generator=g, device=cuda).to(torch.bfloat16)
+    k, v = (torch.randn(B, T, Hkv, D, generator=g, device=cuda)
+            .to(torch.bfloat16) for _ in range(2))
+    full = fp_ops.flash_attention(q, k, v, window=window)
+    for r in range(2):
+        mesh = _fake_rank(r)
+        try:
+            qd, kd, vd = (shd.distribute_leaf(t, _heads_spec(t), mesh)
+                          for t in (q, k, v))
+            o = shd.on_shards(
+                lambda a, b, c: fp_ops.flash_attention(a, b, c,
+                                                       window=window),
+                shd.heads_layout(kd, Hkv), qd, kd, vd, out=(4,))
+            h = slice(r * Hq // 2, (r + 1) * Hq // 2)
+            atol, rtol = TOL[torch.bfloat16]
+            torch.testing.assert_close(o.to_local(), full[:, :, h],
+                                       rtol=rtol, atol=atol)
+        finally:
+            dist.destroy_process_group()

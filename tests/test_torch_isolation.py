@@ -30,9 +30,10 @@ from repro_torch.kernels.flash_prefill import ops as fp_ops
 from repro_torch.kernels.flash_prefill import ref as fp_ref
 from repro_torch.kernels.kvquant import ops as kvq_ops
 from repro_torch.kernels.kvquant import ref as kvq_ref
-from repro_torch.launch import serve
+from repro_torch.launch import dryrun, mesh, perf, perf_moe, serve, specs
 from repro_torch.launch import train as train_cli
-from repro_torch.nn import attention, blocks, layers, model, moe, rope, ssm
+from repro_torch.nn import (attention, blocks, layers, model, moe, moe_ep,
+                            rope, sharding, ssm)
 from repro_torch import obs
 from repro_torch.obs import metrics, trace
 from repro_torch.serving import (adaptive, cacheblend, engine, prefix,
@@ -48,7 +49,8 @@ MODULES = [repro_torch, bridge, base, chameleon_34b, command_r_plus_104b,
            trace, adaptive,
            cacheblend, engine, prefix, sampler, scheduler, shared_runner,
            speculative, seamless_m4t_large_v2, checkpoint, ckpt_io, data,
-           synthetic, optim, optimizers, schedules, train, loop, train_cli]
+           synthetic, optim, optimizers, schedules, train, loop, train_cli,
+           sharding, moe_ep, mesh, specs, dryrun, perf, perf_moe]
 
 _CHILD = textwrap.dedent("""
     import importlib, json, os, sys, tempfile
@@ -132,6 +134,12 @@ _CHILD = textwrap.dedent("""
     train_cli.main(["--arch", "seamless-m4t-large-v2", "--reduced",
                     "--steps", "2", "--batch", "2", "--seq", "16",
                     "--device", "cpu", "--ckpt", os.path.join(tmp, "ck")])
+    train_cli.main(["--arch", "granite-8b", "--reduced", "--steps", "2",
+                    "--batch", "2", "--seq", "16", "--device", "cpu",
+                    "--mesh", "host", "--ckpt", os.path.join(tmp, "ck2")])
+    from repro_torch.launch import dryrun
+    dryrun.main(["--arch", "granite-8b", "--shape", "long_500k",
+                 "--out", os.path.join(tmp, "dr")])
     bad = sorted(m for m in sys.modules
                  if m == "jax" or m.startswith("jax.")
                  or m == "repro" or m.startswith("repro."))
@@ -163,6 +171,10 @@ def test_port_imports_no_jax_and_no_repro():
         r.stdout
     assert re.search(r"TRACE [1-9]\d* repro.obs.metrics/1", r.stdout), \
         r.stdout
+    assert re.search(r"saved \S*ck2", r.stdout), r.stdout   # --mesh host
+    assert "[ok] granite-8b__long_500k__single flops/dev=" in r.stdout, \
+        r.stdout
+    assert "done; failures=0" in r.stdout, r.stdout
 
 
 def test_entry_points_default_to_cuda():
