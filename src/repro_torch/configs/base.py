@@ -22,8 +22,8 @@ from typing import Any
 
 import torch
 
-# the arch kinds the port builds (all of the reference's)
-PORTED_ARCH_TYPES = ("dense", "vlm", "moe", "ssm", "hybrid", "audio")
+# the arch kinds a config may name (all of the reference's)
+KNOWN_ARCH_TYPES = ("dense", "vlm", "moe", "ssm", "hybrid", "audio")
 
 
 @dataclass(frozen=True)
@@ -92,9 +92,10 @@ class ModelConfig:
     def __post_init__(self):
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
-        if self.arch_type not in PORTED_ARCH_TYPES:
+        if self.arch_type not in KNOWN_ARCH_TYPES:
             raise NotImplementedError(
-                f"arch_type {self.arch_type!r} not yet ported")
+                f"unknown arch_type {self.arch_type!r}; known: "
+                f"{', '.join(KNOWN_ARCH_TYPES)}")
 
     # ---- derived ---------------------------------------------------------
     @property

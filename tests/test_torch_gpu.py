@@ -1593,3 +1593,164 @@ def test_flash_prefill_on_head_shards_equals_full_heads(cuda, window):
                                        rtol=rtol, atol=atol)
         finally:
             dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# The survey's layer-budget presets, StreamingLLM, shortest-prompt
+# admission, MoE / SSM / hybrid training and ROADMAP C6 on the card
+# ---------------------------------------------------------------------------
+
+# reduced granite at 4 layers, budget 32, window 8: pyramid's budgets
+# (16-bit: [32, 32, 32, 24]; 4-bit, whole 8-row groups: [32, 32, 32, 24])
+# and squeeze / zigzag's differ across the layers
+BUDGET_LAYERS = 4
+ZIGZAG = {"uncertainty": [1.0, 0.8, 0.6, 0.4]}
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+@pytest.mark.parametrize("pname", ["streaming", "pyramid", "squeeze",
+                                   "zigzag", "pyramid+kivi4"])
+def test_reduced_layer_budget_presets_on_card_match_cpu(cuda, pname, paged):
+    """Reduced granite-8b (4 layers) in f32 under the layer-budget presets
+    and StreamingLLM, dense and paged + chunked: the card's streams equal
+    the CPU's, every decode step went through the decode kernel of its
+    layout once a layer, and the layer budgets are the CPU engine's."""
+    import numpy as np
+    cfg = reduced(GRANITE, num_layers=BUDGET_LAYERS)
+    pol = presets(32, 8)[pname]
+    reqs = [torch.randint(0, cfg.vocab_size, (n,), generator=torch
+                          .Generator().manual_seed(n)).numpy()
+            for n in (48, 64, 48)]
+    kw = dict(paged=True, chunked_prefill=True, chunk_len=16) if paged else {}
+    dec = dq_ops.decode_attn_paged_kernel if paged else dq_ops.decode_attn_kernel
+    out, budgets = {}, {}
+    for dev in ("cpu", "cuda"):
+        params = _to(M.init_params(cfg, seed=0, device="cpu"), dev)
+        eng = Engine(cfg, params, pol, prompt_len=64, max_new=12, slots=2,
+                     buckets=(48, 64), device=dev,
+                     allocator_signal=(ZIGZAG if pname == "zigzag" else None),
+                     **kw)
+        dec.launches = 0
+        out[dev] = eng.generate_continuous(
+            [Request(tokens=t, max_new=12) for t in reqs])
+        budgets[dev] = eng.layer_budgets.tolist()
+        if paged:
+            assert eng.last_audit["clean"]
+    assert dec.launches == out["cuda"].decode_steps * BUDGET_LAYERS
+    assert budgets["cpu"] == budgets["cuda"]
+    assert (len(set(budgets["cuda"])) > 1) == (pname != "streaming")
+    assert np.all(np.asarray(budgets["cuda"]) <= 32)
+    for a, b in zip(out["cpu"].results, out["cuda"].results):
+        assert a.tokens.tolist() == b.tokens.tolist()
+
+
+def test_shortest_prompt_admission_on_card(cuda):
+    """`admission_order="shortest-prompt"` on the card: reduced granite-8b
+    in f32, 6 requests of mixed 48 / 64 prompts on 2 slots. The `admit`
+    instants follow the rule (the shortest queued prompt first, ties by
+    arrival) recomputed from the `submit` instants, and the streams equal
+    the CPU's."""
+    from repro_torch.obs import Tracer
+    cfg = reduced(GRANITE)
+    pol = presets(16, 8)["h2o"]
+    lens = (64, 48, 64, 48, 48, 64)
+    reqs = [torch.randint(0, cfg.vocab_size, (n,), generator=torch
+                          .Generator().manual_seed(i)).numpy()
+            for i, n in enumerate(lens)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = _to(M.init_params(cfg, seed=0, device="cpu"), dev)
+        tr = Tracer()
+        eng = Engine(cfg, params, pol, prompt_len=64, max_new=6, slots=2,
+                     buckets=(48, 64), device=dev,
+                     admission_order="shortest-prompt", tracer=tr)
+        res = eng.generate_continuous([Request(tokens=t, max_new=6)
+                                       for t in reqs])
+        plen = {r.uid: r.prompt_len for r in res.results}
+        queue, got, want = [], [], []
+        for e in tr.to_chrome()["traceEvents"]:
+            if e["name"] == "submit":
+                queue.append(e["args"]["uid"])
+            elif e["name"] == "admit":
+                nxt = min(queue, key=lambda u: (plen[u], queue.index(u)))
+                queue.remove(nxt)
+                want.append(nxt)
+                got.append(e["args"]["uid"])
+        assert got == want and len(got) == len(reqs)
+        first = min(plen)
+        assert [plen[u] for u in got[:2]] == [48, 48]
+        out[dev] = ([u - first for u in got],
+                    [r.tokens.tolist() for r in res.results])
+    assert out["cpu"] == out["cuda"]
+
+
+# losses and grad norms of a train step, card against CPU, relative (f32;
+# the card sums in other orders, cuDNN's TF32 off for the SSM's conv)
+TRAIN_CARD_RTOL = 1e-4
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "mamba2-130m",
+                                  "jamba-v0.1-52b"])
+def test_reduced_moe_ssm_training_on_card_matches_cpu(cuda, arch,
+                                                      monkeypatch):
+    """Two `make_train_step` steps of reduced mixtral-8x22b, mamba2-130m
+    and jamba-v0.1-52b (f32) on the card against the CPU: loss, ce, the
+    MoE aux losses and the grad norm within TRAIN_CARD_RTOL each step, no
+    kernel launched, every param moved."""
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.optim import cosine_schedule
+    from repro_torch.optim.optimizers import tree_map
+    from repro_torch.train import loop as TL
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cfg = reduced(get_config(arch))
+    params = M.init_params(cfg, seed=0, device="cpu")
+    batches = list(zip(range(2), lm_batches(cfg, 2, 32, seed=0)))
+    kernels = (dq_ops.decode_attn_kernel, fp_ops.flash_prefill_kernel,
+               kvq_ops.kvquant_kernel)
+    for k in kernels:
+        k.launches = 0
+    out = {}
+    for dev in ("cpu", "cuda"):
+        init, step = TL.make_train_step(cfg, cosine_schedule(3e-4, 0, 4))
+        st = init(tree_map(lambda x: x.to(dev, copy=True), params))
+        ms = []
+        for _, b in batches:
+            st, m = step(st, {k: torch.as_tensor(v, device=dev)
+                              for k, v in b.items()})
+            ms.append(m)
+        out[dev] = (ms, st)
+    assert all(k.launches == 0 for k in kernels)
+    (mc, sc), (mg, sg) = out["cpu"], out["cuda"]
+    for a, b in zip(mc, mg):
+        for f in ("loss", "ce_loss", "lb_loss", "z_loss", "grad_norm"):
+            want, got = float(getattr(a, f)), float(getattr(b, f))
+            assert abs(got - want) <= TRAIN_CARD_RTOL * (1 + abs(want)), f
+        assert (float(b.lb_loss) > 0) == cfg.is_moe
+    moved = [not torch.equal(a.cpu(), b) for a, b in
+             zip(_leaves_of(sg.params), _leaves_of(params))]
+    assert all(moved), sum(moved)
+
+
+def test_ssd_gradient_finite_on_card(cuda, monkeypatch):
+    """ROADMAP C6 on the card: the reduced mamba2-130m seed-0 weights and
+    the 4 x 32 batch of rng seed 2, whose SSD chunk decays overflow above
+    the diagonal (the reference's gradient is NaN there,
+    tests/test_torch_sharded_step.py): the card's gradient is finite and
+    positive, its loss within 1e-5 relative of the CPU's."""
+    import numpy as np
+    from repro_torch.train import loop as TL
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cfg = reduced(get_config("mamba2-130m"))
+    p = M.init_params(cfg, seed=0, device="cpu")
+    tok = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (4, 32)).astype(np.int32))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        (loss, _), grads = TL.value_and_grad(_to(p, dev), cfg,
+                                             {"tokens": tok.to(dev)})
+        gn = float(torch.sqrt(sum(g.float().square().sum()
+                                  for g in TL.tree_leaves(grads))))
+        out[dev] = (float(loss), gn)
+    (lc, gc), (lg, gg) = out["cpu"], out["cuda"]
+    assert np.isfinite(gg) and gg > 0
+    assert abs(lg - lc) <= 1e-5 * abs(lc)

@@ -233,3 +233,55 @@ def test_tracer_copy_sampler_and_allocators():
                               torch.full((1, 1, 1), 2.0),
                               torch.full((1, 1, 1), -1.0), 2, torch.float32)
     assert v.flatten().tolist() == [-1.0] * 4 + [5.0] * 4
+
+
+_EXAMPLES_CHILD = textwrap.dedent("""
+    import importlib.util, sys
+    mods = {{}}
+    for path in {paths!r}:
+        spec = importlib.util.spec_from_file_location(path, path)
+        mods[path] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mods[path])
+    by_name = {{p.rsplit("/", 1)[-1]: m for p, m in mods.items()}}
+    by_name["torch_train_tiny.py"].main(["--steps", "2", "--batch", "2",
+                                         "--seq", "16", "--device", "cpu"])
+    by_name["torch_serve_compressed.py"].main([
+        "--policies", "full,kivi2", "--requests", "2", "--prompt-len", "32",
+        "--max-new", "2", "--budget", "16", "--device", "cpu"])
+    bad = sorted(m for m in sys.modules
+                 if m == "jax" or m.startswith("jax.")
+                 or m == "repro" or m.startswith("repro."))
+    print("EXAMPLES", len(mods), "LEAKED", bad)
+""")
+
+
+def test_example_twins_import_no_jax_and_no_repro():
+    """`examples/torch_*.py` import only `repro_torch`, torch, numpy and
+    the stdlib (read from their import statements), and loading and
+    running them leaves no `jax` and nothing of `repro` in `sys.modules`."""
+    import ast
+    import glob
+    import os
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    paths = sorted(glob.glob(os.path.join(root, "examples", "torch_*.py")))
+    assert [os.path.basename(p) for p in paths] == [
+        "torch_longcontext_needle.py", "torch_quickstart.py",
+        "torch_serve_compressed.py", "torch_train_tiny.py"]
+    allowed = {"repro_torch", "torch", "numpy"} | set(sys.stdlib_module_names)
+    for p in paths:
+        with open(p) as f:
+            tree = ast.parse(f.read())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                tops = [a.name.split(".")[0] for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                tops = [(node.module or "").split(".")[0]]
+            else:
+                continue
+            assert set(tops) <= allowed, (p, tops)
+    r = subprocess.run([sys.executable, "-c",
+                        _EXAMPLES_CHILD.format(paths=paths)],
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "EXAMPLES 4 LEAKED []" in r.stdout, r.stdout
+    assert "checkpoint" not in r.stdout and "loss: " in r.stdout, r.stdout

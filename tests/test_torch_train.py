@@ -9,7 +9,9 @@ numpy batches):
     mixtral;
   * `clip_by_global_norm`, `adamw` and `apply_updates` fed JAX's
     gradients (f32 and bf16 params), both schedules at steps 0..N, and
-    one whole `make_train_step` step for granite-8b and seamless;
+    one whole `make_train_step` step (metrics within LOSS_TOL, params
+    within 1e-5, the first moment within GRAD_TOL) for granite-8b,
+    seamless, mixtral-8x22b, mamba2-130m and jamba-v0.1-52b;
   * the port's own two-step smoke for the other configs, and
     `train_forward` differentiable with `use_kernels=True` while every
     kernel wrapper raises if called;
@@ -241,7 +243,9 @@ def test_schedules_equal_jax(kind):
                                    rtol=0)
 
 
-@pytest.mark.parametrize("arch", ["granite-8b", "seamless-m4t-large-v2"])
+@pytest.mark.parametrize("arch", ["granite-8b", "seamless-m4t-large-v2",
+                                  "mixtral-8x22b", "mamba2-130m",
+                                  "jamba-v0.1-52b"])
 def test_train_step_equals_jax(arch):
     """One whole step of `make_train_step` (the state through
     `bridge.train_state_from_numpy`): metrics, new params and moments."""
