@@ -10,7 +10,10 @@ Phases, each printing its own lines; any failure exits non-zero:
               source, started together; the decode source holds two
               kernels, the flash source three, the KIVI quantize source
               three: K, V, and both of a flush in one launch), with
-              nvcc's -Xptxas -v lines
+              nvcc's -Xptxas -v lines. The builds run in the background:
+              the phases that launch no kernel (10 train, 11 (a),
+              library) run on the card meanwhile, and parity waits
+              for the builds (then the dry-run workers of 11 start)
   3. parity   each kernel against its plain PyTorch version at the main
               path's shapes (granite-8b: Hq 32, Hkv 8, D 128), timed
               beside the plain version and a PyTorch library yardstick;
@@ -27,10 +30,10 @@ Phases, each printing its own lines; any failure exits non-zero:
               two row tiles; mixtral's sliding window: B2 at T 6144, Gq
               6, window 4096 (tiles outside the window skipped) and B5
               at Gq 6 over a 6208-row view with window 4096
-  4. serve    granite-8b at full width on 18 of its 36 layers (the
-              presets phase and the profiles serve all 36), random bf16
-              weights from
-              a seed, `Engine.generate_continuous` under full / h2o /
+  4. serve    granite-8b at full width on 9 of its 36 layers (the
+              layer-budget presets and the profiles serve all 36), random
+              bf16 weights from a seed, `Engine.generate_continuous`
+              under full / h2o /
               kivi2 / h2o+kivi2 and the noisy nacl / keyformer (dense
               cache, monolithic prefill; the last two beside h2o), then
               full / kivi2 / h2o+kivi2 over a paged pool with chunked
@@ -61,9 +64,25 @@ Phases, each printing its own lines; any failure exits non-zero:
               kernels, and only its kernels, as many times as its steps
               (flushes and quantized admissions for KIVI; re-admissions
               of preempted requests)
-  4b. presets granite-8b at full width and depth, 8 requests (4 of each
+  4a. ladder  the overload ladder with the prefix cache, granite-8b at
+              full width on 9 of 36 layers: (a) through the engine, 4
+              prompts of 2048 tokens (two on a 1536-token template, a
+              filler, the template again) on 2 slots of a lazy pool that
+              starves, prefix sharing and the host tier: cold index
+              blocks demote to host, a warm hit promotes them, starved
+              slots spill and restore; streams equal to the ample pool's,
+              the trace's demote / promote / spill / fetch instants equal
+              to the counters; (b) every ladder flag together through the
+              serving CLI (kivi2 budget 1920, 16 requests, degradation
+              and spills firing, the metrics snapshot equal to the result
+              and the trace); (c) the small-pool speculative ladder
+              through the CLI in f32 (the reference's loop livelocks
+              there), within a deadline, streams equal to the parity
+              pool's; launches exact in each
+  4b. presets granite-8b at full width, 8 requests (4 of each
               bucket, one wave): the StreamingLLM preset, the 4- and 8-bit
-              KIVI presets and the survey's layer-budget methods
+              KIVI presets (these three on 9 of the 36 layers: one budget
+              in every layer) and the survey's layer-budget methods
               (pyramid, squeeze, zigzag with its linspace(1, 0.4)
               uncertainty signal, pyramid+kivi4) dense, pyramid and
               pyramid+kivi4 paged + chunked; launches exact, the pool
@@ -93,7 +112,8 @@ Phases, each printing its own lines; any failure exits non-zero:
               temperature sampler through the kernels against
               use_kernels=False under one seed (streams equal), the
               sampler's seed 0 twice (equal) and seeds 0 / 1 (differ)
-  6. profile  one decode step at full depth, 8 slots, dense and paged, and
+  6. profile  one decode step at full depth (one step profiled), 8
+              slots, dense and paged, and
               one verify round: wall vs dispatch time, device-busy time
               and the top kernels (torch.profiler); for h2o+kivi2 also a
               step whose ring flushes (the fused quantizer's share)
@@ -143,7 +163,9 @@ Phases, each printing its own lines; any failure exits non-zero:
               kernels against use_kernels=False, the bf16 paths against
               an f32 reference path, and f32 decode continuing
               `train_forward`'s logits
- 10. train    `launch/train.py` at full size, bf16 params and f32
+ 10. train    (runs while nvcc builds, as 11's training runs and the
+              library phase do)
+              `launch/train.py` at full size, bf16 params and f32
               moments, remat: 4 steps of 8 x 256 tokens of seamless
               (cosine), minicpm-2b (WSD), mamba2-130m (cosine) and
               mixtral-8x22b at full width on 1 of its 56 layers (cosine);
@@ -154,8 +176,14 @@ Phases, each printing its own lines; any failure exits non-zero:
               layer cut; ROADMAP C6's case in f32 (the SSD's gradient
               finite where the reference's is NaN, the loss the CPU's)
  11. shard    the sharded path (DTensor over torch.distributed):
-              `launch/train.py --mesh host` as one NCCL rank (mesh 1 x 1)
-              against phase 10's minicpm-2b steps; two gloo ranks
+              (a) `launch/train.py --mesh host` as one NCCL rank (mesh 1
+              x 1) against phase 10's minicpm-2b steps; (d) four gloo
+              ranks on the one card through `launch/train.py --mesh
+              host` (its mesh (1, 4), tp 4; minicpm-2b at full width on
+              20 of 40 layers), each step against one rank's run of the
+              same cut within a stated tolerance,
+              every rank's loss equal, every weight matrix moved on every
+              rank (a and d run during the build); (b) two gloo ranks
               spawned on the one card (mesh 1 x 2, tp 2; a probe first
               finds the collectives gloo cannot run on CUDA tensors, which
               then go through host memory, printed): granite-8b at full
@@ -168,6 +196,15 @@ Phases, each printing its own lines; any failure exits non-zero:
               paper-llama-7b x the four shapes on a fake 256-rank mesh
               (CPU worker processes started with the script, overlapping
               phases 1-10), and perf_moe's two collective totals
+
+  library     the survey's library-level compressors (GEAR, QAQ, Lexico,
+              PQ, the SSM-state quantizer, RazorAttention, LOOK-M,
+              evict-then-merge) at granite-8b's K / V shapes on the card,
+              each held to the port's CPU result on the same inputs
+              (exact, or within stated bounds where a reduction order or
+              a near-tie choice may differ); event-timed ms and
+              compression ratios printed; no kernel (runs during the
+              build)
 
 Then one JSON line describing every ported kernel, and as the last line
 ``{"ok": true, "device": {...}}``. There is no CPU path: without a CUDA
@@ -187,8 +224,11 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-PHASES = ("device", "build", "parity", "serve", "presets", "e2e", "profile",
-          "configs", "kvsharer", "encdec", "train", "shard")
+# build starts nvcc and returns; train, shard_train (11 (a)) and library
+# launch no kernel and run on the card while it compiles; parity waits
+PHASES = ("device", "build", "train", "shard_train", "library", "parity",
+          "serve", "ladder", "presets", "e2e", "profile", "configs",
+          "kvsharer", "encdec", "shard")
 # kernel vs plain version, |kernel - plain| <= atol + rtol * |plain|.
 # Both sides compute in f32 on the same (bf16-rounded) inputs, so they
 # differ by f32 summation order (readings <= 1e-6) and, for bf16 outputs,
@@ -293,19 +333,36 @@ def phase_device(info: dict) -> None:
 
 
 def phase_build(info: dict) -> None:
+    """Start the three nvcc builds (one thread each) and return: the
+    kernel-free phases (train, shard_train, library) run on the card
+    while they compile; `_finish_build` waits for them before parity."""
     from repro_torch.kernels.decode_qattn import ops as dq
     from repro_torch.kernels.flash_prefill import ops as fp
     from repro_torch.kernels.kvquant import ops as kvq
     sources = [dq.SOURCE, fp.SOURCE, kvq.SOURCE]
-    t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(sources)) as ex:
-        for src, fut in [(s, ex.submit(s.build)) for s in sources]:
-            fut.result()
-            for line in src.build_log.splitlines():
-                if "registers" in line or "spill" in line or "smem" in line:
-                    print(f"[build] {src.path.name}: {line.strip()}")
-    print(f"[build] {len(sources)} sources (8 kernels) built in "
-          f"{time.perf_counter() - t0:.1f} s")
+    ex = concurrent.futures.ThreadPoolExecutor(len(sources))
+    info["build"] = dict(t0=time.perf_counter(), ex=ex, jobs=[
+        (s, ex.submit(s.build)) for s in sources])
+    print(f"[build] {len(sources)} nvcc builds started; the kernel-free "
+          f"phases run meanwhile")
+
+
+def _finish_build(info: dict) -> None:
+    """Wait for phase_build's nvcc jobs (a failed build raises here),
+    print nvcc's -Xptxas -v lines, then start the dry-run workers (CPU
+    processes: started once nvcc is done with the host's cores)."""
+    b = info.pop("build")
+    t_wait = time.perf_counter()
+    for src, fut in b["jobs"]:
+        fut.result()
+        for line in src.build_log.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                print(f"[build] {src.path.name}: {line.strip()}")
+    b["ex"].shutdown()
+    print(f"[build] {len(b['jobs'])} sources (8 kernels) built "
+          f"{time.perf_counter() - b['t0']:.1f} s after their start "
+          f"(waited {time.perf_counter() - t_wait:.1f} s for them)")
+    start_dryrun()
 
 
 # ---------------------------------------------------------------------------
@@ -351,6 +408,7 @@ def _decode_case(torch, dt, bits, ring, B=8, S=512, W=128, Hq=32, Hkv=8,
 
 
 def phase_parity(info: dict) -> None:
+    _finish_build(info)
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_qattn import ops as dq
@@ -1331,9 +1389,11 @@ SPEC_LAYERS = 9
 # the plain, noisy, paged, sampler and overload runs serve SERVE_LAYERS
 # of the 36 layers: at 36 the script passed its 1200 s limit on a slow
 # host (887 s on one host, over 1250 s on another, PERF.md §6), and the
-# host-bound decode loop's time scales with the depth; the presets
-# phase and the profiles keep all 36
-SERVE_LAYERS = 18
+# host-bound decode loop's time scales with the depth; 18, then 9 once
+# the ladder, library and four-rank training runs joined (the 18-layer
+# runs took ~111 s of the serve phase's 214); the layer-budget presets
+# and the profiles keep all 36
+SERVE_LAYERS = 9
 # overload runs (paged + chunked, the first N_SHORT prompts), each held
 # token for token to the unpreempted paged + chunked run of its policy
 # above: (policy, engine options, forced preemptions or None). `full`
@@ -1599,6 +1659,8 @@ def phase_serve(info: dict) -> None:
     _serve_overload(info, cfg, params, kernels, prompts, plain)
     del plain
     _serve_prefix(info, params, kernels)
+    # the ladder phase serves the same weights (LADDER_LAYERS deep)
+    info["ladder_params"] = _layers_view(params, LADDER_LAYERS)
     del params
     torch.cuda.empty_cache()
 
@@ -2096,6 +2158,388 @@ def _serve_prefix(info: dict, params, kernels) -> None:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# 4a. ladder: the whole overload ladder with the prefix cache
+# ---------------------------------------------------------------------------
+
+# granite-8b at full width on LADDER_LAYERS of its 36 layers (the
+# schedule, the counts and the pool sizes do not depend on the depth)
+LADDER_LAYERS = PREFIX_LAYERS
+# (a) `full`, paged + chunked, prefix cache, lazy growth, preemption and
+# the host tier on LADDER_SLOTS slots: prompts of 2048 tokens, two on
+# the PREFIX_SHARED-token template, a filler, the template again. A
+# 2048-token prompt (+ MAX_NEW) takes 129 16-row blocks at lazy
+# admission (2049 rows) and 132 at its end (2112 rows): two residents
+# take 258 blocks at admission and 264 at the end, so the 263-block
+# pool starves on a last grant (preemption; the victim spills to the
+# host tier and restores). The retired template's prompt blocks stay in
+# the index (refcount 1): the filler's and the third template request's
+# admissions reclaim them, and with the tier they demote to host instead
+# of being freed; the third template request's warm hit pages them back
+# (promote). The host tier holds LADDER_HOST blocks, room for the demoted
+# index blocks beside a spilled slot (a 2048-token prompt indexes 128
+# blocks). The streams are held to an eager run of the same prompts on
+# the parity pool with the prefix cache and no tier
+LADDER_SLOTS, LADDER_POOL, LADDER_HOST = 2, 263, 600
+# (b) every flag together through the serving CLI: kivi2 at budget 1920
+# (PREFIX_RUNS': the whole pre-window prompt shareable) keeps 15 groups
+# of 128 rows a slot, so parity is 8 x 15 = 120 blocks. Every slot's
+# first flush un-shares its 12 template blocks (CoW), so 8 resident
+# slots need their 120 own blocks beside the index's template and
+# suffix blocks: at LADDER_B_POOL blocks usage passes the degradation
+# controller's 0.85 high-water mark (degrades) and the tier's spill rung
+# demotes cold index blocks (spills) as admissions wait
+LADDER_B_POOL, LADDER_B_HOST = 100, 200
+LADDER_B_ARGV = ("--arch", "granite-8b", "--policy", "kivi2", "--budget",
+                 "1920", "--window", str(WINDOW), "--continuous",
+                 "--buckets", "2048", "--requests", "16", "--max-new",
+                 str(MAX_NEW), "--slots", str(SLOTS), "--paged",
+                 "--chunked-prefill", "--chunk-len", str(CHUNK_LEN),
+                 "--prefix-sharing", "--shared-prefix", str(PREFIX_SHARED),
+                 "--block-growth", "lazy", "--preemption", "--degrade",
+                 "--tiering", "--host-blocks", str(LADDER_B_HOST),
+                 "--pool-blocks", str(LADDER_B_POOL), "--audit-every",
+                 str(OVERLOAD_AUDIT))
+# (c) the small-pool speculative ladder through the CLI (the case where
+# the reference's loop livelocks): 2 requests of 2048 tokens on 2 slots,
+# 132 16-row blocks each whole; the 261-block pool holds one whole and
+# not two (264), so the second's growth starves beside the first. In f32
+# (the config cut's dtype): a resumed slot replays its tokens through
+# plain rounds, whose rows were first written by verify rounds at
+# another batch shape, and bf16 GEMMs round another shape differently
+# (the serve phase's bf16 speculative streams differ from plain ones);
+# f32 holds the replay token-equal, as phase 5 does. Held to the same
+# CLI run on the parity pool; the run must end within LADDER_C_DEADLINE
+LADDER_C_POOL, LADDER_C_DEADLINE = 261, 240
+LADDER_C_ARGV = ("--arch", "granite-8b", "--policy", "full", "--continuous",
+                 "--buckets", "2048", "--requests", "2", "--max-new",
+                 str(MAX_NEW), "--slots", "2", "--speculative", "--gamma",
+                 str(GAMMA), "--draft-policy", "same", "--paged",
+                 "--block-growth", "lazy", "--preemption", "--audit-every",
+                 "4")
+LADDER_INSTANTS = ("prefix_demote", "prefix_promote", "spill", "fetch")
+
+
+@contextlib.contextmanager
+def _calls(module, *names):
+    """Count the calls of `module`'s functions `names` while open (the
+    engine calls them through the module): yields {name: count}."""
+    n = dict.fromkeys(names, 0)
+    saved = {k: getattr(module, k) for k in names}
+
+    def counted(k):
+        def call(*args, **kwargs):
+            n[k] += 1
+            return saved[k](*args, **kwargs)
+        return call
+
+    for k in names:
+        setattr(module, k, counted(k))
+    try:
+        yield n
+    finally:
+        for k, f in saved.items():
+            setattr(module, k, f)
+
+
+class _Deadline:
+    """SIGALRM after `seconds` raises TimeoutError in the main thread."""
+
+    def __init__(self, seconds: int, what: str) -> None:
+        self.seconds, self.what = seconds, what
+
+    def __enter__(self):
+        import signal
+
+        def ring(*_):
+            raise TimeoutError(f"{self.what}: not done in {self.seconds} s")
+
+        self.prev = signal.signal(signal.SIGALRM, ring)
+        signal.alarm(self.seconds)
+
+    def __exit__(self, *exc):
+        import signal
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, self.prev)
+
+
+def _ladder_prompts(vocab: int):
+    import numpy as np
+    rng = np.random.default_rng(7)
+    L = max(BUCKETS)
+    shared = rng.integers(0, vocab, size=PREFIX_SHARED)
+
+    def templated():
+        return np.concatenate([shared, rng.integers(
+            0, vocab, size=L - PREFIX_SHARED)])
+
+    filler = rng.integers(0, vocab, size=L)
+    return [templated(), templated(), filler, templated()]
+
+
+def _trace_instants(tr) -> dict:
+    n = dict.fromkeys(LADDER_INSTANTS, 0)
+    for ph, name, *_ in tr.events():
+        if ph == "i" and name in n:
+            n[name] += 1
+    return n
+
+
+def _ladder_line(info, label, res, wall, peak, extra="") -> str:
+    t = res.tier or {}
+    line = (f"[ladder] {label}: decode {res.decode_tokens_per_s:.1f} tok/s "
+            f"over {res.decode_steps} steps, ttft mean {res.ttft_mean_s:.3f}"
+            f" s, wall {wall:.2f} s, peak allocated {peak / 2**30:.2f} GiB; "
+            f"{sum(r.n_preemptions for r in res.results)} preemptions, "
+            f"{len(res.recomputed_uids)} recomputed re-admissions, "
+            f"{res.replayed_tokens} tokens replayed")
+    if t:
+        line += (f"; tier {t['spills']} spills "
+                 f"({t['bytes_spilled'] / 2**20:.1f} MiB) / {t['fetches']} "
+                 f"fetches "
+                 f"({t['bytes_fetched'] / 2**20:.1f} MiB), "
+                 f"{t['refused_spills']} spills refused")
+    return line + extra + f"; {info['smi']}"
+
+
+def phase_ladder(info: dict) -> None:
+    """(a) demote and promote, then the lossless ladder, through
+    `Engine.generate_continuous`; (b) every ladder flag together through
+    the serving CLI; (c) the small-pool speculative ladder through the
+    CLI. Launches exact in each, from its own counts: B3 once a layer per
+    decode step, B4 per streamed segment (the model's `prefill_chunk`
+    calls: a restore or a promotion streams none), B6 per flush step and
+    finalized quantized admission, B5 per verify round."""
+    import gc
+    import torch
+    from repro_torch.configs.granite_8b import CONFIG
+    from repro_torch.core.policy import presets
+    from repro_torch.nn import model as M
+    from repro_torch.obs import Metrics, Tracer
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.scheduler import Request
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = CONFIG.replace(num_layers=LADDER_LAYERS)
+    L, n_layers = max(BUCKETS), cfg.num_layers
+    params = info.pop("ladder_params", None)     # the serve phase's
+    if params is None:
+        params = M.init_params(cfg, seed=0, device="cuda")
+    kernels = _kernel_objs()
+    launches = info.setdefault("launches", dict.fromkeys(KERNELS, 0))
+    prompts = _ladder_prompts(cfg.vocab_size)
+    pol = presets(budget=BUDGET, window=WINDOW)["full"]
+    kw = dict(prompt_len=L, max_new=MAX_NEW, slots=LADDER_SLOTS,
+              buckets=(L,), prefix_sharing=True, **_CHUNKED)
+
+    def reqs():
+        return [Request(tokens=p, max_new=MAX_NEW) for p in prompts]
+
+    twin = Engine(cfg, params, pol, **kw).generate_continuous(reqs())
+    tr, mx = Tracer(), Metrics()
+    eng = Engine(cfg, params, pol, **kw, block_growth="lazy",
+                 preemption=True, tiering=True, pool_blocks=LADDER_POOL,
+                 host_blocks=LADDER_HOST, audit_every=OVERLOAD_AUDIT,
+                 tracer=tr, metrics=mx)
+    n_audit = _counted_audits(eng)
+    torch.cuda.reset_peak_memory_stats()
+    with _calls(M, "prefill_chunk") as calls:
+        res, n, wall = _counted(lambda: eng.generate_continuous(reqs()),
+                                kernels, launches)
+    peak = torch.cuda.max_memory_allocated()
+    idx = eng._share_state["index"]
+    label = (f"(a) full lazy+preemption+tier+prefix pool {LADDER_POOL} host "
+             f"{LADDER_HOST}, {len(prompts)} requests on {LADDER_SLOTS} "
+             f"slots, {n_layers} layers")
+    same, _, _ = _agreement(res, twin)
+    got_i = _trace_instants(tr)
+    want_i = dict(prefix_demote=idx.demoted, prefix_promote=idx.promoted,
+                  spill=res.tier["spills"], fetch=res.tier["fetches"])
+    want = _want_launches(eng, res, n_layers, len(prompts), 0)
+    want["flash_prefill_chunk"] = calls["prefill_chunk"] * n_layers
+    n_pre = sum(r.n_preemptions for r in res.results)
+    print(_ladder_line(info, label, res, wall, peak,
+                       f"; {idx.demoted} index blocks demoted, "
+                       f"{idx.promoted} promoted, {res.prefix['warm_hits']} "
+                       f"warm / {res.prefix['cold']} cold admissions; "
+                       f"{n_audit[0]} device-table audits, last clean "
+                       f"{eng.last_audit['clean']}; bf16 streams equal to "
+                       f"the ample pool's (prefix cache, no tier): "
+                       f"{same}/{len(prompts)}; trace instants {got_i}; "
+                       f"{calls['prefill_chunk']} segments streamed; "
+                       f"launches " + " ".join(f"{k} {v}"
+                                               for k, v in n.items() if v)))
+    info.setdefault("ladder", []).append(dict(
+        run="a", tok_s=res.decode_tokens_per_s, ttft=res.ttft_mean_s,
+        wall=wall, peak=peak, preemptions=n_pre, demoted=idx.demoted,
+        promoted=idx.promoted, tier={k: res.tier[k] for k in (
+            "spills", "fetches", "bytes_spilled", "bytes_fetched")}))
+    if not all(r.finish_reason == "length" and r.n_tokens == MAX_NEW
+               for r in res.results):
+        fail(f"ladder {label}: reasons "
+             f"{[r.finish_reason for r in res.results]}")
+    if not (idx.demoted >= 1 and idx.promoted >= 1 and n_pre >= 1
+            and res.tier["fetches"] >= 1):
+        fail(f"ladder {label}: demoted {idx.demoted}, promoted "
+             f"{idx.promoted}, preemptions {n_pre}, tier {res.tier}")
+    if same != len(prompts):
+        fail(f"ladder {label}: {len(prompts) - same} streams differ from "
+             f"the ample pool's")
+    if not (n_audit[0] >= 1 and eng.last_audit["clean"]
+            and res.pool_peak_blocks <= res.pool_blocks):
+        fail(f"ladder {label}: {n_audit[0]} audits, last {eng.last_audit}")
+    if got_i != want_i:
+        fail(f"ladder {label}: trace instants {got_i}, counters {want_i}")
+    if n != want:
+        fail(f"ladder {label}: launches {n}, want {want}")
+    _check_telemetry(info, label, tr, mx, res, wall, causal=False)
+    del eng, res, twin, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    _ladder_cli(info, kernels, launches)
+    _ladder_spec(info, kernels, launches)
+    print(f"[ladder] phase took {time.perf_counter() - t_phase:.1f} s; "
+          f"{info['smi']}")
+
+
+def _ladder_cli(info, kernels, launches) -> None:
+    """(b): `launch/serve.py` with every ladder flag (LADDER_B_ARGV) on
+    LADDER_LAYERS layers, traced, its metrics snapshot written: 16 of 16
+    complete, the end-of-run audit clean, degrades >= 1 and spills >= 1,
+    the snapshot's counters equal to the engine result's and the trace's,
+    launches exact. Degradation changes tokens by design: no stream gate."""
+    import tempfile
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.nn import model as M
+    with tempfile.TemporaryDirectory() as d:
+        tpath, mpath = os.path.join(d, "t.json"), os.path.join(d, "m.json")
+        argv = list(LADDER_B_ARGV) + ["--trace", tpath, "--metrics-json",
+                                      mpath]
+        torch.cuda.reset_peak_memory_stats()
+        with _config_cut(serve, LADDER_LAYERS), \
+                _calls(M, "prefill_chunk", "prefill_finalize") as calls:
+            (eng, res), n, wall = _counted(lambda: serve.main(argv),
+                                           kernels, launches)
+        peak = torch.cuda.max_memory_allocated()
+        with open(tpath) as f:
+            evs = [e for e in json.load(f)["traceEvents"] if e["ph"] == "i"]
+        with open(mpath) as f:
+            snap = json.load(f)
+    n_req = len(res.results)
+    done = sum(r.finish_reason == "length" for r in res.results)
+    st, t = eng.pressure.stats, res.tier
+    tr_n = {k: sum(e["name"] == k for e in evs) for k in (
+        "spill", "fetch", "degrade", "preempt")}
+    counters = snap["metrics"]
+    want_c = {"tier.spills": t["n_spills"], "tier.fetches": t["n_fetches"],
+              "sched.preemptions": sum(r.n_preemptions for r in res.results),
+              "engine.decode_steps": res.decode_steps,
+              "pressure.degrades": st["degrades"],
+              "requests.completed": sum(r.finish_reason != "failed"
+                                        for r in res.results)}
+    got_c = {k: counters.get(k) for k in want_c}
+    want_tr = {"spill": t["spills"], "fetch": t["fetches"],
+               "degrade": st["degrades"],
+               "preempt": want_c["sched.preemptions"]}
+    want = _want_launches(eng, res, LADDER_LAYERS, 0, 0)
+    want["flash_prefill_chunk"] = calls["prefill_chunk"] * LADDER_LAYERS
+    want["kvquant"] = ((res.kv_flush_steps + calls["prefill_finalize"])
+                       * LADDER_LAYERS)
+    label = (f"(b) CLI kivi2 budget 1920, every ladder flag, pool "
+             f"{LADDER_B_POOL} host {LADDER_B_HOST}, {LADDER_LAYERS} layers")
+    print(_ladder_line(info, label, res, wall, peak,
+                       f"; {done}/{n_req} complete; {st['degrades']} degrades"
+                       f" dropped {st['blocks_dropped']} blocks (peak usage "
+                       f"{st['peak_used_frac']:.3f}); prefix "
+                       f"{res.prefix['warm_hits']} warm / "
+                       f"{res.prefix['cold']} cold, {res.prefix['cow_copies']}"
+                       f" CoW; audit clean {eng.last_audit['clean']}; metrics "
+                       f"counters {got_c}; trace {tr_n}; launches "
+                       + " ".join(f"{k} {v}" for k, v in n.items() if v)))
+    info.setdefault("ladder", []).append(dict(
+        run="b", tok_s=res.decode_tokens_per_s, ttft=res.ttft_mean_s,
+        wall=wall, peak=peak, degrades=st["degrades"],
+        tier={k: t[k] for k in ("spills", "fetches", "bytes_spilled",
+                                "bytes_fetched")}))
+    if done != n_req or n_req != 16:
+        fail(f"ladder {label}: {done} of {n_req} complete")
+    if not eng.last_audit["clean"]:
+        fail(f"ladder {label}: audit {eng.last_audit}")
+    if st["degrades"] < 1 or t["spills"] < 1:
+        fail(f"ladder {label}: degrades {st['degrades']}, spills "
+             f"{t['spills']}")
+    if got_c != want_c or tr_n != want_tr:
+        fail(f"ladder {label}: metrics {got_c} / trace {tr_n}, the result's "
+             f"{want_c} / {want_tr}")
+    if n != want:
+        fail(f"ladder {label}: launches {n}, want {want}")
+    del eng, res
+    torch.cuda.empty_cache()
+
+
+def _ladder_spec(info, kernels, launches) -> None:
+    """(c): the speculative CLI run (LADDER_C_ARGV) on the LADDER_C_POOL
+    pool, f32, within LADDER_C_DEADLINE seconds, against the same run on
+    the parity pool: preemptions >= 1, a request that fits the pool
+    token-equal to the parity run's stream, any other ending "failed" or
+    "oom" with a prefix of it; the pool empty and its audit clean at the
+    end; B5 once a layer per verify round, launches exact."""
+    import torch
+    from repro_torch.launch import serve
+    out = {}
+    for pool in (None, LADDER_C_POOL):
+        argv = list(LADDER_C_ARGV) + (
+            ["--pool-blocks", str(pool)] if pool else [])
+        torch.cuda.reset_peak_memory_stats()
+        with _config_cut(serve, LADDER_LAYERS, dtype=torch.float32), \
+                _Deadline(LADDER_C_DEADLINE, "ladder (c)"):
+            (eng, res), n, wall = _counted(lambda: serve.main(argv),
+                                           kernels, launches)
+        peak = torch.cuda.max_memory_allocated()
+        n_adm = len(res.results) + len(res.recomputed_uids)
+        want = _want_launches(eng, res, LADDER_LAYERS, n_adm, 0)
+        out[pool] = res
+        st = res.spec
+        label = (f"(c) CLI full speculative [same] gamma {GAMMA}, pool "
+                 f"{eng.pool_blocks} of {eng.block_len}-row blocks, f32, "
+                 f"{LADDER_LAYERS} layers")
+        print(_ladder_line(info, label, res, wall, peak,
+                           f"; {st.describe()}; {st.verify_rounds} verify + "
+                           f"{st.plain_rounds} plain rounds; reasons "
+                           f"{[r.finish_reason for r in res.results]}; pool "
+                           f"{eng.block_allocator.used} blocks held at the "
+                           f"end, audit clean {eng.last_audit['clean']}; "
+                           f"launches " + " ".join(
+                               f"{k} {v}" for k, v in n.items() if v)))
+        info.setdefault("ladder", []).append(dict(
+            run="c", pool=eng.pool_blocks, tok_s=res.decode_tokens_per_s,
+            ttft=res.ttft_mean_s, wall=wall, peak=peak,
+            preemptions=sum(r.n_preemptions for r in res.results)))
+        if not (eng.last_audit["clean"] and eng.block_allocator.used == 0):
+            fail(f"ladder {label}: audit {eng.last_audit}, "
+                 f"{eng.block_allocator.used} blocks held")
+        if n != want or st.verify_rounds < 1:
+            fail(f"ladder {label}: launches {n}, want {want}")
+        del eng
+        torch.cuda.empty_cache()
+    ample, small = out[None], out[LADDER_C_POOL]
+    n_pre = sum(r.n_preemptions for r in small.results)
+    if n_pre < 1:
+        fail(f"ladder (c): no preemption on the {LADDER_C_POOL}-block pool")
+    for a, b in zip(small.results, ample.results):
+        got, ref = a.tokens.tolist(), b.tokens.tolist()
+        ok = (got == ref if a.finish_reason == "length" else
+              a.finish_reason in ("failed", "oom") and got == ref[:len(got)])
+        if not ok:
+            fail(f"ladder (c): request {a.uid} ended {a.finish_reason!r} "
+                 f"with {len(got)} tokens, not the parity pool's stream")
+    print(f"[ladder] (c): {n_pre} preemptions; every request's stream "
+          f"equal to the parity pool's "
+          f"({[r.finish_reason for r in small.results]})")
+
+
 def _leaves(tree):
     for v in tree.values():
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
@@ -2110,10 +2554,16 @@ def _leaves(tree):
 # (policy, paged + chunked?): the serve phase's traffic, its first N_SHORT
 # prompts (4 of each bucket: one wave of the 8 slots), the paged runs at
 # pool parity in CHUNK_LEN segments
-PRESET_RUNS = (("streaming", False), ("kivi4", False), ("int8", False),
-               ("pyramid", False), ("squeeze", False), ("zigzag", False),
-               ("pyramid+kivi4", False), ("pyramid", True),
-               ("pyramid+kivi4", True))
+# The uniform-budget presets (streaming, kivi4, int8: one budget in every
+# layer) serve SERVE_LAYERS of the 36 layers; the layer-budget ones keep
+# all 36, since their budgets follow the depth. Per run: (policy, paged
+# + chunked?, layers: None = all)
+PRESET_RUNS = (("streaming", False, SERVE_LAYERS),
+               ("kivi4", False, SERVE_LAYERS),
+               ("int8", False, SERVE_LAYERS), ("pyramid", False, None),
+               ("squeeze", False, None), ("zigzag", False, None),
+               ("pyramid+kivi4", False, None), ("pyramid", True, None),
+               ("pyramid+kivi4", True, None))
 # zigzag's uncertainty signal, one per attention layer: the one
 # benchmarks/table3_attention.py gives it (the engine's default, all
 # ones, makes its budgets uniform); squeeze keeps the engine's default
@@ -2143,11 +2593,13 @@ def _zigzag_signal(n: int) -> dict:
 
 
 @contextlib.contextmanager
-def _config_cut(module, layers: int):
+def _config_cut(module, layers: int, **fields):
     """`module.get_config` (a CLI's) returning its config cut to the first
-    `layers` layers while open: the stated depth cut of a CLI run."""
+    `layers` layers (and with `fields` replaced) while open: the stated
+    depth cut of a CLI run."""
     get = module.get_config
-    module.get_config = lambda arch: get(arch).replace(num_layers=layers)
+    module.get_config = lambda arch: get(arch).replace(num_layers=layers,
+                                                       **fields)
     try:
         yield
     finally:
@@ -2170,9 +2622,14 @@ def phase_presets(info: dict) -> None:
                for i in range(N_SHORT)]
     kernels = _kernel_objs()
     launches = info.setdefault("launches", dict.fromkeys(KERNELS, 0))
-    for pname, paged in PRESET_RUNS:
-        _preset_run(info, cfg, params, pname, paged, prompts, kernels,
-                    launches)
+    for pname, paged, depth in PRESET_RUNS:
+        if depth is None:
+            _preset_run(info, cfg, params, pname, paged, prompts, kernels,
+                        launches)
+        else:
+            _preset_run(info, cfg.replace(num_layers=depth),
+                        _layers_view(params, depth), pname, paged, prompts,
+                        kernels, launches, tag=f" ({depth} layers)")
     _preset_e2e(info, cfg, params)
     del params
     torch.cuda.empty_cache()
@@ -2183,8 +2640,9 @@ def phase_presets(info: dict) -> None:
 
 
 def _preset_run(info, cfg, params, pname, paged, prompts, kernels,
-                launches) -> None:
-    """One preset at full width and depth: every request completes,
+                launches, tag: str = "") -> None:
+    """One preset at full width, at the depth of `cfg` (`tag` names a
+    cut): every request completes,
     launches exact, the paged pool's audit clean; then the same prompts
     admitted once more (dense prefill per bucket, or the engine's chunked
     admission into a fresh pool) and each layer's main store read: its
@@ -2207,7 +2665,7 @@ def _preset_run(info, cfg, params, pname, paged, prompts, kernels,
     eng = Engine(cfg, params, pol, prompt_len=max(BUCKETS), max_new=MAX_NEW,
                  slots=SLOTS, buckets=BUCKETS, allocator_signal=sig,
                  **(_CHUNKED if paged else {}))
-    label = pname + (" paged+chunked" if paged else "")
+    label = pname + (" paged+chunked" if paged else "") + tag
     reqs = [Request(tokens=p, max_new=MAX_NEW) for p in prompts]
     torch.cuda.reset_peak_memory_stats()
     res, n, wall = _counted(lambda: eng.generate_continuous(reqs), kernels,
@@ -2311,7 +2769,7 @@ def _preset_e2e(info, cfg, params) -> None:
                                         size=(SLOTS, BUCKETS[0])),
                            device="cuda")
     worst = 0.0
-    for pname, paged in PRESET_RUNS:
+    for pname, paged, _ in PRESET_RUNS:
         pol = presets(budget=BUDGET, window=WINDOW)[pname]
         kw = (dict(allocator_signal=_zigzag_signal(E2E_LAYERS))
               if pname == "zigzag" else {})
@@ -3183,14 +3641,13 @@ def _profile_decode_step(tag: str, label: str, step, n: int = 8) -> dict:
     host_ms = (time.perf_counter() - t0) * 1e3 / n   # dispatch only
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / n
-    # two profiled steps: the profiler takes seconds to fold each step's
-    # ~15 thousand host ops
+    # one profiled step: the profiler takes seconds to fold a step's ~15
+    # thousand host ops
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(2):
-            step()
+        step()
         torch.cuda.synchronize()
-    rows, n_aten, n_launch = _profile_rows(prof, 2)
+    rows, n_aten, n_launch = _profile_rows(prof, 1)
     busy = sum(r[1] for r in rows)
     print(f"{tag} {label}: decode step {wall_ms:.2f} ms wall "
           f"({host_ms:.2f} ms to dispatch), device busy {busy:.2f} ms/step, "
@@ -4624,6 +5081,284 @@ def _train_c6(info: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# library: the survey's library-level compressors on the card
+# ---------------------------------------------------------------------------
+
+# inputs: one layer's K and V at granite-8b's shapes, a 2048-token prefill
+# of 8 slots [8, 2048, 8, 128] bf16, drawn from a seed (the functions
+# take any K / V; no kernel, so this runs while nvcc builds); the last
+# WINDOW queries of the 32 heads give the attention mass (softmax over
+# the 2048 keys, f32, summed over the queries): [8, 32, 2048] a head,
+# [8, 2048] summed over heads for QAQ. Every function runs on the card
+# and on the CPU on the same inputs; a random draw (GEAR's start
+# vectors, the Lexico dictionary, PQ's initial centroids) comes from a
+# CPU generator on both (`quantization.normal`, `lexico.choice`)
+LIB_SHAPE, LIB_HEADS = (8, 2048, 8, 128), 32
+GEAR_BITS, GEAR_RANK = (2, 4), 4
+# outliers per [2048, 128] head matrix: 2 % of its entries (GEAR's s)
+GEAR_OUTLIERS = 5243
+LEXICO_ATOMS, LEXICO_SPARSITY = 1024, (8, 16)
+# PQ trains on the first PQ_N key vectors (k-means materializes
+# [m, n, k, d / m] distances: 17 GB at all 131072)
+PQ_M, PQ_K, PQ_ITERS, PQ_N = 16, 256, 8, 4096
+# mamba2-130m's state at full size for MAMBA_BATCH sequences [4, 24, 64,
+# 128] f32, 8-bit codes
+SSM_STATE = (4, 24, 64, 128)
+# RazorAttention: retrieval heads keep the whole prompt, echo heads 512;
+# LOOK-M: ids in the upper third of the vocabulary play image VQ codes;
+# merge_evicted merges what a 512-row mass top-k evicts
+RAZOR_BUDGETS, RAZOR_WINDOW, LIB_KEEP = (2048, 512), 128, 512
+# card against the port's CPU result (held to JAX by
+# tests/test_torch_compression.py), stated before the first card run:
+# * exact: the quantizers' codes, scales and zeros (IEEE division by a
+#   0-d tensor on both), QAQ's bit widths (stable sorts of the same
+#   sensitivities), RazorAttention's budgets, LOOK-M's scores and the VQ
+#   mask (elementwise), PQ's decode of the same codes (a gather), the SSM
+#   state's codes and dequantization;
+# * LIB_TOL (atol + rtol·|ref|): sums whose order cuBLAS or the card's
+#   reductions change (GEAR's low-rank term, the retrieval-head
+#   fractions, PQ's MIPS scores, Lexico's decode of the same code);
+#   merge_evicted's bf16 tokens within one bf16 ulp (OUT_TOL bf16);
+# * choices at near-ties, where a sum one rounding apart may pick
+#   another entry: GEAR's reconstruction may differ where its top-k
+#   outlier boundary swaps two entries of near-equal magnitude (at most
+#   LIB_SWAPS of the entries beyond LIB_TOL) and its relative error
+#   within LIB_REL of the CPU's; Lexico's atoms equal for all but
+#   LIB_SWAPS of the vectors (a matching-pursuit argmax near a tie sends
+#   the rest of that vector's pursuit elsewhere), its relative error
+#   within LIB_REL; PQ's codes with the CPU's codebook equal for all but
+#   LIB_SWAPS of them (an argmin near a tie), and a codebook trained on
+#   the card reconstructs within PQ_REL of the CPU-trained one's error
+#   (k-means carries an early flipped assignment into its centroids)
+LIB_TOL = (1e-5, 1e-5)
+LIB_SWAPS, LIB_REL, PQ_REL = 1e-3, 1e-3, 1e-2
+
+
+def _lib_inputs():
+    """K, V, the queries' mass per head, positions, token ids (CPU)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(11)
+    B, S, H, D = LIB_SHAPE
+    k = torch.from_numpy(rng.standard_normal(LIB_SHAPE, np.float32)
+                         ).to(torch.bfloat16)
+    v = torch.from_numpy(rng.standard_normal(LIB_SHAPE, np.float32)
+                         ).to(torch.bfloat16)
+    q = torch.from_numpy(rng.standard_normal((B, WINDOW, LIB_HEADS, D),
+                                             np.float32))
+    kh = k.float().repeat_interleave(LIB_HEADS // H, dim=2)   # [B, S, 32, D]
+    logits = torch.einsum("bqhd,bshd->bhqs", q, kh) / math.sqrt(D)
+    mass = torch.softmax(logits, -1).sum(2)                    # [B, 32, S]
+    pos = torch.arange(S).expand(B, S)
+    tokens = torch.from_numpy(rng.integers(0, 49152, (B, S)))
+    # the inputs every function receives are made here, once: the mass
+    # summed over heads (QAQ's sensitivity, LOOK-M's and the merge's
+    # weights), the rows a mass top-k keeps, the retrieval fractions
+    # RazorAttention's budgets read
+    hm = mass.sum(1)
+    keep = torch.zeros(B, S, dtype=torch.bool)
+    keep.scatter_(1, torch.topk(hm, LIB_KEEP, dim=1).indices, True)
+    from repro_torch.core import eviction as EV
+    frac = EV.retrieval_head_scores(mass, pos, RAZOR_WINDOW)
+    return k, v, mass, pos, tokens, hm, keep, frac
+
+
+def _lib_run(dev: str, inp, gen_seed: int = 0) -> dict:
+    """Every library function on `dev` over `inp` (moved there); the
+    results a user receives, on the CPU, and each call's event-timed ms
+    (CUDA events on the card)."""
+    import torch
+    from repro_torch.core import eviction as EV
+    from repro_torch.core import lexico as LX
+    from repro_torch.core import quantization as Q
+    k, v, mass, pos, tokens, hm, keep, frac0 = (t.to(dev) for t in inp)
+    B, S, H, D = LIB_SHAPE
+    out, ms = {}, {}
+
+    def timed(name, fn):
+        if dev == "cuda":
+            ms[name] = median_ms(fn, reps=3, warmup=1)
+        return fn()
+
+    def gen():
+        return torch.Generator().manual_seed(gen_seed)
+
+    kh = k.transpose(1, 2).reshape(B * H, S, D)                # head matrices
+    for bits in GEAR_BITS:
+        c = timed(f"gear_compress {bits}-bit", lambda: Q.gear_compress(
+            kh, bits, GEAR_RANK, GEAR_OUTLIERS, generator=gen()))
+        out[f"gear{bits}"] = timed(
+            f"gear_decompress {bits}-bit",
+            lambda: Q.gear_decompress(c, kh.shape, torch.float32)).cpu()
+        out[f"gear{bits}_codes"] = c.base.q.cpu()
+    out["qaq"] = timed("qaq_bit_allocation", lambda: Q.qaq_bit_allocation(
+        hm, 4.0)).cpu()
+    dic = LX.make_dictionary(LEXICO_ATOMS, D, generator=gen(), device=dev)
+    flat = k.reshape(-1, D)
+    for s in LEXICO_SPARSITY:
+        code = timed(f"lexico_encode s={s}",
+                     lambda: LX.lexico_encode(flat, dic, s))
+        out[f"lexico{s}_idx"] = code.idx.cpu()
+        out[f"lexico{s}_coef"] = code.coef.cpu()
+        out[f"lexico{s}"] = timed(f"lexico_decode s={s}",
+                                  lambda: LX.lexico_decode(code, dic)).cpu()
+    xs = flat[:PQ_N].float()
+    cb = timed("pq_train", lambda: LX.pq_train(
+        xs, PQ_M, PQ_K, PQ_ITERS, generator=gen()))
+    out["pq_centroids"] = cb.centroids.cpu()
+    codes = timed("pq_encode", lambda: LX.pq_encode(cb, xs))
+    out["pq_codes"] = codes.cpu()
+    out["pq_decode"] = timed("pq_decode", lambda: LX.pq_decode(cb, codes)
+                             ).cpu()
+    out["pq_mips"] = timed("pq_mips_scores", lambda: LX.pq_mips_scores(
+        cb, codes, xs[0])).cpu()
+    rng = torch.Generator().manual_seed(3)
+    state = (torch.randn(SSM_STATE, generator=rng) * 3).to(dev)
+    qz = timed("quantize_ssm_state", lambda: Q.quantize_ssm_state(state))
+    out["ssm_q"], out["ssm_scale"], out["ssm_zero"] = (
+        qz.q.cpu(), qz.scale.cpu(), qz.zero.cpu())
+    out["ssm"] = timed("dequantize_ssm_state",
+                       lambda: Q.dequantize_ssm_state(qz)).cpu()
+    frac = timed("retrieval_head_scores", lambda: EV.retrieval_head_scores(
+        mass, pos, RAZOR_WINDOW))
+    out["razor_frac"] = frac.cpu()
+    out["razor_budgets"] = timed("razor_head_budgets", lambda: (
+        EV.razor_head_budgets(frac0, *RAZOR_BUDGETS))).cpu()
+    img = timed("vq_token_mask", lambda: EV.vq_token_mask(
+        tokens, 2 * 49152 // 3, 49152))
+    out["vq_mask"] = img.cpu()
+    out["lookm"] = timed("lookm_scores",
+                         lambda: EV.lookm_scores(hm, img)).cpu()
+    kc, vc = timed("merge_evicted", lambda: EV.merge_evicted(k, v, keep, hm))
+    out["merge_k"], out["merge_v"] = kc.cpu(), vc.cpu()
+    return out, ms
+
+
+def phase_library(info: dict) -> None:
+    """The survey's library-level compressors (GEAR, QAQ, Lexico, PQ, the
+    SSM-state quantizer, RazorAttention, LOOK-M, the evict-then-merge
+    token) at granite-8b's shapes on the card, held to the port's CPU
+    result on the same inputs (the bounds above). Prints each call's
+    event-timed ms and what each stores against 16-bit K / V."""
+    import torch
+    from repro_torch.core import lexico as LX
+    from repro_torch.core import quantization as Q
+    t_phase = time.perf_counter()
+    inp = _lib_inputs()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card, ms = _lib_run("cuda", inp)
+    torch.cuda.synchronize()
+    cpu, _ = _lib_run("cpu", inp)
+    k = inp[0]
+    B, S, H, D = LIB_SHAPE
+    kh = k.float().transpose(1, 2).reshape(B * H, S, D)
+    rows = []
+
+    def exact(name):
+        ok = torch.equal(card[name], cpu[name])
+        rows.append((name, "exact", ok))
+        if not ok:
+            fail(f"library: {name} differs from the CPU's")
+
+    def close(name, tol=LIB_TOL):
+        err = check_close(f"library: {name}", card[name], cpu[name], *tol)
+        rows.append((name, f"max|d| {err:.3g}", True))
+
+    def swaps(name, frac, what):
+        rows.append((name, f"{frac:.2e} of {what} differ", frac <= LIB_SWAPS))
+        if frac > LIB_SWAPS:
+            fail(f"library: {name}: {frac:.3g} of {what} differ "
+                 f"(bound {LIB_SWAPS})")
+
+    def rel_err(x_hat, x):
+        return float((x_hat - x).norm() / x.norm())
+
+    for bits in GEAR_BITS:
+        name = f"gear{bits}"
+        exact(name + "_codes")
+        d = (card[name] - cpu[name]).abs()
+        far = d > LIB_TOL[0] + LIB_TOL[1] * cpu[name].abs()
+        swaps(name, float(far.float().mean()), "entries")
+        ec, eh = rel_err(card[name], kh), rel_err(cpu[name], kh)
+        rows.append((name, f"rel err card {ec:.5f} cpu {eh:.5f}",
+                     abs(ec - eh) <= LIB_REL * eh))
+        if abs(ec - eh) > LIB_REL * eh:
+            fail(f"library: {name} relative error {ec} vs the CPU's {eh}")
+    exact("qaq")
+    flat = k.float().reshape(-1, D)
+    for s in LEXICO_SPARSITY:
+        name = f"lexico{s}"
+        same = (card[name + "_idx"] == cpu[name + "_idx"]).all(-1)
+        swaps(name, 1.0 - float(same.float().mean()), "vectors")
+        err = check_close(f"library: {name} coefficients (equal atoms)",
+                          card[name + "_coef"][same],
+                          cpu[name + "_coef"][same], *LIB_TOL)
+        rows.append((name + "_coef", f"max|d| {err:.3g} (equal atoms)", True))
+        ec, eh = rel_err(card[name], flat), rel_err(cpu[name], flat)
+        rows.append((name, f"rel err card {ec:.5f} cpu {eh:.5f}",
+                     abs(ec - eh) <= LIB_REL * eh))
+        if abs(ec - eh) > LIB_REL * eh:
+            fail(f"library: {name} relative error {ec} vs the CPU's {eh}")
+    # PQ: the card's codebook against the CPU's by their errors, then the
+    # card's encode / decode / MIPS with the CPU's codebook
+    xs = flat[:PQ_N]
+    ec, eh = rel_err(card["pq_decode"], xs), rel_err(cpu["pq_decode"], xs)
+    eq = float((card["pq_codes"] == cpu["pq_codes"]).float().mean())
+    rows.append(("pq_train", f"rel err card {ec:.5f} cpu {eh:.5f}; codes "
+                 f"equal {eq:.4f}", abs(ec - eh) <= PQ_REL * eh))
+    if abs(ec - eh) > PQ_REL * eh:
+        fail(f"library: pq_train's codebook error {ec} vs the CPU's {eh}")
+    cb = LX.PQCodebook(cpu["pq_centroids"].cuda())
+    codes = LX.pq_encode(cb, xs.cuda()).cpu()
+    swaps("pq_encode", float((codes != cpu["pq_codes"]).float().mean()),
+          "codes")
+    card["pq_decode_cpucb"] = LX.pq_decode(cb, cpu["pq_codes"].cuda()).cpu()
+    cpu["pq_decode_cpucb"] = cpu["pq_decode"]
+    exact("pq_decode_cpucb")
+    card["pq_mips_cpucb"] = LX.pq_mips_scores(
+        cb, cpu["pq_codes"].cuda(), xs[0].cuda()).cpu()
+    cpu["pq_mips_cpucb"] = cpu["pq_mips"]
+    close("pq_mips_cpucb")
+    for name in ("ssm_q", "ssm_scale", "ssm_zero", "ssm"):
+        exact(name)
+    close("razor_frac")
+    for name in ("razor_budgets", "vq_mask", "lookm"):
+        exact(name)
+    close("merge_k", OUT_TOL["bfloat16"])
+    close("merge_v", OUT_TOL["bfloat16"])
+    # what each stores against 16-bit K / V
+    n_vec = B * S * H
+    full = 2 * D
+    gear_b = {b: (S * D * b / 8 + S * 8 + (S + D) * GEAR_RANK * 4
+                  + GEAR_OUTLIERS * 8) / (S * D * 2) for b in GEAR_BITS}
+    kivi2 = Q.kv_logical_bytes(S, H, D, bits=2, group=WINDOW,
+                               residual_window=WINDOW) / (2 * S * H * D * 2)
+    ratio = {f"gear {b}-bit": 1 / gear_b[b] for b in GEAR_BITS}
+    ratio["kivi2 (kv_logical_bytes)"] = 1 / kivi2
+    ratio["qaq (mean bits)"] = 16 / float(cpu["qaq"].float().mean())
+    for s in LEXICO_SPARSITY:
+        ratio[f"lexico s={s}"] = full / LX.lexico_bytes_per_vector(s)
+    ratio["pq"] = full / (PQ_M + PQ_M * PQ_K * (D // PQ_M) * 4 / n_vec)
+    ratio["ssm 8-bit"] = (SSM_STATE[-1] * 4) / (SSM_STATE[-1] + 8)
+    print(f"[library] granite-8b K / V {list(LIB_SHAPE)} bf16, mass of "
+          f"{LIB_HEADS} heads; card vs CPU (bounds: exact, LIB_TOL "
+          f"{LIB_TOL}, near-tie choices <= {LIB_SWAPS}, relative errors "
+          f"within {LIB_REL} / PQ {PQ_REL}): "
+          + "; ".join(f"{n} {w}" for n, w, _ in rows))
+    print("[library] event-timed ms on the card: "
+          + ", ".join(f"{n} {t:.3f}" for n, t in ms.items()))
+    print("[library] compression vs 16-bit: "
+          + ", ".join(f"{n} {r:.2f}x" for n, r in ratio.items())
+          + f"; phase took {time.perf_counter() - t_phase:.1f} s; "
+          f"{info['smi']}")
+    info["library"] = dict(ms=ms, ratio=ratio,
+                           rows=[(n, w) for n, w, _ in rows])
+    bad = [n for n, _, ok in rows if not ok]
+    if bad:
+        fail(f"library: {bad} outside their bounds")
+
+
+# ---------------------------------------------------------------------------
 # 11. shard: the sharded path (DTensor over torch.distributed) on the card
 # ---------------------------------------------------------------------------
 #
@@ -4650,15 +5385,28 @@ SHARD_LAYERS = 9
 SHARD_POLICIES = ("full", "h2o+kivi2")
 SHARD_DEADLINE = 420          # seconds for the two ranks, both runs
 SHARD_DRYRUN_WORKERS = 4
-SHARD_DRYRUN_DEADLINE = 900   # seconds after the script starts
+# (d) TRAIN_RANKS gloo ranks on the one card through `launch/train.py
+# --mesh host` (its mesh for 4 ranks: (1, 4), tp 4), minicpm-2b at full
+# width on TRAIN_RANKS_LAYERS of its 40 layers, held to a one-rank run of
+# the same cut. At 40 the four ranks ran out of the card's memory in
+# their first step (77.7 GiB in use with the script's own process): 4
+# does not divide the 122 753-row vocabulary, so every rank holds the
+# whole tied table with its grads and f32 moments (3.4 GB) and the whole
+# logits, beside a quarter of the rest (7.3 GB at 40 layers, 3.7 at 20).
+# Per step |loss - one rank's| and the relative |grad norm| difference,
+# stated before the first card run (PERF.md §6):
+# phase 11 (a)'s one-rank DTensor run already moved them by 3.8e-4 and
+# 1.1e-3 (another embedding backward); tp 4 rounds each row-parallel
+# partial product to bf16 before the four-way sum (2^-8 relative an
+# element, 80 such sums a forward pass), and the CPU's f32 four-rank run
+# (tests/test_torch_ladder_cli.py) stays within 1e-5 of one rank; bf16
+# against f32 moves the first loss by <= TRAIN_LOSS_TOL, a far larger
+# perturbation
+TRAIN_RANKS, TRAIN_RANKS_LAYERS = 4, 20
+TRAIN_RANKS_TOL = (0.05, 0.05)
+TRAIN_RANKS_DEADLINE = 300    # seconds for the four ranks
+SHARD_DRYRUN_DEADLINE = 900   # seconds after the workers start
 _DRYRUN: dict = {}
-# functional collectives DTensor may call, by the c10d collective they run
-_FUNCOL = {"all_reduce": ("all_reduce",),
-           "all_gather": ("all_gather_tensor", "all_gather_single"),
-           "reduce_scatter": ("reduce_scatter_tensor", "reduce_scatter_single"),
-           "all_to_all": ("all_to_all_single",)}
-
-
 def start_dryrun() -> None:
     """Start the phase-11 dry-run workers (CPU processes over meta
     tensors: they overlap the card phases). Each runs
@@ -4688,28 +5436,6 @@ def _stop_dryrun() -> None:
         if p.poll() is None:
             p.kill()
             p.wait()
-
-
-def _host_collectives(ops) -> None:
-    """Carry the functional collectives of `ops` through host memory: a
-    CUDA tensor goes to the CPU, the gloo collective runs there, the
-    result comes back to the card. Phase 11 (b) only, for the collectives
-    gloo cannot run on CUDA tensors (printed)."""
-    import torch
-    import torch.distributed._functional_collectives as funcol
-
-    def wrap(fn):
-        def call(x, *args, **kwargs):
-            if isinstance(x, torch.Tensor) and x.is_cuda:
-                y = funcol.wait_tensor(fn(x.cpu(), *args, **kwargs))
-                return y.to(x.device)
-            return fn(x, *args, **kwargs)
-        return call
-
-    for op in ops:
-        for name in _FUNCOL[op]:
-            if hasattr(funcol, name):
-                setattr(funcol, name, wrap(getattr(funcol, name)))
 
 
 def _shard_probe_rank(rank: int, rdv: str, out: str) -> None:
@@ -4809,7 +5535,7 @@ def _shard_rank(rank: int, rdv: str, out: str, host_ops) -> None:
     torch.cuda.set_device(0)
     dist.init_process_group("gloo", init_method=f"file://{rdv}", rank=rank,
                             world_size=2)
-    _host_collectives(host_ops)
+    shd.route_through_host(host_ops)
     mesh = init_device_mesh("cuda", (1, 2), mesh_dim_names=("data", "model"))
     kernels = _kernel_objs()
     res = {"runs": {}}
@@ -4865,32 +5591,85 @@ def _shard_rank(rank: int, rdv: str, out: str, host_ops) -> None:
     dist.destroy_process_group()
 
 
-def phase_shard(info: dict) -> None:
-    """(a) the 1 x 1 NCCL mesh against phase 10, (b) two gloo ranks on the
-    card against one rank, (c) the production dry-run grid and
-    perf_moe."""
-    import gc
-    import tempfile
+def _train_argv() -> list:
+    """`launch/train.py`'s arguments for phase 10's minicpm-2b run."""
+    arch, sched, _ = TRAIN_RUNS[1]
+    return ["--arch", arch, "--steps", str(TRAIN_STEPS), "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--schedule", sched]
+
+
+def _train_rank(rank: int, rdv: str, out: str, host_ops) -> None:
+    """One of the TRAIN_RANKS ranks of phase 11 (d): a gloo group of its
+    own (LOCAL_RANK 0: every rank on the one card), the collectives gloo
+    cannot run on CUDA tensors routed through host memory, then
+    `launch/train.py --mesh host` as a user runs it (its `_host_mesh`
+    joins the group: mesh (1, 4), tp 4). Kernel launches are counted
+    around it; every weight matrix's local shard is compared with the
+    same shard of the seeded init. Results to `out`.<rank>."""
     import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
     from repro_torch.configs.base import get_config
-    from repro_torch.core.policy import presets
     from repro_torch.launch import train as train_cli
     from repro_torch.nn import model as M
+    from repro_torch.nn import sharding as shd
+    os.environ["LOCAL_RANK"] = "0"
+    # four processes share the card: no idle cached segments
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{rdv}", rank=rank,
+                            world_size=TRAIN_RANKS)
+    shd.route_through_host(host_ops)
+    arch = TRAIN_RUNS[1][0]
+    kernels = _kernel_objs()
+    for k in kernels.values():
+        k.launches = 0
+    t1 = time.perf_counter()
+    with _config_cut(train_cli, TRAIN_RANKS_LAYERS):
+        state, hist = train_cli.main(_train_argv() + ["--mesh", "host"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    n = {name: k.launches for name, k in kernels.items()}
+    params = state.params
+    mesh = next(v for _, v in _named_leaves(params)
+                if shd.is_dtensor(v)).device_mesh
+    del state
+    torch.cuda.empty_cache()
+    fresh = M.init_params(get_config(arch).replace(
+        num_layers=TRAIN_RANKS_LAYERS), seed=0, device="cuda")
+    mats = moved = 0
+    for (k, a), (_, b) in zip(_named_leaves(params), _named_leaves(fresh)):
+        if "norm" in k or a.dim() < 2:
+            continue
+        mats += 1
+        mine = distribute_tensor(b, a.device_mesh, a.placements,
+                                 src_data_rank=None).to_local()
+        moved += not torch.equal(a.to_local(), mine)
+    res = dict(hist=hist, launches=n, wall=wall, mats=mats, moved=moved,
+               mesh=list(mesh.shape), peak=torch.cuda.max_memory_allocated())
+    torch.save(res, f"{out}.{rank}")
+    dist.destroy_process_group()
+
+
+def phase_shard_train(info: dict) -> None:
+    """Phase 11 (a), which launches no kernel, so it runs while nvcc
+    builds: `launch/train.py --mesh host` as one NCCL rank (mesh 1 x 1)
+    against phase 10's minicpm-2b steps."""
+    import gc
+    import torch
+    from repro_torch.launch import train as train_cli
     kernels = _kernel_objs()
     launches = info.setdefault("launches", dict.fromkeys(KERNELS, 0))
     t_phase = time.perf_counter()
-
     # (a) --mesh host, one NCCL rank, against phase 10's minicpm-2b
-    arch, sched, _ = TRAIN_RUNS[1]
+    arch = TRAIN_RUNS[1][0]
     ref = next(r for r in info["train"] if r["arch"] == arch)["steps"]
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    argv = ["--arch", arch, "--steps", str(TRAIN_STEPS), "--batch",
-            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--schedule", sched,
-            "--mesh", "host"]
-    (state, hist), n, wall = _counted(lambda: train_cli.main(argv), kernels,
-                                      launches)
+    (state, hist), n, wall = _counted(
+        lambda: train_cli.main(_train_argv() + ["--mesh", "host"]), kernels,
+        launches)
     del state
     for i, (h, r) in enumerate(zip(hist, ref)):
         dl = abs(h["loss"] - r["loss"])
@@ -4910,15 +5689,38 @@ def phase_shard(info: dict) -> None:
                                 wall=h["wall_s"]) for h in hist]
     gc.collect()
     torch.cuda.empty_cache()
+    print(f"[shard] (a) took {time.perf_counter() - t_phase:.1f} s; "
+          f"{info['smi']}")
 
-    # (b) two gloo ranks on the card: which collectives gloo runs on CUDA
+
+def phase_shard(info: dict) -> None:
+    """The probe of which collectives gloo runs on CUDA tensors (the rest
+    go through host memory in (b) and (d)); (b) two gloo ranks on the
+    card against one rank; (d) TRAIN_RANKS gloo ranks on the card through
+    `launch/train.py --mesh host` (mesh (1, 4): tp 4, minicpm-2b at full
+    width on TRAIN_RANKS_LAYERS layers), each step's loss and grad norm
+    within TRAIN_RANKS_TOL of one rank's run of the same cut, every
+    rank's loss the same, no kernel launched, every weight matrix moved
+    on every rank; (c) the production dry-run grid and perf_moe ((a) ran
+    in phase_shard_train)."""
+    import gc
+    import tempfile
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.policy import presets
+    from repro_torch.launch import train as train_cli
+    from repro_torch.nn import model as M
+    from repro_torch.nn import sharding as shd
+    launches = info.setdefault("launches", dict.fromkeys(KERNELS, 0))
+    t_phase = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="shard_")
+    # the probe: which collectives gloo runs on CUDA tensors ((b), (d))
     probe = os.path.join(tmp, "probe")
     codes = _spawn(_shard_probe_rank,
                    lambda r: (os.path.join(tmp, "rdv0"), probe), 2, 90,
                    "gloo probe")
     host_ops = []
-    for op in _FUNCOL:
+    for op in shd.FUNCTIONAL_COLLECTIVES:
         got = []
         for r in range(2):
             try:
@@ -5012,7 +5814,67 @@ def phase_shard(info: dict) -> None:
              f"collectives {moe[0]['colls']} are not one all-reduce")
     info["shard_moe"] = dict(err=err, colls=moe[0]["colls"])
 
-    # (c) the production dry run (started with the script) and perf_moe
+    # (d) TRAIN_RANKS gloo ranks on the card through the launcher's mesh,
+    # against one rank of the same depth cut
+    with _config_cut(train_cli, TRAIN_RANKS_LAYERS):
+        state, ref = train_cli.main(_train_argv())
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = os.path.join(tmp, "train")
+    t1 = time.perf_counter()
+    codes = _spawn(_train_rank, lambda r: (os.path.join(tmp, "rdv2"), out,
+                                           host_ops),
+                   TRAIN_RANKS, TRAIN_RANKS_DEADLINE, "train tp 4")
+    wall = time.perf_counter() - t1
+    if codes != [0] * TRAIN_RANKS:
+        fail(f"shard: a training rank failed or hung (exit codes {codes})")
+    ranks = [torch.load(f"{out}.{r}", weights_only=False)
+             for r in range(TRAIN_RANKS)]
+    arch = f"{TRAIN_RUNS[1][0]} ({TRAIN_RANKS_LAYERS} layers)"
+    hist = ranks[0]["hist"]
+    for i, (h, r) in enumerate(zip(hist, ref)):
+        dl = abs(h["loss"] - r["loss"])
+        dg = abs(h["grad_norm"] - r["grad_norm"]) / max(r["grad_norm"], 1e-9)
+        same = all(rk["hist"][i]["loss"] == h["loss"] for rk in ranks)
+        mesh = " x ".join(map(str, ranks[0]["mesh"]))
+        print(f"[shard] {arch} --mesh host ({mesh}, {TRAIN_RANKS} gloo "
+              f"ranks, one card) step {i}: loss "
+              f"{h['loss']:.6f} vs {r['loss']:.6f} (|d| {dl:.3g}), grad norm "
+              f"{h['grad_norm']:.6f} vs {r['grad_norm']:.6f} (rel {dg:.3g}; "
+              f"tol {TRAIN_RANKS_TOL}); every rank's loss equal: {same}; wall "
+              + "/".join(f"{rk['hist'][i]['wall_s']:.3f}" for rk in ranks)
+              + f" s vs {r['wall_s']:.3f} s")
+        if not (dl <= TRAIN_RANKS_TOL[0] and dg <= TRAIN_RANKS_TOL[1]
+                and same):
+            fail(f"shard: tp {TRAIN_RANKS} step {i}: loss {dl}, grad norm "
+                 f"{dg} from one rank (tol {TRAIN_RANKS_TOL}), ranks' losses "
+                 f"equal {same}")
+    peaks = [rk["peak"] for rk in ranks]
+    print(f"[shard] {arch} tp {TRAIN_RANKS}: {TRAIN_RANKS} ranks done in "
+          f"{wall:.1f} s (train.main {max(rk['wall'] for rk in ranks):.1f} s "
+          f"a rank, weights drawn in it); peak allocated per rank "
+          + " ".join(f"{p / 2**30:.2f}" for p in peaks)
+          + f" GiB, summed {sum(peaks) / 2**30:.2f} GiB (one rank: "
+          f"{ref[-1]['max_memory_allocated'] / 2**30:.2f}); matrices "
+          f"moved per rank " + " ".join(f"{rk['moved']}/{rk['mats']}"
+                                        for rk in ranks)
+          + "; launches " + " ".join(
+              f"{k} {v}" for k, v in ranks[0]["launches"].items() if v)
+          + f"; {info['smi']}")
+    info["shard_train_tp"] = dict(
+        steps=[dict(loss=h["loss"], grad_norm=h["grad_norm"],
+                    wall=[rk["hist"][i]["wall_s"] for rk in ranks])
+               for i, h in enumerate(hist)], peaks=peaks, wall=wall)
+    if len(hist) != len(ref) or any(rk["moved"] != rk["mats"]
+                                    or rk["mats"] == 0 for rk in ranks):
+        fail(f"shard: tp {TRAIN_RANKS} ran {len(hist)} steps, matrices moved "
+             + str([(rk["moved"], rk["mats"]) for rk in ranks]))
+    if any(any(rk["launches"].values()) for rk in ranks):
+        fail(f"shard: kernels launched while training: "
+             f"{[rk['launches'] for rk in ranks]}")
+
+    # (c) the production dry run (started after the build) and perf_moe
     from repro_torch.launch import perf, perf_moe
     end = _DRYRUN["t0"] + SHARD_DRYRUN_DEADLINE
     for p in _DRYRUN["procs"]:
@@ -5050,7 +5912,7 @@ def phase_shard(info: dict) -> None:
     wall = last - _DRYRUN["t0"]
     print(f"[shard] production dry run (16 x 16 fake ranks, meta tensors): "
           f"{n_ok}/{len(recs)} ok, {SHARD_DRYRUN_WORKERS} worker processes, "
-          f"the last record written {wall:.1f} s after the script's start "
+          f"the last record written {wall:.1f} s after the workers' start "
           f"(lower_s summed {sum(r.get('lower_s', 0) for r in recs):.1f} s)")
     if n_ok != len(recs):
         fail(f"shard: dry run {n_ok}/{len(recs)} ok")
@@ -5078,7 +5940,6 @@ def main() -> int:
         fail("src/repro_torch not found beside chip_smoke.py")
     info: dict = {}
     t0 = time.perf_counter()
-    start_dryrun()
     for name in PHASES:
         globals()["phase_" + name](info)
         print(f"[{name}] done at {time.perf_counter() - t0:.1f} s",

@@ -25,8 +25,10 @@ from repro_torch.core import quantization as qz
 def choice(n: int, k: int, generator: Optional[torch.Generator],
            device) -> torch.Tensor:
     """`k` distinct indices of range(n), as `jax.random.choice(...,
-    replace=False)` draws them (k-means' initial centroids)."""
-    return torch.randperm(n, generator=generator, device=device)[:k]
+    replace=False)` draws them (k-means' initial centroids); drawn on the
+    generator's device, as `quantization.normal` draws."""
+    src = device if generator is None else generator.device
+    return torch.randperm(n, generator=generator, device=src)[:k].to(device)
 
 
 # ---------------------------------------------------------------------------

@@ -137,9 +137,12 @@ def normal(shape, generator: Optional[torch.Generator],
            device) -> torch.Tensor:
     """Standard normal draws, f32, of `shape` on `device` from `generator`
     (GEAR's start vectors, the Lexico dictionary's atoms; the values
-    differ from `jax.random.normal`'s)."""
-    return torch.randn(shape, generator=generator, device=device,
-                       dtype=torch.float32)
+    differ from `jax.random.normal`'s). A generator of another device
+    draws on its own device and the draws move to `device`: a CPU
+    generator gives a card's call the CPU call's numbers."""
+    src = device if generator is None else generator.device
+    return torch.randn(shape, generator=generator, device=src,
+                       dtype=torch.float32).to(device)
 
 
 class GearCompressed(NamedTuple):

@@ -375,6 +375,37 @@ def full_tree(tree: Any) -> Any:
     return tree.full_tensor() if isinstance(tree, DTensor) else tree
 
 
+# functional collectives DTensor may call, by the c10d collective they run
+FUNCTIONAL_COLLECTIVES = {
+    "all_reduce": ("all_reduce",),
+    "all_gather": ("all_gather_tensor", "all_gather_single"),
+    "reduce_scatter": ("reduce_scatter_tensor", "reduce_scatter_single"),
+    "all_to_all": ("all_to_all_single",)}
+
+
+def route_through_host(ops) -> None:
+    """Carry the functional collectives of `ops` (keys of
+    FUNCTIONAL_COLLECTIVES) through host memory in this process: a CUDA
+    tensor goes to the CPU, the collective runs there, the result comes
+    back to the card. For several gloo ranks on one card (NCCL refuses
+    two ranks on one device), where gloo cannot run a collective on CUDA
+    tensors; the others stay as they are."""
+    import torch.distributed._functional_collectives as funcol
+
+    def wrap(fn):
+        def call(x, *args, **kwargs):
+            if isinstance(x, torch.Tensor) and x.is_cuda:
+                y = funcol.wait_tensor(fn(x.cpu(), *args, **kwargs))
+                return y.to(x.device)
+            return fn(x, *args, **kwargs)
+        return call
+
+    for op in ops:
+        for name in FUNCTIONAL_COLLECTIVES[op]:
+            if hasattr(funcol, name):
+                setattr(funcol, name, wrap(getattr(funcol, name)))
+
+
 # ---------------------------------------------------------------------------
 # DTensor execution: the model on sharded params, batch and cache
 # ---------------------------------------------------------------------------

@@ -6,6 +6,8 @@ Marked `gpu`; without a CUDA device every test skips (decided in the
 `cuda` fixture, so every xdist worker collects the same tests). Imports
 no jax: it runs where only the port's dependencies are installed.
 """
+import os
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -1754,3 +1756,294 @@ def test_ssd_gradient_finite_on_card(cuda, monkeypatch):
     (lc, gc), (lg, gg) = out["cpu"], out["cuda"]
     assert np.isfinite(gg) and gg > 0
     assert abs(lg - lc) <= 1e-5 * abs(lc)
+
+
+# ---- the ladder with the prefix cache, four gloo ranks, the library -----
+
+def test_reduced_prefix_demotion_ladder_on_card_matches_cpu(cuda):
+    """Phase `ladder` (a) at reduced size (granite-8b, f32): two prompts
+    on a 48-token template, a filler, the template again, on 2 slots of a
+    lazy pool that starves (18 8-row blocks), the prefix cache and the
+    host tier: cold index blocks demote to host, the last template
+    request's warm hit promotes them, a starved slot spills and restores.
+    The card's streams, preemptions, demotions, promotions and tier
+    counts equal the CPU's; both audits clean; the streams equal the
+    ample pool's without the tier."""
+    import numpy as np
+    cfg = reduced(GRANITE)
+    rng = np.random.default_rng(7)
+    shared = rng.integers(0, cfg.vocab_size, size=48)
+
+    def templated():
+        return np.concatenate([shared, rng.integers(0, cfg.vocab_size,
+                                                    size=16)])
+
+    prompts = [templated(), templated(),
+               rng.integers(0, cfg.vocab_size, size=64), templated()]
+    kw = dict(prompt_len=64, max_new=16, slots=2, buckets=(64,),
+              prefix_sharing=True, paged=True, block_len=8,
+              chunked_prefill=True, chunk_len=16)
+    ladder = dict(block_growth="lazy", preemption=True, tiering=True,
+                  pool_blocks=18, host_blocks=40, audit_every=2)
+
+    def serve(dev, opts):
+        params = {k: _to(v, dev) for k, v in
+                  M.init_params(cfg, seed=0, device="cpu").items()}
+        eng = Engine(cfg, params, presets(32, 8)["full"], device=dev, **kw,
+                     **opts)
+        res = eng.generate_continuous([Request(tokens=p, max_new=16)
+                                       for p in prompts])
+        idx = eng._share_state["index"]
+        assert eng.last_audit["clean"]
+        return ([(r.tokens.tolist(), r.finish_reason, r.n_preemptions)
+                 for r in res.results],
+                (idx.demoted, idx.promoted) if opts else None,
+                {k: res.tier[k] for k in ("spills", "fetches",
+                                          "bytes_spilled")}
+                if opts else None)
+
+    cpu, card = serve("cpu", ladder), serve("cuda", ladder)
+    assert card == cpu
+    streams, (demoted, promoted), tier = card
+    assert demoted >= 1 and promoted >= 1 and tier["fetches"] >= 1
+    assert sum(p for _, _, p in streams) >= 1
+    assert all(r == "length" for _, r, _ in streams)
+    ample, _, _ = serve("cuda", {})
+    assert [t for t, _, _ in streams] == [t for t, _, _ in ample]
+
+
+# four gloo ranks on the one card, the (data 2, model 2) mesh of
+# tests/test_torch_sharded_step.py: all-gather, reduce-scatter and
+# all-to-all go through host memory (gloo cannot run them on CUDA tensors
+# on the card's torch, PERF.md §6); the card's step against the CPU's,
+# f32: TF32 off, cuBLAS sums in other orders than the CPU (relative
+# ~1e-6 on the loss and the moments)
+SHARD_CARD_TOL = dict(loss=1e-5, mu=(1e-6, 1e-4), params=1e-5)
+
+
+def _sharded_rank(rank, rdv, out):
+    import json
+    import traceback
+    import torch.distributed as dist
+    res = {}
+    try:
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dist.init_process_group("gloo", init_method=f"file://{rdv}",
+                                rank=rank, world_size=4)
+        from torch.distributed.device_mesh import init_device_mesh
+        from repro_torch.checkpoint import load_pytree, save_pytree
+        from repro_torch.nn import sharding as shd
+        from repro_torch.optim import cosine_schedule
+        from repro_torch.optim.optimizers import tree_leaves
+        from repro_torch.train.loop import make_train_step
+        shd.route_through_host(("all_gather", "reduce_scatter",
+                                "all_to_all"))
+        mesh = init_device_mesh("cuda", (2, 2),
+                                mesh_dim_names=("data", "model"))
+        for arch in ("granite-8b", "jamba-v0.1-52b", "kimi-k2-1t-a32b"):
+            cfg = reduced(get_config(arch)).replace(use_kernels=False)
+            tok = torch.randint(0, cfg.vocab_size, (4, 32),
+                                generator=torch.Generator().manual_seed(1))
+            init_state, step = make_train_step(cfg,
+                                               cosine_schedule(1e-5, 0, 10))
+            # the step updates its state in place: a fresh draw for each
+            ref, m_ref = step(init_state(M.init_params(cfg, seed=0,
+                                                       device="cpu")),
+                              {"tokens": tok})
+            pc = {k: _to(v, "cuda") for k, v in
+                  M.init_params(cfg, seed=0, device="cpu").items()}
+            dp = shd.distribute_tree(pc, shd.param_pspecs(pc, cfg, mesh),
+                                     mesh)
+            got, m = step(init_state(dp), {"tokens": shd.distribute_leaf(
+                tok.cuda(), (("data",), None), mesh)})
+            full = shd.full_tree(got)
+            res[arch] = {
+                "loss": float(m.loss.full_tensor()),
+                "loss_ref": float(m_ref.loss),
+                "param_err": max(float((a.cpu() - b).abs().max()) for a, b in
+                                 zip(tree_leaves(full.params),
+                                     tree_leaves(ref.params))),
+                "mu_excess": max(float(((a.cpu() - b).abs()
+                                        - SHARD_CARD_TOL["mu"][1] * b.abs())
+                                       .max()) for a, b in
+                                 zip(tree_leaves(full.opt.mu),
+                                     tree_leaves(ref.opt.mu)))}
+        # the sharded checkpoint of one card state against its unsharded
+        # save on the CPU
+        cfg = reduced(get_config("granite-8b")).replace(use_kernels=False)
+        init_state, _ = make_train_step(cfg, cosine_schedule(1e-5, 0, 10))
+        p = M.init_params(cfg, seed=0, device="cpu")
+        d_plain, d_shard = (os.path.join(os.path.dirname(out), n)
+                            for n in ("plain", "sharded"))
+        if rank == 0:
+            save_pytree(init_state(p), d_plain)
+        pc = {k: _to(v, "cuda") for k, v in
+              M.init_params(cfg, seed=0, device="cpu").items()}
+        dp = shd.distribute_tree(pc, shd.param_pspecs(pc, cfg, mesh), mesh)
+        st = init_state(dp)
+        save_pytree(st, d_shard)
+        back = load_pytree(st, d_shard)
+        res["ckpt_load"] = all(
+            a.placements == b.placements and torch.equal(a.to_local(),
+                                                         b.to_local())
+            for a, b in zip(tree_leaves(back.params), tree_leaves(dp)))
+    except Exception:  # noqa: BLE001 — reported to the test
+        res["error"] = traceback.format_exc()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    with open(f"{out}.{rank}", "w") as f:
+        json.dump(res, f)
+
+
+def test_sharded_train_step_four_gloo_ranks_on_card(cuda, tmp_path):
+    """tests/test_torch_sharded_step.py's (2, 2) train step and sharded
+    checkpoint, four gloo ranks on the one card: the sharded step on the
+    card within SHARD_CARD_TOL of the unsharded step on the CPU (loss,
+    first moments, updated params at lr 1e-5) for the three reduced
+    configs; the checkpoint the ranks write holds the unsharded save's
+    manifest and bytes and loads back into its sharded template."""
+    import json
+    import multiprocessing as mp
+    import time
+    import numpy as np
+    out = str(tmp_path / "out")
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_sharded_rank,
+                         args=(r, str(tmp_path / "rdv"), out))
+             for r in range(4)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + 300
+    for p in procs:
+        p.join(timeout=max(deadline - time.monotonic(), 1))
+    alive = [p for p in procs if p.is_alive()]
+    for p in alive:
+        p.kill()
+    assert not alive, "the ranks did not finish in 300 s"
+    ranks = []
+    for r in range(4):
+        with open(f"{out}.{r}") as f:
+            ranks.append(json.load(f))
+    for r, res in enumerate(ranks):
+        assert "error" not in res, f"rank {r}:\n{res['error']}"
+        for arch in ("granite-8b", "jamba-v0.1-52b", "kimi-k2-1t-a32b"):
+            a = res[arch]
+            assert abs(a["loss"] - a["loss_ref"]) <= SHARD_CARD_TOL["loss"]
+            assert a["mu_excess"] <= SHARD_CARD_TOL["mu"][0], arch
+            assert a["param_err"] <= SHARD_CARD_TOL["params"], arch
+        assert res["ckpt_load"]
+    plain, shard = (tmp_path / n for n in ("plain", "sharded"))
+    assert (plain / "manifest.json").read_text() == \
+        (shard / "manifest.json").read_text()
+    for n in sorted(x.name for x in plain.glob("*.npz")):
+        a, b = np.load(plain / n), np.load(shard / n)
+        assert sorted(a.files) == sorted(b.files)
+        for k in a.files:
+            assert a[k].tobytes() == b[k].tobytes(), (n, k)
+
+
+# the library compressors, card against CPU at reduced shapes (K / V
+# [2, 256, 4, 64]); the bounds of chip_smoke's phase `library`: exact for
+# the quantizers, QAQ, the budgets, masks and LOOK-M's scores; LIB_TOL for
+# sums cuBLAS reorders; near-tie choices (GEAR's top-k boundary, the
+# matching pursuit's argmax, PQ's argmin) on at most LIB_SWAPS of entries
+LIB_TOL, LIB_SWAPS = (1e-5, 1e-5), 1e-3
+
+
+def _lib_inputs():
+    """K, V, a 16-head mass, and what the functions read of it (the mass
+    summed over heads, the rows its median keeps, the retrieval-head
+    fractions), made once on the CPU: both devices get the same inputs."""
+    from repro_torch.core import eviction as EV
+    g = torch.Generator().manual_seed(11)
+    k = torch.randn(2, 256, 4, 64, generator=g).to(torch.bfloat16)
+    v = torch.randn(2, 256, 4, 64, generator=g).to(torch.bfloat16)
+    mass = torch.softmax(torch.randn(2, 16, 256, generator=g) * 3, -1)
+    hm = mass.sum(1)
+    keep = hm >= hm.median(dim=1, keepdim=True).values
+    frac = EV.retrieval_head_scores(mass, torch.arange(256).expand(2, 256),
+                                    32)
+    return k, v, mass, hm, keep, frac
+
+
+def _close(a, b, tol=LIB_TOL):
+    return bool(((a - b).abs() <= tol[0] + tol[1] * b.abs()).all())
+
+
+@pytest.mark.parametrize("fn", ["gear", "qaq", "lexico", "pq", "ssm",
+                                "eviction"])
+def test_library_compressors_on_card_match_cpu(cuda, fn):
+    """Each library compressor on the card against the port's CPU result
+    on the same inputs, draws from one CPU generator on both."""
+    from repro_torch.core import eviction as EV
+    from repro_torch.core import lexico as LX
+    from repro_torch.core import quantization as Q
+    inp = _lib_inputs()
+    k = inp[0]
+    B, S, H, D = k.shape
+
+    def gen():
+        return torch.Generator().manual_seed(0)
+
+    def run(dev):
+        kk, vv, mm, hm, keep, frac0 = (t.to(dev) for t in inp)
+        kh = kk.transpose(1, 2).reshape(B * H, S, D)
+        if fn == "gear":
+            c = Q.gear_compress(kh, 2, 4, 327, generator=gen())
+            return [c.base.q, Q.gear_decompress(c, kh.shape, torch.float32)]
+        if fn == "qaq":
+            return [Q.qaq_bit_allocation(hm, 4.0)]
+        if fn == "lexico":
+            dic = LX.make_dictionary(256, D, generator=gen(), device=dev)
+            code = LX.lexico_encode(kk.reshape(-1, D), dic, 8)
+            return [code.idx, code.coef, LX.lexico_decode(code, dic)]
+        if fn == "pq":
+            x = kk.reshape(-1, D)[:512].float()
+            cb = LX.pq_train(x, 8, 32, 4, generator=gen())
+            return [cb.centroids, LX.pq_encode(cb, x)]
+        if fn == "ssm":
+            st = torch.randn(2, 4, 8, 16, generator=gen()).to(dev) * 3
+            qz = Q.quantize_ssm_state(st)
+            return [qz.q, qz.scale, qz.zero, Q.dequantize_ssm_state(qz)]
+        frac = EV.retrieval_head_scores(mm, torch.arange(S, device=dev)
+                                        .expand(B, S), 32)
+        tokens = torch.arange(B * S, device=dev).reshape(B, S) % 97
+        img = EV.vq_token_mask(tokens, 64, 97)
+        kc, vc = EV.merge_evicted(kk, vv, keep, hm)
+        return [frac, EV.razor_head_budgets(frac0, 256, 64), img,
+                EV.lookm_scores(hm, img), kc.float(), vc.float()]
+
+    cpu = run("cpu")
+    card = [t.cpu() for t in run("cuda")]
+    if fn == "gear":
+        assert torch.equal(card[0], cpu[0])
+        far = ~((card[1] - cpu[1]).abs() <= LIB_TOL[0] + LIB_TOL[1]
+                * cpu[1].abs())
+        assert float(far.float().mean()) <= LIB_SWAPS
+    elif fn == "lexico":
+        same = (card[0] == cpu[0]).all(-1)
+        assert float(same.float().mean()) >= 1 - LIB_SWAPS
+        assert _close(card[1][same], cpu[1][same])
+        assert _close(card[2][same], cpu[2][same], (1e-5, 1e-4))
+    elif fn == "pq":
+        # the CPU's codebook on the card: the same codes but at near-ties
+        cb = LX.PQCodebook(cpu[0].cuda())
+        x = k.reshape(-1, D)[:512].float()
+        codes = LX.pq_encode(cb, x.cuda()).cpu()
+        assert float((codes != cpu[1]).float().mean()) <= LIB_SWAPS
+        assert torch.equal(LX.pq_decode(cb, cpu[1].cuda()).cpu(),
+                           LX.pq_decode(LX.PQCodebook(cpu[0]), cpu[1]))
+        assert _close(LX.pq_mips_scores(cb, cpu[1].cuda(), x[0].cuda())
+                      .cpu(), LX.pq_mips_scores(LX.PQCodebook(cpu[0]),
+                                                cpu[1], x[0]))
+    elif fn == "eviction":
+        assert _close(card[0], cpu[0])
+        for a, b in zip(card[1:4], cpu[1:4]):
+            assert torch.equal(a, b)
+        for a, b in zip(card[4:], cpu[4:]):
+            assert _close(a, b, (1e-4, 1e-2))
+    else:
+        for a, b in zip(card, cpu):
+            assert torch.equal(a, b)
