@@ -195,7 +195,15 @@ Phases, each printing its own lines; any failure exits non-zero:
               all-reduce; then the production dry run, every arch but
               paper-llama-7b x the four shapes on a fake 256-rank mesh
               (CPU worker processes started with the script, overlapping
-              phases 1-10), and perf_moe's two collective totals
+              phases 1-10; every record's per-device memory and bytes
+              printed), and perf_moe's two collective totals; (e) the
+              dry run's per-device memory of phase 10's and 11 (d)'s
+              minicpm-2b steps (a CPU worker beside the grid's) against
+              their measured peaks within a stated tolerance, and of
+              minicpm-2b's four ranks at 40 layers (out of memory in an
+              earlier version) against the card's free memory: predicted
+              to fit, they run one step on the card and must, their peak
+              held to the prediction too
 
   library     the survey's library-level compressors (GEAR, QAQ, Lexico,
               PQ, the SSM-state quantizer, RazorAttention, LOOK-M,
@@ -5406,12 +5414,50 @@ TRAIN_RANKS, TRAIN_RANKS_LAYERS = 4, 20
 TRAIN_RANKS_TOL = (0.05, 0.05)
 TRAIN_RANKS_DEADLINE = 300    # seconds for the four ranks
 SHARD_DRYRUN_DEADLINE = 900   # seconds after the workers start
+# (e) the dry run's per-device memory (arguments + temp) of phase 10's
+# and 11 (d)'s minicpm-2b steps against their measured peaks: (ranks,
+# layers, the measured run). The step is theirs (`make_train_step`, bf16
+# params, f32 moments, block remat) on InputShape(.., TRAIN_SEQ,
+# TRAIN_BATCH, "train"); mesh (1, ranks). The last is the configuration
+# that ran out of the card's memory at 40 layers in its first step: (e)
+# runs it for one step where the dry run says its four ranks fit.
+MEM_RUNS = ((1, 40, "phase 10"), (1, 20, "11 (d) one rank"),
+            (TRAIN_RANKS, 20, "11 (d) a rank"),
+            (TRAIN_RANKS, 40, "(e) a rank, one step"))
+MEM_DEADLINE = 240            # seconds for (e)'s four ranks
+# |predicted / measured - 1| (PERF.md §6, stated before the first card
+# run): the prediction counts every storage the step allocates, as the
+# caching allocator does; the card adds what the dry run cannot see —
+# allocator rounding (512-byte blocks, 2 MiB segments), cuBLAS's
+# workspace, the host-routed gloo collectives' CUDA staging copies — and
+# the measured peak also holds phase 10's weight draw
+MEM_TOL = 0.15
 _DRYRUN: dict = {}
+
+
+def _memory_dryrun(out: str) -> None:
+    """The dry run of MEM_RUNS (a CPU process over meta tensors, started
+    with the dry-run workers); records to `out`/memory.json."""
+    from repro_torch.configs.base import InputShape, get_config
+    from repro_torch.launch import dryrun as DR
+    arch = TRAIN_RUNS[1][0]
+    recs = []
+    for ranks, layers, _ in MEM_RUNS:
+        t0 = time.perf_counter()
+        rec = DR.run_one(
+            arch, "train_mem",
+            cfg=get_config(arch).replace(num_layers=layers),
+            shape=InputShape("train_mem", TRAIN_SEQ, TRAIN_BATCH, "train"),
+            mesh_dims=((1, ranks), ("data", "model")))
+        rec["wall_s"] = time.perf_counter() - t0
+        recs.append(rec)
+        with open(os.path.join(out, "memory.json"), "w") as f:
+            json.dump(recs, f)
 def start_dryrun() -> None:
     """Start the phase-11 dry-run workers (CPU processes over meta
-    tensors: they overlap the card phases). Each runs
-    `repro_torch.launch.dryrun` over its share of the archs into a
-    temporary directory; `_stop_dryrun` ends them."""
+    tensors: they overlap the card phases). One runs (e)'s MEM_RUNS, the
+    others `repro_torch.launch.dryrun` over their share of the archs, into
+    a temporary directory; `_stop_dryrun` ends them."""
     import atexit
     import tempfile
     from repro_torch.configs.base import ARCH_IDS
@@ -5419,7 +5465,11 @@ def start_dryrun() -> None:
     out = tempfile.mkdtemp(prefix="dryrun_torch_")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
                OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
-    procs = []
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "chip_smoke._memory_dryrun(sys.argv[1])", out], cwd=ROOT, env=env,
+        stdout=open(os.path.join(out, "memory.log"), "w"),
+        stderr=subprocess.STDOUT)]
     for i in range(SHARD_DRYRUN_WORKERS):
         mine = archs[i::SHARD_DRYRUN_WORKERS]
         log = open(os.path.join(out, f"worker{i}.log"), "w")
@@ -5436,6 +5486,127 @@ def _stop_dryrun() -> None:
         if p.poll() is None:
             p.kill()
             p.wait()
+
+
+def _predicted_peak(rec: dict) -> int:
+    """A dry-run record's arguments + temp bytes a device: its step's
+    predicted peak."""
+    m = rec["memory_analysis"]
+    return m["argument_size_in_bytes"] + m["temp_size_in_bytes"]
+
+
+def _mem_rank(rank: int, rdv: str, out: str, host_ops) -> None:
+    """One of (e)'s TRAIN_RANKS ranks: as `_train_rank`, minicpm-2b
+    through `launch/train.py --mesh host`, on MEM_RUNS[-1]'s depth for
+    one step. Writes its peak allocated and reserved bytes and the card's
+    free memory while every rank holds its state to `out`.<rank>."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import train as train_cli
+    from repro_torch.nn import sharding as shd
+    os.environ["LOCAL_RANK"] = "0"
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{rdv}", rank=rank,
+                            world_size=TRAIN_RANKS)
+    shd.route_through_host(host_ops)
+    argv = _train_argv()
+    argv[argv.index("--steps") + 1] = "1"
+    with _config_cut(train_cli, MEM_RUNS[-1][1]):
+        state, hist = train_cli.main(argv + ["--mesh", "host"])
+    torch.cuda.synchronize()
+    dist.barrier()
+    res = dict(peak=torch.cuda.max_memory_allocated(),
+               reserved=torch.cuda.max_memory_reserved(),
+               free=torch.cuda.mem_get_info()[0], loss=hist[0]["loss"])
+    dist.barrier()
+    del state
+    torch.save(res, f"{out}.{rank}")
+    dist.destroy_process_group()
+
+
+def _memory_check(info: dict, host_ops, tmp: str) -> None:
+    """Phase 11 (e): the dry run's per-device peak (arguments + temp) of
+    each MEM_RUNS configuration against its measured
+    `max_memory_allocated` within MEM_TOL — phase 10's, 11 (d)'s one-rank
+    twin's and ranks', and MEM_RUNS[-1]'s, whose four ranks once ran out
+    of the card's memory: its prediction (four ranks' peaks) is set
+    against the card's free memory when 11 (d) started, and where it says
+    they fit, they run one step here and must (the prediction's verdict
+    on the card)."""
+    import torch
+    arch = TRAIN_RUNS[1][0]
+    try:
+        with open(os.path.join(_DRYRUN["out"], "memory.json")) as f:
+            recs = json.load(f)
+    except OSError:
+        recs = []
+    if len(recs) != len(MEM_RUNS):
+        fail(f"shard (e): {len(recs)}/{len(MEM_RUNS)} memory dry runs "
+             f"finished")
+    tp = info["shard_train_tp"]
+    ranks_n, layers_n, _ = MEM_RUNS[-1]
+    need = ranks_n * _predicted_peak(recs[-1])
+    fits = need <= tp["free"]
+    print(f"[shard] (e) {arch} ({layers_n} layers) mesh 1 x {ranks_n}: the "
+          f"dry run's {ranks_n} ranks need {need / 2**30:.2f} GiB a step, "
+          f"the card had {tp['free'] / 2**30:.2f} GiB free when 11 (d) "
+          f"started: predicted to {'fit' if fits else 'run out of memory'}")
+    measured = {
+        "phase 10": max(h["max_memory_allocated"] for h in next(
+            r for r in info["train"] if r["arch"] == arch)["steps"]),
+        "11 (d) one rank": tp["one_rank"],
+        "11 (d) a rank": max(tp["peaks"])}
+    if fits:
+        free_e = torch.cuda.mem_get_info()[0]
+        out = os.path.join(tmp, "mem")
+        t1 = time.perf_counter()
+        codes = _spawn(_mem_rank, lambda r: (os.path.join(tmp, "rdv3"), out,
+                                             host_ops),
+                       ranks_n, MEM_DEADLINE, "memory tp 4")
+        if codes != [0] * ranks_n:
+            fail(f"shard (e): {ranks_n} ranks of {layers_n} layers, "
+                 f"predicted to fit, failed (exit codes {codes})")
+        rk = [torch.load(f"{out}.{r}", weights_only=False)
+              for r in range(ranks_n)]
+        measured[MEM_RUNS[-1][2]] = max(r["peak"] for r in rk)
+        used = free_e - min(r["free"] for r in rk)
+        print(f"[shard] (e) {ranks_n} ranks of {layers_n} layers, one step "
+              f"in {time.perf_counter() - t1:.1f} s: loss "
+              f"{rk[0]['loss']:.4f}, peak allocated a rank "
+              + " ".join(f"{r['peak'] / 2**30:.2f}" for r in rk)
+              + " GiB, reserved " + " ".join(
+                  f"{r['reserved'] / 2**30:.2f}" for r in rk)
+              + f" GiB; the card's memory in use by the ranks with every "
+              f"state held {used / 2**30:.2f} GiB of {free_e / 2**30:.2f} "
+              f"free (allocator reserve and CUDA contexts beside the "
+              f"allocations)")
+        info["mem_ranks"] = dict(peaks=[r["peak"] for r in rk],
+                                 reserved=[r["reserved"] for r in rk],
+                                 used=used, free=free_e)
+    for (ranks, layers, twin), rec in zip(MEM_RUNS, recs):
+        m = rec["memory_analysis"]
+        pred = _predicted_peak(rec)
+        line = (f"[shard] (e) {arch} ({layers} layers) mesh 1 x {ranks} dry "
+                f"run: arguments {m['argument_size_in_bytes'] / 2**30:.2f} + "
+                f"temp {m['temp_size_in_bytes'] / 2**30:.2f} = "
+                f"{pred / 2**30:.2f} GiB a device (output "
+                f"{m['output_size_in_bytes'] / 2**30:.2f}, alias "
+                f"{m['alias_size_in_bytes'] / 2**30:.2f}; bytes accessed "
+                f"{rec['bytes_accessed_per_device']:.4g}; {rec['wall_s']:.1f}"
+                f" s)")
+        if twin not in measured:
+            print(f"{line}; not run on the card (predicted not to fit)")
+            continue
+        got = measured[twin]
+        ratio = pred / got
+        print(f"{line}; measured {twin} {got / 2**30:.2f} GiB, predicted / "
+              f"measured {ratio:.4f} (tol {MEM_TOL}); {info['smi']}")
+        info.setdefault("mem_pred", []).append(dict(
+            ranks=ranks, layers=layers, pred=pred, got=got))
+        if not abs(ratio - 1) <= MEM_TOL:
+            fail(f"shard (e): {arch} {layers} layers x {ranks} ranks "
+                 f"predicted {pred} B, measured {got} B")
 
 
 def _shard_probe_rank(rank: int, rdv: str, out: str) -> None:
@@ -5701,7 +5872,8 @@ def phase_shard(info: dict) -> None:
     width on TRAIN_RANKS_LAYERS layers), each step's loss and grad norm
     within TRAIN_RANKS_TOL of one rank's run of the same cut, every
     rank's loss the same, no kernel launched, every weight matrix moved
-    on every rank; (c) the production dry-run grid and perf_moe ((a) ran
+    on every rank; (c) the production dry-run grid, (e) its memory
+    prediction against the card (`_memory_check`) and perf_moe ((a) ran
     in phase_shard_train)."""
     import gc
     import tempfile
@@ -5816,11 +5988,14 @@ def phase_shard(info: dict) -> None:
 
     # (d) TRAIN_RANKS gloo ranks on the card through the launcher's mesh,
     # against one rank of the same depth cut
+    torch.cuda.reset_peak_memory_stats()
     with _config_cut(train_cli, TRAIN_RANKS_LAYERS):
         state, ref = train_cli.main(_train_argv())
     del state
     gc.collect()
     torch.cuda.empty_cache()
+    # what the ranks can have of the card, for (e)'s 40-layer prediction
+    free_d = torch.cuda.mem_get_info()[0]
     out = os.path.join(tmp, "train")
     t1 = time.perf_counter()
     codes = _spawn(_train_rank, lambda r: (os.path.join(tmp, "rdv2"), out,
@@ -5865,7 +6040,8 @@ def phase_shard(info: dict) -> None:
     info["shard_train_tp"] = dict(
         steps=[dict(loss=h["loss"], grad_norm=h["grad_norm"],
                     wall=[rk["hist"][i]["wall_s"] for rk in ranks])
-               for i, h in enumerate(hist)], peaks=peaks, wall=wall)
+               for i, h in enumerate(hist)], peaks=peaks, wall=wall,
+        free=free_d, one_rank=max(h["max_memory_allocated"] for h in ref))
     if len(hist) != len(ref) or any(rk["moved"] != rk["mats"]
                                     or rk["mats"] == 0 for rk in ranks):
         fail(f"shard: tp {TRAIN_RANKS} ran {len(hist)} steps, matrices moved "
@@ -5899,13 +6075,22 @@ def phase_shard(info: dict) -> None:
                 print(f"[shard] dry run {arch} {shape}: {rec['status']} "
                       f"{rec.get('error', '')}")
                 continue
+            if rec.get("memory_analysis") is None \
+                    or rec.get("bytes_accessed_per_device") is None:
+                print(f"[shard] dry run {arch} {shape}: ok without "
+                      f"memory_analysis / bytes_accessed_per_device")
+                continue
             n_ok += 1
             t = perf.terms(rec)
             coll = sum(v["bytes_weighted_n"] for v in
                        rec["collectives"].values())
+            mem = _predicted_peak(rec)
             print(f"[shard] dryrun {arch} {shape} lower {rec['lower_s']} s: "
                   f"dot flops/dev {rec['dot_flops_per_device']:.4g}, "
-                  f"collective bytes/dev {coll:.4g}; compute "
+                  f"collective bytes/dev {coll:.4g}, bytes accessed/dev "
+                  f"{rec['bytes_accessed_per_device']:.4g}, memory/dev "
+                  f"{mem / 2**30:.2f} GiB (fits 80 GB: "
+                  f"{'yes' if mem <= 80e9 else 'no'}); compute "
                   f"{t['compute_s']:.4g} s memory {t['memory_s']:.4g} s "
                   f"collective {t['collective_s']:.4g} s, {t['dominant']}, "
                   f"useful {t['useful_ratio']:.3f}")
@@ -5916,6 +6101,7 @@ def phase_shard(info: dict) -> None:
           f"(lower_s summed {sum(r.get('lower_s', 0) for r in recs):.1f} s)")
     if n_ok != len(recs):
         fail(f"shard: dry run {n_ok}/{len(recs)} ok")
+    _memory_check(info, host_ops, tmp)
     res = perf_moe.run()
     for name, (total, coll) in res.items():
         print(f"[shard] perf_moe {name}: collective bytes/dev {total:.4g} "
@@ -5935,6 +6121,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs on the card only")
     try:
+        # kvlint: ok(unused-import: the import is the check that src/repro_torch sits beside the script)
         import repro_torch  # noqa: F401
     except ImportError:
         fail("src/repro_torch not found beside chip_smoke.py")

@@ -222,7 +222,9 @@ def materialize_kv(lc, spec: CacheSpec, dtype=torch.bfloat16):
     else:
         k, v = lc.k.to(dtype), lc.v.to(dtype)
     if lc.rk.shape[1] > 0:
+        # kvlint: ok(step-copy: the [main | ring] view the plain decode path and B5's verify attend over — a step-local temporary per layer, never bound to the cache)
         k = torch.cat([k, lc.rk.to(dtype)], dim=1)
+        # kvlint: ok(step-copy: the values' half of the same per-layer view)
         v = torch.cat([v, lc.rv.to(dtype)], dim=1)
     return k, v
 
@@ -478,6 +480,7 @@ def append_token_quantized(lc: LayerKV, spec: CacheSpec,
     rows = torch.arange(B, device=lc.k.device)
     need = flush_need(lc, spec, mask)                         # [B]
     if ring_full is None:
+        # kvlint: ok(step-sync: asked only when the caller passes ring_full=None — the engines pass their host mirrors' answer; the KVSharer runner and direct model calls pay one sync a quantized layer; a CUDA graph of the step must lose it)
         ring_full = bool(need.any())
     if ring_full:
         n_groups = S // G

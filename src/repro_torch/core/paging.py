@@ -272,6 +272,7 @@ def _append_quantized_paged(p: PagedLayerKV, spec: CacheSpec,
     rows = torch.arange(B, device=p.pk.device)
     need = kvcache.flush_need(p, spec, mask)                 # [B]
     if ring_full is None:
+        # kvlint: ok(step-sync: as core/cache.py append_token_quantized — only for ring_full=None; the engines pass their host mirrors' answer)
         ring_full = bool(need.any())
     if ring_full:
         n_groups = S // G

@@ -1215,6 +1215,7 @@ class Engine:
             if pend is not None:
                 # kvlint: ok(host-sync: loop epilogue — the last pending tokens, once per wave)
                 outs[w0:w1, pend_t] = fetch.get(pend)[: w1 - w0]
+            # kvlint: ok(host-sync: wave epilogue — the wave's decode span ends when the card is done, once per wave)
             self._sync()
             sp.__exit__()
             decode_s += sp.elapsed

@@ -11,7 +11,12 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import repro_torch
-from repro_torch import bridge, checkpoint, data, optim, train
+from repro_torch import analysis, bridge, checkpoint, data, optim, train
+from repro_torch.analysis import __main__ as kvlint_cli
+from repro_torch.analysis import (config as kvlint_config, driver,
+                                  model as kvlint_model, rules_hygiene,
+                                  rules_launch, rules_seam, rules_step,
+                                  rules_sync)
 from repro_torch.checkpoint import io as ckpt_io
 from repro_torch.configs import (base, chameleon_34b, command_r_plus_104b,
                                  granite_8b, jamba_v0_1_52b, kimi_k2_1t_a32b,
@@ -30,7 +35,8 @@ from repro_torch.kernels.flash_prefill import ops as fp_ops
 from repro_torch.kernels.flash_prefill import ref as fp_ref
 from repro_torch.kernels.kvquant import ops as kvq_ops
 from repro_torch.kernels.kvquant import ref as kvq_ref
-from repro_torch.launch import dryrun, mesh, perf, perf_moe, serve, specs
+from repro_torch.launch import (dryrun, mesh, perf, perf_moe, reanalyze,
+                                serve, specs)
 from repro_torch.launch import train as train_cli
 from repro_torch.nn import (attention, blocks, layers, model, moe, moe_ep,
                             rope, sharding, ssm)
@@ -50,7 +56,9 @@ MODULES = [repro_torch, bridge, base, chameleon_34b, command_r_plus_104b,
            cacheblend, engine, prefix, sampler, scheduler, shared_runner,
            speculative, seamless_m4t_large_v2, checkpoint, ckpt_io, data,
            synthetic, optim, optimizers, schedules, train, loop, train_cli,
-           sharding, moe_ep, mesh, specs, dryrun, perf, perf_moe]
+           sharding, moe_ep, mesh, specs, dryrun, perf, perf_moe, reanalyze,
+           analysis, kvlint_cli, kvlint_config, driver, kvlint_model,
+           rules_hygiene, rules_launch, rules_seam, rules_step, rules_sync]
 
 _CHILD = textwrap.dedent("""
     import importlib, json, os, sys, tempfile
@@ -137,9 +145,13 @@ _CHILD = textwrap.dedent("""
     train_cli.main(["--arch", "granite-8b", "--reduced", "--steps", "2",
                     "--batch", "2", "--seq", "16", "--device", "cpu",
                     "--mesh", "host", "--ckpt", os.path.join(tmp, "ck2")])
-    from repro_torch.launch import dryrun
+    from repro_torch.launch import dryrun, reanalyze
     dryrun.main(["--arch", "granite-8b", "--shape", "long_500k",
                  "--out", os.path.join(tmp, "dr")])
+    reanalyze.main([os.path.join(tmp, "dr")])
+    from repro_torch.analysis.__main__ import main as kvlint
+    print("KVLINT", kvlint(["--check", os.path.dirname(
+        importlib.import_module("repro_torch.analysis").__file__)]))
     bad = sorted(m for m in sys.modules
                  if m == "jax" or m.startswith("jax.")
                  or m == "repro" or m.startswith("repro."))
@@ -175,6 +187,7 @@ def test_port_imports_no_jax_and_no_repro():
     assert "[ok] granite-8b__long_500k__single flops/dev=" in r.stdout, \
         r.stdout
     assert "done; failures=0" in r.stdout, r.stdout
+    assert "reanalyzed 1" in r.stdout and "KVLINT 0" in r.stdout, r.stdout
 
 
 def test_entry_points_default_to_cuda():
