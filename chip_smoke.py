@@ -1575,7 +1575,7 @@ def phase_serve(info: dict) -> None:
                    if draft else {})
         # telemetry on in the `full` paged + chunked run
         traced = pname == "full" and bool(opts) and depth is None
-        tr, mx = (Tracer(), Metrics()) if traced else (None, None)
+        tr, mx = (Tracer(1 << 20), Metrics()) if traced else (None, None)
         eng = Engine(c, prm, pol, prompt_len=max(BUCKETS),
                      max_new=MAX_NEW, slots=SLOTS, buckets=BUCKETS, **opts,
                      **spec_kw, tracer=tr, metrics=mx)
@@ -1845,7 +1845,7 @@ def _serve_overload(info: dict, cfg, params, kernels, prompts,
     tier_wall = {}
     for pname, opts, forced, gate_streams, traced in OVERLOAD_RUNS:
         pol = presets(budget=BUDGET, window=WINDOW)[pname]
-        tr, mx = (Tracer(), Metrics()) if traced else (None, None)
+        tr, mx = (Tracer(1 << 20), Metrics()) if traced else (None, None)
         eng = Engine(cfg, params, pol, prompt_len=max(BUCKETS),
                      max_new=MAX_NEW, slots=SLOTS, buckets=BUCKETS,
                      paged=True, chunked_prefill=True, chunk_len=C,
@@ -2345,7 +2345,7 @@ def phase_ladder(info: dict) -> None:
         return [Request(tokens=p, max_new=MAX_NEW) for p in prompts]
 
     twin = Engine(cfg, params, pol, **kw).generate_continuous(reqs())
-    tr, mx = Tracer(), Metrics()
+    tr, mx = Tracer(1 << 20), Metrics()
     eng = Engine(cfg, params, pol, **kw, block_growth="lazy",
                  preemption=True, tiering=True, pool_blocks=LADDER_POOL,
                  host_blocks=LADDER_HOST, audit_every=OVERLOAD_AUDIT,

@@ -22,6 +22,7 @@ from repro_torch.nn import layers as L
 from repro_torch.nn import moe as moe_lib
 from repro_torch.nn import sharding as shd
 from repro_torch.nn import ssm as ssm_lib
+from repro_torch.obs.trace import model_range
 
 
 class BlockAux(NamedTuple):
@@ -218,33 +219,48 @@ def block_decode(p: dict, x: torch.Tensor, cfg, spec: CacheSpec, lc, *,
     caller: the speculative drafter's ragged depths). One Gumbel draw
     from `generator` serves the layer (NACL's eviction, Keyformer's
     accumulation), as one key serves the JAX block; it is applied after
-    the attention returns the mass. Returns x."""
-    h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
+    the attention returns the mass. Under the engine's tracer
+    (`obs.trace.model_tracing`) the layer's ranges nest as ``attn`` (norm1,
+    qkv and RoPE, wo) over ``kv`` (the append with its flush, the noise,
+    the mass accumulation) over ``attend`` (the attention kernel), then
+    ``mlp`` (norm2 and the FFN); ``ssm`` for a Mamba-2 mixer. Returns x."""
     if kind == "ssm":
-        st: SSMState = lc
-        o, new = ssm_lib.mamba2_decode_step(p["ssm"], h, st, cfg)
-        st.conv.copy_(new.conv)
-        st.state.copy_(new.state)
-        return _ffn(p, _cross_attend(p, x + o, memory_kv, cfg), cfg)
-    pos = lc.pos[:, None].clone()   # [B, 1]; the append advances lc.pos
-    q, k_new, v_new = attn.qkv(p["attn"], h, cfg, pos)
-    noise = kvcache.policy_noise(spec, lc.scores.shape, generator, x.device)
-    # append-first: the new token attends to itself through the cache.
-    # On a sharded cache the in-place updates run on each rank's own rows
-    # and heads (`sharding.on_shards`); the mass is all-reduced over the
-    # tp ranks before it is accumulated, so every rank evicts alike.
-    ref = getattr(lc, "k", None)     # a sharded store is dense
-    shd.on_shards(
-        lambda lc_, k_, v_, m_, n_: kvcache.append_token(
-            lc_, spec, k_[:, 0], v_[:, 0], ring_full=ring_full, mask=m_,
-            use_kernels=cfg.use_kernels, noise=n_),
-        ref, lc, k_new, v_new, append_mask, noise, writes=(0,))
-    o, mass = attn.decode_attention(
-        q, lc, spec, window=cfg.sliding_window, dtype=cfg.dtype,
-        q_pos=pos[:, 0], use_kernels=cfg.use_kernels)
-    shd.on_shards(
-        lambda lc_, m_, g_, n_: kvcache.accumulate_scores(
-            lc_, spec, m_, gate=g_, noise=n_),
-        ref, lc, mass, append_mask, noise, writes=(0,))
-    x = x + L.linear(p["attn"]["wo"], shd.merge_last(o))
-    return _ffn(p, _cross_attend(p, x, memory_kv, cfg), cfg)
+        with model_range("ssm"):
+            h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
+            st: SSMState = lc
+            o, new = ssm_lib.mamba2_decode_step(p["ssm"], h, st, cfg)
+            st.conv.copy_(new.conv)
+            st.state.copy_(new.state)
+        x = _cross_attend(p, x + o, memory_kv, cfg)
+        with model_range("mlp"):
+            return _ffn(p, x, cfg)
+    with model_range("attn"):
+        h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
+        pos = lc.pos[:, None].clone()   # [B, 1]; the append advances lc.pos
+        q, k_new, v_new = attn.qkv(p["attn"], h, cfg, pos)
+        with model_range("kv"):
+            noise = kvcache.policy_noise(spec, lc.scores.shape, generator,
+                                         x.device)
+            # append-first: the new token attends to itself through the
+            # cache. On a sharded cache the in-place updates run on each
+            # rank's own rows and heads (`sharding.on_shards`); the mass is
+            # all-reduced over the tp ranks before it is accumulated, so
+            # every rank evicts alike.
+            ref = getattr(lc, "k", None)     # a sharded store is dense
+            shd.on_shards(
+                lambda lc_, k_, v_, m_, n_: kvcache.append_token(
+                    lc_, spec, k_[:, 0], v_[:, 0], ring_full=ring_full,
+                    mask=m_, use_kernels=cfg.use_kernels, noise=n_),
+                ref, lc, k_new, v_new, append_mask, noise, writes=(0,))
+            with model_range("attend"):
+                o, mass = attn.decode_attention(
+                    q, lc, spec, window=cfg.sliding_window, dtype=cfg.dtype,
+                    q_pos=pos[:, 0], use_kernels=cfg.use_kernels)
+            shd.on_shards(
+                lambda lc_, m_, g_, n_: kvcache.accumulate_scores(
+                    lc_, spec, m_, gate=g_, noise=n_),
+                ref, lc, mass, append_mask, noise, writes=(0,))
+        x = x + L.linear(p["attn"]["wo"], shd.merge_last(o))
+    x = _cross_attend(p, x, memory_kv, cfg)
+    with model_range("mlp"):
+        return _ffn(p, x, cfg)

@@ -51,6 +51,7 @@ from repro_torch.nn import layers as L
 from repro_torch.nn import moe as moe_lib
 from repro_torch.nn import sharding as shd
 from repro_torch.nn import ssm as ssm_lib
+from repro_torch.obs.trace import model_range
 
 
 class ModelCache(NamedTuple):
@@ -530,7 +531,9 @@ def decode_step(params, cfg, cache: ModelCache, token: torch.Tensor,
                     p, x, cfg, spec,
                     kvcache.layer_view(cache.ssm, s, sps.index(i)),
                     kind="ssm", memory_kv=mkv)
-    return _logits(params, cfg, x)[:, 0], cache
+    with model_range("logits"):
+        logits = _logits(params, cfg, x)[:, 0]
+    return logits, cache
 
 
 # ---------------------------------------------------------------------------

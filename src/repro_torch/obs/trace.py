@@ -25,9 +25,23 @@ them, so Perfetto shows "engine" / "slot 0" / "slot 1" / ... tracks.
 `NullTracer` (the engine default) is falsy and no-ops every emit, so a
 trace-off run pays one truthiness check per event site. `Span` is the
 timing seam shared by both: it always measures with ``perf_counter``
-(the engine's reported prefill / decode seconds come from ``.elapsed``)
-and only the emit is conditional, so trace-on and trace-off runs report
-the same kind of numbers.
+(the engine's reported prefill / decode / dispatch / token-wait seconds
+come from ``.elapsed``) and only the emit is conditional, so trace-on and
+trace-off runs report the same kind of numbers.
+
+**The profiler's clock.** On a truthy tracer a `Span` also opens a
+``torch.profiler.record_function`` range of its name, so under a running
+`torch.profiler` every program span appears in the profiler's own trace,
+on its clock, and the profiler adds each range's device extent. A
+`NullTracer` span opens none. torch is imported at the first range, so
+the module itself stays stdlib-only.
+
+**Model-step ranges.** `model_range` gives the decode step's per-layer
+ranges (``attn`` ⊃ ``kv`` ⊃ ``attend``, then ``mlp``; ``ssm`` for a
+Mamba-2 mixer; ``logits`` per step) as spans of the tracer that
+`model_tracing` sets around the engine's dispatch; outside it (and always
+when tracing is off) it returns the shared no-op `_OFF`: one global read
+and no object a layer.
 """
 from __future__ import annotations
 
@@ -39,15 +53,33 @@ from typing import Any, Dict, List, Optional
 _DEFAULT_CAPACITY = 65536
 
 
+_profiler = None     # torch.profiler, imported at the first range
+
+
+def _open_range(name: str):
+    """Enter a ``torch.profiler.record_function`` range; returns the
+    handle `Span.__exit__` closes. Without a running profiler the range
+    records nothing."""
+    global _profiler
+    if _profiler is None:
+        import torch.profiler
+        _profiler = torch.profiler
+    rf = _profiler.record_function(name)
+    rf.__enter__()
+    return rf
+
+
 class Span:
-    """Phase stopwatch + (when tracing) one Chrome complete event.
+    """Phase stopwatch + (when tracing) one Chrome complete event and one
+    profiler range.
 
     Phases are bracketed with ``with tracer.span(name) as sp: ...`` and
     the caller reads ``sp.elapsed`` for its reported seconds, always from
     ``time.perf_counter``; a `NullTracer` span times the same way and
-    only skips the emit."""
+    only skips the emit and the range. The range opens before ``t0`` and
+    closes after the stop, so its host cost stays out of ``elapsed``."""
 
-    __slots__ = ("_trace", "name", "tid", "args", "t0", "elapsed")
+    __slots__ = ("_trace", "name", "tid", "args", "t0", "elapsed", "_rf")
 
     def __init__(self, trace, name: str, tid: int = 0,
                  args: Optional[dict] = None) -> None:
@@ -57,8 +89,11 @@ class Span:
         self.args = args
         self.t0 = 0.0
         self.elapsed = 0.0
+        self._rf = None
 
     def __enter__(self) -> "Span":
+        if self._trace:
+            self._rf = _open_range(self.name)
         self.t0 = time.perf_counter()
         return self
 
@@ -66,9 +101,56 @@ class Span:
         self.elapsed = time.perf_counter() - self.t0
         t = self._trace
         if t:
+            self._rf.__exit__(None, None, None)
             t.complete(self.name, self.t0, self.t0 + self.elapsed,
                        tid=self.tid, args=self.args)
         return False
+
+
+class _Off:
+    """The shared no-op context of `model_range` with tracing off."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> None:
+        return None
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+_OFF = _Off()
+_model_trace = None  # the tracer `model_tracing` set, or None
+
+
+def model_range(name: str):
+    """A range of the model's decode step: a `Span` of the tracer that
+    `model_tracing` set, else `_OFF` (one global read, no object made)."""
+    t = _model_trace
+    return _OFF if t is None else Span(t, name)
+
+
+class _ModelTracing:
+    __slots__ = ("_trace", "_prev")
+
+    def __init__(self, trace) -> None:
+        self._trace = trace
+        self._prev = None
+
+    def __enter__(self) -> None:
+        global _model_trace
+        self._prev, _model_trace = _model_trace, self._trace
+
+    def __exit__(self, *exc) -> bool:
+        global _model_trace
+        _model_trace = self._prev
+        return False
+
+
+def model_tracing(trace):
+    """Route `model_range` to `trace` inside the ``with`` block; a falsy
+    tracer leaves the ranges off (`_OFF`, no object)."""
+    return _ModelTracing(trace) if trace else _OFF
 
 
 class Tracer:

@@ -94,7 +94,21 @@ lifecycle from the scheduler, the spans ``wave_prefill``,
 speculative) per loop iteration, the ``pool`` counter track, and the
 instants of the allocator, the host tier, the prefix index and the
 ladder (``prefix_warm_hit``, ``prefix_cold``, ``prefix_near_hit``,
-``cow``, ``audit``, ``preempt``, ``spill``, ``fetch``, ...). ``metrics=``
+``cow``, ``audit``, ``preempt``, ``spill``, ``fetch``, ...). Inside the
+plain loop's iteration: ``admit_start`` (a chunked admission's start),
+``decode`` (every `_decode`: the model's dispatch and the sample; within
+it, while tracing, the model step's ranges ``attn`` ⊃ ``kv`` ⊃ ``attend``
+and ``mlp`` per layer, ``logits`` and ``sample`` per step), and, after
+the ``step`` span, ``token_wait`` (the pipelined token read; a chunk
+admission's first-token read inside the step too) and ``retire`` (the
+record / retire / refill bookkeeping, a refill's ``prefill`` nested).
+``prefill_chunk`` holds one ``prefill_segment`` (``uid``, ``c0``,
+``c1``), ``prefill_finalize`` or ``prefill_insert`` (``uid``) per unit of
+work. Each span is also a ``torch.profiler`` range (`obs.trace`), so
+under a running profiler the program's spans land on its clock. The
+``decode`` and ``token_wait`` seconds are kept with tracing off too
+(`ContinuousGenerationResult.dispatch_seconds`, `token_wait_seconds`),
+and each `RequestResult` carries its queue wait (``queue_s``). ``metrics=``
 (an `obs.Metrics`) gets the loop's ``pool.free_frac`` / ``slots.active``
 / ``engine.loop_iters`` and the end-of-run aggregates
 (`Engine._publish_metrics`). Every value handed to either is a host
@@ -122,6 +136,7 @@ from repro_torch.core.policy import CompressionPolicy
 from repro_torch.nn import model as M
 from repro_torch.nn.attention import MASS_GROUP
 from repro_torch.obs import NULL_METRICS, NULL_TRACER
+from repro_torch.obs import trace as obs_trace
 from repro_torch.serving import cacheblend as cacheblend_lib
 from repro_torch.serving import prefix as prefix_lib
 from repro_torch.serving import sampler as sampler_lib
@@ -179,6 +194,12 @@ class ContinuousGenerationResult:
     replayed_tokens: int = 0
     readmit_prefill_s: float = 0.0
     recomputed_uids: List[int] = field(default_factory=list)
+    # host seconds inside decode_seconds: the `decode` spans (the model's
+    # dispatch and the sample; in the speculative loop the drafter's and
+    # the fallback's steps, not verify) and the `token_wait` spans (the
+    # host blocked on the pipelined token reads)
+    dispatch_seconds: float = 0.0
+    token_wait_seconds: float = 0.0
 
     def tokens_for(self, uid: int) -> np.ndarray:
         for r in self.results:
@@ -447,6 +468,8 @@ class Engine:
                                  f"(0, 1], got {self.near_hit}")
         self._share_state: Optional[dict] = None   # live during a sharing run
         self.flush_steps = 0
+        self.dispatch_s = 0.0        # `decode` spans (`_decode`) of the run
+        self.token_wait_s = 0.0      # `token_wait` spans of the run
         self.replayed_tokens = 0
         self.readmit_prefill_s = 0.0
         self.recomputed_uids = []
@@ -572,13 +595,21 @@ class Engine:
                 ring_full: bool, *,
                 append_mask: Optional[torch.Tensor] = None,
                 draft: bool = False) -> torch.Tensor:
+        """One decode dispatch and its sample, under the ``decode`` span
+        (its seconds add to `dispatch_s`); while tracing, the model step's
+        ranges (`obs.trace.model_range`) and ``sample`` nest inside."""
         cfg, spec, _ = self._model_of(draft)
         self.flush_steps += bool(ring_full)
-        logits, _ = M.decode_step(self.params, cfg, cache, tok, spec,
-                                  ring_full=ring_full,
-                                  append_mask=append_mask,
-                                  generator=self.gen)
-        return self.sampler(logits, self.gen)
+        tr = self.trace
+        with tr.span("decode") as sp, obs_trace.model_tracing(tr):
+            logits, _ = M.decode_step(self.params, cfg, cache, tok, spec,
+                                      ring_full=ring_full,
+                                      append_mask=append_mask,
+                                      generator=self.gen)
+            with obs_trace.model_range("sample"):
+                tok = self.sampler(logits, self.gen)
+        self.dispatch_s += sp.elapsed
+        return tok
 
     # the speculative loop's verify step (`serving.speculative`)
     def _verify(self, cache: M.ModelCache, tokens: torch.Tensor,
@@ -1052,67 +1083,80 @@ class Engine:
         the device) once the slot goes ACTIVE."""
         if adm is None:
             return None, None, 0.0
-        sp = self.trace.span("prefill_chunk", tid=adm.slot + 1)
-        sp.__enter__()
         first = None
         cur = adm
-        while adm is not None:
-            i = adm.next_i
-            if i == len(adm.segs):                  # compress the scratch
-                if adm.direct:
-                    adm.pc = M.prefill_finalize_meta(
-                        self.cfg, adm.st, self.spec,
-                        layer_budgets=self.layer_budgets)
-                else:
-                    adm.pc = M.prefill_finalize(
-                        self.cfg, adm.st, self.spec,
-                        layer_budgets=self.layer_budgets, generator=self.gen)
-                adm.next_i += 1
-            elif i == len(adm.segs) + 1:            # insert + first token
-                # the full grant (decode headroom, quantization slack) is
-                # in place before the insert scatters
-                if self.paged and not self._grant(adm, sched,
-                                                  adm.total_blocks):
-                    adm = self._note_adm_stall(adm, sched)
+        tr, tid = self.trace, adm.slot + 1
+        uid = sched.slot_request(adm.slot).uid
+        with tr.span("prefill_chunk", tid=tid) as sp:
+            while adm is not None:
+                i = adm.next_i
+                if i == len(adm.segs):              # compress the scratch
+                    with tr.span("prefill_finalize", tid=tid,
+                                 args=dict(uid=uid)):
+                        if adm.direct:
+                            adm.pc = M.prefill_finalize_meta(
+                                self.cfg, adm.st, self.spec,
+                                layer_budgets=self.layer_budgets)
+                        else:
+                            adm.pc = M.prefill_finalize(
+                                self.cfg, adm.st, self.spec,
+                                layer_budgets=self.layer_budgets,
+                                generator=self.gen)
+                    adm.next_i += 1
+                elif i == len(adm.segs) + 1:        # insert + first token
+                    # the full grant (decode headroom, quantization slack)
+                    # is in place before the insert scatters
+                    if self.paged and not self._grant(adm, sched,
+                                                      adm.total_blocks):
+                        adm = self._note_adm_stall(adm, sched)
+                        break
+                    with tr.span("prefill_insert", tid=tid,
+                                 args=dict(uid=uid)):
+                        self._insert(cache, sched, adm.slot, adm.pc,
+                                     pool_write=not adm.direct,
+                                     n_skip=adm.n_adopt)
+                        if self._share_state is not None:
+                            self._note_inserted(sched, adm,
+                                                self._share_state)
+                        sched.finish_prefill(adm.slot)
+                        first = (adm.slot,
+                                 self.sampler(adm.last_logits, self.gen))
+                    adm = None
                     break
-                self._insert(cache, sched, adm.slot, adm.pc,
-                             pool_write=not adm.direct, n_skip=adm.n_adopt)
-                if self._share_state is not None:
-                    self._note_inserted(sched, adm, self._share_state)
-                sched.finish_prefill(adm.slot)
-                first = (adm.slot, self.sampler(adm.last_logits, self.gen))
-                adm = None
-                break
-            else:                                   # one prompt segment
-                c0 = adm.starts[i]
-                c1 = c0 + len(adm.segs[i])
-                if self.paged and not self._grant(
-                        adm, sched, min(adm.total_blocks,
-                                        paging.request_blocks_prefix(
-                                            self.spec, self._S_phys, c1,
-                                            self.block_len))):
-                    # chunk-wise grants: stall until blocks free up
-                    adm = self._note_adm_stall(adm, sched)
+                else:                               # one prompt segment
+                    c0 = adm.starts[i]
+                    c1 = c0 + len(adm.segs[i])
+                    if self.paged and not self._grant(
+                            adm, sched, min(adm.total_blocks,
+                                            paging.request_blocks_prefix(
+                                                self.spec, self._S_phys, c1,
+                                                self.block_len))):
+                        # chunk-wise grants: stall until blocks free up
+                        adm = self._note_adm_stall(adm, sched)
+                        break
+                    with tr.span("prefill_segment", tid=tid,
+                                 args=dict(uid=uid, c0=c0, c1=c1)):
+                        adm.last_logits, _ = M.prefill_chunk(
+                            self.params, self.cfg, adm.st,
+                            self._h2d(adm.segs[i][None].astype(np.int64)),
+                            c0, self.spec)
+                        if adm.direct:
+                            # prefill-direct: the segment's exact K/V rows
+                            # go straight into the slot's granted blocks
+                            # (restored prefix rows live in adopted blocks
+                            # already)
+                            got, bl = (sched.slot_blocks(adm.slot),
+                                       self.block_len)
+                            rows = np.asarray([got[t // bl] * bl + t % bl
+                                               for t in range(c0, c1)],
+                                              np.int64)
+                            paging.write_prefill_rows(
+                                cache.attn, self._h2d(rows),
+                                adm.st.k[:, :, :, c0:c1],
+                                adm.st.v[:, :, :, c0:c1], batch_axis=2)
+                    adm.next_i += 1
+                if not run_all:
                     break
-                adm.last_logits, _ = M.prefill_chunk(
-                    self.params, self.cfg, adm.st,
-                    self._h2d(adm.segs[i][None].astype(np.int64)), c0,
-                    self.spec)
-                if adm.direct:
-                    # prefill-direct: the segment's exact K/V rows go
-                    # straight into the slot's granted blocks (restored
-                    # prefix rows live in adopted blocks already)
-                    got, bl = sched.slot_blocks(adm.slot), self.block_len
-                    rows = np.asarray([got[t // bl] * bl + t % bl
-                                       for t in range(c0, c1)], np.int64)
-                    paging.write_prefill_rows(
-                        cache.attn, self._h2d(rows),
-                        adm.st.k[:, :, :, c0:c1], adm.st.v[:, :, :, c0:c1],
-                        batch_axis=2)
-                adm.next_i += 1
-            if not run_all:
-                break
-        sp.__exit__()
         dt = sp.elapsed
         cur.secs += dt
         if first is not None and sched.slot_request(cur.slot).emitted_prefix:
@@ -1130,9 +1174,11 @@ class Engine:
         work (a scratch restore, or a whole CacheBlend forward for a
         near-hit), so its seconds belong to the prefill seconds. Returns
         (admission or None, seconds)."""
-        t0 = time.perf_counter()
-        adm = self._start_chunked_admission(sched)
-        return adm, time.perf_counter() - t0
+        if not sched.pending:
+            return None, 0.0
+        with self.trace.span("admit_start") as sp:
+            adm = self._start_chunked_admission(sched)
+        return adm, sp.elapsed
 
     def _note_readmit(self, req: Request, secs: float) -> None:
         """Account a continuation's re-admission: its prompt's prefill
@@ -1261,6 +1307,7 @@ class Engine:
         if buckets and (self.chunked_prefill or self.prefix_sharing):
             self._check_aligned(buckets)
         self.flush_steps = 0
+        self.dispatch_s = self.token_wait_s = 0.0
         self.replayed_tokens = 0
         self.readmit_prefill_s = 0.0
         self.recomputed_uids = []
@@ -1906,8 +1953,10 @@ class Engine:
                         share["mirror"].append(s, 1)
             if first_pending is not None:
                 slot0, fhandle = first_pending
-                # kvlint: ok(host-sync: pipelined — last iteration's chunk-admitted first token, read behind this dispatch)
-                tok_i = int(first_fetch.get(fhandle)[0])
+                with trace.span("token_wait") as sp:
+                    # kvlint: ok(host-sync: pipelined — last iteration's chunk-admitted first token, read behind this dispatch)
+                    tok_i = int(first_fetch.get(fhandle)[0])
+                self.token_wait_s += sp.elapsed
                 next_tok[slot0] = tok_i
                 reason = sched.record_token(slot0, tok_i)
                 if reason is not None:
@@ -1963,34 +2012,37 @@ class Engine:
                 break
             if pending is not None:
                 handle, pvalid = pending
-                # kvlint: ok(host-sync: the one pipelined read — step N-1's tokens, behind step N's dispatch)
-                toks = fetch.get(handle)
-                admitted = []
-                retired_any = False
-                for i in pvalid:
-                    decode_tokens += 1
-                    reason = sched.record_token(i, toks[i])
-                    if reason is not None:
-                        sched.retire(i, reason)
-                        retired_any = True
-                        if new_pending is not None and i in new_pending[1]:
-                            new_pending[1].remove(i)
-                        if use_adm:
-                            # admissions start at the top of the loop
-                            reset(i)
-                        elif admit_into(i):
+                with trace.span("token_wait") as sp:
+                    # kvlint: ok(host-sync: the one pipelined read — step N-1's tokens, behind step N's dispatch)
+                    toks = fetch.get(handle)
+                self.token_wait_s += sp.elapsed
+                with trace.span("retire"):
+                    admitted = []
+                    retired_any = False
+                    for i in pvalid:
+                        decode_tokens += 1
+                        reason = sched.record_token(i, toks[i])
+                        if reason is not None:
+                            sched.retire(i, reason)
+                            retired_any = True
+                            if new_pending is not None and i in new_pending[1]:
+                                new_pending[1].remove(i)
+                            if use_adm:
+                                # admissions start at the top of the loop
+                                reset(i)
+                            elif admit_into(i):
+                                admitted.append(i)
+                    if self.paged and retired_any and sched.pending \
+                            and not use_adm:
+                        # a retire frees blocks, not just its slot: a slot
+                        # refused while the pool was exhausted may fit now
+                        # (FIFO: the first refusal settles the rest)
+                        for i in sched.free_slots():
+                            if not sched.pending or not admit_into(i):
+                                break
                             admitted.append(i)
-                if self.paged and retired_any and sched.pending \
-                        and not use_adm:
-                    # a retire frees blocks, not just its slot: a slot
-                    # refused while the pool was exhausted may fit now
-                    # (FIFO: the first refusal settles the rest)
-                    for i in sched.free_slots():
-                        if not sched.pending or not admit_into(i):
-                            break
-                        admitted.append(i)
-                if admitted:
-                    set_tokens({i: int(next_tok[i]) for i in admitted})
+                    if admitted:
+                        set_tokens({i: int(next_tok[i]) for i in admitted})
             pending = new_pending
         decode_s = ((time.perf_counter() - loop_t0)
                     - (prefill_s - prefill_at_loop))
@@ -2068,7 +2120,8 @@ class Engine:
             replayed_tokens=self.replayed_tokens,
             readmit_prefill_s=self.readmit_prefill_s,
             recomputed_uids=list(self.recomputed_uids), tier=tier_stats,
-            **pool_stats)
+            dispatch_seconds=self.dispatch_s,
+            token_wait_seconds=self.token_wait_s, **pool_stats)
         self._publish_metrics(sched, res)
         return res
 

@@ -106,6 +106,9 @@ class RequestResult:
     n_fetches: int = 0            # blocks fetched back to the device
     bytes_moved: int = 0          # device <-> host transport, both ways
     fetch_stall_s: float = 0.0    # decode-blocking fetch wait
+    queue_s: float = 0.0          # submit -> first admission (a resumed
+                                  # request keeps its first wait; 0.0 if
+                                  # never admitted)
 
     @property
     def n_tokens(self) -> int:
@@ -222,6 +225,9 @@ class Scheduler:
         self.n_fetches = 0
         self.bytes_moved = 0
         self.fetch_stall_s = 0.0
+        # uid -> its first admission's queue wait (t_admit - t_submit, on
+        # this scheduler's clock); a resumed request keeps its first wait
+        self._queue_s: dict = {}
 
     def _head_idx(self) -> int:
         """Queue index the next admission takes. FIFO: the front.
@@ -300,9 +306,10 @@ class Scheduler:
                 return None            # pool exhausted: wait for a retire
             blocks = got
         req, t_submit = self._pop_head()
-        self._slots[slot_idx] = _SlotState(
+        self._slots[slot_idx] = st = _SlotState(
             req, self.bucket_for(len(req.tokens)), t_submit, self._clock(),
             blocks=blocks, seq=next(self._admit_seq))
+        self._queue_s.setdefault(req.uid, st.t_admit - t_submit)
         if self.trace:
             self.trace.instant("admit", tid=slot_idx + 1,
                                args=dict(uid=req.uid, slot=slot_idx,
@@ -337,9 +344,10 @@ class Scheduler:
         if not self._queue:
             return None
         req, t_submit = self._pop_head()
-        self._slots[slot_idx] = _SlotState(
+        self._slots[slot_idx] = st = _SlotState(
             req, self.bucket_for(len(req.tokens)), t_submit, self._clock(),
             prefilling=True, seq=next(self._admit_seq))
+        self._queue_s.setdefault(req.uid, st.t_admit - t_submit)
         if self.trace:
             self.trace.instant("admit", tid=slot_idx + 1,
                                args=dict(uid=req.uid, slot=slot_idx,
@@ -507,6 +515,7 @@ class Scheduler:
             n_fetches=req.n_fetches + st.n_fetches,
             bytes_moved=req.bytes_moved + st.bytes_moved,
             fetch_stall_s=req.fetch_stall_s + st.fetch_stall_s,
+            queue_s=self._queue_s[req.uid],
         )
         self.results.append(res)
         if self.trace:
@@ -659,7 +668,8 @@ class Scheduler:
             token_times=np.asarray(req.token_times_prefix, np.float64),
             n_preemptions=req.n_preemptions, n_retries=req.n_retries,
             n_spills=req.n_spills, n_fetches=req.n_fetches,
-            bytes_moved=req.bytes_moved, fetch_stall_s=req.fetch_stall_s)
+            bytes_moved=req.bytes_moved, fetch_stall_s=req.fetch_stall_s,
+            queue_s=self._queue_s.get(req.uid, 0.0))
         self.results.append(res)
         if self.trace:
             self.trace.instant("request_failed",

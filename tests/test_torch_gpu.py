@@ -1291,7 +1291,9 @@ def test_tracing_adds_no_sync_on_card(cuda):
     streams and synchronizes with the card exactly as often: torch.profiler
     counts the stream, device and event synchronizations of each run
     (kivi2, paged + chunked, forced preemptions spilled to the host tier
-    and restored), trace on against trace off."""
+    and restored), trace on against trace off. The traced run holds the
+    decode loop's spans and the model step's ranges, in the tracer and as
+    profiler ranges; the untraced run opens no range."""
     from repro_torch.obs import Metrics, Tracer
     cfg = reduced(GRANITE)
     params = M.init_params(cfg, seed=0, device="cuda")
@@ -1312,21 +1314,33 @@ def test_tracing_adds_no_sync_on_card(cuda):
             res = eng.generate_continuous([Request(tokens=p, max_new=10)
                                            for p in prompts])
         n = dict.fromkeys(SYNC_CALLS, 0)
+        keys = set()
         for e in prof.key_averages():
+            keys.add(e.key)
             if e.key in n:
                 n[e.key] += e.count
-        return res, n
+        return res, n, keys
 
     run()                                   # builds the kernels
-    off, n_off = run()
-    tr, mx = Tracer(), Metrics()
-    on, n_on = run(tr, mx)
+    off, n_off, keys_off = run()
+    tr, mx = Tracer(capacity=1 << 20), Metrics()
+    on, n_on, keys_on = run(tr, mx)
     assert [r.tokens.tolist() for r in on.results] == \
         [r.tokens.tolist() for r in off.results]
     assert on.tier["n_spills"] >= 1 and on.tier["n_fetches"] >= 1
     assert {"step", "restore", "spill", "fetch", "preempt"} <= {
         e[1] for e in tr.events()}
     assert mx.snapshot()["tier.spills"] == on.tier["n_spills"]
+    ranges = {"decode", "token_wait", "retire", "admit_start",
+              "prefill_chunk", "prefill_segment", "prefill_finalize",
+              "prefill_insert", "attn", "kv", "attend", "mlp", "logits",
+              "sample"}
+    assert ranges <= {e[1] for e in tr.events()}
+    assert ranges <= keys_on and not ranges & keys_off
+    for res in (on, off):
+        assert 0.0 < res.dispatch_seconds
+        assert (res.dispatch_seconds + res.token_wait_seconds
+                <= res.decode_seconds)
     assert sum(n_off.values()) > 0, n_off   # the profiler sees the syncs
     assert n_on == n_off
 

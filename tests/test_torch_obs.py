@@ -412,3 +412,192 @@ def test_preemption_tiering_trace_causal_order(small_model, tmp_path):
     assert (first_ts("spill", "i") <= first_ts("preempt", "i")
             <= first_ts("restore", "X") <= first_ts("fetch", "i"))
     assert first_ts("request", "X") >= 0
+
+
+# ---------------------------------------------------------------------------
+# The decode loop's own spans, the model step's ranges, chunked admission by
+# phase, queue wait (the port only)
+# ---------------------------------------------------------------------------
+
+LOOP_CASES = {
+    "dense-monolithic": dict(),
+    "paged-chunked": dict(paged=True, block_len=8, chunked_prefill=True,
+                          chunk_len=8),
+}
+LAYER_RANGES = ("attn", "kv", "attend", "mlp")
+
+
+def _loop_run(model, case, tracer=None):
+    kw = dict(prompt_len=32, max_new=10, slots=2, buckets=(32,), seed=0,
+              **LOOP_CASES[case])
+    eng = _engine("port", model, "kivi2", tracer=tracer,
+                  metrics=port_obs.Metrics() if tracer else None, **kw)
+    return eng, _run("port", eng)
+
+
+def _spans(tr, name):
+    return [(ts, ts + dur, args or {}) for ph, n, tid, ts, dur, args
+            in tr.events() if ph == "X" and n == name]
+
+
+def _inside(inner, outer):
+    return outer[0] <= inner[0] and inner[1] <= outer[1]
+
+
+@pytest.fixture(scope="module")
+def loop_runs(small_model):
+    out = {}
+    for case in LOOP_CASES:
+        tr = port_obs.Tracer(capacity=1 << 20)
+        eng, on = _loop_run(small_model, case, tr)
+        _, off = _loop_run(small_model, case)
+        out[case] = (tr, eng, on, off)
+    return out
+
+
+@pytest.mark.parametrize("case", list(LOOP_CASES))
+def test_decode_loop_spans_each_iteration(loop_runs, case):
+    """`decode`, `token_wait` and `retire` each iteration; the `step` span
+    still one a loop iteration, ending after the dispatch and before the
+    pipelined token read; tokens as with tracing off."""
+    tr, eng, on, off = loop_runs[case]
+    assert _tokens(on) == _tokens(off)
+    n = on.decode_steps
+    steps, decodes = _spans(tr, "step"), _spans(tr, "decode")
+    waits, retires = _spans(tr, "token_wait"), _spans(tr, "retire")
+    assert n > 0 and len(decodes) == len(retires) == n
+    assert len(steps) == eng.metrics.counter("engine.loop_iters").value
+    # every dispatch inside its iteration's step span; the step's read and
+    # its retire bookkeeping after the step span, in that order
+    assert all(any(_inside(d, s) for s in steps) for d in decodes)
+    outside = [w for w in waits if not any(_inside(w, s) for s in steps)]
+    assert len(outside) == n
+    ends = sorted(s[1] for s in steps)
+    for w, r in zip(sorted(outside), sorted(retires)):
+        assert w[1] <= r[0]
+        assert any(e <= w[0] for e in ends)
+        assert not any(s[0] < r[1] and r[0] < s[1] for s in steps)
+    if case == "paged-chunked":
+        # each chunk-admitted first token is read behind the next dispatch
+        assert len(waits) == n + len(on.results)
+    else:
+        assert len(waits) == n
+        # a refill's monolithic prefill nests in the retire bookkeeping
+        later = [p for p in _spans(tr, "prefill") if p[0] > decodes[0][0]]
+        assert later and all(any(_inside(p, r) for r in retires)
+                             for p in later)
+
+
+@pytest.mark.parametrize("case", list(LOOP_CASES))
+def test_model_ranges_per_layer(loop_runs, case):
+    """Inside each `decode`: `attn` ⊃ `kv` ⊃ `attend` and `mlp` once per
+    layer, `logits` and `sample` once."""
+    tr, eng, on, _ = loop_runs[case]
+    L = eng.cfg.num_layers
+    ranges = {k: _spans(tr, k) for k in LAYER_RANGES + ("logits", "sample")}
+    for d in _spans(tr, "decode"):
+        got = {k: [r for r in v if _inside(r, d)] for k, v in ranges.items()}
+        assert {k: len(v) for k, v in got.items()} == dict(
+            attn=L, kv=L, attend=L, mlp=L, logits=1, sample=1)
+        for a, k, t in zip(got["attn"], got["kv"], got["attend"]):
+            assert _inside(k, a) and _inside(t, k)
+    # outside a traced dispatch the model step opens no range
+    assert sum(len(v) for v in ranges.values()) == on.decode_steps * (
+        4 * L + 2)
+
+
+def test_chunked_segments_tile_each_prompt(loop_runs):
+    """`prefill_segment` [c0, c1) tiles every chunked prompt exactly,
+    inside `prefill_chunk` spans; one `prefill_finalize` and one
+    `prefill_insert` per admission."""
+    tr, _, on, _ = loop_runs["paged-chunked"]
+    chunks = _spans(tr, "prefill_chunk")
+    segs = _spans(tr, "prefill_segment")
+    assert all(any(_inside(s, c) for c in chunks) for s in segs)
+    by_uid = {}
+    for _, _, a in segs:
+        by_uid.setdefault(a["uid"], []).append((a["c0"], a["c1"]))
+    assert sorted(by_uid) == sorted(r.uid for r in on.results)
+    for r in on.results:
+        cuts = sorted(by_uid[r.uid])
+        assert cuts[0][0] == 0 and cuts[-1][1] == r.prompt_len
+        assert all(a[1] == b[0] for a, b in zip(cuts, cuts[1:]))
+        assert len(cuts) == r.prompt_len // 8
+    for name in ("prefill_finalize", "prefill_insert"):
+        uids = sorted(a["uid"] for _, _, a in _spans(tr, name))
+        assert uids == sorted(r.uid for r in on.results)
+    assert len(_spans(tr, "admit_start")) >= len(on.results)
+
+
+@pytest.mark.parametrize("case", list(LOOP_CASES))
+def test_dispatch_and_wait_within_decode_seconds(loop_runs, case):
+    """The new counters are parts of `decode_seconds`, traced or not."""
+    _, _, on, off = loop_runs[case]
+    for res in (on, off):
+        assert res.dispatch_seconds > 0.0 and res.token_wait_seconds >= 0.0
+        assert (res.dispatch_seconds + res.token_wait_seconds
+                <= res.decode_seconds)
+
+
+def test_null_tracer_enters_no_profiler_range(small_model, monkeypatch):
+    """Only a truthy tracer opens `record_function` ranges."""
+    opened = []
+    real = torch.profiler.record_function
+
+    def counting(name, *a, **k):
+        opened.append(name)
+        return real(name, *a, **k)
+
+    monkeypatch.setattr(torch.profiler, "record_function", counting)
+    _loop_run(small_model, "paged-chunked")
+    assert opened == []
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        _loop_run(small_model, "paged-chunked", port_obs.Tracer())
+    assert {"decode", "token_wait", "retire", "prefill_segment",
+            "attend"} <= set(opened)
+    # the ranges land in the profiler's own trace, on its clock
+    assert {"decode", "attend", "prefill_segment"} <= {
+        e.key for e in prof.key_averages()}
+
+
+def test_queue_wait_counter_on_tick_clock():
+    """`queue_s` is the first admission's t_admit - t_submit on the
+    scheduler's clock; a preempted request keeps its first wait; a
+    request failed from the queue reads 0."""
+    tick = itertools.count()
+    sched = Scheduler((4,), 2, clock=lambda: float(next(tick)))
+    reqs = [Request(tokens=np.zeros(4, np.int32), max_new=2)
+            for _ in range(4)]
+    for r in reqs:
+        sched.submit(r)                      # t = 0, 1, 2, 3
+    sched.admit_next(0)                      # reqs[0] at t = 4: waited 4
+    sched.begin_prefill(1)                   # reqs[1] at t = 5: waited 4
+    sched.finish_prefill(1)
+    sched.record_token(0, 7)                 # t = 6
+    sched.preempt(0)                         # back to the front
+    sched.admit_next(0)                      # reqs[0] again at t = 7
+    for s in (0, 1):
+        sched.record_token(s, 7)
+        sched.retire(s, "length")
+    failed = sched.fail_head()               # reqs[2], never admitted
+    got = {r.uid: r.queue_s for r in sched.results}
+    assert got[reqs[0].uid] == 4.0 and got[reqs[1].uid] == 4.0
+    assert failed.queue_s == 0.0
+    assert sched.pending == 1
+
+
+def test_queue_wait_equals_queued_span(ladder_runs):
+    """On the ladder schedule's tick clock: an unpreempted request's
+    `queue_s` is its `queued` span; a preempted one keeps its first wait,
+    shorter than the span to its last admission."""
+    tr, _, res = ladder_runs["port"]
+    queued = {a["uid"]: dur for ph, n, tid, ts, dur, a in tr.events()
+              if n == "queued"}
+    assert any(r.n_preemptions for r in res.results)
+    for r in res.results:
+        span = queued.get(r.uid, 0.0)
+        if r.n_preemptions:
+            assert 0.0 <= r.queue_s <= span
+        else:
+            assert r.queue_s == pytest.approx(span, abs=1e-12)
