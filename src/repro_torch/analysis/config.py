@@ -97,8 +97,9 @@ class Config:
     # file). Nested defs inherit the scope.
     step_functions: Dict[str, Set[str]] = field(default_factory=lambda: {
         "serving/engine.py": {"Engine._prefill", "Engine._decode",
-                              "Engine._verify", "Engine._insert",
-                              "Engine._reset"},
+                              "Engine._step", "Engine._verify",
+                              "Engine._insert", "Engine._reset"},
+        "serving/step_graph.py": {"StepGraphs.ready", "StepGraphs.replay"},
         "nn/model.py": set(_MODEL_STEP),
         "nn/blocks.py": set(_BLOCK_STEP),
         "nn/attention.py": set(_ATTN_STEP),

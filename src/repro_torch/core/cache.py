@@ -244,14 +244,20 @@ def gumbel(shape, generator: Optional[torch.Generator],
     return -torch.log(-torch.log(u.clamp_(min=torch.finfo(u.dtype).tiny)))
 
 
+def draws_noise(spec: CacheSpec,
+                generator: Optional[torch.Generator]) -> bool:
+    """Whether a layer call draws from `generator` (`policy_noise`): NACL
+    with a positive temperature or Keyformer with a positive tau."""
+    return generator is not None and (
+        (spec.policy == "nacl" and spec.nacl_temperature > 0)
+        or (spec.policy == "keyformer" and spec.keyformer_tau > 0))
+
+
 def policy_noise(spec: CacheSpec, shape, generator: Optional[torch.Generator],
                  device) -> Optional[torch.Tensor]:
-    """The Gumbel draw of one layer call: NACL with a positive
-    temperature or Keyformer with a positive tau, and a generator; else
-    None (nothing drawn)."""
-    if generator is None or not (
-            (spec.policy == "nacl" and spec.nacl_temperature > 0)
-            or (spec.policy == "keyformer" and spec.keyformer_tau > 0)):
+    """The Gumbel draw of one layer call where `draws_noise`; else None
+    (nothing drawn)."""
+    if not draws_noise(spec, generator):
         return None
     return gumbel(shape, generator, device)
 

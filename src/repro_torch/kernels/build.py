@@ -89,6 +89,13 @@ class CudaSource:
             return self._lib
 
 
+# every launch counter of the process (`CudaKernel`, `LaunchCount`), in
+# creation order: a CUDA graph's capture moves them without launching
+# and its replays launch without moving them, so the graph accounts for
+# both (`serving.step_graph`)
+LAUNCH_COUNTERS: list = []
+
+
 class CudaKernel:
     """One C entry point of a `CudaSource`, bound lazily.
 
@@ -103,6 +110,7 @@ class CudaKernel:
         self.argtypes = list(argtypes)
         self.launches = 0
         self._fn = None
+        LAUNCH_COUNTERS.append(self)
 
     def _load(self):
         if self._fn is None:
@@ -127,6 +135,7 @@ class LaunchCount:
 
     def __init__(self) -> None:
         self.launches = 0
+        LAUNCH_COUNTERS.append(self)
 
 
 SPLIT_TILE = 32      # keys per tile of the split-KV kernels (decode_attn.cu
@@ -197,7 +206,11 @@ class DeviceScratch:
     elements. Safe because the launches on a device are ordered on its
     compute stream and each launch is done with the buffer when it ends —
     a partials scratch is consumed by the same launch; `zeroed` buffers
-    (ticket counters) are made zero and each launch leaves them so."""
+    (ticket counters) are made zero and each launch leaves them so. A
+    buffer never grows inside a CUDA graph's capture: it would come from
+    the graph's private pool and the buffer it replaces would be freed
+    under graphs captured before, so an eager step of the same shapes
+    sizes it first (`serving.step_graph`) and a growth there raises."""
 
     def __init__(self, dtype_name: str, zeroed: bool = False) -> None:
         self.dtype_name = dtype_name
@@ -209,6 +222,11 @@ class DeviceScratch:
         idx = _device_index(device)
         buf = self._bufs.get(idx)
         if buf is None or buf.numel() < n:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    f"DeviceScratch({self.dtype_name}) would grow to {n} "
+                    "elements inside a CUDA graph capture; run a step of "
+                    "these shapes eagerly first")
             make = torch.zeros if self.zeroed else torch.empty
             buf = self._bufs[idx] = make(
                 n, dtype=getattr(torch, self.dtype_name), device=device)

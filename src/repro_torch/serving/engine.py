@@ -31,6 +31,16 @@ the ring lengths, so a decode step needs no device sync at all. A
 chunked admission's first token takes the same pipelined read one
 iteration later.
 
+**One CUDA graph per decode step** (`serving.step_graph`). On the card
+a call (a wave, for `generate`) captures its cache's decode step (the
+model's dispatch and the greedy sample), one graph per ring flush
+variant, and replays it, so a step costs one graph launch instead of
+thousands of Python-launched ops; steps the graph cannot hold (SSM,
+MoE, cross-attention, sharded caches, policy noise, a sampler that
+draws, the speculative loop's masked steps) run eagerly, and the streams
+are the eager path's. `ContinuousGenerationResult.graph_steps` counts
+the replayed steps.
+
 With ``prefix_sharing=True`` (paged) a radix index over the pool
 (`serving.prefix`) lets admissions that share a prompt prefix map the
 same physical blocks read-only (refcounted) and stream only their
@@ -141,6 +151,7 @@ from repro_torch.serving import cacheblend as cacheblend_lib
 from repro_torch.serving import prefix as prefix_lib
 from repro_torch.serving import sampler as sampler_lib
 from repro_torch.serving import speculative as spec_lib
+from repro_torch.serving import step_graph as graph_lib
 from repro_torch.serving.scheduler import Request, RequestResult, Scheduler
 
 
@@ -155,6 +166,11 @@ class GenerationResult:
     full_cache_bytes: float
     compression_ratio: float
     policy_name: str
+    # decode steps served by a replay of a step graph, the graphs
+    # captured and the host seconds the captures took (`step_graph`)
+    graph_steps: int = 0
+    graph_captures: int = 0
+    graph_capture_seconds: float = 0.0
 
 
 @dataclass
@@ -200,6 +216,11 @@ class ContinuousGenerationResult:
     # host blocked on the pipelined token reads)
     dispatch_seconds: float = 0.0
     token_wait_seconds: float = 0.0
+    # decode steps served by a replay of a step graph, the graphs
+    # captured and the host seconds the captures took (`step_graph`)
+    graph_steps: int = 0
+    graph_captures: int = 0
+    graph_capture_seconds: float = 0.0
 
     def tokens_for(self, uid: int) -> np.ndarray:
         for r in self.results:
@@ -470,6 +491,14 @@ class Engine:
         self.flush_steps = 0
         self.dispatch_s = 0.0        # `decode` spans (`_decode`) of the run
         self.token_wait_s = 0.0      # `token_wait` spans of the run
+        # one CUDA graph per decode step (`step_graph`): the card's capture
+        # backend (None on the CPU: every step eager), the live cache's
+        # graphs, and the run's replays and captures
+        self.graph_backend = (graph_lib.CudaGraphs()
+                              if self.device.type == "cuda" else None)
+        self._graphs: Optional[graph_lib.StepGraphs] = None
+        self.graph_steps = self.graph_captures = 0
+        self.graph_capture_s = 0.0
         self.replayed_tokens = 0
         self.readmit_prefill_s = 0.0
         self.recomputed_uids = []
@@ -596,20 +625,59 @@ class Engine:
                 append_mask: Optional[torch.Tensor] = None,
                 draft: bool = False) -> torch.Tensor:
         """One decode dispatch and its sample, under the ``decode`` span
-        (its seconds add to `dispatch_s`); while tracing, the model step's
-        ranges (`obs.trace.model_range`) and ``sample`` nest inside."""
-        cfg, spec, _ = self._model_of(draft)
+        (its seconds add to `dispatch_s`): a replay of the cache's step
+        graph where `step_graph`'s rule allows (a capture first, under a
+        ``graph_capture`` span), else the eager step, inside which, while
+        tracing, the model step's ranges (`obs.trace.model_range`) and
+        ``sample`` nest (a capture records them too)."""
         self.flush_steps += bool(ring_full)
         tr = self.trace
-        with tr.span("decode") as sp, obs_trace.model_tracing(tr):
-            logits, _ = M.decode_step(self.params, cfg, cache, tok, spec,
-                                      ring_full=ring_full,
-                                      append_mask=append_mask,
-                                      generator=self.gen)
-            with obs_trace.model_range("sample"):
-                tok = self.sampler(logits, self.gen)
+        g = self._graphs
+        if (g is None or g.cache is not cache or append_mask is not None
+                or draft or not g.ready(tok, ring_full, tr)):
+            g = None
+        with tr.span("decode") as sp:
+            if g is not None:
+                tok = g.replay(tok, ring_full)
+            else:
+                with obs_trace.model_tracing(tr):
+                    tok = self._step(cache, tok, ring_full,
+                                     append_mask=append_mask, draft=draft)
         self.dispatch_s += sp.elapsed
         return tok
+
+    def _step(self, cache: M.ModelCache, tok: torch.Tensor, ring_full, *,
+              append_mask: Optional[torch.Tensor] = None,
+              draft: bool = False) -> torch.Tensor:
+        """The decode step itself: the model's dispatch and the sample
+        (what a step graph captures)."""
+        cfg, spec, _ = self._model_of(draft)
+        logits, _ = M.decode_step(self.params, cfg, cache, tok, spec,
+                                  ring_full=ring_full,
+                                  append_mask=append_mask,
+                                  generator=self.gen)
+        with obs_trace.model_range("sample"):
+            return self.sampler(logits, self.gen)
+
+    def _open_graphs(self, cache: M.ModelCache, tok: torch.Tensor) -> None:
+        """The step graphs of `cache`, whose decode steps take tokens
+        shaped as `tok`, where `step_graph`'s rule allows them."""
+        self._graphs = None
+        if self.graph_backend is None or graph_lib.blocker(
+                self.cfg, self.spec, cache, self.sampler, self.gen):
+            return
+        self._graphs = graph_lib.StepGraphs(
+            self.graph_backend, lambda t, rf: self._step(cache, t, rf),
+            self.cfg, cache, tok,
+            (False, True) if self.spec.quantized else (False,))
+
+    def _close_graphs(self) -> None:
+        """Count the live graphs' replays and captures, and free them."""
+        g, self._graphs = self._graphs, None
+        if g is not None:
+            self.graph_steps += g.replays
+            self.graph_captures += g.captures
+            self.graph_capture_s += g.capture_s
 
     # the speculative loop's verify step (`serving.speculative`)
     def _verify(self, cache: M.ModelCache, tokens: torch.Tensor,
@@ -1221,6 +1289,8 @@ class Engine:
         prefill_s = decode_s = 0.0
         phys = logical = 0.0
         fetch = _TokenFetch(self.device, self.slots)
+        self.graph_steps = self.graph_captures = 0
+        self.graph_capture_s = 0.0
 
         for w0 in range(0, n, self.slots):
             w1 = min(w0 + self.slots, n)
@@ -1246,6 +1316,7 @@ class Engine:
             ring = RingMirror(self.spec, self.slots)
             ring.fill()
             tok = tok[:, None]
+            self._open_graphs(cache, tok)
             sp = self.trace.span("wave_decode",
                                  args=dict(wave=w0 // self.slots))
             sp.__enter__()
@@ -1264,6 +1335,7 @@ class Engine:
             # kvlint: ok(host-sync: wave epilogue — the wave's decode span ends when the card is done, once per wave)
             self._sync()
             sp.__exit__()
+            self._close_graphs()
             decode_s += sp.elapsed
             active = w1 - w0
             cross = (cache.cross_k, cache.cross_v, cache.cross_bias)
@@ -1280,7 +1352,9 @@ class Engine:
             cache_logical_bytes=float(logical),
             full_cache_bytes=float(full),
             compression_ratio=float(full / max(logical, 1.0)),
-            policy_name=self.policy.name)
+            policy_name=self.policy.name, graph_steps=self.graph_steps,
+            graph_captures=self.graph_captures,
+            graph_capture_seconds=self.graph_capture_s)
 
     # ------------------------------------------------------------------
     def generate_continuous(
@@ -1308,6 +1382,9 @@ class Engine:
             self._check_aligned(buckets)
         self.flush_steps = 0
         self.dispatch_s = self.token_wait_s = 0.0
+        self.graph_steps = self.graph_captures = 0
+        self.graph_capture_s = 0.0
+        self._graphs = None
         self.replayed_tokens = 0
         self.readmit_prefill_s = 0.0
         self.recomputed_uids = []
@@ -1785,6 +1862,7 @@ class Engine:
         # joins the dispatch after its insert with its first token
         # device-side; the host reads that token one iteration later.
         tok_in = torch.as_tensor(next_tok, device=self.device)
+        self._open_graphs(cache, tok_in[:, None])
         adm: Optional[_ChunkedAdmission] = None
         # per-iteration telemetry: pre-bound instruments, host mirrors only
         # (the allocator's free list, the scheduler's active set)
@@ -2046,6 +2124,7 @@ class Engine:
             pending = new_pending
         decode_s = ((time.perf_counter() - loop_t0)
                     - (prefill_s - prefill_at_loop))
+        self._close_graphs()
         if self.paged:
             # every run ends with a host-side audit: all slots retired, so
             # every block still allocated must be the prefix index's
@@ -2121,7 +2200,9 @@ class Engine:
             readmit_prefill_s=self.readmit_prefill_s,
             recomputed_uids=list(self.recomputed_uids), tier=tier_stats,
             dispatch_seconds=self.dispatch_s,
-            token_wait_seconds=self.token_wait_s, **pool_stats)
+            token_wait_seconds=self.token_wait_s,
+            graph_steps=self.graph_steps, graph_captures=self.graph_captures,
+            graph_capture_seconds=self.graph_capture_s, **pool_stats)
         self._publish_metrics(sched, res)
         return res
 

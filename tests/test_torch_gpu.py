@@ -2061,3 +2061,144 @@ def test_library_compressors_on_card_match_cpu(cuda, fn):
     else:
         for a, b in zip(card, cpu):
             assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# One CUDA graph per decode step (serving/step_graph.py)
+# ---------------------------------------------------------------------------
+
+# granite-8b's layers at full width (bf16), two of them
+GRAPH_LAYERS = 2
+GRAPH_CASES = {
+    "kivi2-dense": ("kivi2", {}),
+    "kivi2-paged-chunked": ("kivi2", dict(paged=True, chunked_prefill=True,
+                                          chunk_len=256)),
+    "full": ("full", {}),
+}
+
+
+def _graph_engine(params, cfg, pname, graphs, **opts):
+    eng = Engine(cfg, params, presets(256, 128)[pname], prompt_len=512,
+                 max_new=160, slots=4, buckets=(256, 512), device="cuda",
+                 **opts)
+    if not graphs:
+        eng.graph_backend = None
+    return eng
+
+
+def _graph_requests(cfg, n=7):
+    g = torch.Generator().manual_seed(n)
+    return [Request(tokens=torch.randint(0, cfg.vocab_size,
+                                         ((256, 512)[i % 2],), generator=g)
+                    .numpy(), max_new=(160, 40, 130, 70)[i % 4])
+            for i in range(n)]
+
+
+@pytest.mark.parametrize("case", list(GRAPH_CASES))
+def test_step_graphs_equal_eager_on_card(cuda, case, monkeypatch):
+    """granite-8b's layers at full width in bf16: the graphed engine's
+    streams equal the eager engine's bit for bit (kivi2 dense with
+    flushes, kivi2 paged with chunked admission, `full`), on a fresh
+    process's first call (each variant's first step eager, then both
+    captured) and on a second call on the same engine (captured afresh,
+    every step replayed, the same streams); the kernels' launch counts
+    are the eager run's."""
+    from repro_torch.serving import step_graph as graph_lib
+    monkeypatch.setattr(graph_lib, "_WARM", set())
+    pname, opts = GRAPH_CASES[case]
+    cfg = GRANITE.replace(num_layers=GRAPH_LAYERS)
+    params = M.init_params(cfg, seed=0, device="cuda")
+    kernels = (dq_ops.decode_attn_kernel, dq_ops.decode_attn_paged_kernel,
+               fp_ops.flash_prefill_kernel, fp_ops.flash_prefill_chunk_kernel,
+               kvq_ops.kvquant_kernel)
+
+    def serve(eng):
+        for k in kernels:
+            k.launches = 0
+        res = eng.generate_continuous(_graph_requests(cfg))
+        torch.cuda.synchronize()
+        return res, [k.launches for k in kernels]
+
+    eager, n_eager = serve(_graph_engine(params, cfg, pname, False, **opts))
+    eng = _graph_engine(params, cfg, pname, True, **opts)
+    first, n_first = serve(eng)
+    second, n_second = serve(eng)
+    n_var = 2 if eng.spec.quantized else 1
+    assert first.kv_flush_steps > 0 or n_var == 1
+    for res in (first, second):
+        assert [r.tokens.tolist() for r in res.results] == \
+            [r.tokens.tolist() for r in eager.results]
+        assert res.graph_captures == n_var
+    assert first.graph_steps == first.decode_steps - n_var
+    assert second.graph_steps == second.decode_steps
+    assert eager.graph_steps == 0
+    assert n_first == n_second == n_eager
+    assert first.dispatch_seconds < eager.dispatch_seconds
+
+
+def test_step_graphs_wave_path_equal_eager_on_card(cuda, monkeypatch):
+    """`Engine.generate` (kivi2, granite-8b's layers at full width, two
+    of them, bf16): each wave captures for its own cache and replays its
+    steps, and the tokens are the eager engine's bit for bit."""
+    from repro_torch.serving import step_graph as graph_lib
+    monkeypatch.setattr(graph_lib, "_WARM", set())
+    cfg = GRANITE.replace(num_layers=GRAPH_LAYERS)
+    params = M.init_params(cfg, seed=0, device="cuda")
+    prompts = torch.randint(0, cfg.vocab_size, (6, 256), generator=torch
+                            .Generator().manual_seed(6)).numpy()
+    out = {}
+    for graphs in (False, True):
+        eng = Engine(cfg, params, presets(256, 128)["kivi2"], prompt_len=256,
+                     max_new=140, slots=4, device="cuda")
+        if not graphs:
+            eng.graph_backend = None
+        out[graphs] = eng.generate(prompts)
+    res = out[True]
+    assert res.tokens.tolist() == out[False].tokens.tolist()
+    # two waves of 139 steps; the first warms both variants eagerly
+    assert (res.graph_captures, res.graph_steps) == (4, 2 * 139 - 2)
+
+
+def test_step_graphs_keep_cache_addresses_on_card(cuda, monkeypatch):
+    """A prefix-sharing run with forced preemptions spilled to the host
+    tier and restored (kivi2 paged, reduced granite-8b in f32): every
+    cache tensor keeps its address across the call, so no graph is
+    recaptured; the steps replay and the streams are the eager run's."""
+    from repro_torch.serving import step_graph as graph_lib
+    cfg = reduced(GRANITE)
+    params = M.init_params(cfg, seed=0, device="cuda")
+    base = torch.randint(0, cfg.vocab_size, (32,), generator=torch
+                         .Generator().manual_seed(0)).numpy()
+    prompts = [base.copy() for _ in range(4)]
+    for i, p in enumerate(prompts):
+        p[-8:] = i
+    caches = []
+    init = M.init_cache
+
+    def spy(*a, **kw):
+        c = init(*a, **kw)
+        caches.append((c, [t.data_ptr() for t in graph_lib.cache_leaves(c)]))
+        return c
+
+    monkeypatch.setattr(M, "init_cache", spy)
+    out = {}
+    for graphs in (False, True):
+        eng = Engine(cfg, params, presets(32, 8)["kivi2"], prompt_len=32,
+                     max_new=12, slots=2, buckets=(32,), device="cuda",
+                     paged=True, block_len=8, prefix_sharing=True,
+                     tiering=True, preempt_at=((3, 0), (6, 1)))
+        if not graphs:
+            eng.graph_backend = None
+        res = eng.generate_continuous([Request(tokens=p, max_new=12)
+                                       for p in prompts])
+        out[graphs] = res
+        assert eng.last_audit["clean"]
+    cache, ptrs = caches[-1]
+    res = out[True]
+    assert sum(r.n_preemptions for r in res.results) >= 1
+    assert res.prefix["warm_hits"] >= 1
+    assert res.graph_steps >= res.decode_steps - 2
+    assert res.graph_captures <= 2           # none recaptured
+    assert ptrs == [t.data_ptr() for t in graph_lib.cache_leaves(cache)]
+    assert [r.tokens.tolist() for r in res.results] == \
+        [r.tokens.tolist() for r in out[False].results]

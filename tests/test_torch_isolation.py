@@ -44,7 +44,7 @@ from repro_torch import obs
 from repro_torch.obs import metrics, trace
 from repro_torch.serving import (adaptive, cacheblend, engine, prefix,
                                  sampler, scheduler, shared_runner,
-                                 speculative)
+                                 speculative, step_graph)
 
 MODULES = [repro_torch, bridge, base, chameleon_34b, command_r_plus_104b,
            granite_8b, jamba_v0_1_52b, kimi_k2_1t_a32b, mamba2_130m,
@@ -54,7 +54,7 @@ MODULES = [repro_torch, bridge, base, chameleon_34b, command_r_plus_104b,
            attention, blocks, layers, model, moe, rope, ssm, obs, metrics,
            trace, adaptive,
            cacheblend, engine, prefix, sampler, scheduler, shared_runner,
-           speculative, seamless_m4t_large_v2, checkpoint, ckpt_io, data,
+           speculative, step_graph, seamless_m4t_large_v2, checkpoint, ckpt_io, data,
            synthetic, optim, optimizers, schedules, train, loop, train_cli,
            sharding, moe_ep, mesh, specs, dryrun, perf, perf_moe, reanalyze,
            analysis, kvlint_cli, kvlint_config, driver, kvlint_model,
